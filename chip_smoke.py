@@ -1,34 +1,53 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's two paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
-The main path is the f32 multiple-shooting iLQR pipeline
-(`solvers/pipeline.PipelineSolver`, fused layout) on the screw-200 problem
-(the N=200 prefix of the reference's screw-tracking problem, R = 1e-3 I, no
-box) for B = 8192 perturbed initial poses, 12 iterations.  Phases, each
+Both run on the screw-200 problem (the N=200 prefix of the reference's
+screw-tracking problem, R = 1e-3 I, no box) for a batch of perturbed initial
+poses, lane 0 unperturbed.  The f32 path is the multiple-shooting iLQR
+pipeline (`solvers/pipeline.PipelineSolver`, fused layout), B = 8192, 12
+iterations.  The polish path is `solvers/df_mixed.MixedDFPipelineSolver`:
+7 f32 iterations, then 2 mixed-precision polish iterations (fp64
+residuals, f32 preconditioner), B = 16384, the system's gate-passing
+headline (lane-0 controls within 1e-4 of the f64 golden).  Phases, each
 printed as one JSON line:
 
-  device     the card (nvidia-smi), torch/CUDA versions, the kernels' build
-             time and ptxas registers/spills;
-  kernels    B1-B4 against their plain versions on the same real iterate, at
-             N=200, B=256 in f32 and f64, gated per output; B2 also with an
-             AL diagonal on Quu (B2_al);
-  solve_f32  the main path: counters reset, one fused solve at B=8192
-             (B1 = 1, B2 = B3 = 12 launches); counters reset again, one
-             unfused solve at B=256 (B1 = B2 = B4 = 12); lane 0 against the
-             committed f64 golden, lanes 0..255 against the plain path's
-             solve of the same batch;
-  solve_f64  the kernel path in f64 on lanes 0..255, 20 iterations, lane 0's
-             controls against the golden;
-  timing     kernel path (median of 7 reps, a new batch each), plain path
-             (one rep), and each kernel against its plain version at B=8192.
+  device        the card (nvidia-smi), torch/CUDA versions, the kernels'
+                build time and ptxas registers/spills;
+  kernels       B1-B4 against their plain versions on the same real
+                iterate, at N=200, B=256 in f32 and f64, gated per output;
+                B2 also with an AL diagonal on Quu (B2_al);
+  solve_f32     the f32 path: counters reset, one fused solve at B=8192
+                (B1 = 1, B2 = B3 = 12 launches); counters reset again, one
+                unfused solve at B=256 (B1 = B2 = B4 = 12); lane 0 against
+                the committed f64 golden, lanes 0..255 against the plain
+                path's solve of the same batch;
+  solve_f64     the f32 pipeline's kernels in f64 on lanes 0..255, 20
+                iterations, lane 0's controls against the golden;
+  timing        the f32 path (median of 7 reps, a new batch each), its
+                plain path (one rep) and B1-B4 against their plain versions
+                at B=8192;
+  kernels_polish  B5-B9 against their plain versions on the polish's real
+                handoff iterate at N=200, B=256, gated per output, B5 also
+                with an AL diagonal (B5_al);
+  solve_polish  the polish path: counters reset, one solve at B=16384
+                (B1 = 1, B2 = B3 = 7, B5 = B6 = B7 = B8 = B9 = 2); lane 0
+                against the golden; the kernel polish against the plain
+                polish of one handoff on lanes 0..255; one fx_mode='hybrid'
+                solve at B=256;
+  timing_polish the polish path (median of 5 reps, a new batch each, split
+                into f32 phase and polish), its plain polish (one rep) and
+                B5, B6 and B7-B9 against their plain versions at B=16384.
 
-Then the kernels summary line (launches of B1-B3 from the fused run, of B4
-from the unfused run, each named in "run"), the card's name and power limit as
-nvidia-smi prints them, and the result line.  Any failed check raises:
-the script exits non-zero and prints no result.  Without a CUDA device it
-exits with status 2 before doing anything.
+Then the kernels summary line (launches of B1-B3 from the fused f32 run, of
+B4 from the unfused run, of B5-B9 from the polish run, each named in "run"),
+the card's name and power limit as nvidia-smi prints them, and the result
+line.  The f32 path is timed before any polish work, after the same
+phases as when it was the script's only path, so that its time compares
+with the records (an earlier process state moves B2's time by up to 2%,
+PERF.md).  Any failed check raises: the script exits non-zero and prints no
+result.  Without a CUDA device it exits with status 2 before doing anything.
 """
 
 import json
@@ -47,6 +66,16 @@ ITERS = 12
 F64_ITERS = 20
 TIMING_REPS = 7
 SEED = 0
+# the polish path: bench.py's shapes and schedule (and its fallback of a
+# full 12-iteration f32 phase if 7 + 2 misses the gate)
+POLISH_BATCH = 16384
+POLISH_F32_ITERS, POLISH_FALLBACK_F32_ITERS, POLISH_ITERS = 7, 12, 2
+POLISH_REPS = 5
+POLISH_GATE = 1e-4
+# kernel vs plain polish of one handoff: a tenth of the accuracy gate (both
+# contract the same start toward the same fixed point; only the f32
+# preconditioner's rounding differs)
+POLISH_AGREE = 1e-5
 
 KERNELS = {
     "B1": ("linearize", "csrc/linearize.cu",
@@ -57,6 +86,16 @@ KERNELS = {
            "trajectory_optimization_matrix_lie_groups_tpu/solvers/pipeline.py:304"),
     "B4": ("rollout", "csrc/pipeline.cu",
            "trajectory_optimization_matrix_lie_groups_tpu/solvers/pipeline.py:274"),
+    "B5": ("mixed riccati backward", "csrc/polish.cu",
+           "trajectory_optimization_matrix_lie_groups_tpu/solvers/df_mixed.py:285"),
+    "B6": ("mixed rollout", "csrc/polish.cu",
+           "trajectory_optimization_matrix_lie_groups_tpu/solvers/df_mixed.py:391"),
+    "B7": ("mixed defect (linearize tail)", "csrc/polish.cu",
+           "trajectory_optimization_matrix_lie_groups_tpu/solvers/df_mixed.py:335"),
+    "B8": ("mixed jacobian (linearize tail)", "csrc/polish.cu",
+           "trajectory_optimization_matrix_lie_groups_tpu/solvers/df_mixed.py:354"),
+    "B9": ("mixed cost quad (linearize tail)", "csrc/polish.cu",
+           "trajectory_optimization_matrix_lie_groups_tpu/solvers/df_mixed.py:371"),
 }
 PKG = "trajectory_optimization_matrix_lie_groups_tpu_torch"
 
@@ -106,7 +145,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from trajectory_optimization_matrix_lie_groups_tpu_torch import _build, kernel_check
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
     from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.df_pipeline import (
+        join_us,
+    )
     from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench
 
     dev = torch.device("cuda", 0)
@@ -139,19 +182,21 @@ def main():
                      for k, v in errs.items()}
     emit({"phase": "kernels", "N": N, "B": CHECK_BATCH, "metric":
           "max_rel = max|kernel - plain| / max(1, max|plain|) over outputs", **kerr})
-    for tag, per in kerr.items():
-        for k, v in per.items():
+    for tag in ("f32", "f64"):
+        for k, v in kerr[tag].items():
             require(v["max_rel"] <= v["gate"], f"{k} {tag} error {v['max_rel']} > {v['gate']}")
 
     # -- solve_f32: the main path ----------------------------------------------
     # The counters are reset just before each run and read just after it: the
     # fused solve at B=8192 (the main path: B1, B2, B3) and the solver's
     # unfused layout at B=256 (B1, B2, B4).
+    counters = {**P.KERNELS, **DM.KERNELS}
+
     def counted(fn):
-        for w in P.KERNELS.values():
+        for w in counters.values():
             w.launches = 0
         out, sec = timed(fn)
-        return out, sec, {k: w.launches for k, w in P.KERNELS.items()}
+        return out, sec, {k: w.launches for k, w in counters.items()}
 
     args = batch(torch.float32, BATCH, SEED)
     dyn = args[0]
@@ -185,9 +230,10 @@ def main():
           "plain_vs_kernel_J_rel_err_lanes0_255": Jp_rel,
           "unfused_vs_fused_J_rel_err_lanes0_255": Ju_rel,
           "fused_solve_s_first_call": fused_s, "plain_solve_s": plain_s})
-    require(per_fused == {"B1": 1, "B2": ITERS, "B3": ITERS, "B4": 0},
+    no_polish = {k: 0 for k in DM.KERNELS}
+    require(per_fused == {"B1": 1, "B2": ITERS, "B3": ITERS, "B4": 0, **no_polish},
             f"fused launch counts {per_fused}")
-    require(per_unfused == {"B1": ITERS, "B2": ITERS, "B3": 0, "B4": ITERS},
+    require(per_unfused == {"B1": ITERS, "B2": ITERS, "B3": 0, "B4": ITERS, **no_polish},
             f"unfused launch counts {per_unfused}")
     require(finite, "non-finite lanes in the f32 solve")
     require(J_rel <= 1e-4, f"lane-0 J rel err {J_rel}")
@@ -237,10 +283,131 @@ def main():
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     for k, v in per_kernel.items():
         require(v["max_err"] <= v["gate"], f"{k} at B={BATCH}: {v['max_err']}")
+    del s
 
-    # launches: B1-B3 from the fused main-path solve, B4 from the unfused one
+    # -- kernels_polish: B5-B9 on the polish's handoff iterate (7 f32
+    # iterations), fp64 problem ---------------------------------------------------
+    dyn64, cost64 = problems[torch.float64][:2]
+    dt64 = float(dyn64.dt)
+    pol_check = DM.MixedDFPipelineSolver(N, dt64, POLISH_F32_ITERS, POLISH_ITERS)
+    s = kernel_check.polish_inputs(pol_check, *batch(torch.float64, CHECK_BATCH, SEED),
+                                   luu_al=True, seed=SEED)
+    perr = kernel_check.polish_compare(s, pol_check)
+    torch.cuda.synchronize()
+    del s
+    perr = {k: {**v, "gate": kernel_check.GATES["mixed"][k]} for k, v in perr.items()}
+    emit({"phase": "kernels_polish", "N": N, "B": CHECK_BATCH, "metric":
+          "max|kernel - plain| / max(1, max|plain|) per output", "mixed": perr})
+    for k, v in perr.items():
+        for o, e in v["per_output"].items():
+            require(e <= v["gate"][o], f"{k} output {o} error {e} > {v['gate'][o]}")
+
+    # -- solve_polish: the polish path --------------------------------------------
+    mixed = lambda f32_it, **kw: DM.MixedDFPipelineSolver(N, dt64, f32_it, POLISH_ITERS, **kw)
+    pargs = batch(torch.float64, POLISH_BATCH, SEED)
+    torch.cuda.reset_peak_memory_stats()
+    f32_it = POLISH_F32_ITERS
+    mx = mixed(f32_it)
+    outp, polish_s, per_polish = counted(lambda: mx.solve(*pargs))
+    usp = join_us(outp)
+    err0 = float(np.abs(usp[0].cpu().numpy() - us_gold).max())
+    fallback = err0 > POLISH_GATE
+    if fallback:
+        # bench.py's fallback: the full f32 budget
+        f32_it = POLISH_FALLBACK_F32_ITERS
+        mx = mixed(f32_it)
+        outp, polish_s, per_polish = counted(lambda: mx.solve(*pargs))
+        usp = join_us(outp)
+        err0 = float(np.abs(usp[0].cpu().numpy() - us_gold).max())
+    Jp0 = outp.J_opt[0].item()
+    Jp_rel = abs(Jp0 - meta["J_f64"]) / abs(meta["J_f64"])
+    gn = outp.grad_norm.double()
+    finite_p = all(torch.isfinite(t).all().item() for t in
+                   (usp, outp.qs, outp.xis, outp.J_opt, outp.grad_norm))
+    peak_polish = torch.cuda.max_memory_allocated() / 1e9
+    # kernel and plain polish of one handoff (lanes 0..255 of the batch)
+    small_p = tuple(x[:CHECK_BATCH] for x in pargs[2:])
+    handoff = mx.f32_phase(dyn64, cost64, *small_p)
+    kern_small = mx.polish(dyn64, cost64, *handoff)
+    plain_small, plain_polish_small_s = timed(
+        lambda: mixed(f32_it, plain=True).polish(dyn64, cost64, *handoff))
+    agree = (join_us(kern_small) - join_us(plain_small)).abs().max().item()
+    agree_J = ((kern_small.J_opt - plain_small.J_opt).abs()
+               / plain_small.J_opt.abs()).max().item()
+    # fx_mode='hybrid' at B=256
+    hyb = mixed(f32_it, fx_mode="hybrid").solve(dyn64, cost64, *small_p)
+    hyb_err = float(np.abs(join_us(hyb)[0].cpu().numpy() - us_gold).max())
+    emit({"phase": "solve_polish", "B": POLISH_BATCH, "N": N,
+          "f32_iterations": f32_it, "polish_iterations": POLISH_ITERS,
+          "fx_mode": "df", "fallback_to_12_f32_iterations": fallback,
+          "launches": per_polish, "all_finite": finite_p,
+          "lane0_us_max_abs_err": err0, "gate": POLISH_GATE,
+          "lane0_J": Jp0, "golden_J": meta["J_f64"], "lane0_J_rel_err": Jp_rel,
+          "grad_norm_p50": gn.quantile(0.5).item(), "grad_norm_p95": gn.quantile(0.95).item(),
+          "grad_norm_max": gn.max().item(),
+          "kernel_vs_plain_polish_lanes0_255_us_max_abs": agree,
+          "kernel_vs_plain_polish_lanes0_255_J_rel": agree_J,
+          "agreement_gate": POLISH_AGREE,
+          "plain_polish_lanes0_255_s": plain_polish_small_s,
+          "hybrid_B256_lane0_us_max_abs_err": hyb_err,
+          "solve_s_first_call": polish_s, "peak_mem_gb": peak_polish})
+    require(per_polish == {"B1": 1, "B2": f32_it, "B3": f32_it, "B4": 0,
+                           "B5": POLISH_ITERS, "B6": POLISH_ITERS, "B7": POLISH_ITERS,
+                           "B8": POLISH_ITERS, "B9": POLISH_ITERS},
+            f"polish launch counts {per_polish}")
+    require(finite_p, "non-finite lanes in the polish solve")
+    require(err0 <= POLISH_GATE, f"polish lane-0 us err {err0} > {POLISH_GATE}")
+    require(Jp_rel <= 1e-4, f"polish lane-0 J rel err {Jp_rel}")
+    require(agree <= POLISH_AGREE, f"kernel vs plain polish us {agree} > {POLISH_AGREE}")
+    require(agree_J <= 1e-6, f"kernel vs plain polish J rel {agree_J}")
+    require(hyb_err <= POLISH_GATE, f"hybrid lane-0 us err {hyb_err} > {POLISH_GATE}")
+    del outp, usp, kern_small, plain_small, hyb, handoff
+
+    # the polish path: a new batch each rep, the two phases timed apart
+    mx.solve(*batch(torch.float64, POLISH_BATCH, 300))  # warm-up
+    f32_reps, pol_reps = [], []
+    for r in range(POLISH_REPS):
+        a = batch(torch.float64, POLISH_BATCH, 301 + r)
+        handoff, t_f32 = timed(lambda: mx.f32_phase(*a))
+        _, t_pol = timed(lambda: mx.polish(a[0], a[1], *handoff))
+        f32_reps.append(t_f32)
+        pol_reps.append(t_pol)
+    del handoff
+    tot = [x + y for x, y in zip(f32_reps, pol_reps)]
+    med_p = statistics.median(tot)
+    # B5, B6 and the B7-B9 tail against their plain versions at B=16384
+    s = kernel_check.polish_inputs(mx, *batch(torch.float64, POLISH_BATCH, 400))
+    perr = kernel_check.polish_compare(s, mx)
+    pol_kernel = {}
+    for k, (kern, plain) in kernel_check.polish_calls(s, mx).items():
+        pol_kernel[k] = {"ms": event_ms(kern, 5), "plain_ms": event_ms(plain, 1)}
+    hand = tuple(s[n] for n in ("qR", "qp", "xi", "us"))
+    del s
+    _, plain_polish_s = timed(lambda: mixed(f32_it, plain=True).polish(dyn64, cost64, *hand))
+    del hand
+    for k in ("B5", "B6", "B7", "B8", "B9"):
+        src = pol_kernel["tail" if k in kernel_check.TAIL else k]
+        per_kernel[k] = {**src, "max_err": perr[k]["max_rel"], "max_abs_err": perr[k]["max_abs"],
+                         "per_output": perr[k]["per_output"]}
+    emit({"phase": "timing_polish", "card": card, "B": POLISH_BATCH, "N": N,
+          "f32_iterations": f32_it, "polish_iterations": POLISH_ITERS,
+          "rep_s": tot, "f32_phase_rep_s": f32_reps, "polish_rep_s": pol_reps,
+          "median_s": med_p, "f32_phase_median_ms": statistics.median(f32_reps) * 1e3,
+          "polish_median_ms": statistics.median(pol_reps) * 1e3,
+          "gate_passing_solves_per_s": POLISH_BATCH / med_p,
+          "plain_polish_s": plain_polish_s,
+          "per_kernel": {k: per_kernel[k] for k in ("B5", "B6", "B7", "B8", "B9")},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    for k in ("B5", "B6", "B7", "B8", "B9"):
+        for o, e in per_kernel[k]["per_output"].items():
+            gate = kernel_check.GATES["mixed"][k][o]
+            require(e <= gate, f"{k} output {o} at B={POLISH_BATCH}: {e} > {gate}")
+
+    # launches: B1-B3 from the fused f32 solve, B4 from the unfused one,
+    # B5-B9 from the polish solve
     runs = {k: ("fused B=8192", per_fused) for k in ("B1", "B2", "B3")}
     runs["B4"] = ("unfused B=256", per_unfused)
+    runs.update({k: (f"polish B={POLISH_BATCH}", per_polish) for k in DM.KERNELS})
     emit({"kernels": [
         {"name": f"{k} {KERNELS[k][0]}", "route": "cuda",
          "source": f"{PKG}/{KERNELS[k][1]}", "replaces": KERNELS[k][2],

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time of one fused f32 solve goes on the card: torch.profiler
-over the PyTorch port's main path (screw-200, B=8192, 12 iterations), device
-time by kernel, the device's busy and idle share of the wall time.
+"""Where the time of one solve goes on the card: torch.profiler over one of
+the PyTorch port's paths on screw-200, device time by kernel, the device's
+busy and idle share of the wall time.  ``--path f32``: the fused f32
+pipeline (B=8192, 12 iterations); ``--path polish``: the f32 pipeline and
+the mixed-precision polish (B=16384, 7 + 2 iterations), with the wall time
+of each phase.
 
-    python3 scripts/profile_torch_pipeline.py [--batch 8192] [--trace PATH]
+    python3 scripts/profile_torch_pipeline.py [--path f32|polish] [--batch B] [--trace PATH]
 
 Prints one JSON line; ``--trace`` also writes the Chrome trace.  Needs a
 CUDA device and the toolkit (the kernels are built at first use).
@@ -20,6 +23,9 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
+from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.df_mixed import (  # noqa: E402
+    MixedDFPipelineSolver,
+)
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.pipeline import (  # noqa: E402
     PipelineSolver,
 )
@@ -31,30 +37,49 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, default=8192)
-    ap.add_argument("--iterations", type=int, default=12)
+    ap.add_argument("--path", choices=("f32", "polish"), default="f32")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default 8192 (f32), 16384 (polish)")
+    ap.add_argument("--iterations", type=int, default=None,
+                    help="f32 iterations: default 12 (f32), 7 (polish)")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_pipeline: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    dyn, cost, q0, xi0 = build_screw200(torch.float32, dev)
-    solver = PipelineSolver(200, args.iterations, float(dyn.dt))
+    polish = args.path == "polish"
+    B = args.batch or (16384 if polish else 8192)
+    iters = args.iterations or (7 if polish else 12)
+    dtype = torch.float64 if polish else torch.float32
+    dyn, cost, q0, xi0 = build_screw200(dtype, dev)
+    if polish:
+        solver = MixedDFPipelineSolver(200, float(dyn.dt), iters, 2)
+    else:
+        solver = PipelineSolver(200, iters, float(dyn.dt))
 
     def inputs(seed):
-        q0s, xi0s = screw_batch(q0, xi0, args.batch, seed)
-        return dyn, cost, q0s, xi0s, torch.zeros((args.batch, 200, 6), device=dev)
+        q0s, xi0s = screw_batch(q0, xi0, B, seed)
+        return dyn, cost, q0s, xi0s, torch.zeros((B, 200, 6), dtype=dtype, device=dev)
 
     solver.solve(*inputs(0))  # build, load, warm up
     a = inputs(1)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    phases = {}
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        solver.solve(*a)
+        if polish:
+            handoff = solver.f32_phase(*a)
+            torch.cuda.synchronize()
+            phases["f32_phase_ms"] = (time.perf_counter() - t0) * 1e3
+            solver.polish(a[0], a[1], *handoff)
+        else:
+            solver.solve(*a)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    if polish:
+        phases["polish_ms"] = wall * 1e3 - phases["f32_phase_ms"]
     if args.trace:
         prof.export_chrome_trace(args.trace)
     # device-side events only (kernels, memcpy/memset): the CPU ops that
@@ -69,8 +94,8 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(json.dumps({
-        "card": card, "batch": args.batch, "iterations": args.iterations,
-        "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+        "card": card, "path": args.path, "batch": B, "f32_iterations": iters,
+        "wall_ms": wall * 1e3, **phases, "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / (wall * 1e3) if busy_ms else None,
         "device_idle_share": 1 - busy_ms / (wall * 1e3) if busy_ms else None,
         "kernels": [{"name": k[:90], "count": c, "device_ms": ms,

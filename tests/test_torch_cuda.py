@@ -1,4 +1,4 @@
-"""The port's CUDA kernels B1-B4 against their plain versions on the card.
+"""The port's CUDA kernels B1-B9 against their plain versions on the card.
 
 Marked ``cuda``; each test skips without a CUDA device (the kernels are
 built by nvcc at first use and run only on the card).  This file imports no
@@ -15,11 +15,17 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
     GATES,
     compare,
     kernel_inputs,
+    polish_compare,
+    polish_inputs,
 )
 from trajectory_optimization_matrix_lie_groups_tpu_torch.models.dynamics import (
     drone_params,
 )
+from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
+from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.df_pipeline import (
+    join_us,
+)
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (
     build_screw200,
     screw_batch,
@@ -97,3 +103,34 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                          consts, dt=solver.dt)
     with pytest.raises(ValueError):
         P.linearize_lane(qR, qp, xi, us[:-1], refs, consts, dt=solver.dt)
+
+
+@pytest.mark.parametrize("drone", [False, True], ids=["free_body", "drone"])
+def test_polish_kernels_match_plain(cuda, drone):
+    """B5 (and its AL branch), B6 and B7-B9 on a real polish iterate (the
+    handoff of the polish's 7 f32 iterations), each output within its gate
+    (kernel_check.GATES["mixed"])."""
+    dyn, cost, q0s, xi0s, us0 = _problem(torch.float64, cuda, drone)
+    solver = DM.MixedDFPipelineSolver(H, float(dyn.dt), 7, 1, gravity=drone,
+                                      exact_gravity_jacobian=drone)
+    s = polish_inputs(solver, dyn, cost, q0s, xi0s, us0, luu_al=True)
+    errs = polish_compare(s, solver)
+    torch.cuda.synchronize()
+    for name, e in errs.items():
+        for out, err in e["per_output"].items():
+            assert err <= GATES["mixed"][name][out], (name, out, err)
+
+
+@pytest.mark.parametrize("fx_mode", ["df", "hybrid"])
+def test_polish_solve_matches_plain_solve(cuda, fx_mode):
+    """The mixed solve through the kernels against the plain solve: the
+    same f32 phase up to the pipeline kernels' f32 agreement, then two
+    polish iterations toward the same fixed point (us at 1e-5, a tenth of
+    the accuracy gate; J at rtol 1e-6)."""
+    dyn, cost, q0s, xi0s, us0 = _problem(torch.float64, cuda, False)
+    mk = lambda plain: DM.MixedDFPipelineSolver(H, float(dyn.dt), 4, 2,
+                                                fx_mode=fx_mode, plain=plain)
+    out = mk(False).solve(dyn, cost, q0s, xi0s, us0)
+    ref = mk(True).solve(dyn, cost, q0s, xi0s, us0)
+    torch.testing.assert_close(join_us(out), join_us(ref), rtol=0, atol=1e-5)
+    torch.testing.assert_close(out.J_opt, ref.J_opt, rtol=1e-6, atol=0)

@@ -1,12 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-Each `csrc/*.cu` unit is compiled by ``nvcc`` for ``sm_90a`` twice, once per
-scalar type (``-DTRAOPT_SCALAR=float`` / ``double``), into a shared library
-with a plain C interface that is loaded with `ctypes` (no PyTorch headers,
-so a build takes seconds to minutes, not tens of minutes).  The libraries go
-to ``build/torch_kernels/`` beside the package, named by a hash of the
-sources and flags, so a changed source rebuilds and an unchanged one loads.
-All four libraries are compiled concurrently at first use.
+Each library of `LIBS` is one `csrc/*.cu` unit compiled by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface that is loaded
+with `ctypes` (no PyTorch headers, so a build takes seconds to minutes, not
+tens of minutes).  ``linearize`` and ``pipeline`` are built once per scalar
+type (``-DTRAOPT_SCALAR=float`` / ``double``, suffixes ``f32`` / ``f64``);
+``polish`` mixes f32 and fp64 by design and is built once, under the suffix
+``mx``.  The libraries go to ``build/torch_kernels/`` beside the package,
+named ``{unit}_{suffix}_{hash}.so`` by a hash of the sources and flags, so a
+changed source rebuilds and an unchanged one loads.  All libraries are
+compiled concurrently at first use.
 
 No ``--use_fast_math``: the Taylor guards on theta^2 < 1e-8 and the
 small-angle sin/cos need IEEE division, square root and full-precision
@@ -26,8 +29,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-UNITS = ("linearize", "pipeline")
-SCALARS = {"f32": "float", "f64": "double"}
+# (unit, library suffix, -DTRAOPT_SCALAR or None)
+LIBS = (("linearize", "f32", "float"), ("linearize", "f64", "double"),
+        ("pipeline", "f32", "float"), ("pipeline", "f64", "double"),
+        ("polish", "mx", None))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -63,21 +68,21 @@ def _lib_path(unit, sfx):
 
 
 def build():
-    """Compile every (unit, scalar) library that is not built yet, all at
-    once.  Returns the seconds spent (0.0 when everything was cached)."""
-    todo = [(u, s) for u in UNITS for s in SCALARS
-            if not _lib_path(u, s).is_file()]
+    """Compile every library of `LIBS` that is not built yet, all at once.
+    Returns the seconds spent (0.0 when everything was cached)."""
+    todo = [lib for lib in LIBS if not _lib_path(*lib[:2]).is_file()]
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = str(nvcc_path())
     t0 = time.perf_counter()
     procs = []
-    for unit, sfx in todo:
+    for unit, sfx, scalar in todo:
         final = _lib_path(unit, sfx)
         tmp = final.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, f"-DTRAOPT_SCALAR={SCALARS[sfx]}",
-               f"-DTRAOPT_SUFFIX={sfx}", "-I", str(CSRC), "-o", str(tmp),
+        defs = [f"-DTRAOPT_SUFFIX={sfx}"] + ([f"-DTRAOPT_SCALAR={scalar}"]
+                                             if scalar else [])
+        cmd = [nvcc, *NVCC_FLAGS, *defs, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{unit}.cu")]
         procs.append((final, tmp, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -96,8 +101,8 @@ def build():
 
 @functools.lru_cache(maxsize=None)
 def library(unit, dtype_suffix):
-    """The loaded ctypes library of ``unit`` ("linearize" / "pipeline") for
-    ``dtype_suffix`` ("f32" / "f64"), built first if needed."""
+    """The loaded ctypes library of ``unit`` with suffix ``dtype_suffix``
+    (an entry of `LIBS`), built first if needed."""
     build()
     return ctypes.CDLL(str(_lib_path(unit, dtype_suffix)))
 
@@ -125,14 +130,16 @@ def suffix(dtype):
     raise TypeError(f"the CUDA kernels take float32 or float64, not {dtype}")
 
 
-def arg(t, shape, like, name):
+def arg(t, shape, like, name, dtype=None):
     """``t``'s data pointer (a ctypes.c_void_p) after checking that it is a
-    contiguous tensor of ``shape`` with ``like``'s dtype and device."""
+    contiguous tensor of ``shape`` on ``like``'s device with ``dtype``
+    (default: ``like``'s)."""
+    dtype = like.dtype if dtype is None else dtype
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if t.dtype != like.dtype or t.device != like.device:
+    if t.dtype != dtype or t.device != like.device:
         raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
-                         f"{like.dtype} on {like.device}")
+                         f"{dtype} on {like.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
     return ctypes.c_void_p(t.data_ptr())
@@ -195,10 +202,9 @@ def ptxas_report():
     """{kernel: {registers, stack_frame, spill_stores, spill_loads}} in
     bytes, parsed from the ``-Xptxas -v`` output of every built library."""
     rows = []
-    for unit in UNITS:
-        for sfx in SCALARS:
-            log = _lib_path(unit, sfx).with_suffix(".ptxas.txt")
-            if log.is_file():
-                rows += parse_ptxas(log.read_text())
+    for unit, sfx, _ in LIBS:
+        log = _lib_path(unit, sfx).with_suffix(".ptxas.txt")
+        if log.is_file():
+            rows += parse_ptxas(log.read_text())
     names = _demangle([name for name, _ in rows])
     return dict(zip(names, [r for _, r in rows]))

@@ -35,3 +35,12 @@ def cost_from_numpy(fields, device=None, dtype=torch.float64):
     return TrackingCostParams(**{
         k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
         for k, v in fields.items()})
+
+
+def lane_state_from_numpy(qR, qp, xi, us, device=None):
+    """A lane-layout trajectory qR (N+1, 3, 3, B), qp (N+1, 3, B),
+    xi (N+1, 6, B), us (N, nu, B) given as numpy arrays (the f32 handoff
+    that the JAX `DFPipelineSolver._f32_jit` returns) as tensors on
+    ``device``, dtype kept: `MixedDFPipelineSolver.polish` takes them."""
+    return tuple(torch.as_tensor(np.array(x), device=device)
+                 for x in (qR, qp, xi, us))

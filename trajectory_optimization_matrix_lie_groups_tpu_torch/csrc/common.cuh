@@ -1,13 +1,14 @@
 // Shared pieces of the kernel units: the scalar type and the exported
-// C symbol names, both chosen by the build (_build.py compiles every unit
-// once with -DTRAOPT_SCALAR=float -DTRAOPT_SUFFIX=f32 and once with double /
-// f64), and the launch geometry.
+// C symbol names, both chosen by the build (_build.py compiles linearize.cu
+// and pipeline.cu once with -DTRAOPT_SCALAR=float -DTRAOPT_SUFFIX=f32 and
+// once with double / f64, and the mixed-precision polish.cu once with
+// -DTRAOPT_SUFFIX=mx and no scalar), and the launch geometry.
 #pragma once
 
 #include <cuda_runtime.h>
 
-#ifndef TRAOPT_SCALAR
-#error "build with -DTRAOPT_SCALAR=float|double -DTRAOPT_SUFFIX=f32|f64"
+#ifndef TRAOPT_SUFFIX
+#error "build with -DTRAOPT_SUFFIX=f32|f64 -DTRAOPT_SCALAR=float|double, or -DTRAOPT_SUFFIX=mx"
 #endif
 
 #define TRAOPT_CAT2(a, b) a##_##b
@@ -16,7 +17,9 @@
 
 namespace traopt {
 
+#ifdef TRAOPT_SCALAR
 using Scalar = TRAOPT_SCALAR;
+#endif
 
 // One thread per problem, 128 problems per block.
 constexpr int kThreads = 128;

@@ -55,7 +55,7 @@ __global__ void __launch_bounds__(kThreads) linearize_kernel(LinearizeArgs<T> a)
     store<12>(lane<12>(a.d, t, B, b), d);
   }
   stage_jacobian(lane<144>(a.Fx, t, B, b), R, xi, a.c);
-  a.l[(long long)t * B + b] = stage_cost_quad(
+  a.l[(long long)t * B + b] = stage_cost_quad<T>(
       lane<12>(a.lx, t, B, b), lane<144>(a.lxx, t, B, b), R, p, xi,
       a.refs.RbiR + t * 9, a.refs.Rbip + t * 3, a.refs.Adb + t * 36,
       a.refs.xib + t * 6, a.c.W1, a.c.W2);

@@ -46,18 +46,18 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(RiccatiArgs<T> a) {
     load<9>(R, lane<9>(a.qR, N, B, b));
     load<3>(p, lane<3>(a.qp, N, B, b));
     load<6>(xi, lane<6>(a.xi, N, B, b));
-    a.lN[b] = stage_cost_quad(&Vx[0], &V[0], R, p, xi, a.refs.RbiR + N * 9,
-                              a.refs.Rbip + N * 3, a.refs.Adb + N * 36,
-                              a.refs.xib + N * 6, a.c.W1N, a.c.W2N);
+    a.lN[b] = stage_cost_quad<T>(&Vx[0], &V[0], R, p, xi, a.refs.RbiR + N * 9,
+                                 a.refs.Rbip + N * 3, a.refs.Adb + N * 36,
+                                 a.refs.xib + N * 6, a.c.W1N, a.c.W2N);
   }
   for (int t = N - 1; t >= 0; --t) {
     Lane<const T> al;
     if (a.luual) al = lane<NU>(a.luual, t, B, b);
-    riccati_stage<T, NU>(
+    riccati_stage<T, T, NU>(
         Vx, V, lane<144>(a.Fx, t, B, b), lane<12>(a.d, t, B, b),
         lane<12>(a.lx, t, B, b), lane<NU>(a.lu, t, B, b),
-        lane<144>(a.lxx, t, B, b), a.luual ? &al : nullptr, a.c.fu2, a.c.Luu,
-        a.glow != 0, lane<NU>(a.k, t, B, b), lane<NU * 12>(a.K, t, B, b),
+        lane<144>(a.lxx, t, B, b), a.luual ? &al : nullptr, a.c.fu2, a.c.fu2,
+        a.c.Luu, a.glow != 0, lane<NU>(a.k, t, B, b), lane<NU * 12>(a.K, t, B, b),
         lane<NU>(a.gvec, t, B, b));
   }
 }
@@ -100,7 +100,7 @@ __device__ __forceinline__ void rollout_sweep(const RolloutArgs<T>& a) {
     if (LIN) {
       // the linearization of the new stage t needs only (R, p, xi)
       stage_jacobian(lane<144>(a.nFx, t, B, b), R, xi, a.c);
-      a.nl[(long long)t * B + b] = stage_cost_quad(
+      a.nl[(long long)t * B + b] = stage_cost_quad<T>(
           lane<12>(a.nlx, t, B, b), lane<144>(a.nlxx, t, B, b), R, p, xi,
           a.refs.RbiR + t * 9, a.refs.Rbip + t * 3, a.refs.Adb + t * 36,
           a.refs.xib + t * 6, a.c.W1, a.c.W2);
@@ -121,8 +121,8 @@ __device__ __forceinline__ void rollout_sweep(const RolloutArgs<T>& a) {
     load<3>(fqpt, lane<3>(a.fqp, t, B, b));
     load<6>(fxit, lane<6>(a.fxi, t, B, b));
     T u[NU], fqR[9], fqp[3], fxi[6];
-    rollout_stage<T, NU>(R, p, xi, u, fqR, fqp, fxi, Rt, pt, xit, Rn, pn,
-                         xin, ut, kt, Kt, dd, fqRt, fqpt, fxit, a.c);
+    rollout_stage<T, T, NU>(R, p, xi, u, fqR, fqp, fxi, Rt, pt, xit, Rn, pn,
+                            xin, ut, kt, Kt, dd, fqRt, fqpt, fxit, a.c);
     store<9>(lane<9>(a.oR, t + 1, B, b), R);
     store<3>(lane<3>(a.op, t + 1, B, b), p);
     store<6>(lane<6>(a.oxi, t + 1, B, b), xi);

@@ -1,9 +1,12 @@
-// Per-stage math of the f32 MS-iLQR pipeline for one problem held by one
+// Per-stage math of the MS-iLQR pipeline for one problem held by one
 // thread: dynamics evaluation, dynamics Jacobian, GN cost quadratization,
 // the defect-aware Riccati step and the gap-closing rollout step.  The plain
 // versions are ops/linearize.py (stage_dynamics_eval, stage_jacobian,
-// stage_cost_quad) and solvers/pipeline.py (riccati_stage, rollout_stage);
-// both follow the JAX package's lane kernels formula by formula.
+// stage_cost_quad), solvers/pipeline.py (riccati_stage, rollout_stage) and,
+// for the mixed-precision polish, solvers/df_mixed.py (stage_cost_quad_mx,
+// riccati_stage_mx, rollout_stage_mx); all follow the JAX package's lane
+// kernels formula by formula.  The steps that the polish shares take a
+// second scalar type for the preconditioner part (see each step).
 //
 // Arrays are batch-last: entry e of stage t of an (N, ne, B) array sits at
 // (t * ne + e) * B + b, so a warp's 32 neighbouring problems read 32
@@ -11,6 +14,8 @@
 // model constants (J, Jinv, weights, Pu, fu2, Luu) are shared by the whole
 // batch and read as uniform loads of small row-major arrays.
 #pragma once
+
+#include <type_traits>
 
 #include "lie.cuh"
 
@@ -200,8 +205,12 @@ __device__ __forceinline__ void stage_jacobian(const Out& Fx, const T* R,
 // GN tracking quadratization (models/costs.py): e = Log(q q_ref^-1),
 // J_e_x = Jr^-1(e) Ad(q_ref); lx = [2 J^T W1 e; 2 W2 ev],
 // lxx = blk(2 J^T W1 J, 0, 0, 2 W2), l = e W1 e + ev W2 ev.
-template <typename T, typename OutV, typename OutM>
-__device__ __forceinline__ T stage_cost_quad(
+// The gradient lx is computed in T; the Gauss-Newton Hessian lxx and the
+// value l in Tp from the Tp roundings of J_e_x, e, W1 e, ev, W2 ev and the
+// weights.  The f32 pipeline runs <T, T>; the mixed polish <double, float>
+// (solvers/df_mixed.py stage_cost_quad_mx: lxx only preconditions).
+template <typename Tp, typename T, typename OutV, typename OutM>
+__device__ __forceinline__ Tp stage_cost_quad(
     const OutV& lx, const OutM& lxx, const T* R, const T* p, const T* xi,
     const T* RbiR, const T* Rbip, const T* Adb, const T* xib, const T* W1,
     const T* W2) {
@@ -210,7 +219,7 @@ __device__ __forceinline__ T stage_cost_quad(
   se3_log(e, Reb, peb);
 #pragma unroll
   for (int i = 0; i < 6; ++i) ev[i] = xi[i] - xib[i];
-  T Jri[36], Jex[36], JT2W1[36];
+  T Jri[36], Jex[36];
   se3_right_jacobian_inv(Jri, e);
   mat_mul<6, 6, 6>(Jex, Jri, Adb);
   T W1e[6], W2ev[6];
@@ -225,32 +234,33 @@ __device__ __forceinline__ T stage_cost_quad(
     lx[6 + i] = T(2) * W2ev[i];
   }
   // JT2W1 = (2 Jex^T) W1, H_e = JT2W1 Jex
+  Tp JT2W1p[36];
 #pragma unroll
   for (int i = 0; i < 6; ++i)
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
-      T s = T(2) * Jex[i] * W1[j];
+      Tp s = Tp(2) * Tp(Jex[i]) * Tp(W1[j]);
 #pragma unroll
-      for (int k = 1; k < 6; ++k) s += T(2) * Jex[k * 6 + i] * W1[k * 6 + j];
-      JT2W1[i * 6 + j] = s;
+      for (int k = 1; k < 6; ++k) s += Tp(2) * Tp(Jex[k * 6 + i]) * Tp(W1[k * 6 + j]);
+      JT2W1p[i * 6 + j] = s;
     }
 #pragma unroll
   for (int i = 0; i < 6; ++i)
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
-      T s = JT2W1[i * 6] * Jex[j];
+      Tp s = JT2W1p[i * 6] * Tp(Jex[j]);
 #pragma unroll
-      for (int k = 1; k < 6; ++k) s += JT2W1[i * 6 + k] * Jex[k * 6 + j];
+      for (int k = 1; k < 6; ++k) s += JT2W1p[i * 6 + k] * Tp(Jex[k * 6 + j]);
       lxx[i * 12 + j] = s;
-      lxx[i * 12 + 6 + j] = T(0);
-      lxx[(6 + i) * 12 + j] = T(0);
-      lxx[(6 + i) * 12 + 6 + j] = T(2) * W2[i * 6 + j];
+      lxx[i * 12 + 6 + j] = Tp(0);
+      lxx[(6 + i) * 12 + j] = Tp(0);
+      lxx[(6 + i) * 12 + 6 + j] = Tp(2) * Tp(W2[i * 6 + j]);
     }
-  T s1 = e[0] * W1e[0], s2 = ev[0] * W2ev[0];
+  Tp s1 = Tp(e[0]) * Tp(W1e[0]), s2 = Tp(ev[0]) * Tp(W2ev[0]);
 #pragma unroll
   for (int i = 1; i < 6; ++i) {
-    s1 += e[i] * W1e[i];
-    s2 += ev[i] * W2ev[i];
+    s1 += Tp(e[i]) * Tp(W1e[i]);
+    s2 += Tp(ev[i]) * Tp(W2ev[i]);
   }
   return s1 + s2;
 }
@@ -260,36 +270,44 @@ __device__ __forceinline__ T stage_cost_quad(
 // unless glow.  (Vx, V) hold V_x, V_xx of stage t+1 on entry and of stage t
 // on exit; V is reused in place for V F and then Q_xx.  The nu x nu
 // Cholesky stores its diagonal as 1 / sqrt(pivot).
-template <typename T, int NU>
+//
+// Two scalar types.  Tr carries the residual (adjoint) chain: Fx, d, lx,
+// lu, V_x, Q_x, Q_u = gvec.  Tp carries the preconditioner: V_xx, Q_xx, Q_ux,
+// Q_uu, the Cholesky, the gains and the vanishing V_x corrections, from the
+// Tp roundings of Fx, d and Q_u.  The f32 pipeline (B2) runs <T, T>; the
+// mixed polish (B5, solvers/df_mixed.py riccati_stage_mx) <float, double>.
+// fu2 is given in both types (fu2r: Tr, fu2: Tp).
+template <typename Tp, typename Tr, int NU>
 __device__ __forceinline__ void riccati_stage(
-    T* Vx, T* V, const Lane<const T>& Fxl, const Lane<const T>& ddl,
-    const Lane<const T>& lxl, const Lane<const T>& lul,
-    const Lane<const T>& lxxl, const Lane<const T>* luual, const T* fu2,
-    const T* Luu, bool glow, const Lane<T>& k_out, const Lane<T>& K_out,
-    const Lane<T>& g_out) {
-  T F[144];
+    Tr* Vx, Tp* V, const Lane<const Tr>& Fxl, const Lane<const Tr>& ddl,
+    const Lane<const Tr>& lxl, const Lane<const Tr>& lul,
+    const Lane<const Tp>& lxxl, const Lane<const Tp>* luual, const Tr* fu2r,
+    const Tp* fu2, const Tp* Luu, bool glow, const Lane<Tp>& k_out,
+    const Lane<Tp>& K_out, const Lane<Tr>& g_out) {
+  constexpr bool kMixed = !std::is_same<Tp, Tr>::value;
+  Tr F[144];
   load<144>(F, Fxl);
-  T Vmod[12];
+  Tr Vmod[12];
   {
-    T dd[12];
+    Tr dd[12];
     load<12>(dd, ddl);
 #pragma unroll
     for (int i = 0; i < 12; ++i) {
-      T s = V[i * 12] * dd[0];
+      Tp s = V[i * 12] * Tp(dd[0]);
 #pragma unroll
-      for (int j = 1; j < 12; ++j) s += V[i * 12 + j] * dd[j];
-      Vmod[i] = Vx[i] + s;
+      for (int j = 1; j < 12; ++j) s += V[i * 12 + j] * Tp(dd[j]);
+      Vmod[i] = Vx[i] + Tr(s);
     }
   }
   // Quu = Luu + fu2^T (V[6:, 6:] fu2) [+ diag(luual)]
-  T Quu[NU * NU];
+  Tp Quu[NU * NU];
   {
-    T tmp[6 * NU];
+    Tp tmp[6 * NU];
 #pragma unroll
     for (int i = 0; i < 6; ++i)
 #pragma unroll
       for (int a = 0; a < NU; ++a) {
-        T s = V[(6 + i) * 12 + 6] * fu2[a];
+        Tp s = V[(6 + i) * 12 + 6] * fu2[a];
 #pragma unroll
         for (int k = 1; k < 6; ++k) s += V[(6 + i) * 12 + 6 + k] * fu2[k * NU + a];
         tmp[i * NU + a] = s;
@@ -298,7 +316,7 @@ __device__ __forceinline__ void riccati_stage(
     for (int a = 0; a < NU; ++a)
 #pragma unroll
       for (int b2 = 0; b2 < NU; ++b2) {
-        T s = fu2[a] * tmp[b2];
+        Tp s = fu2[a] * tmp[b2];
 #pragma unroll
         for (int k = 1; k < 6; ++k) s += fu2[k * NU + a] * tmp[k * NU + b2];
         Quu[a * NU + b2] = Luu[a * NU + b2] + s;
@@ -311,39 +329,39 @@ __device__ __forceinline__ void riccati_stage(
   // V <- V F  (row by row; F = [[A, Bb], [C, D]])
 #pragma unroll
   for (int i = 0; i < 12; ++i) {
-    T row[12];
+    Tp row[12];
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
-      T s = V[i * 12] * F[j];
+      Tp s = V[i * 12] * Tp(F[j]);
 #pragma unroll
-      for (int k = 1; k < 6; ++k) s += V[i * 12 + k] * F[k * 12 + j];
+      for (int k = 1; k < 6; ++k) s += V[i * 12 + k] * Tp(F[k * 12 + j]);
       if (glow) {
 #pragma unroll
-        for (int k = 0; k < 6; ++k) s += V[i * 12 + 6 + k] * F[(6 + k) * 12 + j];
+        for (int k = 0; k < 6; ++k) s += V[i * 12 + 6 + k] * Tp(F[(6 + k) * 12 + j]);
       }
       row[j] = s;
-      T r = V[i * 12] * F[6 + j];
+      Tp r = V[i * 12] * Tp(F[6 + j]);
 #pragma unroll
-      for (int k = 1; k < 6; ++k) r += V[i * 12 + k] * F[k * 12 + 6 + j];
+      for (int k = 1; k < 6; ++k) r += V[i * 12 + k] * Tp(F[k * 12 + 6 + j]);
 #pragma unroll
-      for (int k = 0; k < 6; ++k) r += V[i * 12 + 6 + k] * F[(6 + k) * 12 + 6 + j];
+      for (int k = 0; k < 6; ++k) r += V[i * 12 + 6 + k] * Tp(F[(6 + k) * 12 + 6 + j]);
       row[6 + j] = r;
     }
 #pragma unroll
     for (int j = 0; j < 12; ++j) V[i * 12 + j] = row[j];
   }
   // Qx = lx + F^T Vmod, Qu = lu + fu2^T Vmod[6:]
-  T Qx[12], Qu[NU];
+  Tr Qx[12], Qu[NU];
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
-    T s = F[i] * Vmod[0];
+    Tr s = F[i] * Vmod[0];
 #pragma unroll
     for (int k = 1; k < 6; ++k) s += F[k * 12 + i] * Vmod[k];
     if (glow) {
 #pragma unroll
       for (int k = 0; k < 6; ++k) s += F[(6 + k) * 12 + i] * Vmod[6 + k];
     }
-    T r = F[6 + i] * Vmod[0];
+    Tr r = F[6 + i] * Vmod[0];
 #pragma unroll
     for (int k = 1; k < 6; ++k) r += F[k * 12 + 6 + i] * Vmod[k];
 #pragma unroll
@@ -353,18 +371,18 @@ __device__ __forceinline__ void riccati_stage(
   }
 #pragma unroll
   for (int a = 0; a < NU; ++a) {
-    T s = fu2[a] * Vmod[6];
+    Tr s = fu2r[a] * Vmod[6];
 #pragma unroll
-    for (int k = 1; k < 6; ++k) s += fu2[k * NU + a] * Vmod[6 + k];
+    for (int k = 1; k < 6; ++k) s += fu2r[k * NU + a] * Vmod[6 + k];
     Qu[a] = lul[a] + s;
   }
   // Qux = fu2^T (V F)[6:, :]   (Lux = 0)
-  T Qux[NU * 12];
+  Tp Qux[NU * 12];
 #pragma unroll
   for (int a = 0; a < NU; ++a)
 #pragma unroll
     for (int j = 0; j < 12; ++j) {
-      T s = fu2[a] * V[6 * 12 + j];
+      Tp s = fu2[a] * V[6 * 12 + j];
 #pragma unroll
       for (int k = 1; k < 6; ++k) s += fu2[k * NU + a] * V[(6 + k) * 12 + j];
       Qux[a * 12 + j] = s;
@@ -372,59 +390,59 @@ __device__ __forceinline__ void riccati_stage(
   // V <- Qxx = lxx + F^T (V F)  (column by column)
 #pragma unroll
   for (int j = 0; j < 12; ++j) {
-    T col[12];
+    Tp col[12];
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
-      T s = F[i] * V[j];
+      Tp s = Tp(F[i]) * V[j];
 #pragma unroll
-      for (int k = 1; k < 6; ++k) s += F[k * 12 + i] * V[k * 12 + j];
+      for (int k = 1; k < 6; ++k) s += Tp(F[k * 12 + i]) * V[k * 12 + j];
       if (glow) {
 #pragma unroll
-        for (int k = 0; k < 6; ++k) s += F[(6 + k) * 12 + i] * V[(6 + k) * 12 + j];
+        for (int k = 0; k < 6; ++k) s += Tp(F[(6 + k) * 12 + i]) * V[(6 + k) * 12 + j];
       }
       col[i] = s;
-      T r = F[6 + i] * V[j];
+      Tp r = Tp(F[6 + i]) * V[j];
 #pragma unroll
-      for (int k = 1; k < 6; ++k) r += F[k * 12 + 6 + i] * V[k * 12 + j];
+      for (int k = 1; k < 6; ++k) r += Tp(F[k * 12 + 6 + i]) * V[k * 12 + j];
 #pragma unroll
-      for (int k = 0; k < 6; ++k) r += F[(6 + k) * 12 + 6 + i] * V[(6 + k) * 12 + j];
+      for (int k = 0; k < 6; ++k) r += Tp(F[(6 + k) * 12 + 6 + i]) * V[(6 + k) * 12 + j];
       col[6 + i] = r;
     }
 #pragma unroll
     for (int i = 0; i < 12; ++i) V[i * 12 + j] = lxxl[i * 12 + j] + col[i];
   }
   // Cholesky Quu = L L^T, diagonal stored as 1 / sqrt(pivot)
-  T L[NU * NU];
+  Tp L[NU * NU];
 #pragma unroll
   for (int j = 0; j < NU; ++j) {
-    T sv = Quu[j * NU + j];
+    Tp sv = Quu[j * NU + j];
 #pragma unroll
     for (int kk = 0; kk < j; ++kk) sv = sv - L[j * NU + kk] * L[j * NU + kk];
-    const T inv = T(1) / xsqrt(sv);
+    const Tp inv = Tp(1) / xsqrt(sv);
     L[j * NU + j] = inv;
 #pragma unroll
     for (int i2 = j + 1; i2 < NU; ++i2) {
-      T s2 = Quu[i2 * NU + j];
+      Tp s2 = Quu[i2 * NU + j];
 #pragma unroll
       for (int kk = 0; kk < j; ++kk) s2 = s2 - L[i2 * NU + kk] * L[j * NU + kk];
       L[i2 * NU + j] = s2 * inv;
     }
   }
-  // K = -Quu^-1 Qux (column 12 is k = -Quu^-1 Qu)
-  T K[NU * 13];
+  // K = -Quu^-1 Qux (column 12 is k = -Quu^-1 Qu, from Qu's Tp rounding)
+  Tp K[NU * 13];
 #pragma unroll
   for (int c = 0; c < 13; ++c) {
-    T Y[NU];
+    Tp Y[NU];
 #pragma unroll
     for (int i2 = 0; i2 < NU; ++i2) {
-      T sv = c < 12 ? Qux[i2 * 12 + c] : Qu[i2];
+      Tp sv = c < 12 ? Qux[i2 * 12 + c] : Tp(Qu[i2]);
 #pragma unroll
       for (int kk = 0; kk < i2; ++kk) sv = sv - L[i2 * NU + kk] * Y[kk];
       Y[i2] = sv * L[i2 * NU + i2];
     }
 #pragma unroll
     for (int i2 = NU - 1; i2 >= 0; --i2) {
-      T sv = Y[i2];
+      Tp sv = Y[i2];
 #pragma unroll
       for (int kk = i2 + 1; kk < NU; ++kk) sv = sv - L[kk * NU + i2] * K[kk * 13 + c];
       K[i2 * 13 + c] = sv * L[i2 * NU + i2];
@@ -442,35 +460,40 @@ __device__ __forceinline__ void riccati_stage(
     g_out[a] = Qu[a];
   }
   // KTQuu = K^T Quu (12 x NU)
-  T KTQuu[12 * NU];
+  Tp KTQuu[12 * NU];
 #pragma unroll
   for (int i = 0; i < 12; ++i)
 #pragma unroll
     for (int a = 0; a < NU; ++a) {
-      T s = K[i] * Quu[a];
+      Tp s = K[i] * Quu[a];
 #pragma unroll
       for (int b2 = 1; b2 < NU; ++b2) s += K[b2 * 13 + i] * Quu[b2 * NU + a];
       KTQuu[i * NU + a] = s;
     }
-  // Vx = Qx + KTQuu k + K^T Qu + Qux^T k
+  // Vx = Qx + KTQuu k + K^T Qu + Qux^T k; mixed: the three corrections
+  // (all proportional to k and Qu) are summed in Tp and added once
 #pragma unroll
   for (int i = 0; i < 12; ++i) {
-    T s1 = KTQuu[i * NU] * K[12], s2 = K[i] * Qu[0], s3 = Qux[i] * K[12];
+    Tp s1 = KTQuu[i * NU] * K[12], s2 = K[i] * Tp(Qu[0]), s3 = Qux[i] * K[12];
 #pragma unroll
     for (int a = 1; a < NU; ++a) {
       s1 += KTQuu[i * NU + a] * K[a * 13 + 12];
-      s2 += K[a * 13 + i] * Qu[a];
+      s2 += K[a * 13 + i] * Tp(Qu[a]);
       s3 += Qux[a * 12 + i] * K[a * 13 + 12];
     }
-    Vx[i] = ((Qx[i] + s1) + s2) + s3;
+    if constexpr (kMixed) {
+      Vx[i] = Qx[i] + Tr((s1 + s2) + s3);
+    } else {
+      Vx[i] = ((Qx[i] + s1) + s2) + s3;
+    }
   }
   // V_xx = (S + S^T) / 2 + M + M^T, S = Qxx + KTQuu K, M = K^T Qux
 #pragma unroll
   for (int i = 0; i < 12; ++i)
 #pragma unroll
     for (int j = i; j < 12; ++j) {
-      T Sij = KTQuu[i * NU] * K[j], Sji = KTQuu[j * NU] * K[i];
-      T Mij = K[i] * Qux[j], Mji = K[j] * Qux[i];
+      Tp Sij = KTQuu[i * NU] * K[j], Sji = KTQuu[j * NU] * K[i];
+      Tp Mij = K[i] * Qux[j], Mji = K[j] * Qux[i];
 #pragma unroll
       for (int a = 1; a < NU; ++a) {
         Sij += KTQuu[i * NU + a] * K[a * 13 + j];
@@ -480,7 +503,7 @@ __device__ __forceinline__ void riccati_stage(
       }
       Sij = V[i * 12 + j] + Sij;
       Sji = V[j * 12 + i] + Sji;
-      const T h = T(0.5) * (Sij + Sji);
+      const Tp h = Tp(0.5) * (Sij + Sji);
       V[i * 12 + j] = (h + Mij) + Mji;
       V[j * 12 + i] = (h + Mji) + Mij;
     }
@@ -493,12 +516,15 @@ __device__ __forceinline__ void riccati_stage(
 // dynamics evaluation at the new (x_t, u_t) and u the new control.  The
 // nominal stage (Rt, pt, xit, ut), its successor (Rn, pn, xin), the gains
 // (kt, Kt), the defect dd and the nominal evaluation (fqRt, fqpt, fxit) come
-// from the previous iterate.
-template <typename T, int NU>
+// from the previous iterate.  The gains are of type Tp and the feedback
+// k + K xs_err is computed in Tp from xs_err's Tp rounding: the f32 pipeline
+// runs <T, T>, the mixed polish (B6, solvers/df_mixed.py rollout_stage_mx)
+// <double, float> (the feedback's rounding is multiplied by xs_err -> 0).
+template <typename T, typename Tp, int NU>
 __device__ __forceinline__ void rollout_stage(
     T* R, T* p, T* xi, T* u, T* fqR, T* fqp, T* fxi, const T* Rt,
     const T* pt, const T* xit, const T* Rn, const T* pn, const T* xin,
-    const T* ut, const T* kt, const T* Kt, const T* dd, const T* fqRt,
+    const T* ut, const Tp* kt, const Tp* Kt, const T* dd, const T* fqRt,
     const T* fqpt, const T* fxit, const Consts<T>& c) {
   T xs_err[12];
   {
@@ -511,10 +537,14 @@ __device__ __forceinline__ void rollout_stage(
   for (int i = 0; i < 6; ++i) xs_err[6 + i] = xi[i] - xit[i];
 #pragma unroll
   for (int a = 0; a < NU; ++a) {
-    T s = Kt[a * 12] * xs_err[0];
+    Tp s = Kt[a * 12] * Tp(xs_err[0]);
 #pragma unroll
-    for (int j = 1; j < 12; ++j) s += Kt[a * 12 + j] * xs_err[j];
-    u[a] = (ut[a] + kt[a]) + s;
+    for (int j = 1; j < 12; ++j) s += Kt[a * 12 + j] * Tp(xs_err[j]);
+    if constexpr (std::is_same<T, Tp>::value) {
+      u[a] = (ut[a] + kt[a]) + s;
+    } else {
+      u[a] = ut[a] + T(kt[a] + s);
+    }
   }
   stage_dynamics_eval<T, NU>(fqR, fqp, fxi, R, p, xi, u, c);
   T edR[9], edp[3], fiR[9], fip[3], Ra[9], pa[3], Rb[9], pb[3];

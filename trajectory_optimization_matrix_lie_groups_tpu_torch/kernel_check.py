@@ -1,5 +1,8 @@
-"""Each CUDA kernel of the pipeline against its plain version, on the same
-inputs: the check that `chip_smoke.py` and the card tests run.
+"""Each CUDA kernel against its plain version, on the same inputs: the check
+that `chip_smoke.py` and the card tests run.  B1-B4 (the f32 pipeline, in
+f32 and f64) on a real pipeline iterate (`kernel_inputs`, `calls`,
+`compare`); B5-B9 (the mixed-precision polish) on a real polish iterate
+(`polish_inputs`, `polish_calls`, `polish_compare`).
 
 The error of one output tensor is max |kernel - plain| / max(1, max |plain|).
 """
@@ -11,6 +14,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.linearize import (
     linearize_lane,
     linearize_plain,
 )
+from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
 
 # Gates on the per-output error: f32 is looser for the sequential recursions
@@ -27,6 +31,27 @@ TRAJ = ("qR", "qp", "xi", "us")
 OUTPUTS = {"B1": LIN, "B2": ("k", "K", "gvec", "lN"),
            "B3": TRAJ + tuple("new_" + n for n in LIN), "B4": TRAJ}
 OUTPUTS["B2_al"] = OUTPUTS["B2"]
+
+# The polish kernels have one gate per output (GATES["mixed"][kernel][output]).
+# B7-B9 are one kernel ("tail"); each keeps its own outputs and gates.
+POLISH_OUTPUTS = {"B5": ("k", "K", "gvec"),
+                  "B6": TRAJ + ("fqR", "fqp", "fxi"),
+                  "tail": ("d", "Fx", "lx", "lxx32", "l32")}
+POLISH_OUTPUTS["B5_al"] = POLISH_OUTPUTS["B5"]
+TAIL = {"B7": ("d",), "B8": ("Fx",), "B9": ("lx", "lxx32", "l32")}
+# Every fp64 output at 1e-9, the f32 outputs at the grade of their f32
+# pipeline twins (k, K as B2; lxx32, l32 as B1).  An f32 rounding does reach
+# B5's gvec (V_xx d and the V_x corrections) and all of B6's outputs (the
+# feedback k + K xs_err), and kernel and plain version sum those in other
+# orders, but only multiplied by residuals (d, k, Q_u, xs_err) that are
+# small at a real polish iterate: at the main path's handoff they differ by
+# 4e-13 (gvec) and 2e-12 (us) on an H100 (PERF.md).
+GATES["mixed"] = {
+    "B5": {"k": 1e-3, "K": 1e-3, "gvec": 1e-9},
+    "B6": {n: 1e-9 for n in POLISH_OUTPUTS["B6"]},
+    "B7": {"d": 1e-9}, "B8": {"Fx": 1e-9},
+    "B9": {"lx": 1e-9, "lxx32": 1e-5, "l32": 1e-5}}
+GATES["mixed"]["B5_al"] = GATES["mixed"]["B5"]
 
 
 def rel_err(a, b):
@@ -97,3 +122,87 @@ def compare(s, **kw):
                      "max_abs": max((x - y).abs().max().item() for x, y in zip(a, b)),
                      "per_output": per}
     return out
+
+
+def polish_inputs(solver, dyn, cost, q0s, xi0s, us0, luu_al=False, seed=0):
+    """A real polish iterate in lane layout: the handoff of ``solver``'s f32
+    phase (a `MixedDFPipelineSolver`) promoted to fp64, its dynamics
+    evaluations and linearization, lu, the terminal carry and the gains of
+    its backward pass (plain versions), i.e. every input B5-B9 take.  With
+    ``luu_al``, also a positive (N, nu, B) f32 AL diagonal for Q_uu, drawn
+    from ``seed``."""
+    qR, qp, xi, us = (x.double() for x in
+                      solver._solve_f32(dyn, cost, q0s, xi0s, us0))
+    consts, refs, consts32 = solver._df_setup(dyn, cost, us.device)
+    kw = dict(dt=solver.dt, gravity=solver.gravity)
+    evals = DM.dyn_evals_mx(qR, qp, xi, us, consts, **kw)
+    lin = DM.linearize_tail_mx_plain(qR, qp, xi, evals, refs, consts,
+                                     exact_grav=solver.exact_grav, **kw)
+    s = dict(qR=qR, qp=qp, xi=xi, us=us, evals=evals, lin=lin, refs=refs,
+             consts=consts, consts32=consts32,
+             lu=2.0 * torch.einsum("ij,nj...->ni...", consts["R"], us).contiguous())
+    s["VxN"], s["VxxN"] = solver._terminal(qR, qp, xi, refs, consts, consts32)
+    s["k"], s["K"], _ = DM.backward_mx_plain(
+        lin, s["lu"], s["VxN"], s["VxxN"], consts, consts32, glow=solver.gravity)
+    if luu_al:
+        diag = np.random.default_rng(seed).uniform(0.5, 2.0, tuple(us.shape))
+        s["luu_al"] = torch.as_tensor(diag, dtype=torch.float32, device=us.device)
+    return s
+
+
+def polish_calls(s, solver):
+    """{kernel: (kernel_call, plain_call)} for B5, B6 and the tail (B7-B9)
+    on the inputs ``s`` of `polish_inputs`; "B5_al" only when ``s`` holds
+    ``luu_al``."""
+    kw = dict(dt=solver.dt, gravity=solver.gravity)
+    bargs = (s["lin"], s["lu"], s["VxN"], s["VxxN"], s["consts"], s["consts32"])
+    rargs = (s["qR"], s["qp"], s["xi"], s["us"], s["k"], s["K"], s["lin"],
+             s["consts"])
+    targs = (s["qR"], s["qp"], s["xi"], s["evals"], s["refs"], s["consts"])
+    tkw = dict(exact_grav=solver.exact_grav, **kw)
+    out = {
+        "B5": (lambda: DM.backward_mx_lane(*bargs, glow=solver.gravity),
+               lambda: DM.backward_mx_plain(*bargs, glow=solver.gravity)),
+        "B6": (lambda: DM.rollout_mx_lane(*rargs, **kw),
+               lambda: DM.rollout_mx_plain(*rargs, **kw)),
+        "tail": (lambda: DM.linearize_tail_mx_lane(*targs, **tkw),
+                 lambda: DM.linearize_tail_mx_plain(*targs, **tkw)),
+    }
+    if s.get("luu_al") is not None:
+        al = s["luu_al"]
+        out["B5_al"] = (
+            lambda: DM.backward_mx_lane(*bargs, glow=solver.gravity, luu_al=al),
+            lambda: DM.backward_mx_plain(*bargs, glow=solver.gravity, luu_al=al))
+    return out
+
+
+def _leaves(x):
+    return [y for z in x for y in _leaves(z)] if isinstance(x, tuple) else [x]
+
+
+def _named(out, names):
+    """A kernel's outputs as {name: tensor}: a dict by key, a (nested) tuple
+    in order."""
+    if isinstance(out, dict):
+        return {n: out[n] for n in names}
+    return dict(zip(names, _leaves(out), strict=True))
+
+
+def polish_compare(s, solver):
+    """{kernel: {"max_rel", "max_abs", "per_output": {output: rel error}}}
+    for B5 (and B5_al), B6, B7, B8 and B9, each pair of `polish_calls` run
+    once (B7-B9 share the tail's run)."""
+    per, absd = {}, {}
+    for name, (kern, plain) in polish_calls(s, solver).items():
+        names = POLISH_OUTPUTS[name]
+        a, b = _named(kern(), names), _named(plain(), names)
+        per[name] = {n: rel_err(a[n], b[n]) for n in names}
+        absd[name] = {n: (a[n].double() - b[n].double()).abs().max().item()
+                      for n in names}
+    for name, outs in TAIL.items():
+        per[name] = {n: per["tail"][n] for n in outs}
+        absd[name] = {n: absd["tail"][n] for n in outs}
+    del per["tail"], absd["tail"]
+    return {name: {"max_rel": max(per[name].values()),
+                   "max_abs": max(absd[name].values()),
+                   "per_output": per[name]} for name in per}

@@ -81,23 +81,38 @@ def stage_jacobian(R, xi, Jl, Jil, mg, *, dt, gravity, exact_grav):
     return ll.blk(J_q_q, J_q_xi, J_xi_q, eye6 + H * dt)
 
 
+def cost_gradient(R, p, xi, RbiR, Rbip, Adb, xib, W1, W2):
+    """The GN tracking cost's residuals and gradient: e = Log(q q_ref^-1),
+    ev = xi - xi_ref, J_e_x = Jr^-1(e) Ad_ref, W1 e, W2 ev and
+    lx = [2 J_e_x^T W1 e; 2 W2 ev].  Returns (e, ev, Jex, W1e, W2ev, lx)."""
+    Reb, peb = ll.se3_compose(R, p, RbiR, Rbip)
+    e = ll.se3_log(Reb, peb)
+    ev = xi - xib
+    Jex = ll.matmul(ll.se3_right_jacobian_inv(e), Adb)
+    W1e = ll.matvec(W1, e)
+    W2ev = ll.matvec(W2, ev)
+    lx = torch.cat([ll.matvec(2.0 * ll.transpose(Jex), W1e), 2.0 * W2ev], dim=0)
+    return e, ev, Jex, W1e, W2ev, lx
+
+
+def gn_hessian(e, ev, Jex, W1e, W2ev, W1, W2):
+    """The GN Hessian lxx = blk(2 J_e_x^T W1 J_e_x, 0, 0, 2 W2) and the
+    value l = e W1 e + ev W2 ev from `cost_gradient`'s terms."""
+    H_e = ll.matmul(ll.matmul(2.0 * ll.transpose(Jex), W1), Jex)
+    Z = torch.zeros_like(H_e)
+    lxx = ll.blk(H_e, Z, Z, _bc(2.0 * W2, H_e))
+    l_val = (e * W1e).sum(0) + (ev * W2ev).sum(0)
+    return lxx, l_val
+
+
 def stage_cost_quad(R, p, xi, RbiR, Rbip, Adb, xib, W1, W2):
     """GN tracking quadratization: e = Log(q q_ref^-1),
     J_e_x = Jr^-1(e) Ad_ref.  Returns (lx (12, *b), lxx (12, 12, *b),
     l (*b)); with the terminal weights (P1, P2) it is the terminal
     quadratization."""
-    Reb, peb = ll.se3_compose(R, p, RbiR, Rbip)
-    e = ll.se3_log(Reb, peb)
-    ev = xi - xib
-    Jex = ll.matmul(ll.se3_right_jacobian_inv(e), Adb)
-    JT2 = 2.0 * ll.transpose(Jex)
-    W1e = ll.matvec(W1, e)
-    W2ev = ll.matvec(W2, ev)
-    lx = torch.cat([ll.matvec(JT2, W1e), 2.0 * W2ev], dim=0)
-    H_e = ll.matmul(ll.matmul(JT2, W1), Jex)
-    Z = torch.zeros_like(H_e)
-    lxx = ll.blk(H_e, Z, Z, _bc(2.0 * W2, H_e))
-    l_val = (e * W1e).sum(0) + (ev * W2ev).sum(0)
+    e, ev, Jex, W1e, W2ev, lx = cost_gradient(R, p, xi, RbiR, Rbip, Adb, xib,
+                                              W1, W2)
+    lxx, l_val = gn_hessian(e, ev, Jex, W1e, W2ev, W1, W2)
     return lx, lxx, l_val
 
 

@@ -76,33 +76,26 @@ def chol_solve_lane(L, Bm, nu):
     return torch.stack(X)
 
 
-def riccati_stage(fx, dd, lx_t, lu_t, lxx_t, fu2, fu2T, Luu, Vx, Vxx,
-                  *, nu, glow, half=6, luual_t=None):
-    """One defect-aware Riccati step on lane values, with the block
-    structure Fu = [0; fu2], Lux = 0 and Fx = [[A, Bb], [C, D]] (C = 0
-    unless ``glow``, the gravity J_xi_q block).  ``Luu`` (nu, nu, 1) is
-    constant; ``luual_t`` (nu, *b) adds the AL diagonal to Quu.
-    Returns (k, K, Qu, Vx_new, Vxx_new)."""
+def hessian_chain(fx, Vxx, lxx_t, fu2, fu2T, Luu, *, nu, glow, half=6,
+                  luual_t=None):
+    """The value-Hessian (preconditioner) part of a Riccati step, with the
+    block structure Fu = [0; fu2], Lux = 0 and Fx = [[A, Bb], [C, D]] (C = 0
+    unless ``glow``, the gravity J_xi_q block): Q_xx, Q_ux, Q_uu (``Luu``
+    (nu, nu, 1) constant, ``luual_t`` (nu, *b) an AL diagonal added to it),
+    the Cholesky factor L of Q_uu and K = -Q_uu^-1 Q_ux.
+    Returns (Qxx, Qux, Quu, L, K)."""
     h = half
     A, Bb, D = fx[:h, :h], fx[:h, h:], fx[h:, h:]
     AT, BbT, DT = ll.transpose(A), ll.transpose(Bb), ll.transpose(D)
-
-    Vmod = Vx + ll.matvec(Vxx, dd)
-    Qx_top = ll.matvec(AT, Vmod[:h])
-    Qx_bot = ll.matvec(BbT, Vmod[:h]) + ll.matvec(DT, Vmod[h:])
     VF_l = ll.matmul(Vxx[:, :h], A)
     VF_r = ll.matmul(Vxx[:, :h], Bb) + ll.matmul(Vxx[:, h:], D)
     if glow:
         C = fx[h:, :h]
-        CT = ll.transpose(C)
-        Qx_top = Qx_top + ll.matvec(CT, Vmod[h:])
         VF_l = VF_l + ll.matmul(Vxx[:, h:], C)
-    Qx = lx_t + torch.cat([Qx_top, Qx_bot], dim=0)
-    Qu = lu_t + ll.matvec(fu2T, Vmod[h:])
     VF = torch.cat([VF_l, VF_r], dim=1)
     Qxx_top = ll.matmul(AT, VF[:h])
     if glow:
-        Qxx_top = Qxx_top + ll.matmul(CT, VF[h:])
+        Qxx_top = Qxx_top + ll.matmul(ll.transpose(C), VF[h:])
     Qxx_bot = ll.matmul(BbT, VF[:h]) + ll.matmul(DT, VF[h:])
     Qxx = lxx_t + torch.cat([Qxx_top, Qxx_bot], dim=0)
     Qux = ll.matmul(fu2T, VF[h:])                       # Lux = 0
@@ -110,21 +103,53 @@ def riccati_stage(fx, dd, lx_t, lu_t, lxx_t, fu2, fu2T, Luu, Vx, Vxx,
     if luual_t is not None:
         eye = torch.eye(nu, dtype=Quu.dtype, device=Quu.device)
         Quu = Quu + eye.reshape((nu, nu) + (1,) * (Quu.dim() - 2)) * luual_t[:, None]
-
     L = chol_factor_lane(Quu, nu)
     K = -chol_solve_lane(L, Qux, nu)
-    k = -chol_solve_lane(L, Qu[:, None], nu)[:, 0]
+    return Qxx, Qux, Quu, L, K
 
+
+def adjoint_chain(fx, Vmod, lx_t, lu_t, fu2T, *, glow, half=6):
+    """The gradient (residual) part of a Riccati step: Qx = lx + Fx^T Vmod,
+    Qu = lu + fu2^T Vmod[h:], with Vmod = V_x + V_xx d.  Returns (Qx, Qu)."""
+    h = half
+    Qx_top = ll.matvec(ll.transpose(fx[:h, :h]), Vmod[:h])
+    Qx_bot = (ll.matvec(ll.transpose(fx[:h, h:]), Vmod[:h])
+              + ll.matvec(ll.transpose(fx[h:, h:]), Vmod[h:]))
+    if glow:
+        Qx_top = Qx_top + ll.matvec(ll.transpose(fx[h:, :h]), Vmod[h:])
+    Qx = lx_t + torch.cat([Qx_top, Qx_bot], dim=0)
+    Qu = lu_t + ll.matvec(fu2T, Vmod[h:])
+    return Qx, Qu
+
+
+def value_update(K, k, Qu, Qxx, Qux, Quu):
+    """The V_x correction terms (K^T Q_uu k, K^T Q_u, Q_ux^T k) and the
+    symmetrized V_xx of a Riccati step.  KT Qux + QuxT K = M + M^T, so one
+    product and the symmetrized (Qxx + KTQuu K) give V_xx."""
     KT = ll.transpose(K)
     KTQuu = ll.matmul(KT, Quu)
-    Vx_new = (Qx + ll.matvec(KTQuu, k) + ll.matvec(KT, Qu)
-              + ll.matvec(ll.transpose(Qux), k))
-    # KT Qux + QuxT K = M + M^T, so one product and the symmetrized
-    # (Qxx + KTQuu K) give the symmetrized V_xx
+    terms = (ll.matvec(KTQuu, k), ll.matvec(KT, Qu),
+             ll.matvec(ll.transpose(Qux), k))
     M = ll.matmul(KT, Qux)
     S = Qxx + ll.matmul(KTQuu, K)
     Vxx_new = 0.5 * (S + ll.transpose(S)) + M + ll.transpose(M)
-    return k, K, Qu, Vx_new, Vxx_new
+    return terms, Vxx_new
+
+
+def riccati_stage(fx, dd, lx_t, lu_t, lxx_t, fu2, fu2T, Luu, Vx, Vxx,
+                  *, nu, glow, half=6, luual_t=None):
+    """One defect-aware Riccati step on lane values, with the block
+    structure Fu = [0; fu2], Lux = 0 and Fx = [[A, Bb], [C, D]] (C = 0
+    unless ``glow``, the gravity J_xi_q block).  ``Luu`` (nu, nu, 1) is
+    constant; ``luual_t`` (nu, *b) adds the AL diagonal to Quu.
+    Returns (k, K, Qu, Vx_new, Vxx_new)."""
+    Vmod = Vx + ll.matvec(Vxx, dd)
+    Qx, Qu = adjoint_chain(fx, Vmod, lx_t, lu_t, fu2T, glow=glow, half=half)
+    Qxx, Qux, Quu, L, K = hessian_chain(fx, Vxx, lxx_t, fu2, fu2T, Luu, nu=nu,
+                                        glow=glow, half=half, luual_t=luual_t)
+    k = -chol_solve_lane(L, Qu[:, None], nu)[:, 0]
+    (c1, c2, c3), Vxx_new = value_update(K, k, Qu, Qxx, Qux, Quu)
+    return k, K, Qu, Qx + c1 + c2 + c3, Vxx_new
 
 
 def backward_plain(lin, lu, qR, qp, xi, refs, consts, *, glow, luu_al=None):
@@ -211,17 +236,19 @@ backward_lane.launches = 0
 
 # -- rollout ------------------------------------------------------------------
 
-def rollout_stage(R_new, p_new, xi_new, qR_t, qp_t, qRn_t, qpn_t, xi_t,
-                  xin_t, u_t, k_t, K_t, d_t, fqR_t, fqp_t, fxi_t,
-                  Jl, Jil, Pu, mg, *, dt, gravity):
-    """One gap-closing rollout step on lane values: feedback on the
-    tangent-space deviation from the nominal, then the group composition
-    x+ = x_next Exp(d) f(xbar)^-1 f(x_new).
-    Returns (R_nn, p_nn, xi_nn, u_new, fqR_n, fqp_n, fxi_new)."""
+def deviation(R_new, p_new, xi_new, qR_t, qp_t, xi_t):
+    """xs_err = [Log((qR_t, qp_t)^-1 (R_new, p_new)); xi_new - xi_t]: the
+    tangent-space deviation of the new state from the nominal."""
     Ri_inv, pi_inv = ll.se3_inverse(qR_t, qp_t)
     Re, pe = ll.se3_compose(Ri_inv, pi_inv, R_new, p_new)
-    xs_err = torch.cat([ll.se3_log(Re, pe), xi_new - xi_t], dim=0)
-    u_new = u_t + k_t + ll.matvec(K_t, xs_err)
+    return torch.cat([ll.se3_log(Re, pe), xi_new - xi_t], dim=0)
+
+
+def gap_close(R_new, p_new, xi_new, u_new, qRn_t, qpn_t, xin_t, d_t, fqR_t,
+              fqp_t, fxi_t, Jl, Jil, Pu, mg, *, dt, gravity):
+    """The dynamics evaluation f(x_new, u_new) and the gap-closing step
+    x+ = x_next Exp(d) f(xbar)^-1 f(x_new).
+    Returns (R_nn, p_nn, xi_nn, fqR_n, fqp_n, fxi_new)."""
     fqR_n, fqp_n, fxi_new = stage_dynamics_eval(
         R_new, p_new, xi_new, u_new, Jl, Jil, Pu, mg, dt=dt, gravity=gravity)
     edR, edp = ll.se3_exp(d_t[:6])
@@ -231,6 +258,21 @@ def rollout_stage(R_new, p_new, xi_new, qR_t, qp_t, qRn_t, qpn_t, xi_t,
     R_nn, p_nn = ll.se3_compose(R_b, p_b, fqR_n, fqp_n)
     R_nn = ll.so3_normalize(R_nn)
     xi_nn = xin_t + fxi_new - fxi_t + d_t[6:]
+    return R_nn, p_nn, xi_nn, fqR_n, fqp_n, fxi_new
+
+
+def rollout_stage(R_new, p_new, xi_new, qR_t, qp_t, qRn_t, qpn_t, xi_t,
+                  xin_t, u_t, k_t, K_t, d_t, fqR_t, fqp_t, fxi_t,
+                  Jl, Jil, Pu, mg, *, dt, gravity):
+    """One gap-closing rollout step on lane values: feedback on the
+    tangent-space deviation from the nominal, then the group composition
+    x+ = x_next Exp(d) f(xbar)^-1 f(x_new).
+    Returns (R_nn, p_nn, xi_nn, u_new, fqR_n, fqp_n, fxi_new)."""
+    xs_err = deviation(R_new, p_new, xi_new, qR_t, qp_t, xi_t)
+    u_new = u_t + k_t + ll.matvec(K_t, xs_err)
+    R_nn, p_nn, xi_nn, fqR_n, fqp_n, fxi_new = gap_close(
+        R_new, p_new, xi_new, u_new, qRn_t, qpn_t, xin_t, d_t, fqR_t, fqp_t,
+        fxi_t, Jl, Jil, Pu, mg, dt=dt, gravity=gravity)
     return R_nn, p_nn, xi_nn, u_new, fqR_n, fqp_n, fxi_new
 
 
