@@ -1,4 +1,4 @@
-"""The port's CUDA kernels B1-B9 against their plain versions on the card.
+"""The port's CUDA kernels B1-B12 against their plain versions on the card.
 
 Marked ``cuda``; each test skips without a CUDA device (the kernels are
 built by nvcc at first use and run only on the card).  This file imports no
@@ -17,15 +17,19 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
     kernel_inputs,
     polish_compare,
     polish_inputs,
+    so3_compare,
+    so3_inputs,
 )
 from trajectory_optimization_matrix_lie_groups_tpu_torch.models.dynamics import (
     drone_params,
 )
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
+from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline_so3 as S
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.df_pipeline import (
     join_us,
 )
+from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import so3_bench
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (
     build_screw200,
     screw_batch,
@@ -134,3 +138,37 @@ def test_polish_solve_matches_plain_solve(cuda, fx_mode):
     ref = mk(True).solve(dyn, cost, q0s, xi0s, us0)
     torch.testing.assert_close(join_us(out), join_us(ref), rtol=0, atol=1e-5)
     torch.testing.assert_close(out.J_opt, ref.J_opt, rtol=1e-6, atol=0)
+
+
+def _so3_problem(pendulum, dtype, device, B_, H_=H):
+    build = (so3_bench.build_pendulum_swingup80 if pendulum
+             else so3_bench.build_so3_track249)
+    dyn, cost, q0, xi0 = build(dtype, device, horizon=H_)
+    q0s, xi0s = so3_bench.so3_batch(q0, xi0, B_, seed=1)
+    return dyn, cost, q0s, xi0s, torch.zeros((B_, H_, 3), dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("pendulum", [False, True], ids=["free_attitude", "pendulum"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_so3_kernels_match_plain(cuda, dtype, pendulum):
+    """B10-B12 on a real SO(3) iterate (2 iterations), within
+    kernel_check.GATES["so3"]."""
+    dyn, cost, q0s, xi0s, us0 = _so3_problem(pendulum, dtype, cuda, B)
+    solver = S.SO3PipelineSolver(H, 2, float(dyn.dt), pendulum=pendulum)
+    errs = so3_compare(so3_inputs(solver, dyn, cost, q0s, xi0s, us0),
+                       dt=solver.dt, pendulum=pendulum)
+    torch.cuda.synchronize()
+    for name, e in errs.items():
+        assert e["max_rel"] <= GATES["so3"][dtype][name], (name, e["per_output"])
+
+
+@pytest.mark.parametrize("pendulum", [False, True], ids=["free_attitude", "pendulum"])
+def test_so3_kernel_solve_matches_plain_solve(cuda, pendulum):
+    """A kernel solve against the plain solve on the card, f64, B = 64."""
+    dyn, cost, q0s, xi0s, us0 = _so3_problem(pendulum, torch.float64, cuda, 64)
+    mk = lambda plain: S.SO3PipelineSolver(H, 4, float(dyn.dt), pendulum=pendulum,
+                                           plain=plain)
+    out = mk(False).solve(dyn, cost, q0s, xi0s, us0)
+    ref = mk(True).solve(dyn, cost, q0s, xi0s, us0)
+    torch.testing.assert_close(out.us, ref.us, rtol=0, atol=1e-10)
+    torch.testing.assert_close(out.J_opt, ref.J_opt, rtol=1e-12, atol=0)

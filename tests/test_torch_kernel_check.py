@@ -15,16 +15,23 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
     GATES,
     OUTPUTS,
     POLISH_OUTPUTS,
+    SO3_OUTPUTS,
     TAIL,
+    bound_ms,
     calls,
     compare,
     kernel_inputs,
     polish_calls,
     polish_compare,
     polish_inputs,
+    so3_compare,
+    so3_inputs,
+    work,
 )
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
+from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline_so3 as S
+from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import so3_bench
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (
     build_screw200,
     screw_batch,
@@ -53,12 +60,14 @@ ptxas info    : Function properties for __internal_trig_reduction_slowpathd
 
 
 def test_each_unit_is_built_once_per_scalar_and_the_polish_once():
-    """linearize and pipeline are built for f32 and f64; the mixed-precision
-    polish unit once, under its own suffix, with no scalar macro; every
-    library is named {unit}_{suffix}_{hash}.so in the build directory."""
+    """linearize, pipeline and so3 are built for f32 and f64; the
+    mixed-precision polish unit once, under its own suffix, with no scalar
+    macro; every library is named {unit}_{suffix}_{hash}.so in the build
+    directory."""
     assert _build.LIBS == (("linearize", "f32", "float"), ("linearize", "f64", "double"),
                            ("pipeline", "f32", "float"), ("pipeline", "f64", "double"),
-                           ("polish", "mx", None))
+                           ("polish", "mx", None), ("so3", "f32", "float"),
+                           ("so3", "f64", "double"))
     for unit, sfx, _ in _build.LIBS:
         path = _build._lib_path(unit, sfx)
         assert path.parent == _build.BUILD_DIR
@@ -82,7 +91,7 @@ H, B = 6, 3
 
 @pytest.fixture(scope="module")
 def inputs():
-    dyn, cost, q0, xi0 = build_screw200(torch.float64, horizon=H)
+    dyn, cost, q0, xi0 = build_screw200(torch.float64, device="cpu", horizon=H)
     q0s, xi0s = screw_batch(q0, xi0, B, seed=3)
     solver = P.PipelineSolver(H, 1, float(dyn.dt))
     us0 = torch.zeros((B, H, 6), dtype=torch.float64)
@@ -110,7 +119,7 @@ def test_al_diagonal_reaches_the_backward_pass(inputs):
 
 @pytest.fixture(scope="module")
 def polish_case():
-    dyn, cost, q0, xi0 = build_screw200(torch.float64, horizon=H)
+    dyn, cost, q0, xi0 = build_screw200(torch.float64, device="cpu", horizon=H)
     q0s, xi0s = screw_batch(q0, xi0, B, seed=3)
     solver = DM.MixedDFPipelineSolver(H, float(dyn.dt), 2, 1)
     us0 = torch.zeros((B, H, 6), dtype=torch.float64)
@@ -138,3 +147,40 @@ def test_polish_inputs_are_a_real_iterate(polish_case):
     k_al, K_al, _ = pairs["B5_al"][1]()
     assert (k - k_al).abs().max() > 1e-3 * k.abs().max()
     assert (K - K_al).abs().max() > 1e-3 * K.abs().max()
+
+
+@pytest.mark.parametrize("pendulum", [False, True], ids=["free_attitude", "pendulum"])
+def test_so3_compare_on_cpu_is_exact_and_covers_every_output(pendulum):
+    """B10-B12's wiring: on CPU tensors each wrapper takes its plain
+    version, so kernel and plain agree exactly, on every output."""
+    build = (so3_bench.build_pendulum_swingup80 if pendulum
+             else so3_bench.build_so3_track249)
+    dyn, cost, q0, xi0 = build(torch.float64, device="cpu", horizon=H)
+    q0s, xi0s = so3_bench.so3_batch(q0, xi0, B, seed=3)
+    solver = S.SO3PipelineSolver(H, 1, float(dyn.dt), pendulum=pendulum)
+    s = so3_inputs(solver, dyn, cost, q0s, xi0s,
+                   torch.zeros((B, H, 3), dtype=torch.float64))
+    errs = so3_compare(s, dt=solver.dt, pendulum=pendulum)
+    assert set(errs) == {"B10", "B11", "B12"} == set(GATES["so3"][torch.float64])
+    for name, e in errs.items():
+        assert set(e["per_output"]) == set(SO3_OUTPUTS[name])
+        assert e["max_rel"] == 0.0 and e["max_abs"] == 0.0, name
+
+
+def test_work_counts_each_input_byte_once_and_the_arithmetic():
+    """`work`: a strided read counts the span it touches once, a made
+    intermediate is not read from outside, the output is written once; a
+    batched 3x3 product counts 2 m n k per entry, elementwise ops one per
+    element, by dtype; `bound_ms` takes the larger of the two times."""
+    A = torch.randn(3, 3, 10)
+    v = torch.randn(3, 10, dtype=torch.float64)
+    wk = work(lambda: torch.einsum("ik...,kj...->ij...", A[:, :, :5], A[:, :, :5]) * 2.0)
+    assert wk["bytes"] == (2 * 30 + 2 * 10 + 4 + 1) * 4 + 45 * 4
+    assert wk["ops"] == {torch.float32: 2 * 27 * 5 + 45}
+    wk = work(lambda: (v + v).sum(0))
+    assert wk["bytes"] == 30 * 8 + 10 * 8
+    assert wk["ops"] == {torch.float64: 30 + 30}
+    ms, by = bound_ms({"bytes": 3.35e9, "ops": {torch.float64: 68e9}})
+    assert by == "operations" and abs(ms - 2.0) < 1e-12
+    ms, by = bound_ms({"bytes": 6.7e9, "ops": {torch.float32: 67e9}})
+    assert by == "bytes" and abs(ms - 2.0) < 1e-12

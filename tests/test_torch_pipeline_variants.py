@@ -32,7 +32,7 @@ def test_screw200_f64_solve_reaches_the_golden():
     """Lane 0 of the plain f64 solve (13 iterations, as the golden's JAX
     f64 run) against the committed golden: controls to 1e-6, J to 1e-9."""
     us_gold, meta = load_screw200_golden()
-    dyn, cost, q0, xi0 = build_screw200(torch.float64)
+    dyn, cost, q0, xi0 = build_screw200(torch.float64, device="cpu")
     out = PipelineSolver(200, meta["iterations_f64"], float(dyn.dt)).solve(
         dyn, cost, q0[None], xi0[None], torch.zeros((1, 200, 6), dtype=torch.float64))
     assert np.abs(out.us[0].numpy() - us_gold).max() <= 1e-6

@@ -25,7 +25,7 @@ def _oracle_case(al=False, reference=True):
     test_df_mixed_hits_f64_fixed_point sizes), and (``reference``) the
     port's f64 `PipelineSolver` run to convergence on it."""
     Hs, Bs, nu = 30, 3, 6
-    dyn, cost, q0, xi0 = build_screw200(torch.float64, horizon=Hs)
+    dyn, cost, q0, xi0 = build_screw200(torch.float64, device="cpu", horizon=Hs)
     q0s, xi0s = screw_batch(q0, xi0, Bs, seed=5)
     us0 = torch.zeros((Bs, Hs, nu), dtype=torch.float64)
     al_arg = None

@@ -26,7 +26,8 @@ def test_port_has_the_slice_modules():
     for m in ("ops.so3", "ops.se3", "ops.group", "ops.lane_lie", "ops.linearize",
               "models.dynamics", "models.costs", "utils.trajectories",
               "tasks.al_bench", "solvers.pipeline", "solvers.df_pipeline",
-              "solvers.df_mixed", "kernel_check", "convert", "_build"):
+              "solvers.df_mixed", "solvers.pipeline_so3", "tasks.so3_bench",
+              "kernel_check", "convert", "_build"):
         assert f"{port.__name__}.{m}" in mods, m
 
 

@@ -13,20 +13,24 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.models.costs import (
     TrackingCostParams,
 )
 from trajectory_optimization_matrix_lie_groups_tpu_torch.models.dynamics import (
+    Pendulum3dParams,
     RigidBodyParams,
     SE3Params,
+    SO3Params,
 )
 
 _FLAGS = ("ref_coad_swap", "exact_gravity_jacobian")
 
 
 def dyn_from_numpy(fields, device=None, dtype=torch.float64):
-    """`SE3Params` or, where the fields carry ``g`` and ``Pu``,
-    `RigidBodyParams`."""
+    """The port's container of the JAX dynamics params whose fields these
+    are: `RigidBodyParams` (fields with ``Pu``), `SE3Params` (``Ib``),
+    `Pendulum3dParams` (``l``) or `SO3Params` (J, Jinv, dt)."""
     kw = {k: (bool(np.asarray(v)) if k in _FLAGS else
               torch.as_tensor(np.array(v), dtype=dtype, device=device))
           for k, v in fields.items()}
-    cls = RigidBodyParams if "Pu" in kw else SE3Params
+    cls = (RigidBodyParams if "Pu" in kw else SE3Params if "Ib" in kw
+           else Pendulum3dParams if "l" in kw else SO3Params)
     return cls(**kw)
 
 

@@ -52,7 +52,7 @@ __global__ void __launch_bounds__(kThreads) riccati_mx_kernel(RiccatiMxArgs a) {
   for (int t = N - 1; t >= 0; --t) {
     Lane<const float> al;
     if (a.luual) al = lane<NU>(a.luual, t, B, b);
-    riccati_stage<float, double, NU>(
+    riccati_stage<float, double, NU, 6>(
         Vx, V, lane<144>(a.Fx, t, B, b), lane<12>(a.d, t, B, b),
         lane<12>(a.lx, t, B, b), lane<NU>(a.lu, t, B, b),
         lane<144>(a.lxx, t, B, b), a.luual ? &al : nullptr, a.fu2, a.fu2_32,

@@ -267,17 +267,20 @@ __device__ __forceinline__ Tp stage_cost_quad(
 
 // Defect-aware Riccati step (solvers/pipeline.py riccati_stage) with the
 // block structure Fu = [0; fu2], Lux = 0, Fx = [[A, Bb], [C, D]], C = 0
-// unless glow.  (Vx, V) hold V_x, V_xx of stage t+1 on entry and of stage t
-// on exit; V is reused in place for V F and then Q_xx.  The nu x nu
-// Cholesky stores its diagonal as 1 / sqrt(pivot).
+// unless glow, on a state of 2 H entries (pose half H: 6 for SE(3), 3 for
+// SO(3)).  (Vx, V) hold V_x, V_xx of stage t+1 on entry and of stage t on
+// exit; V is reused in place for V F and then Q_xx.  The nu x nu Cholesky
+// stores its diagonal as 1 / sqrt(pivot).
 //
 // Two scalar types.  Tr carries the residual (adjoint) chain: Fx, d, lx,
 // lu, V_x, Q_x, Q_u = gvec.  Tp carries the preconditioner: V_xx, Q_xx, Q_ux,
 // Q_uu, the Cholesky, the gains and the vanishing V_x corrections, from the
-// Tp roundings of Fx, d and Q_u.  The f32 pipeline (B2) runs <T, T>; the
-// mixed polish (B5, solvers/df_mixed.py riccati_stage_mx) <float, double>.
-// fu2 is given in both types (fu2r: Tr, fu2: Tp).
-template <typename Tp, typename Tr, int NU>
+// Tp roundings of Fx, d and Q_u.  The f32 pipeline (B2) runs <T, T, nu, 6>;
+// the mixed polish (B5, solvers/df_mixed.py riccati_stage_mx)
+// <float, double, nu, 6>; the SO(3) pipeline (B11) <T, T, 3, 3>.  fu2
+// (H x nu, row-major) is given in both types (fu2r: Tr, fu2: Tp), constant
+// (B2, B5) or loaded by the caller for each stage (B11).
+template <typename Tp, typename Tr, int NU, int H>
 __device__ __forceinline__ void riccati_stage(
     Tr* Vx, Tp* V, const Lane<const Tr>& Fxl, const Lane<const Tr>& ddl,
     const Lane<const Tr>& lxl, const Lane<const Tr>& lul,
@@ -285,31 +288,32 @@ __device__ __forceinline__ void riccati_stage(
     const Tp* fu2, const Tp* Luu, bool glow, const Lane<Tp>& k_out,
     const Lane<Tp>& K_out, const Lane<Tr>& g_out) {
   constexpr bool kMixed = !std::is_same<Tp, Tr>::value;
-  Tr F[144];
-  load<144>(F, Fxl);
-  Tr Vmod[12];
+  constexpr int NX = 2 * H;
+  Tr F[NX * NX];
+  load<NX * NX>(F, Fxl);
+  Tr Vmod[NX];
   {
-    Tr dd[12];
-    load<12>(dd, ddl);
+    Tr dd[NX];
+    load<NX>(dd, ddl);
 #pragma unroll
-    for (int i = 0; i < 12; ++i) {
-      Tp s = V[i * 12] * Tp(dd[0]);
+    for (int i = 0; i < NX; ++i) {
+      Tp s = V[i * NX] * Tp(dd[0]);
 #pragma unroll
-      for (int j = 1; j < 12; ++j) s += V[i * 12 + j] * Tp(dd[j]);
+      for (int j = 1; j < NX; ++j) s += V[i * NX + j] * Tp(dd[j]);
       Vmod[i] = Vx[i] + Tr(s);
     }
   }
-  // Quu = Luu + fu2^T (V[6:, 6:] fu2) [+ diag(luual)]
+  // Quu = Luu + fu2^T (V[H:, H:] fu2) [+ diag(luual)]
   Tp Quu[NU * NU];
   {
-    Tp tmp[6 * NU];
+    Tp tmp[H * NU];
 #pragma unroll
-    for (int i = 0; i < 6; ++i)
+    for (int i = 0; i < H; ++i)
 #pragma unroll
       for (int a = 0; a < NU; ++a) {
-        Tp s = V[(6 + i) * 12 + 6] * fu2[a];
+        Tp s = V[(H + i) * NX + H] * fu2[a];
 #pragma unroll
-        for (int k = 1; k < 6; ++k) s += V[(6 + i) * 12 + 6 + k] * fu2[k * NU + a];
+        for (int k = 1; k < H; ++k) s += V[(H + i) * NX + H + k] * fu2[k * NU + a];
         tmp[i * NU + a] = s;
       }
 #pragma unroll
@@ -318,7 +322,7 @@ __device__ __forceinline__ void riccati_stage(
       for (int b2 = 0; b2 < NU; ++b2) {
         Tp s = fu2[a] * tmp[b2];
 #pragma unroll
-        for (int k = 1; k < 6; ++k) s += fu2[k * NU + a] * tmp[k * NU + b2];
+        for (int k = 1; k < H; ++k) s += fu2[k * NU + a] * tmp[k * NU + b2];
         Quu[a * NU + b2] = Luu[a * NU + b2] + s;
       }
     if (luual) {
@@ -328,88 +332,88 @@ __device__ __forceinline__ void riccati_stage(
   }
   // V <- V F  (row by row; F = [[A, Bb], [C, D]])
 #pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    Tp row[12];
+  for (int i = 0; i < NX; ++i) {
+    Tp row[NX];
 #pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      Tp s = V[i * 12] * Tp(F[j]);
+    for (int j = 0; j < H; ++j) {
+      Tp s = V[i * NX] * Tp(F[j]);
 #pragma unroll
-      for (int k = 1; k < 6; ++k) s += V[i * 12 + k] * Tp(F[k * 12 + j]);
+      for (int k = 1; k < H; ++k) s += V[i * NX + k] * Tp(F[k * NX + j]);
       if (glow) {
 #pragma unroll
-        for (int k = 0; k < 6; ++k) s += V[i * 12 + 6 + k] * Tp(F[(6 + k) * 12 + j]);
+        for (int k = 0; k < H; ++k) s += V[i * NX + H + k] * Tp(F[(H + k) * NX + j]);
       }
       row[j] = s;
-      Tp r = V[i * 12] * Tp(F[6 + j]);
+      Tp r = V[i * NX] * Tp(F[H + j]);
 #pragma unroll
-      for (int k = 1; k < 6; ++k) r += V[i * 12 + k] * Tp(F[k * 12 + 6 + j]);
+      for (int k = 1; k < H; ++k) r += V[i * NX + k] * Tp(F[k * NX + H + j]);
 #pragma unroll
-      for (int k = 0; k < 6; ++k) r += V[i * 12 + 6 + k] * Tp(F[(6 + k) * 12 + 6 + j]);
-      row[6 + j] = r;
+      for (int k = 0; k < H; ++k) r += V[i * NX + H + k] * Tp(F[(H + k) * NX + H + j]);
+      row[H + j] = r;
     }
 #pragma unroll
-    for (int j = 0; j < 12; ++j) V[i * 12 + j] = row[j];
+    for (int j = 0; j < NX; ++j) V[i * NX + j] = row[j];
   }
-  // Qx = lx + F^T Vmod, Qu = lu + fu2^T Vmod[6:]
-  Tr Qx[12], Qu[NU];
+  // Qx = lx + F^T Vmod, Qu = lu + fu2^T Vmod[H:]
+  Tr Qx[NX], Qu[NU];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
+  for (int i = 0; i < H; ++i) {
     Tr s = F[i] * Vmod[0];
 #pragma unroll
-    for (int k = 1; k < 6; ++k) s += F[k * 12 + i] * Vmod[k];
+    for (int k = 1; k < H; ++k) s += F[k * NX + i] * Vmod[k];
     if (glow) {
 #pragma unroll
-      for (int k = 0; k < 6; ++k) s += F[(6 + k) * 12 + i] * Vmod[6 + k];
+      for (int k = 0; k < H; ++k) s += F[(H + k) * NX + i] * Vmod[H + k];
     }
-    Tr r = F[6 + i] * Vmod[0];
+    Tr r = F[H + i] * Vmod[0];
 #pragma unroll
-    for (int k = 1; k < 6; ++k) r += F[k * 12 + 6 + i] * Vmod[k];
+    for (int k = 1; k < H; ++k) r += F[k * NX + H + i] * Vmod[k];
 #pragma unroll
-    for (int k = 0; k < 6; ++k) r += F[(6 + k) * 12 + 6 + i] * Vmod[6 + k];
+    for (int k = 0; k < H; ++k) r += F[(H + k) * NX + H + i] * Vmod[H + k];
     Qx[i] = lxl[i] + s;
-    Qx[6 + i] = lxl[6 + i] + r;
+    Qx[H + i] = lxl[H + i] + r;
   }
 #pragma unroll
   for (int a = 0; a < NU; ++a) {
-    Tr s = fu2r[a] * Vmod[6];
+    Tr s = fu2r[a] * Vmod[H];
 #pragma unroll
-    for (int k = 1; k < 6; ++k) s += fu2r[k * NU + a] * Vmod[6 + k];
+    for (int k = 1; k < H; ++k) s += fu2r[k * NU + a] * Vmod[H + k];
     Qu[a] = lul[a] + s;
   }
-  // Qux = fu2^T (V F)[6:, :]   (Lux = 0)
-  Tp Qux[NU * 12];
+  // Qux = fu2^T (V F)[H:, :]   (Lux = 0)
+  Tp Qux[NU * NX];
 #pragma unroll
   for (int a = 0; a < NU; ++a)
 #pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      Tp s = fu2[a] * V[6 * 12 + j];
+    for (int j = 0; j < NX; ++j) {
+      Tp s = fu2[a] * V[H * NX + j];
 #pragma unroll
-      for (int k = 1; k < 6; ++k) s += fu2[k * NU + a] * V[(6 + k) * 12 + j];
-      Qux[a * 12 + j] = s;
+      for (int k = 1; k < H; ++k) s += fu2[k * NU + a] * V[(H + k) * NX + j];
+      Qux[a * NX + j] = s;
     }
   // V <- Qxx = lxx + F^T (V F)  (column by column)
 #pragma unroll
-  for (int j = 0; j < 12; ++j) {
-    Tp col[12];
+  for (int j = 0; j < NX; ++j) {
+    Tp col[NX];
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
+    for (int i = 0; i < H; ++i) {
       Tp s = Tp(F[i]) * V[j];
 #pragma unroll
-      for (int k = 1; k < 6; ++k) s += Tp(F[k * 12 + i]) * V[k * 12 + j];
+      for (int k = 1; k < H; ++k) s += Tp(F[k * NX + i]) * V[k * NX + j];
       if (glow) {
 #pragma unroll
-        for (int k = 0; k < 6; ++k) s += Tp(F[(6 + k) * 12 + i]) * V[(6 + k) * 12 + j];
+        for (int k = 0; k < H; ++k) s += Tp(F[(H + k) * NX + i]) * V[(H + k) * NX + j];
       }
       col[i] = s;
-      Tp r = Tp(F[6 + i]) * V[j];
+      Tp r = Tp(F[H + i]) * V[j];
 #pragma unroll
-      for (int k = 1; k < 6; ++k) r += Tp(F[k * 12 + 6 + i]) * V[k * 12 + j];
+      for (int k = 1; k < H; ++k) r += Tp(F[k * NX + H + i]) * V[k * NX + j];
 #pragma unroll
-      for (int k = 0; k < 6; ++k) r += Tp(F[(6 + k) * 12 + 6 + i]) * V[(6 + k) * 12 + j];
-      col[6 + i] = r;
+      for (int k = 0; k < H; ++k) r += Tp(F[(H + k) * NX + H + i]) * V[(H + k) * NX + j];
+      col[H + i] = r;
     }
 #pragma unroll
-    for (int i = 0; i < 12; ++i) V[i * 12 + j] = lxxl[i * 12 + j] + col[i];
+    for (int i = 0; i < NX; ++i) V[i * NX + j] = lxxl[i * NX + j] + col[i];
   }
   // Cholesky Quu = L L^T, diagonal stored as 1 / sqrt(pivot)
   Tp L[NU * NU];
@@ -428,14 +432,15 @@ __device__ __forceinline__ void riccati_stage(
       L[i2 * NU + j] = s2 * inv;
     }
   }
-  // K = -Quu^-1 Qux (column 12 is k = -Quu^-1 Qu, from Qu's Tp rounding)
-  Tp K[NU * 13];
+  // K = -Quu^-1 Qux (column NX is k = -Quu^-1 Qu, from Qu's Tp rounding)
+  constexpr int NC = NX + 1;
+  Tp K[NU * NC];
 #pragma unroll
-  for (int c = 0; c < 13; ++c) {
+  for (int c = 0; c < NC; ++c) {
     Tp Y[NU];
 #pragma unroll
     for (int i2 = 0; i2 < NU; ++i2) {
-      Tp sv = c < 12 ? Qux[i2 * 12 + c] : Tp(Qu[i2]);
+      Tp sv = c < NX ? Qux[i2 * NX + c] : Tp(Qu[i2]);
 #pragma unroll
       for (int kk = 0; kk < i2; ++kk) sv = sv - L[i2 * NU + kk] * Y[kk];
       Y[i2] = sv * L[i2 * NU + i2];
@@ -444,42 +449,42 @@ __device__ __forceinline__ void riccati_stage(
     for (int i2 = NU - 1; i2 >= 0; --i2) {
       Tp sv = Y[i2];
 #pragma unroll
-      for (int kk = i2 + 1; kk < NU; ++kk) sv = sv - L[kk * NU + i2] * K[kk * 13 + c];
-      K[i2 * 13 + c] = sv * L[i2 * NU + i2];
+      for (int kk = i2 + 1; kk < NU; ++kk) sv = sv - L[kk * NU + i2] * K[kk * NC + c];
+      K[i2 * NC + c] = sv * L[i2 * NU + i2];
     }
   }
 #pragma unroll
   for (int a = 0; a < NU; ++a)
 #pragma unroll
-    for (int c = 0; c < 13; ++c) K[a * 13 + c] = -K[a * 13 + c];
+    for (int c = 0; c < NC; ++c) K[a * NC + c] = -K[a * NC + c];
 #pragma unroll
   for (int a = 0; a < NU; ++a) {
 #pragma unroll
-    for (int j = 0; j < 12; ++j) K_out[a * 12 + j] = K[a * 13 + j];
-    k_out[a] = K[a * 13 + 12];
+    for (int j = 0; j < NX; ++j) K_out[a * NX + j] = K[a * NC + j];
+    k_out[a] = K[a * NC + NX];
     g_out[a] = Qu[a];
   }
-  // KTQuu = K^T Quu (12 x NU)
-  Tp KTQuu[12 * NU];
+  // KTQuu = K^T Quu (NX x NU)
+  Tp KTQuu[NX * NU];
 #pragma unroll
-  for (int i = 0; i < 12; ++i)
+  for (int i = 0; i < NX; ++i)
 #pragma unroll
     for (int a = 0; a < NU; ++a) {
       Tp s = K[i] * Quu[a];
 #pragma unroll
-      for (int b2 = 1; b2 < NU; ++b2) s += K[b2 * 13 + i] * Quu[b2 * NU + a];
+      for (int b2 = 1; b2 < NU; ++b2) s += K[b2 * NC + i] * Quu[b2 * NU + a];
       KTQuu[i * NU + a] = s;
     }
   // Vx = Qx + KTQuu k + K^T Qu + Qux^T k; mixed: the three corrections
   // (all proportional to k and Qu) are summed in Tp and added once
 #pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    Tp s1 = KTQuu[i * NU] * K[12], s2 = K[i] * Tp(Qu[0]), s3 = Qux[i] * K[12];
+  for (int i = 0; i < NX; ++i) {
+    Tp s1 = KTQuu[i * NU] * K[NX], s2 = K[i] * Tp(Qu[0]), s3 = Qux[i] * K[NX];
 #pragma unroll
     for (int a = 1; a < NU; ++a) {
-      s1 += KTQuu[i * NU + a] * K[a * 13 + 12];
-      s2 += K[a * 13 + i] * Tp(Qu[a]);
-      s3 += Qux[a * 12 + i] * K[a * 13 + 12];
+      s1 += KTQuu[i * NU + a] * K[a * NC + NX];
+      s2 += K[a * NC + i] * Tp(Qu[a]);
+      s3 += Qux[a * NX + i] * K[a * NC + NX];
     }
     if constexpr (kMixed) {
       Vx[i] = Qx[i] + Tr((s1 + s2) + s3);
@@ -489,23 +494,23 @@ __device__ __forceinline__ void riccati_stage(
   }
   // V_xx = (S + S^T) / 2 + M + M^T, S = Qxx + KTQuu K, M = K^T Qux
 #pragma unroll
-  for (int i = 0; i < 12; ++i)
+  for (int i = 0; i < NX; ++i)
 #pragma unroll
-    for (int j = i; j < 12; ++j) {
+    for (int j = i; j < NX; ++j) {
       Tp Sij = KTQuu[i * NU] * K[j], Sji = KTQuu[j * NU] * K[i];
       Tp Mij = K[i] * Qux[j], Mji = K[j] * Qux[i];
 #pragma unroll
       for (int a = 1; a < NU; ++a) {
-        Sij += KTQuu[i * NU + a] * K[a * 13 + j];
-        Sji += KTQuu[j * NU + a] * K[a * 13 + i];
-        Mij += K[a * 13 + i] * Qux[a * 12 + j];
-        Mji += K[a * 13 + j] * Qux[a * 12 + i];
+        Sij += KTQuu[i * NU + a] * K[a * NC + j];
+        Sji += KTQuu[j * NU + a] * K[a * NC + i];
+        Mij += K[a * NC + i] * Qux[a * NX + j];
+        Mji += K[a * NC + j] * Qux[a * NX + i];
       }
-      Sij = V[i * 12 + j] + Sij;
-      Sji = V[j * 12 + i] + Sji;
+      Sij = V[i * NX + j] + Sij;
+      Sji = V[j * NX + i] + Sji;
       const Tp h = Tp(0.5) * (Sij + Sji);
-      V[i * 12 + j] = (h + Mij) + Mji;
-      V[j * 12 + i] = (h + Mji) + Mij;
+      V[i * NX + j] = (h + Mij) + Mji;
+      V[j * NX + i] = (h + Mji) + Mij;
     }
 }
 

@@ -2,13 +2,21 @@
 that `chip_smoke.py` and the card tests run.  B1-B4 (the f32 pipeline, in
 f32 and f64) on a real pipeline iterate (`kernel_inputs`, `calls`,
 `compare`); B5-B9 (the mixed-precision polish) on a real polish iterate
-(`polish_inputs`, `polish_calls`, `polish_compare`).
+(`polish_inputs`, `polish_calls`, `polish_compare`); B10-B12 (the SO(3)
+pipeline, in f32 and f64) on a real SO(3) iterate (`so3_inputs`,
+`so3_calls`, `so3_compare`).
 
 The error of one output tensor is max |kernel - plain| / max(1, max |plain|).
+
+`work` counts what a call must move and compute (the bytes of the inputs
+it reads and the outputs it returns, and its arithmetic by dtype), and
+`bound_ms` turns that into the least time an H100 could take for it.
 """
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.linearize import (
     linearize_lane,
@@ -16,6 +24,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.linearize import (
 )
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
+from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline_so3 as S
 
 # Gates on the per-output error: f32 is looser for the sequential recursions
 # (B3, B4: a 200-stage rollout; B2: a 200-stage Riccati recursion through a
@@ -53,16 +62,24 @@ GATES["mixed"] = {
     "B9": {"lx": 1e-9, "lxx32": 1e-5, "l32": 1e-5}}
 GATES["mixed"]["B5_al"] = GATES["mixed"]["B5"]
 
+# The SO(3) pipeline's kernels, gated as their SE(3) twins: B10 and B12 as
+# B3 (B12 is a 249-stage rollout; B10 shares its stage math), B11 as B2.
+GATES["so3"] = {torch.float32: {"B10": 1e-4, "B11": 1e-3, "B12": 1e-4},
+                torch.float64: {"B10": 1e-9, "B11": 1e-9, "B12": 1e-9}}
+SO3_OUTPUTS = {"B10": S.LIN, "B11": ("k", "K", "gvec", "lN"),
+               "B12": ("qR", "xi", "us") + tuple("new_" + n for n in S.LIN)}
+
 
 def rel_err(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp(min=1.0)).item()
 
 
-def _flat(out):
-    """A kernel's outputs as one list of tensors, in `OUTPUTS` order."""
+def _flat(out, lin=LIN):
+    """A kernel's outputs as one list of tensors, in `OUTPUTS` order (the
+    linearization dicts in ``lin`` order)."""
     if isinstance(out, dict):
-        return [out[n] for n in LIN]
-    return [t for x in out for t in ([x[n] for n in LIN] if isinstance(x, dict)
+        return [out[n] for n in lin]
+    return [t for x in out for t in ([x[n] for n in lin] if isinstance(x, dict)
                                       else [x])]
 
 
@@ -206,3 +223,158 @@ def polish_compare(s, solver):
     return {name: {"max_rel": max(per[name].values()),
                    "max_abs": max(absd[name].values()),
                    "per_output": per[name]} for name in per}
+
+
+def so3_inputs(solver, dyn, cost, q0s, xi0s, us0):
+    """A real SO(3) iterate in lane layout: the trajectory and linearization
+    after ``solver.iterations`` iterations of ``solver`` (an
+    `SO3PipelineSolver`), lu, and the gains of its backward pass (plain
+    version), i.e. every input B10-B12 take."""
+    s = solver.solve_lane(dyn, cost, q0s, xi0s, us0)
+    s["lu"] = 2.0 * torch.einsum("ij,nj...->ni...", s["consts"]["R"],
+                                 s["us"]).contiguous()
+    s["k"], s["K"], _, _ = S.backward_so3_plain(
+        s["lin"], s["lu"], s["qR"], s["xi"], s["refs"], s["consts"],
+        pendulum=solver.pendulum)
+    return s
+
+
+def so3_calls(s, *, dt, pendulum):
+    """{kernel: (kernel_call, plain_call)} for B10-B12 on the inputs ``s``
+    of `so3_inputs`."""
+    traj = (s["qR"], s["xi"], s["us"])
+    refs, consts, lin = s["refs"], s["consts"], s["lin"]
+    kw = dict(dt=dt, pendulum=pendulum)
+    bargs = (lin, s["lu"], s["qR"], s["xi"], refs, consts)
+    rargs = (*traj, s["k"], s["K"], lin, refs, consts)
+    return {
+        "B10": (lambda: S.linearize_so3_lane(*traj, refs, consts, **kw),
+                lambda: S.linearize_so3_plain(*traj, refs, consts, **kw)),
+        "B11": (lambda: S.backward_so3_lane(*bargs, pendulum=pendulum),
+                lambda: S.backward_so3_plain(*bargs, pendulum=pendulum)),
+        "B12": (lambda: S.rollout_linearize_so3_lane(*rargs, **kw),
+                lambda: S.rollout_linearize_so3_plain(*rargs, **kw)),
+    }
+
+
+def so3_compare(s, **kw):
+    """{kernel: {"max_rel", "max_abs", "per_output": {output: rel error}}}
+    for B10-B12 (keyword arguments as `so3_calls`)."""
+    out = {}
+    for name, (kern, plain) in so3_calls(s, **kw).items():
+        a, b = _flat(kern(), S.LIN), _flat(plain(), S.LIN)
+        per = {n: rel_err(x, y) for n, x, y in zip(SO3_OUTPUTS[name], a, b,
+                                                    strict=True)}
+        out[name] = {"max_rel": max(per.values()),
+                     "max_abs": max((x - y).abs().max().item() for x, y in zip(a, b)),
+                     "per_output": per}
+    return out
+
+
+# -- the least time a call could take ---------------------------------------------
+
+# H100 SXM data-sheet rates (700 W): HBM bandwidth, and the peak arithmetic
+# rate outside the tensor cores by dtype
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+
+# aten ops counted as one operation per output element (a reduction: per
+# input element); a batched product counts 2 m n k per batch entry
+_ELEMENTWISE = {"add", "sub", "rsub", "mul", "div", "neg", "sqrt", "rsqrt",
+                "reciprocal", "sin", "cos", "atan2", "pow", "clamp", "clamp_min",
+                "abs", "exp", "log", "maximum", "minimum"}
+_REDUCTIONS = {"sum", "mean"}
+
+
+def _extent(t):
+    """(first, last + 1) byte offsets of ``t``'s elements in its storage."""
+    if t.numel() == 0:
+        return 0, 0
+    span = sum((n - 1) * abs(st) for n, st in zip(t.shape, t.stride())) + 1
+    first = t.storage_offset() * t.element_size()
+    return first, first + span * t.element_size()
+
+
+def _tensors(xs):
+    """The tensors among an op's arguments (one level of lists: cat, stack)."""
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, (list, tuple)):
+            yield from (y for y in x if isinstance(y, torch.Tensor))
+
+
+class _Work(TorchDispatchMode):
+    """Records every byte range a call reads from tensors it did not make,
+    and its arithmetic by dtype."""
+
+    def __init__(self):
+        super().__init__()
+        self.read = {}      # storage pointer -> [(first, end)] byte ranges
+        self.made = set()   # storages made inside the call
+        self.ops = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func.is_view:  # no data moves; its operands are read where used
+            return func(*args, **kwargs)
+        ins = list(_tensors(args))
+        for t in ins:
+            ptr = t.untyped_storage().data_ptr()
+            if ptr not in self.made:
+                self.read.setdefault(ptr, []).append(_extent(t))
+        out = func(*args, **kwargs)
+        outs = list(_tensors(out if isinstance(out, (list, tuple)) else (out,)))
+        name = func.overloadpacket.__name__.rstrip("_")
+        n = 0
+        if name in ("bmm", "mm") and outs:
+            n = 2 * ins[0].numel() * ins[1].shape[-1]
+        elif name in _ELEMENTWISE and outs:
+            n = outs[0].numel()
+        elif name in _REDUCTIONS and ins:
+            n = ins[0].numel()
+        if n:
+            dt = outs[0].dtype
+            self.ops[dt] = self.ops.get(dt, 0) + n
+        for t in outs:
+            ptr = t.untyped_storage().data_ptr()
+            if ptr not in self.read:
+                self.made.add(ptr)
+        return out
+
+
+def _bytes_read(ranges):
+    total = 0
+    for spans in ranges.values():
+        end = -1
+        for a, b in sorted(spans):
+            if b <= end:
+                continue
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def work(call):
+    """What the zero-argument ``call`` (a plain version) moves and computes:
+    {"bytes": the bytes of its inputs read once (each distinct byte of a
+    tensor it did not make) plus the bytes of the tensors it returns,
+    "ops": {dtype: arithmetic operations}}.  The operations are the plain
+    version's, which evaluates both sides of every guarded coefficient: an
+    upper count of the kernel's."""
+    w = _Work()
+    with w:
+        out = call()
+    outs = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)}
+    return {"bytes": _bytes_read(w.read) + sum(outs.values()), "ops": w.ops}
+
+
+def bound_ms(wk):
+    """(ms, "bytes" | "operations"): the least time an H100 could take for
+    the work ``wk`` of `work`, the larger of its bytes over the HBM rate and
+    its operations over the peak rate of their dtype."""
+    t_bytes = wk["bytes"] / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS_PER_S[dt] for dt, n in wk["ops"].items()
+                if dt in PEAK_OPS_PER_S)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")

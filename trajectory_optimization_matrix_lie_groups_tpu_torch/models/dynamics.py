@@ -1,10 +1,14 @@
-"""SE(3) rigid-body dynamics families (part of the JAX `models/dynamics.py`).
+"""Rigid-body dynamics families on SO(3)/SE(3) (part of the JAX
+`models/dynamics.py`).
 
-Ported so far: the parameter containers of the SE(3) free body, the rigid
-body with gravity and the drone (a rigid body with a 6x4 input projection),
-and their semi-implicit Euler `step` functions.  The steps are written
-batch-first with the group operations of `ops/se3.py`, independently of the
-lane stage math in `ops/linearize.py`, which the tests hold against them.
+Ported so far: the parameter containers of the SO(3) free attitude, the 3-D
+pendulum actuated at its pivot, the SE(3) free body, the rigid body with
+gravity and the drone (a rigid body with a 6x4 input projection); the
+semi-implicit Euler `step` functions of all five, and the analytic
+Jacobians (Fx, Fu) of the two SO(3) families.  They are written batch-first
+with the group operations of `ops/so3.py` and `ops/se3.py`, independently
+of the lane stage math in `ops/linearize.py` and `solvers/pipeline_so3.py`,
+which the tests hold against them.
 
 Quirk flags kept from the reference (see the JAX module docstring):
 ``ref_coad_swap`` selects the reference's coad-swap in the Jacobian's H
@@ -17,7 +21,7 @@ import dataclasses
 
 import torch
 
-from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import se3
+from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import se3, so3
 from trajectory_optimization_matrix_lie_groups_tpu_torch.utils.linalg import setup_inv
 
 _DOWN = (0.0, 0.0, -1.0)
@@ -26,6 +30,113 @@ _DOWN = (0.0, 0.0, -1.0)
 def _bmv(M, v):
     return torch.einsum("...ij,...j->...i", M, v)
 
+
+def _blk2(A, B, C, D):
+    """[[A, B], [C, D]] over leading batch dims."""
+    return torch.cat([torch.cat([A, B], dim=-1), torch.cat([C, D], dim=-1)],
+                     dim=-2)
+
+
+# -- SO(3) free attitude ------------------------------------------------------
+
+@dataclasses.dataclass
+class SO3Params:
+    J: torch.Tensor      # (3, 3) inertia
+    Jinv: torch.Tensor
+    dt: torch.Tensor     # scalar
+
+
+def so3_params(J, dt):
+    J = torch.as_tensor(J)
+    return SO3Params(J=J, Jinv=setup_inv(J),
+                     dt=torch.as_tensor(dt, dtype=J.dtype, device=J.device))
+
+
+def _so3_step(p: SO3Params, q, xi, u, i=None):
+    """q+ = normalize(q Exp(xi dt)), xi+ = xi + dt Jinv (hat(xi)^T J xi + u).
+    q (..., 3, 3), xi (..., 3)."""
+    del i
+    q_next = so3.normalize(q @ so3.exp(xi * p.dt))
+    torque = _bmv(so3.hat(xi).transpose(-1, -2), _bmv(p.J, xi)) + u
+    return q_next, xi + _bmv(p.Jinv, torque) * p.dt
+
+
+def _so3_H(p, xi):
+    """The velocity block H = Jinv (hat(xi)^T J + hat(J xi))."""
+    return p.Jinv @ (so3.hat(xi).transpose(-1, -2) @ p.J + so3.hat(_bmv(p.J, xi)))
+
+
+def _so3_jac(p: SO3Params, q, xi, u, i=None):
+    """Fx = [[Exp(-tau), Jr(tau) dt], [0, I + H dt]], tau = xi dt;
+    Fu = [0; Jinv] dt.  Returns (Fx (..., 6, 6), Fu (..., 6, 3))."""
+    del q, u, i
+    tau = xi * p.dt
+    H = _so3_H(p, xi)
+    eye3 = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(H.shape)
+    Fx = _blk2(so3.exp(-tau), so3.right_jacobian(tau) * p.dt,
+               torch.zeros_like(H), eye3 + H * p.dt)
+    Fu = torch.cat([torch.zeros_like(p.Jinv), p.Jinv], dim=-2) * p.dt
+    return Fx, Fu.expand(H.shape[:-2] + (6, 3))
+
+
+# -- 3-D pendulum actuated at the pivot ---------------------------------------
+
+@dataclasses.dataclass
+class Pendulum3dParams:
+    J: torch.Tensor
+    Jinv: torch.Tensor
+    m: torch.Tensor
+    l: torch.Tensor      # rod length; the mass sits at l / 2 along down
+    g: torch.Tensor
+    dt: torch.Tensor
+
+
+def pendulum3d_params(J, m, length, dt, g=9.8):
+    J = torch.as_tensor(J)
+    scalar = lambda x: torch.as_tensor(x, dtype=J.dtype, device=J.device)
+    return Pendulum3dParams(J=J, Jinv=setup_inv(J), m=scalar(m),
+                            l=scalar(length), g=scalar(g), dt=scalar(dt))
+
+
+def _pend_rho(p):
+    down = torch.tensor(_DOWN, dtype=p.J.dtype, device=p.J.device)
+    return p.l / 2.0 * down, down
+
+
+def _pendulum3d_step(p: Pendulum3dParams, q, xi, u, i=None):
+    """The free-attitude step with the gravity torque hat(m g rho) R^T down
+    and the pivot input's moment hat(m rho) R^T u."""
+    del i
+    rho, down = _pend_rho(p)
+    Rt = q.transpose(-1, -2)
+    g_term = _bmv(so3.hat(p.m * p.g * rho), _bmv(Rt, down))
+    M = _bmv(so3.hat(p.m * rho), _bmv(Rt, u))
+    torque = _bmv(so3.hat(xi).transpose(-1, -2), _bmv(p.J, xi)) + g_term + M
+    q_next = so3.normalize(q @ so3.exp(xi * p.dt))
+    return q_next, xi + _bmv(p.Jinv, torque) * p.dt
+
+
+def _pendulum3d_jac(p: Pendulum3dParams, q, xi, u, i=None):
+    """Fx = [[Exp(-tau), Jr(tau) dt], [L dt, I + H dt]] with
+    L = Jinv (hat(m g rho) R^T hat(down) R + hat(m rho) R^T hat(u) R);
+    Fu = [0; Jinv hat(m rho) R^T] dt, per stage.
+    Returns (Fx (..., 6, 6), Fu (..., 6, 3))."""
+    del i
+    rho, down = _pend_rho(p)
+    tau = xi * p.dt
+    H = _so3_H(p, xi)
+    Rt = q.transpose(-1, -2)
+    L1 = so3.hat(p.m * p.g * rho) @ Rt @ so3.hat(down) @ q
+    L2 = so3.hat(p.m * rho) @ Rt @ so3.hat(u) @ q
+    L = p.Jinv @ (L1 + L2)
+    eye3 = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(H.shape)
+    Fx = _blk2(so3.exp(-tau), so3.right_jacobian(tau) * p.dt, L * p.dt,
+               eye3 + H * p.dt)
+    bt = p.Jinv @ so3.hat(p.m * rho) @ Rt
+    return Fx, torch.cat([torch.zeros_like(bt), bt], dim=-2) * p.dt
+
+
+# -- SE(3) rigid body ---------------------------------------------------------
 
 @dataclasses.dataclass
 class SE3Params:

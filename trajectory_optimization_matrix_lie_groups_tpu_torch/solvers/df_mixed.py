@@ -58,6 +58,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.pipeline import
     deviation,
     gap_close,
     hessian_chain,
+    solve_device,
     value_update,
 )
 
@@ -467,7 +468,8 @@ class MixedDFPipelineSolver(DFPipelineBase):
     def polish(self, dyn, cost, qR, qp, xi, us, al=None):
         """The polish phase from a lane-layout handoff qR (N+1, 3, 3, B),
         qp (N+1, 3, B), xi (N+1, 6, B), us (N, nu, B) in any float dtype
-        (promoted to fp64), on its device; the counterpart of the JAX
+        (promoted to fp64), on its device (the card when it is not a
+        tensor); the counterpart of the JAX
         `MixedDFPipelineSolver._solve_df`.  ``dyn``, ``cost``: fp64
         parameters.  ``al``: optional input-box AL state (lb, ub,
         lmbd (B, N+1, 2nu), imu (B, N+1, 2nu)) at fixed multipliers, rounded
@@ -480,7 +482,7 @@ class MixedDFPipelineSolver(DFPipelineBase):
         rollout.  J_opt is the f32 cost at the returned iterate; grad_norm
         is the gradient at the last backward's evaluation point, one
         polish step stale.  Returns a `DFState`."""
-        dev = torch.as_tensor(us).device
+        dev = solve_device(us)
         f64 = lambda x: torch.as_tensor(x).to(device=dev, dtype=F64).contiguous()
         qR, qp, xi, us = f64(qR), f64(qp), f64(xi), f64(us)
         N, nu, B = us.shape

@@ -19,6 +19,7 @@ import torch
 from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.linearize import lane_refs
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.pipeline import (
     PipelineSolver,
+    solve_device,
 )
 
 __all__ = ["DFState", "DFPipelineBase", "join_us"]
@@ -91,10 +92,11 @@ class DFPipelineBase:
 
     def _solve_f32(self, dyn, cost, q0s, xi0s, us0, al=None):
         """Phase 1: the f32 pipeline on the f32 rounding of the fp64 problem,
-        on ``us0``'s device.  ``al``: optional input-box AL state (lb, ub,
-        lmbd (B, N+1, 2nu), imu (B, N+1, 2nu)), as `PipelineSolver.solve`.
+        on ``us0``'s device (the card when it is not a tensor).  ``al``:
+        optional input-box AL state (lb, ub, lmbd (B, N+1, 2nu),
+        imu (B, N+1, 2nu)), as `PipelineSolver.solve`.
         Returns the lane-layout handoff (qR, qp, xi, us), f32."""
-        dev = torch.as_tensor(us0).device
+        dev = solve_device(us0)
         f32 = lambda x: torch.as_tensor(x).to(device=dev, dtype=torch.float32)
         if al is not None:
             nu = torch.as_tensor(us0).shape[-1]

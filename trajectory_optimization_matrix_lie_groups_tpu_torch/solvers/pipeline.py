@@ -39,6 +39,12 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.linearize import (
 NX = 12
 
 
+def solve_device(x):
+    """The device a solve on ``x`` runs on: ``x``'s when it is a tensor, else
+    the card.  The CPU takes a solve only when it is given CPU tensors."""
+    return x.device if isinstance(x, torch.Tensor) else torch.device("cuda")
+
+
 # -- Riccati backward, const-Fu/Luu specialization ---------------------------
 
 def chol_factor_lane(Quu, nu):
@@ -523,7 +529,7 @@ class PipelineSolver:
         consts, lin): the final trajectory, the cost and mean gradient norm
         of the last backward pass, and (fused layout) the linearization of
         the final trajectory."""
-        us0 = torch.as_tensor(us0)
+        us0 = torch.as_tensor(us0, device=solve_device(us0))
         B = us0.shape[0]
         dev, dtp = us0.device, us0.dtype
         qR, qp, xi, us, refs, consts = self._prepare(dyn, cost, q0s, xi0s, us0)
@@ -559,7 +565,8 @@ class PipelineSolver:
     def solve(self, dyn, cost, q0s, xi0s, us0, al=None):
         """dyn: SE3Params (or RigidBodyParams with ``gravity``); cost:
         TrackingCostParams; solver-layout q0s (B, 4, 4), xi0s (B, 6),
-        us0 (B, N, nu), whose dtype and device the solve runs in.
+        us0 (B, N, nu), whose dtype the solve runs in, on its device if it is
+        a tensor, else on the card.
 
         ``al``: optional input-box AL state (lb (nu,), ub (nu,),
         lmbd (B, N+1, 2nu), imu (B, N+1, 2nu) diagonal penalties), adding the

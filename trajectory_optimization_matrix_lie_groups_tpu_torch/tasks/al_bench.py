@@ -26,8 +26,9 @@ __all__ = ["build_al1400", "build_screw200", "screw_batch", "load_screw200_golde
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
 
-def build_al1400(dtype=torch.float64, horizon=1400, device=None):
-    """Returns (params {dyn, cost}, lb, ub, q0, xi0, q_ref, xi_ref)."""
+def build_al1400(dtype=torch.float64, horizon=1400, device=torch.device("cuda")):
+    """Returns (params {dyn, cost}, lb, ub, q0, xi0, q_ref, xi_ref) on
+    ``device`` (the card unless asked for another)."""
     dt = 0.01
     m = 1.0
     Ib = np.diag([0.5, 0.7, 0.9])
@@ -55,9 +56,11 @@ def build_al1400(dtype=torch.float64, horizon=1400, device=None):
             t(xi_ref))
 
 
-def build_screw200(dtype=torch.float64, device=None, horizon=200, r=1e-3):
+def build_screw200(dtype=torch.float64, device=torch.device("cuda"), horizon=200,
+                   r=1e-3):
     """The main-path problem: `build_al1400`'s first ``horizon`` stages with
-    R = r I and no box.  Returns (dyn, cost, q0, xi0)."""
+    R = r I and no box, on ``device`` (the card unless asked for another).
+    Returns (dyn, cost, q0, xi0)."""
     params, _, _, q0, xi0, _, _ = build_al1400(dtype, horizon, device)
     cost = params["cost"]
     cost.R = r * torch.eye(6, dtype=dtype, device=device)
