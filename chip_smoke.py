@@ -53,11 +53,11 @@ iterations.  Phases, each printed as one JSON line:
                 against their plain versions at B=8192.
 
 A kernel's bound is the least time the card could take for its work: the
-larger of the bytes its plain version must move (each input read once, each
-output written once) over 3.35 TB/s and its operations over 67 TFLOP/s
-(f32) or 34 TFLOP/s (fp64), counted on this run's inputs
-(`kernel_check.work`).  Then the kernels summary line (launches of B1-B3
-from the fused f32 run, of B4 from the unfused run, of B5-B9 from the
+larger of the bytes it must move (each array it reads once, each output
+written once) over 3.35 TB/s and its operations over 67 TFLOP/s (f32) or
+34 TFLOP/s (fp64), counted on this run's inputs (`kernel_check.work`).
+Then the kernels summary line (launches of B1-B3 from the fused f32 run,
+of B4 from the unfused run, of B5-B9 from the
 polish run, of B10-B12 from the free-attitude run, each named in "run"),
 the card's name and power limit as nvidia-smi prints them, and the result
 line.  The f32 path is timed before any polish or SO(3) work, after the
@@ -170,17 +170,15 @@ def event_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def bound(plain):
-    """{"bound_ms", "bound_by", "bytes", "ops", "work_count_s"} of a plain
-    call's work (`kernel_check.work`), and the seconds counting it took."""
+def bound(name, s, out):
+    """{"bound_ms", "bound_by", "bytes", "ops"} of kernel ``name`` on the
+    inputs ``s`` with the outputs ``out`` (`kernel_check.work`)."""
     from trajectory_optimization_matrix_lie_groups_tpu_torch import kernel_check
 
-    t0 = time.perf_counter()
-    wk = kernel_check.work(plain)
+    wk = kernel_check.work(name, s, out)
     ms, by = kernel_check.bound_ms(wk)
     return {"bound_ms": ms, "bound_by": by, "bytes": wk["bytes"],
-            "ops": {str(dt).replace("torch.", ""): n for dt, n in wk["ops"].items()},
-            "work_count_s": time.perf_counter() - t0}
+            "ops": {str(dt).replace("torch.", ""): n for dt, n in wk["ops"].items()}}
 
 
 def main():
@@ -319,7 +317,8 @@ def main():
     for k, (kern, plain) in kernel_check.calls(s, dt=fused.dt).items():
         per_kernel[k] = {"ms": event_ms(kern, 5), "plain_ms": event_ms(plain, 1),
                          "max_err": errs[k]["max_rel"], "max_abs_err": errs[k]["max_abs"],
-                         "gate": kernel_check.GATES[torch.float32][k], **bound(plain),
+                         "gate": kernel_check.GATES[torch.float32][k],
+                         **bound(k, s, kern()),
                          "library_ms": None}
     emit({"phase": "timing", "card": card, "B": BATCH, "N": N, "iterations": ITERS,
           "kernel_path_rep_s": reps, "kernel_path_median_s": med,
@@ -431,7 +430,7 @@ def main():
     pol_kernel = {}
     for k, (kern, plain) in kernel_check.polish_calls(s, mx).items():
         pol_kernel[k] = {"ms": event_ms(kern, 5), "plain_ms": event_ms(plain, 1),
-                         **bound(plain), "library_ms": None}
+                         **bound(k, s, kern()), "library_ms": None}
     hand = tuple(s[n] for n in ("qR", "qp", "xi", "us"))
     del s
     _, plain_polish_s = timed(lambda: mixed(f32_it, plain=True).polish(dyn64, cost64, *hand))
@@ -551,7 +550,7 @@ def main():
             kern_t[k] = {"ms": event_ms(kern, 5), "plain_ms": event_ms(plain, 1),
                          "max_err": errs[k]["max_rel"], "max_abs_err": errs[k]["max_abs"],
                          "gate": kernel_check.GATES["so3"][torch.float32][k],
-                         **bound(plain), "library_ms": None}
+                         **bound(k, s, kern()), "library_ms": None}
         del s
         so3_kernel[name] = kern_t
         emit({"phase": "timing_so3", "problem": name, "card": card, "B": BATCH,

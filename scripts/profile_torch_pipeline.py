@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of one solve goes on the card: torch.profiler over one of
-the PyTorch port's paths on screw-200, device time by kernel, the device's
-busy and idle share of the wall time.  ``--path f32``: the fused f32
-pipeline (B=8192, 12 iterations); ``--path polish``: the f32 pipeline and
+the PyTorch port's paths, device time by kernel, the device's busy and idle
+share of the wall time.  On screw-200: ``--path f32``, the fused f32
+pipeline (B=8192, 12 iterations); ``--path polish``, the f32 pipeline and
 the mixed-precision polish (B=16384, 7 + 2 iterations), with the wall time
-of each phase.
+of each phase.  ``--path so3_track249`` or ``pendulum_swingup80``: the SO(3)
+pipeline on that problem (`tasks/so3_bench.py`; B=8192, 30 f32 iterations).
 
-    python3 scripts/profile_torch_pipeline.py [--path f32|polish] [--batch B] [--trace PATH]
+    python3 scripts/profile_torch_pipeline.py [--path f32|polish|so3_track249|pendulum_swingup80]
+        [--batch B] [--iterations I] [--trace PATH]
 
 Prints one JSON line; ``--trace`` also writes the Chrome trace.  Needs a
 CUDA device and the toolkit (the kernels are built at first use).
@@ -29,6 +31,10 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.df_mixed import
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.pipeline import (  # noqa: E402
     PipelineSolver,
 )
+from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.pipeline_so3 import (  # noqa: E402
+    SO3PipelineSolver,
+)
+from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import so3_bench  # noqa: E402
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (  # noqa: E402
     build_screw200,
     screw_batch,
@@ -37,11 +43,12 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("f32", "polish"), default="f32")
+    ap.add_argument("--path", choices=("f32", "polish", *so3_bench.PROBLEMS),
+                    default="f32")
     ap.add_argument("--batch", type=int, default=None,
                     help="default 8192 (f32), 16384 (polish)")
     ap.add_argument("--iterations", type=int, default=None,
-                    help="f32 iterations: default 12 (f32), 7 (polish)")
+                    help="f32 iterations: default 12 (f32), 7 (polish), 30 (SO(3))")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -49,18 +56,28 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     polish = args.path == "polish"
+    so3 = args.path in so3_bench.PROBLEMS
     B = args.batch or (16384 if polish else 8192)
-    iters = args.iterations or (7 if polish else 12)
+    iters = args.iterations or (7 if polish else 30 if so3 else 12)
     dtype = torch.float64 if polish else torch.float32
-    dyn, cost, q0, xi0 = build_screw200(dtype, dev)
-    if polish:
-        solver = MixedDFPipelineSolver(200, float(dyn.dt), iters, 2)
+    if so3:
+        pendulum, dt, N = so3_bench.PROBLEMS[args.path][:3]
+        build = (so3_bench.build_pendulum_swingup80 if pendulum
+                 else so3_bench.build_so3_track249)
+        dyn, cost, q0, xi0 = build(dtype, dev)
+        solver = SO3PipelineSolver(N, iters, dt, pendulum=pendulum)
+        batch, nu = so3_bench.so3_batch, 3
     else:
-        solver = PipelineSolver(200, iters, float(dyn.dt))
+        N, nu, batch = 200, 6, screw_batch
+        dyn, cost, q0, xi0 = build_screw200(dtype, dev)
+        if polish:
+            solver = MixedDFPipelineSolver(N, float(dyn.dt), iters, 2)
+        else:
+            solver = PipelineSolver(N, iters, float(dyn.dt))
 
     def inputs(seed):
-        q0s, xi0s = screw_batch(q0, xi0, B, seed)
-        return dyn, cost, q0s, xi0s, torch.zeros((B, 200, 6), dtype=dtype, device=dev)
+        q0s, xi0s = batch(q0, xi0, B, seed)
+        return dyn, cost, q0s, xi0s, torch.zeros((B, N, nu), dtype=dtype, device=dev)
 
     solver.solve(*inputs(0))  # build, load, warm up
     a = inputs(1)

@@ -13,7 +13,9 @@ import torch
 from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
 from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
     GATES,
+    HBM_BYTES_PER_S,
     OUTPUTS,
+    PEAK_OPS_PER_S,
     POLISH_OUTPUTS,
     SO3_OUTPUTS,
     TAIL,
@@ -24,6 +26,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
     polish_calls,
     polish_compare,
     polish_inputs,
+    so3_calls,
     so3_compare,
     so3_inputs,
     work,
@@ -167,19 +170,64 @@ def test_so3_compare_on_cpu_is_exact_and_covers_every_output(pendulum):
         assert e["max_rel"] == 0.0 and e["max_abs"] == 0.0, name
 
 
-def test_work_counts_each_input_byte_once_and_the_arithmetic():
-    """`work`: a strided read counts the span it touches once, a made
-    intermediate is not read from outside, the output is written once; a
-    batched 3x3 product counts 2 m n k per entry, elementwise ops one per
-    element, by dtype; `bound_ms` takes the larger of the two times."""
-    A = torch.randn(3, 3, 10)
-    v = torch.randn(3, 10, dtype=torch.float64)
-    wk = work(lambda: torch.einsum("ik...,kj...->ij...", A[:, :, :5], A[:, :, :5]) * 2.0)
-    assert wk["bytes"] == (2 * 30 + 2 * 10 + 4 + 1) * 4 + 45 * 4
-    assert wk["ops"] == {torch.float32: 2 * 27 * 5 + 45}
-    wk = work(lambda: (v + v).sum(0))
-    assert wk["bytes"] == 30 * 8 + 10 * 8
-    assert wk["ops"] == {torch.float64: 30 + 30}
+@pytest.fixture(scope="module")
+def so3_case():
+    dyn, cost, q0, xi0 = so3_bench.build_so3_track249(torch.float64, device="cpu",
+                                                      horizon=H)
+    q0s, xi0s = so3_bench.so3_batch(q0, xi0, B, seed=3)
+    solver = S.SO3PipelineSolver(H, 1, float(dyn.dt))
+    return solver, so3_inputs(solver, dyn, cost, q0s, xi0s,
+                              torch.zeros((B, H, 3), dtype=torch.float64))
+
+
+# Elements per problem that each kernel reads plus those it writes, at
+# horizon N, as (fp64, f32): the trajectory has N + 1 stages; the
+# linearization, gains and controls N; the Riccati kernels read the terminal
+# state alone.  An SE(3) linearization is 331 values per stage (fqR 9, fqp 3,
+# fxi 6, d 12, Fx 144, lx 12, lxx 144, l 1), an SO(3) one 106 (fqR 9, fxi 3,
+# d 6, Fx 36, fu2 9, lx 6, lxx 36, l 1); nu = 6 (SE(3)) and 3 (SO(3)).
+IO = {
+    "B1": lambda N: (24 * N + 18 + 331 * N, 0),
+    "B2": lambda N: (318 * N + 18 + 84 * N + 1, 0),
+    "B2_al": lambda N: (324 * N + 18 + 84 * N + 1, 0),
+    "B3": lambda N: (132 * N + 18 + 355 * N + 18, 0),
+    "B4": lambda N: (132 * N + 18 + 24 * N + 18, 0),
+    "B5": lambda N: (174 * N + 12 + 6 * N, 144 * N + 144 + 78 * N),
+    "B5_al": lambda N: (174 * N + 12 + 6 * N, 150 * N + 144 + 78 * N),
+    "B6": lambda N: (18 * (N + 1) + 36 * N + 18 * (N + 1) + 24 * N, 78 * N),
+    "tail": lambda N: (18 * (N + 1) + 18 * N + 168 * N, 145 * N),
+    "B10": lambda N: (15 * N + 12 + 106 * N, 0),
+    "B11": lambda N: (96 * N + 12 + 24 * N + 1, 0),
+    "B12": lambda N: (54 * N + 12 + 121 * N + 12, 0),
+}
+
+
+@pytest.mark.parametrize("name", list(IO))
+def test_work_counts_what_each_kernel_reads_and_writes_once(name, request):
+    """`work` on each kernel's inputs and outputs: every array it reads and
+    every output once.  Arrays a kernel is handed but does not read (the
+    nominal Fx, lx, lxx and l in B3 and B12, all but the terminal stage of
+    the trajectory in B2 and B11) and inputs passed through as outputs (the
+    tail's dynamics evaluations) count nothing.  The operation estimate sets
+    no bound: the bytes take at least twice as long."""
+    if name in ("B10", "B11", "B12"):
+        solver, s = request.getfixturevalue("so3_case")
+        pairs = so3_calls(s, dt=solver.dt, pendulum=False)
+    elif name in ("B5", "B5_al", "B6", "tail"):
+        solver, s = request.getfixturevalue("polish_case")
+        pairs = polish_calls(s, solver)
+    else:
+        solver, s = request.getfixturevalue("inputs")
+        pairs = calls(s, dt=solver.dt)
+    wk = work(name, s, pairs[name][1]())
+    n64, n32 = IO[name](H)
+    assert wk["bytes"] == B * (8 * n64 + 4 * n32)
+    t_ops = sum(n / PEAK_OPS_PER_S[dt] for dt, n in wk["ops"].items())
+    assert wk["bytes"] / HBM_BYTES_PER_S >= 2 * t_ops > 0
+    assert bound_ms(wk)[1] == "bytes"
+
+
+def test_bound_ms_takes_the_larger_time():
     ms, by = bound_ms({"bytes": 3.35e9, "ops": {torch.float64: 68e9}})
     assert by == "operations" and abs(ms - 2.0) < 1e-12
     ms, by = bound_ms({"bytes": 6.7e9, "ops": {torch.float32: 67e9}})

@@ -8,15 +8,14 @@ pipeline, in f32 and f64) on a real SO(3) iterate (`so3_inputs`,
 
 The error of one output tensor is max |kernel - plain| / max(1, max |plain|).
 
-`work` counts what a call must move and compute (the bytes of the inputs
-it reads and the outputs it returns, and its arithmetic by dtype), and
-`bound_ms` turns that into the least time an H100 could take for it.
+`work` counts what a kernel must move and compute (the bytes of the arrays
+it reads, `READS`, and of the outputs it returns, each once, and its dense
+products by dtype), and `bound_ms` turns that into the least time an H100
+could take for it.
 """
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 
 from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.linearize import (
     linearize_lane,
@@ -278,96 +277,93 @@ def so3_compare(s, **kw):
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 
-# aten ops counted as one operation per output element (a reduction: per
-# input element); a batched product counts 2 m n k per batch entry
-_ELEMENTWISE = {"add", "sub", "rsub", "mul", "div", "neg", "sqrt", "rsqrt",
-                "reciprocal", "sin", "cos", "atan2", "pow", "clamp", "clamp_min",
-                "abs", "exp", "log", "maximum", "minimum"}
-_REDUCTIONS = {"sum", "mean"}
+# The arrays each kernel reads, each once: entries of its inputs ``s`` (or
+# of s["lin"]); "qR[N]" is the terminal stage alone (the Riccati kernels'
+# terminal quadratization).  The references and model constants, shared by
+# the batch (a few KB), are left out.
+_ROLL = ("qR", "qp", "xi", "us", "k", "K", "d", "fqR", "fqp", "fxi")
+READS = {"B1": ("qR", "qp", "xi", "us"),
+         "B2": ("Fx", "d", "lx", "lu", "lxx", "qR[N]", "qp[N]", "xi[N]"),
+         "B3": _ROLL, "B4": _ROLL,
+         "B5": ("Fx", "d", "lx", "lu", "lxx32", "VxN", "VxxN"),
+         "B6": _ROLL, "tail": ("qR", "qp", "xi", "evals"),
+         "B10": ("qR", "xi", "us"),
+         "B11": ("Fx", "fu2", "d", "lx", "lu", "lxx", "qR[N]", "xi[N]"),
+         "B12": ("qR", "xi", "us", "k", "K", "d", "fqR", "fxi")}
+READS["B2_al"] = READS["B2"] + ("luu_al",)
+READS["B5_al"] = READS["B5"] + ("luu_al",)
 
 
-def _extent(t):
-    """(first, last + 1) byte offsets of ``t``'s elements in its storage."""
-    if t.numel() == 0:
-        return 0, 0
-    span = sum((n - 1) * abs(st) for n, st in zip(t.shape, t.stride())) + 1
-    first = t.storage_offset() * t.element_size()
-    return first, first + span * t.element_size()
+def _riccati_ops(nx, nu, h):
+    """The products of one Riccati stage (`solvers/pipeline.riccati_stage`)
+    with Fx = [[A, Bb], [0, D]] in h x h blocks (nx = 2h) and Fu = [0; fu2]
+    (fu2 h x nu), 2 operations per multiply-add: V_x + V_xx d, Fx^T and
+    fu2^T of it; V_xx Fx and Fx^T of that, fu2^T of its lower half;
+    fu2^T V_xx fu2; the Cholesky factor and its solves for K and k; K^T Q_uu,
+    the three value-gradient terms, K^T Q_ux and K^T Q_uu K."""
+    return (2 * (nx * nx + 3 * h * h + h * nu + 6 * nx * h * h + nu * h * nx
+                 + h * h * nu + nu * nu * h + nu * nu * (nx + 1) + nx * nu * nu
+                 + 3 * nx * nu + 2 * nx * nx * nu)
+            + nu ** 3 // 3)
 
 
-def _tensors(xs):
-    """The tensors among an op's arguments (one level of lists: cat, stack)."""
-    for x in xs:
-        if isinstance(x, torch.Tensor):
-            yield x
-        elif isinstance(x, (list, tuple)):
-            yield from (y for y in x if isinstance(y, torch.Tensor))
+def _linearize_ops(h):
+    """Four products of h x h blocks: two for Fx, two for the cost Hessian."""
+    return 8 * h ** 3
 
 
-class _Work(TorchDispatchMode):
-    """Records every byte range a call reads from tensors it did not make,
-    and its arithmetic by dtype."""
-
-    def __init__(self):
-        super().__init__()
-        self.read = {}      # storage pointer -> [(first, end)] byte ranges
-        self.made = set()   # storages made inside the call
-        self.ops = {}
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func.is_view:  # no data moves; its operands are read where used
-            return func(*args, **kwargs)
-        ins = list(_tensors(args))
-        for t in ins:
-            ptr = t.untyped_storage().data_ptr()
-            if ptr not in self.made:
-                self.read.setdefault(ptr, []).append(_extent(t))
-        out = func(*args, **kwargs)
-        outs = list(_tensors(out if isinstance(out, (list, tuple)) else (out,)))
-        name = func.overloadpacket.__name__.rstrip("_")
-        n = 0
-        if name in ("bmm", "mm") and outs:
-            n = 2 * ins[0].numel() * ins[1].shape[-1]
-        elif name in _ELEMENTWISE and outs:
-            n = outs[0].numel()
-        elif name in _REDUCTIONS and ins:
-            n = ins[0].numel()
-        if n:
-            dt = outs[0].dtype
-            self.ops[dt] = self.ops.get(dt, 0) + n
-        for t in outs:
-            ptr = t.untyped_storage().data_ptr()
-            if ptr not in self.read:
-                self.made.add(ptr)
-        return out
+def _rollout_ops(nx, nu):
+    """The feedback K xs_err and three 3 x 3 rotation products."""
+    return 2 * nu * nx + 3 * 54
 
 
-def _bytes_read(ranges):
-    total = 0
-    for spans in ranges.values():
-        end = -1
-        for a, b in sorted(spans):
-            if b <= end:
-                continue
-            total += b - max(a, end)
-            end = b
-    return total
+def _ops(name, nu):
+    """(operations per problem and stage, dtype or None for the run's) of
+    kernel ``name``: an estimate from its dense products (the kernels skip
+    some of their zero blocks; the exponentials, logarithms and series are
+    left out).  It decides no bound: every kernel's bytes take at least
+    twice as long."""
+    if name in ("B10", "B11", "B12"):
+        return {"B10": _linearize_ops(3), "B11": _riccati_ops(6, 3, 3),
+                "B12": _rollout_ops(6, 3) + _linearize_ops(3)}[name], None
+    per = {"B1": _linearize_ops(6), "B2": _riccati_ops(12, nu, 6),
+           "B3": _rollout_ops(12, nu) + _linearize_ops(6),
+           "B4": _rollout_ops(12, nu),
+           # the polish: B5's products are f32 (its fp64 V_x chain is
+           # matrix-vector work), B6 and the tail are fp64
+           "B5": _riccati_ops(12, nu, 6), "B6": _rollout_ops(12, nu),
+           "tail": _linearize_ops(6)}[name.removesuffix("_al")]
+    dtype = {"B5": torch.float32, "B6": torch.float64,
+             "tail": torch.float64}.get(name.removesuffix("_al"))
+    return per, dtype
 
 
-def work(call):
-    """What the zero-argument ``call`` (a plain version) moves and computes:
-    {"bytes": the bytes of its inputs read once (each distinct byte of a
-    tensor it did not make) plus the bytes of the tensors it returns,
-    "ops": {dtype: arithmetic operations}}.  The operations are the plain
-    version's, which evaluates both sides of every guarded coefficient: an
-    upper count of the kernel's."""
-    w = _Work()
-    with w:
-        out = call()
-    outs = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
-            for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)}
-    return {"bytes": _bytes_read(w.read) + sum(outs.values()), "ops": w.ops}
+def _array(s, name):
+    if name.endswith("[N]"):
+        return _array(s, name[:-3])[-1]
+    return s[name] if name in s else s["lin"][name]
+
+
+def _tensors(x):
+    if isinstance(x, dict):
+        x = tuple(x.values())
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in _tensors(y)]
+    return [] if x is None else [x]
+
+
+def work(name, s, out):
+    """What kernel ``name`` (a key of `calls`, `polish_calls` or
+    `so3_calls`) must move and compute on the inputs ``s`` when it returns
+    ``out``: {"bytes": the bytes of the arrays it reads (`READS`), each read
+    once, plus those of the tensors it returns that are not among them,
+    "ops": {dtype: operations}} (`_ops` per problem and stage)."""
+    ins = _tensors([_array(s, n) for n in READS[name]])
+    outs = [t for t in _tensors(out) if not any(t is x for x in ins)]
+    nbytes = sum(t.numel() * t.element_size() for t in ins + outs)
+    N, nu, B = s["us"].shape
+    per, dtype = _ops(name, nu)
+    return {"bytes": nbytes, "ops": {dtype or s["us"].dtype: per * N * B}}
 
 
 def bound_ms(wk):
