@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's three paths once on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's four paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -14,7 +14,10 @@ B = 16384, the system's gate-passing headline (lane-0 controls within 1e-4
 of the f64 golden).  The SO(3) path is `solvers/pipeline_so3.SO3PipelineSolver`
 on both SO(3) families (`tasks/so3_bench.py`: free-attitude tracking,
 N = 249, and the 3-D pendulum swing-up, N = 80), B = 8192, 30 f32
-iterations.  Phases, each printed as one JSON line:
+iterations.  The generic fast tier is `solvers/batched.FastBatchSolver` on
+any `LieModel`: the screw-200 free body on kernels B1, B13 and B14, the
+drone (nu = 4) on screw-200 and the free attitude (so3_track249) on B13,
+B = 8192, 12 (30) f32 iterations.  Phases, each printed as one JSON line:
 
   device        the card (nvidia-smi), torch/CUDA versions, the kernels'
                 build time and ptxas registers/spills;
@@ -50,6 +53,20 @@ iterations.  Phases, each printed as one JSON line:
                 against the plain solve of the same lanes on the host, an
                 f64 solve of lanes 0..255 with the golden's iteration count;
   timing_so3    each family (median of 7 reps, a new batch each) and B10-B12
+                against their plain versions at B=8192;
+  kernels_fast  B13 at (nx, nu) = (12, 6), (12, 4), (6, 3) and B14 against
+                their plain versions on a real iterate of each fast path,
+                B=256, in f32 and f64;
+  solve_fast    counters reset before each solve: the free body at B=8192
+                (B1 = B13 = B14 = 12, every other kernel 0), lane 0 against
+                the screw-200 golden, lanes 0..255 against the port's
+                PipelineSolver and against the plain solve on the host; the
+                drone (B13 = 12) against the plain solve of lanes 0..255 on
+                the host; the free attitude (B13 = 30) against its golden;
+                one f64 line-search solve at B=1024 (poses perturbed by
+                Exp(0.4 n)) against the plain one of lanes 0..255;
+  timing_fast   the free body (median of 7 reps), the drone and the free
+                attitude (one rep each), and B13 at each shape and B14
                 against their plain versions at B=8192.
 
 A kernel's bound is the least time the card could take for its work: the
@@ -57,8 +74,9 @@ larger of the bytes it must move (each array it reads once, each output
 written once) over 3.35 TB/s and its operations over 67 TFLOP/s (f32) or
 34 TFLOP/s (fp64), counted on this run's inputs (`kernel_check.work`).
 Then the kernels summary line (launches of B1-B3 from the fused f32 run,
-of B4 from the unfused run, of B5-B9 from the
-polish run, of B10-B12 from the free-attitude run, each named in "run"),
+of B4 from the unfused run, of B5-B9 from the polish run, of B10-B12 from
+the free-attitude run, of B13 and B14 from the free-body fast run, each
+named in "run"),
 the card's name and power limit as nvidia-smi prints them, and the result
 line.  The f32 path is timed before any polish or SO(3) work, after the
 same phases as when it was the script's only path, so that its time
@@ -97,6 +115,10 @@ POLISH_AGREE = 1e-5
 # the SO(3) path: both families at B = 8192 and 30 f32 iterations
 SO3_ITERS = 30
 SO3_PROBLEMS = ("so3_track249", "pendulum_swingup80")
+# the generic fast tier: its three paths, and the line search (f64, from
+# poses perturbed by Exp(0.4 n), so that short steps get chosen)
+FAST_KINDS = ("free_body", "drone", "so3_track249")
+LS_BATCH, LS_ITERS, LS_SCALE = 1024, 6, 0.4
 
 KERNELS = {
     "B1": ("linearize", "csrc/linearize.cu",
@@ -123,6 +145,10 @@ KERNELS = {
             "trajectory_optimization_matrix_lie_groups_tpu/solvers/pipeline_so3.py:181"),
     "B12": ("SO(3) rollout + linearize", "csrc/so3.cu",
             "trajectory_optimization_matrix_lie_groups_tpu/solvers/pipeline_so3.py:211"),
+    "B13": ("generic riccati backward", "csrc/fast.cu",
+            "trajectory_optimization_matrix_lie_groups_tpu/ops/pallas_riccati.py:104"),
+    "B14": ("gap-closing rollout", "csrc/fast.cu",
+            "trajectory_optimization_matrix_lie_groups_tpu/ops/pallas_rollout.py:42"),
 }
 PKG = "trajectory_optimization_matrix_lie_groups_tpu_torch"
 
@@ -190,6 +216,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from trajectory_optimization_matrix_lie_groups_tpu_torch import _build, kernel_check
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import batched as F
     from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
     from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
     from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline_so3 as S
@@ -236,13 +263,17 @@ def main():
     # The counters are reset just before each run and read just after it: the
     # fused solve at B=8192 (the main path: B1, B2, B3) and the solver's
     # unfused layout at B=256 (B1, B2, B4).
-    counters = {**P.KERNELS, **DM.KERNELS, **S.KERNELS}
+    counters = {**P.KERNELS, **DM.KERNELS, **S.KERNELS, **F.KERNELS}
 
     def counted(fn):
         for w in counters.values():
             w.launches = 0
         out, sec = timed(fn)
         return out, sec, {k: w.launches for k, w in counters.items()}
+
+    def expect(**launches):
+        """Every kernel's launch count: those named, every other kernel 0."""
+        return {k: launches.get(k, 0) for k in counters}
 
     args = batch(torch.float32, BATCH, SEED)
     dyn = args[0]
@@ -276,10 +307,9 @@ def main():
           "plain_vs_kernel_J_rel_err_lanes0_255": Jp_rel,
           "unfused_vs_fused_J_rel_err_lanes0_255": Ju_rel,
           "fused_solve_s_first_call": fused_s, "plain_solve_s": plain_s})
-    no_polish = {k: 0 for k in (*DM.KERNELS, *S.KERNELS)}
-    require(per_fused == {"B1": 1, "B2": ITERS, "B3": ITERS, "B4": 0, **no_polish},
+    require(per_fused == expect(B1=1, B2=ITERS, B3=ITERS),
             f"fused launch counts {per_fused}")
-    require(per_unfused == {"B1": ITERS, "B2": ITERS, "B3": 0, "B4": ITERS, **no_polish},
+    require(per_unfused == expect(B1=ITERS, B2=ITERS, B4=ITERS),
             f"unfused launch counts {per_unfused}")
     require(finite, "non-finite lanes in the f32 solve")
     require(J_rel <= 1e-4, f"lane-0 J rel err {J_rel}")
@@ -399,10 +429,9 @@ def main():
           "plain_polish_lanes0_255_s": plain_polish_small_s,
           "hybrid_B256_lane0_us_max_abs_err": hyb_err,
           "solve_s_first_call": polish_s, "peak_mem_gb": peak_polish})
-    require(per_polish == {"B1": 1, "B2": f32_it, "B3": f32_it, "B4": 0,
-                           "B5": POLISH_ITERS, "B6": POLISH_ITERS, "B7": POLISH_ITERS,
-                           "B8": POLISH_ITERS, "B9": POLISH_ITERS,
-                           **{k: 0 for k in S.KERNELS}},
+    require(per_polish == expect(B1=1, B2=f32_it, B3=f32_it, B5=POLISH_ITERS,
+                                 B6=POLISH_ITERS, B7=POLISH_ITERS, B8=POLISH_ITERS,
+                                 B9=POLISH_ITERS),
             f"polish launch counts {per_polish}")
     require(finite_p, "non-finite lanes in the polish solve")
     require(err0 <= POLISH_GATE, f"polish lane-0 us err {err0} > {POLISH_GATE}")
@@ -521,8 +550,7 @@ def main():
               "f64_iterations": meta_g["iterations_f64"],
               "f64_lane0_us_max_abs_err": us64_err, "f64_gate": 1e-6,
               "f64_all_finite": finite64})
-        others = {k: 0 for k in counters if k not in S.KERNELS}
-        require(per_so3[name] == {**others, "B10": 1, "B11": SO3_ITERS, "B12": SO3_ITERS},
+        require(per_so3[name] == expect(B10=1, B11=SO3_ITERS, B12=SO3_ITERS),
                 f"{name} launch counts {per_so3[name]}")
         require(finite and finite64, f"non-finite lanes in the {name} solves")
         require(J_rel <= 1e-4, f"{name} lane-0 J rel err {J_rel}")
@@ -561,6 +589,203 @@ def main():
             require(v["max_err"] <= v["gate"], f"{k} {name} at B={BATCH}: {v['max_err']}")
     per_kernel.update(so3_kernel[SO3_PROBLEMS[0]])
 
+    # -- kernels_fast: B13 at each (nx, nu) and B14 on a real iterate ----------
+    # the generic fast tier: the free body on B1, B13 and B14 (screw-200), the
+    # drone (screw-200, nu = 4) and the free attitude (so3_track249) on B13
+    fast = {}
+    for kind in FAST_KINDS:
+        if kind == "so3_track249":
+            make = lambda dtype, device: so3_bench.so3_track249_model(dtype, device)
+            fbatch, n_k, it_k = so3_bench.so3_batch, so3["so3_track249"]["N"], SO3_ITERS
+        else:
+            make = lambda dtype, device, kind=kind: al_bench.screw200_model(
+                dtype, device, horizon=N, drone=kind == "drone")
+            fbatch, n_k, it_k = al_bench.screw_batch, N, ITERS
+        fast[kind] = dict(problem={dt: make(dt, dev) for dt in (torch.float32, torch.float64)},
+                          host={dt: make(dt, "cpu")[:2] for dt in (torch.float32, torch.float64)},
+                          batch=fbatch, N=n_k, iterations=it_k)
+
+    def fast_args(kind, dtype, B, seed, scale=0.05):
+        model, params, q0, xi0 = fast[kind]["problem"][dtype]
+        q0s, xi0s = fast[kind]["batch"](q0, xi0, B, seed, scale=scale)
+        cp = params["cost"]
+        return (params, q0s, xi0s, torch.zeros((B, fast[kind]["N"], model.nu), dtype=dtype,
+                                               device=dev), cp.q_ref, cp.xi_ref)
+
+    def fast_solver(kind, iterations, dtype=torch.float32, host=False, **kw):
+        model, params = (fast[kind]["host"][dtype] if host
+                         else fast[kind]["problem"][dtype][:2])
+        if kind == "free_body":
+            kw = dict(pallas_rollout_dt=float(params["dyn"].dt), use_pallas_linearize=True,
+                      **kw)
+        return F.FastBatchSolver(model, fast[kind]["N"], iterations, **kw)
+
+    ferr = {}
+    for kind in FAST_KINDS:
+        for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            s = kernel_check.fast_inputs(fast_solver(kind, 2, dtype),
+                                         *fast_args(kind, dtype, CHECK_BATCH, SEED)[:4])
+            e = kernel_check.fast_compare(s)
+            torch.cuda.synchronize()
+            ferr[f"{kind} {tag}"] = {k: {**v, "gate": kernel_check.GATES["fast"][dtype][k]}
+                                     for k, v in e.items()}
+    del s
+    emit({"phase": "kernels_fast", "B": CHECK_BATCH, "metric":
+          "max_rel = max|kernel - plain| / max(1, max|plain|) over outputs", **ferr})
+    require(all(set(v) == ({"B13", "B14"} if run.startswith("free_body") else {"B13"})
+                for run, v in ferr.items()), "kernels_fast: a kernel was not checked")
+    for run, errs in ferr.items():
+        for k, v in errs.items():
+            require(v["max_rel"] <= v["gate"], f"{k} {run} error {v['max_rel']} > {v['gate']}")
+
+    # -- solve_fast: the generic fast tier, each path ------------------------------
+    def host_plain(kind, args, iterations, dtype=torch.float32, **kw):
+        """The plain solve of lanes 0..255 on the host's copy of them."""
+        small = tuple(x[:CHECK_BATCH].cpu() for x in args[1:4])
+        params = fast[kind]["host"][dtype][1]
+        return timed(lambda: fast_solver(kind, iterations, dtype, host=True, plain=True,
+                                         **kw).solve(params, *small, params["cost"].q_ref,
+                                                     params["cost"].xi_ref))
+
+    def j_rel(a, b):
+        return ((a.cpu() - b.cpu()).abs() / b.cpu().abs()).max().item()
+
+    def finite(out):
+        return all(torch.isfinite(t).all().item()
+                   for t in (out.us, out.qs, out.xis, out.J_opt, out.grad_norm))
+
+    per_fast = {}
+    # the free body: the main path of the generic tier
+    fargs = fast_args("free_body", torch.float32, BATCH, SEED)
+    out, fast_s, per_fast["free_body"] = counted(
+        lambda: fast_solver("free_body", ITERS).solve(*fargs))
+    us0_err = float(np.abs(out.us[0].double().cpu().numpy() - us_gold).max())
+    J_rel = abs(out.J_opt[0].item() - meta["J_f64"]) / abs(meta["J_f64"])
+    us_gate = 10 * meta["jax_f32_pipeline"]["lane0_us_max_abs_err"]
+    dyn, cost = problems[torch.float32][:2]
+    pipe = P.PipelineSolver(N, ITERS, float(dyn.dt)).solve(
+        dyn, cost, fargs[1][:CHECK_BATCH], fargs[2][:CHECK_BATCH], fargs[3][:CHECK_BATCH])
+    Jpipe_rel = j_rel(out.J_opt[:CHECK_BATCH], pipe.J_opt)
+    out_p, plain_s = host_plain("free_body", fargs, ITERS)
+    Jp_rel = j_rel(out.J_opt[:CHECK_BATCH], out_p.J_opt)
+    fin = finite(out)
+    emit({"phase": "solve_fast", "path": "free_body", "B": BATCH, "N": N,
+          "iterations": ITERS, "launches": per_fast["free_body"], "all_finite": fin,
+          "lane0_J": out.J_opt[0].item(), "golden_J": meta["J_f64"], "lane0_J_rel_err": J_rel,
+          "lane0_us_max_abs_err": us0_err, "lane0_us_gate": us_gate,
+          "grad_norm_p50": out.grad_norm.median().item(),
+          "pipeline_vs_fast_J_rel_err_lanes0_255": Jpipe_rel,
+          "plain_vs_kernel_J_rel_err_lanes0_255": Jp_rel,
+          "host_plain_solve_lanes0_255_s": plain_s, "solve_s_first_call": fast_s})
+    require(per_fast["free_body"] == expect(B1=ITERS, B13=ITERS, B14=ITERS),
+            f"free-body fast launch counts {per_fast['free_body']}")
+    require(fin, "non-finite lanes in the free-body fast solve")
+    require(J_rel <= 1e-4, f"fast lane-0 J rel err {J_rel}")
+    require(us0_err <= us_gate, f"fast lane-0 us err {us0_err} > {us_gate}")
+    require(Jpipe_rel <= 1e-4, f"fast vs pipeline J rel err {Jpipe_rel}")
+    require(Jp_rel <= 1e-4, f"fast kernel vs plain J rel err {Jp_rel}")
+    del out, pipe, out_p
+
+    # the drone (nu = 4) on B13
+    dargs = fast_args("drone", torch.float32, BATCH, SEED)
+    out, drone_s, per_fast["drone"] = counted(lambda: fast_solver("drone", ITERS).solve(*dargs))
+    out_p, plain_s = host_plain("drone", dargs, ITERS)
+    Jp_rel = j_rel(out.J_opt[:CHECK_BATCH], out_p.J_opt)
+    fin = finite(out)
+    emit({"phase": "solve_fast", "path": "drone", "B": BATCH, "N": N, "iterations": ITERS,
+          "launches": per_fast["drone"], "all_finite": fin, "lane0_J": out.J_opt[0].item(),
+          "grad_norm_p50": out.grad_norm.median().item(),
+          "plain_vs_kernel_J_rel_err_lanes0_255": Jp_rel,
+          "host_plain_solve_lanes0_255_s": plain_s, "solve_s_first_call": drone_s})
+    require(per_fast["drone"] == expect(B13=ITERS), f"drone launch counts {per_fast['drone']}")
+    require(fin, "non-finite lanes in the drone fast solve")
+    require(Jp_rel <= 1e-4, f"drone kernel vs plain J rel err {Jp_rel}")
+    del out, out_p
+
+    # the free attitude (nx = 6, nu = 3) on B13
+    us_g, meta_g = so3["so3_track249"]["gold"]
+    sargs = fast_args("so3_track249", torch.float32, BATCH, SEED)
+    out, so3f_s, per_fast["so3_track249"] = counted(
+        lambda: fast_solver("so3_track249", SO3_ITERS).solve(*sargs))
+    us0_err = float(np.abs(out.us[0].double().cpu().numpy() - us_g).max())
+    J_rel = abs(out.J_opt[0].item() - meta_g["J_f64"]) / abs(meta_g["J_f64"])
+    us_gate = 10 * meta_g["jax_f32_pipeline"]["lane0_us_max_abs_err"]
+    fin = finite(out)
+    emit({"phase": "solve_fast", "path": "so3_track249", "B": BATCH,
+          "N": fast["so3_track249"]["N"], "iterations": SO3_ITERS,
+          "launches": per_fast["so3_track249"], "all_finite": fin,
+          "lane0_J": out.J_opt[0].item(), "golden_J": meta_g["J_f64"],
+          "lane0_J_rel_err": J_rel, "lane0_us_max_abs_err": us0_err, "lane0_us_gate": us_gate,
+          "solve_s_first_call": so3f_s})
+    require(per_fast["so3_track249"] == expect(B13=SO3_ITERS),
+            f"so3_track249 fast launch counts {per_fast['so3_track249']}")
+    require(fin, "non-finite lanes in the so3_track249 fast solve")
+    require(J_rel <= 1e-4, f"so3_track249 fast lane-0 J rel err {J_rel}")
+    require(us0_err <= us_gate, f"so3_track249 fast lane-0 us err {us0_err} > {us_gate}")
+    del out
+
+    # the per-lane merit line search, f64, from poses perturbed by Exp(0.4 n)
+    largs = fast_args("free_body", torch.float64, LS_BATCH, SEED, scale=LS_SCALE)
+    out, ls_s, per_ls = counted(lambda: fast_solver(
+        "free_body", LS_ITERS, torch.float64, line_search=True).solve(*largs))
+    out_p, ls_plain_s = host_plain("free_body", largs, LS_ITERS, torch.float64,
+                                   line_search=True)
+    ls_agree = (out.us[:CHECK_BATCH].cpu() - out_p.us).abs().max().item()
+    full, _ = host_plain("free_body", largs, LS_ITERS, torch.float64)
+    ls_vs_full = (full.us - out_p.us).abs().max().item()
+    fin = finite(out)
+    emit({"phase": "solve_fast", "path": "line_search", "dtype": "float64", "B": LS_BATCH,
+          "N": N, "iterations": LS_ITERS, "pose_perturbation": LS_SCALE,
+          "launches": per_ls, "all_finite": fin,
+          "kernel_vs_plain_us_max_abs_lanes0_255": ls_agree, "gate": 1e-9,
+          "line_search_vs_full_step_us_max_abs_lanes0_255": ls_vs_full,
+          "host_plain_solve_lanes0_255_s": ls_plain_s, "solve_s_first_call": ls_s})
+    require(per_ls == expect(B1=LS_ITERS, B13=LS_ITERS), f"line-search launch counts {per_ls}")
+    require(fin, "non-finite lanes in the line-search solve")
+    require(ls_agree <= 1e-9, f"line search kernel vs plain us {ls_agree} > 1e-9")
+    del out, out_p, full
+
+    # -- timing_fast: each path, then B13 at each shape and B14 against plain -----
+    solver = fast_solver("free_body", ITERS)
+    solver.solve(*fast_args("free_body", torch.float32, BATCH, 700))  # warm-up
+    reps = []
+    for r in range(TIMING_REPS):
+        a = fast_args("free_body", torch.float32, BATCH, 701 + r)
+        _, sec = timed(lambda: solver.solve(*a))
+        reps.append(sec)
+    med_f = statistics.median(reps)
+    _, drone_rep = timed(lambda: fast_solver("drone", ITERS).solve(
+        *fast_args("drone", torch.float32, BATCH, 710)))
+    _, so3_rep = timed(lambda: fast_solver("so3_track249", SO3_ITERS).solve(
+        *fast_args("so3_track249", torch.float32, BATCH, 711)))
+    fast_kernel = {}
+    for kind in FAST_KINDS:
+        s = kernel_check.fast_inputs(fast_solver(kind, 2),
+                                     *fast_args(kind, torch.float32, BATCH, 720)[:4])
+        errs = kernel_check.fast_compare(s)
+        for k, (kern, plain) in kernel_check.fast_calls(s).items():
+            fast_kernel[f"{k} {kind}"] = {
+                "ms": event_ms(kern, 5), "plain_ms": event_ms(plain, 1),
+                "max_err": errs[k]["max_rel"], "max_abs_err": errs[k]["max_abs"],
+                "gate": kernel_check.GATES["fast"][torch.float32][k],
+                **bound(k, s, kern()), "library_ms": None}
+        del s
+    emit({"phase": "timing_fast", "card": card, "B": BATCH, "N": N, "iterations": ITERS,
+          "free_body_rep_s": reps, "free_body_median_s": med_f,
+          "free_body_solves_per_s": BATCH / med_f,
+          "free_body_ms_per_iteration": med_f * 1e3 / ITERS,
+          "drone_rep_s": drone_rep, "drone_solves_per_s": BATCH / drone_rep,
+          "drone_ms_per_iteration": drone_rep * 1e3 / ITERS,
+          "so3_track249_rep_s": so3_rep, "so3_track249_solves_per_s": BATCH / so3_rep,
+          "so3_track249_ms_per_iteration": so3_rep * 1e3 / SO3_ITERS,
+          "per_kernel": {"B1": {**per_kernel["B1"], "launches": per_fast["free_body"]["B1"],
+                                "run": "free_body fast B=8192"}, **fast_kernel},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    for k, v in fast_kernel.items():
+        require(v["max_err"] <= v["gate"], f"{k} at B={BATCH}: {v['max_err']}")
+    per_kernel["B13"] = fast_kernel["B13 free_body"]
+    per_kernel["B14"] = fast_kernel["B14 free_body"]
+
     # launches: B1-B3 from the fused f32 solve, B4 from the unfused one,
     # B5-B9 from the polish solve, B10-B12 from the free-attitude solve (the
     # pendulum's read the same, solve_so3)
@@ -569,6 +794,8 @@ def main():
     runs.update({k: (f"polish B={POLISH_BATCH}", per_polish) for k in DM.KERNELS})
     runs.update({k: (f"{SO3_PROBLEMS[0]} B={BATCH}", per_so3[SO3_PROBLEMS[0]])
                  for k in S.KERNELS})
+    runs.update({k: (f"free_body fast B={BATCH}", per_fast["free_body"])
+                 for k in ("B13", "B14")})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
         {"name": f"{k} {KERNELS[k][0]}", "route": "cuda",

@@ -6,8 +6,11 @@ pipeline (B=8192, 12 iterations); ``--path polish``, the f32 pipeline and
 the mixed-precision polish (B=16384, 7 + 2 iterations), with the wall time
 of each phase.  ``--path so3_track249`` or ``pendulum_swingup80``: the SO(3)
 pipeline on that problem (`tasks/so3_bench.py`; B=8192, 30 f32 iterations).
+``--path fast``: the generic fast tier on screw-200, the free body through
+`solvers/batched.FastBatchSolver` on kernels B1, B13 and B14 (B=8192, 12
+iterations).
 
-    python3 scripts/profile_torch_pipeline.py [--path f32|polish|so3_track249|pendulum_swingup80]
+    python3 scripts/profile_torch_pipeline.py [--path f32|polish|fast|so3_track249|pendulum_swingup80]
         [--batch B] [--iterations I] [--trace PATH]
 
 Prints one JSON line; ``--trace`` also writes the Chrome trace.  Needs a
@@ -25,6 +28,9 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
+from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.batched import (  # noqa: E402
+    FastBatchSolver,
+)
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.df_mixed import (  # noqa: E402
     MixedDFPipelineSolver,
 )
@@ -37,13 +43,14 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.pipeline_so3 im
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import so3_bench  # noqa: E402
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (  # noqa: E402
     build_screw200,
+    screw200_model,
     screw_batch,
 )
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("f32", "polish", *so3_bench.PROBLEMS),
+    ap.add_argument("--path", choices=("f32", "polish", "fast", *so3_bench.PROBLEMS),
                     default="f32")
     ap.add_argument("--batch", type=int, default=None,
                     help="default 8192 (f32), 16384 (polish)")
@@ -72,12 +79,19 @@ def main():
         dyn, cost, q0, xi0 = build_screw200(dtype, dev)
         if polish:
             solver = MixedDFPipelineSolver(N, float(dyn.dt), iters, 2)
+        elif args.path == "fast":
+            model, params, _, _ = screw200_model(dtype, dev)
+            solver = FastBatchSolver(model, N, iters, pallas_rollout_dt=float(dyn.dt),
+                                     use_pallas_linearize=True)
         else:
             solver = PipelineSolver(N, iters, float(dyn.dt))
 
     def inputs(seed):
         q0s, xi0s = batch(q0, xi0, B, seed)
-        return dyn, cost, q0s, xi0s, torch.zeros((B, N, nu), dtype=dtype, device=dev)
+        us0 = torch.zeros((B, N, nu), dtype=dtype, device=dev)
+        if args.path == "fast":
+            return params, q0s, xi0s, us0, cost.q_ref, cost.xi_ref
+        return dyn, cost, q0s, xi0s, us0
 
     solver.solve(*inputs(0))  # build, load, warm up
     a = inputs(1)

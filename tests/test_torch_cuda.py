@@ -1,4 +1,4 @@
-"""The port's CUDA kernels B1-B12 against their plain versions on the card.
+"""The port's CUDA kernels B1-B14 against their plain versions on the card.
 
 Marked ``cuda``; each test skips without a CUDA device (the kernels are
 built by nvcc at first use and run only on the card).  This file imports no
@@ -14,6 +14,8 @@ import torch
 from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
     GATES,
     compare,
+    fast_compare,
+    fast_inputs,
     kernel_inputs,
     polish_compare,
     polish_inputs,
@@ -26,12 +28,16 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.models.dynamics import 
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline_so3 as S
+from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.batched import (
+    FastBatchSolver,
+)
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.df_pipeline import (
     join_us,
 )
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import so3_bench
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (
     build_screw200,
+    screw200_model,
     screw_batch,
 )
 
@@ -170,5 +176,50 @@ def test_so3_kernel_solve_matches_plain_solve(cuda, pendulum):
                                            plain=plain)
     out = mk(False).solve(dyn, cost, q0s, xi0s, us0)
     ref = mk(True).solve(dyn, cost, q0s, xi0s, us0)
+    torch.testing.assert_close(out.us, ref.us, rtol=0, atol=1e-10)
+    torch.testing.assert_close(out.J_opt, ref.J_opt, rtol=1e-12, atol=0)
+
+
+def _fast_case(kind, dtype, device, B_=B, H_=H, iterations=2):
+    """(solver, params, q0s, xi0s, us0) of the generic fast tier: the free
+    body on all three kernels (B1, B13, B14), the drone and the free
+    attitude on B13."""
+    if kind == "so3":
+        model, params, q0, xi0 = so3_bench.so3_track249_model(dtype, device, horizon=H_)
+        q0s, xi0s = so3_bench.so3_batch(q0, xi0, B_, seed=1)
+        nu, kw = 3, {}
+    else:
+        model, params, q0, xi0 = screw200_model(dtype, device, horizon=H_,
+                                                drone=kind == "drone")
+        q0s, xi0s = screw_batch(q0, xi0, B_, seed=1)
+        nu = 4 if kind == "drone" else 6
+        kw = {} if kind == "drone" else dict(pallas_rollout_dt=float(params["dyn"].dt),
+                                             use_pallas_linearize=True)
+    solver = FastBatchSolver(model, H_, iterations, **kw)
+    return solver, params, q0s, xi0s, torch.zeros((B_, H_, nu), dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("kind", ["free_body", "drone", "so3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_fast_kernels_match_plain(cuda, dtype, kind):
+    """B13 at (nx, nu) = (12, 6), (12, 4) and (6, 3), and B14 (free body), on
+    a real FastBatchSolver iterate, within kernel_check.GATES["fast"]."""
+    solver, params, *args = _fast_case(kind, dtype, cuda)
+    errs = fast_compare(fast_inputs(solver, params, *args))
+    torch.cuda.synchronize()
+    assert set(errs) == ({"B13", "B14"} if kind == "free_body" else {"B13"})
+    for name, e in errs.items():
+        assert e["max_rel"] <= GATES["fast"][dtype][name], (name, e["per_output"])
+
+
+@pytest.mark.parametrize("kind", ["free_body", "drone"])
+def test_fast_kernel_solve_matches_plain_solve(cuda, kind):
+    """A FastBatchSolver solve through the kernels against the plain solve on
+    the card, f64."""
+    solver, params, *args = _fast_case(kind, torch.float64, cuda, B_=64, iterations=3)
+    cp = params["cost"]
+    out = solver.solve(params, *args, cp.q_ref, cp.xi_ref)
+    solver.plain = True
+    ref = solver.solve(params, *args, cp.q_ref, cp.xi_ref)
     torch.testing.assert_close(out.us, ref.us, rtol=0, atol=1e-10)
     torch.testing.assert_close(out.J_opt, ref.J_opt, rtol=1e-12, atol=0)

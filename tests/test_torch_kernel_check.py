@@ -12,6 +12,7 @@ import torch
 
 from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
 from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
+    FAST_OUTPUTS,
     GATES,
     HBM_BYTES_PER_S,
     OUTPUTS,
@@ -22,6 +23,9 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
     bound_ms,
     calls,
     compare,
+    fast_calls,
+    fast_compare,
+    fast_inputs,
     kernel_inputs,
     polish_calls,
     polish_compare,
@@ -34,9 +38,13 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline_so3 as S
+from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.batched import (
+    FastBatchSolver,
+)
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import so3_bench
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (
     build_screw200,
+    screw200_model,
     screw_batch,
 )
 
@@ -63,14 +71,15 @@ ptxas info    : Function properties for __internal_trig_reduction_slowpathd
 
 
 def test_each_unit_is_built_once_per_scalar_and_the_polish_once():
-    """linearize, pipeline and so3 are built for f32 and f64; the
+    """linearize, pipeline, so3 and fast are built for f32 and f64; the
     mixed-precision polish unit once, under its own suffix, with no scalar
     macro; every library is named {unit}_{suffix}_{hash}.so in the build
     directory."""
     assert _build.LIBS == (("linearize", "f32", "float"), ("linearize", "f64", "double"),
                            ("pipeline", "f32", "float"), ("pipeline", "f64", "double"),
                            ("polish", "mx", None), ("so3", "f32", "float"),
-                           ("so3", "f64", "double"))
+                           ("so3", "f64", "double"), ("fast", "f32", "float"),
+                           ("fast", "f64", "double"))
     for unit, sfx, _ in _build.LIBS:
         path = _build._lib_path(unit, sfx)
         assert path.parent == _build.BUILD_DIR
@@ -178,6 +187,67 @@ def so3_case():
     solver = S.SO3PipelineSolver(H, 1, float(dyn.dt))
     return solver, so3_inputs(solver, dyn, cost, q0s, xi0s,
                               torch.zeros((B, H, 3), dtype=torch.float64))
+
+
+FAST_KINDS = ("free_body", "drone", "so3")
+
+
+@pytest.fixture(scope="module")
+def fast_cases():
+    """{kind: inputs of `fast_inputs`} for the free body (B1, B13, B14), the
+    drone and the free attitude (B13), f64, one FastBatchSolver iteration."""
+    out = {}
+    for kind in FAST_KINDS:
+        if kind == "so3":
+            model, params, q0, xi0 = so3_bench.so3_track249_model(
+                torch.float64, device="cpu", horizon=H)
+            q0s, xi0s = so3_bench.so3_batch(q0, xi0, B, seed=3)
+            kw = {}
+        else:
+            model, params, q0, xi0 = screw200_model(torch.float64, device="cpu", horizon=H,
+                                                    drone=kind == "drone")
+            q0s, xi0s = screw_batch(q0, xi0, B, seed=3)
+            kw = {} if kind == "drone" else dict(pallas_rollout_dt=float(params["dyn"].dt),
+                                                 use_pallas_linearize=True)
+        us0 = torch.zeros((B, H, model.nu), dtype=torch.float64)
+        out[kind] = fast_inputs(FastBatchSolver(model, H, 1, **kw), params, q0s, xi0s, us0)
+    return out
+
+
+@pytest.mark.parametrize("kind", FAST_KINDS)
+def test_fast_compare_on_cpu_is_exact_and_covers_every_output(kind, fast_cases):
+    """B13's and B14's wiring: on CPU tensors each wrapper takes its plain
+    version, so kernel and plain agree exactly, on every output; B14 only
+    where its inputs are (the free body)."""
+    errs = fast_compare(fast_cases[kind])
+    assert set(errs) == ({"B13", "B14"} if kind == "free_body" else {"B13"})
+    assert set(GATES["fast"][torch.float64]) == {"B13", "B14"}
+    for name, e in errs.items():
+        assert set(e["per_output"]) == set(FAST_OUTPUTS[name])
+        assert e["max_rel"] == 0.0 and e["max_abs"] == 0.0, name
+
+
+# Values per problem and stage that B13 reads at (nx, nu): Fx nx^2, Fu nx nu,
+# d nx, Lx nx, Lu nu, Lxx nx^2, Lux nu nx, Luu nu^2 (Lx and Lxx also once at
+# the terminal stage), and writes: k nu, K nu nx, Vx1 nx, Vxx1 nx^2.  B14
+# reads qR 9, qp 3, xi 6 (N+1 stages each), us 6, k 6, K 72, d 12, fxi 6,
+# Exp(d) 9 + 3 and f^-1 9 + 3, and writes 9 + 3 + 6 + 6.
+FAST_IO = {("B13", "free_body"): (498, 156, 234), ("B13", "drone"): (428, 156, 208),
+           ("B13", "so3"): (132, 42, 63), ("B14", "free_body"): (144, 18, 24)}
+
+
+@pytest.mark.parametrize("name,kind", list(FAST_IO), ids=[f"{n}-{k}" for n, k in FAST_IO])
+def test_fast_work_counts_each_array_once(name, kind, fast_cases):
+    """`work` for B13 at (12, 6), (12, 4) and (6, 3) and for B14 against a
+    hand count per problem and stage: the arrays each kernel reads and its
+    outputs, each once.  The operation estimate sets no bound."""
+    s = fast_cases[kind]
+    wk = work(name, s, fast_calls(s)[name][1]())
+    reads, once, writes = FAST_IO[(name, kind)]
+    assert wk["bytes"] == 8 * B * ((reads + writes) * H + once)
+    t_ops = sum(n / PEAK_OPS_PER_S[dt] for dt, n in wk["ops"].items())
+    assert wk["bytes"] / HBM_BYTES_PER_S >= 2 * t_ops > 0
+    assert bound_ms(wk)[1] == "bytes"
 
 
 # Elements per problem that each kernel reads plus those it writes, at

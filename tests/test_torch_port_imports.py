@@ -27,7 +27,8 @@ def test_port_has_the_slice_modules():
               "models.dynamics", "models.costs", "utils.trajectories",
               "tasks.al_bench", "solvers.pipeline", "solvers.df_pipeline",
               "solvers.df_mixed", "solvers.pipeline_so3", "tasks.so3_bench",
-              "kernel_check", "convert", "_build"):
+              "kernel_check", "convert", "_build", "models.base", "ops.riccati",
+              "ops.rollout", "solvers.batched"):
         assert f"{port.__name__}.{m}" in mods, m
 
 

@@ -5,7 +5,8 @@ Each library of `LIBS` is one `csrc/*.cu` unit compiled by ``nvcc`` for
 with `ctypes` (no PyTorch headers, so a build takes seconds to minutes, not
 tens of minutes).  ``linearize`` and ``pipeline`` are built once per scalar
 type (``-DTRAOPT_SCALAR=float`` / ``double``, suffixes ``f32`` / ``f64``),
-and so is ``so3`` (the SO(3)-family pipeline);
+and so are ``so3`` (the SO(3)-family pipeline) and ``fast`` (the generic
+fast tier's Riccati backward and rollout);
 ``polish`` mixes f32 and fp64 by design and is built once, under the suffix
 ``mx``.  The libraries go to ``build/torch_kernels/`` beside the package,
 named ``{unit}_{suffix}_{hash}.so`` by a hash of the sources and flags, so a
@@ -33,7 +34,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 # (unit, library suffix, -DTRAOPT_SCALAR or None)
 LIBS = (("linearize", "f32", "float"), ("linearize", "f64", "double"),
         ("pipeline", "f32", "float"), ("pipeline", "f64", "double"),
-        ("polish", "mx", None), ("so3", "f32", "float"), ("so3", "f64", "double"))
+        ("polish", "mx", None), ("so3", "f32", "float"), ("so3", "f64", "double"),
+        ("fast", "f32", "float"), ("fast", "f64", "double"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 

@@ -4,7 +4,9 @@ f32 and f64) on a real pipeline iterate (`kernel_inputs`, `calls`,
 `compare`); B5-B9 (the mixed-precision polish) on a real polish iterate
 (`polish_inputs`, `polish_calls`, `polish_compare`); B10-B12 (the SO(3)
 pipeline, in f32 and f64) on a real SO(3) iterate (`so3_inputs`,
-`so3_calls`, `so3_compare`).
+`so3_calls`, `so3_compare`); B13 and B14 (the generic fast tier, in f32 and
+f64) on a real `FastBatchSolver` iterate (`fast_inputs`, `fast_calls`,
+`fast_compare`).
 
 The error of one output tensor is max |kernel - plain| / max(1, max |plain|).
 
@@ -21,6 +23,9 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.linearize import (
     linearize_lane,
     linearize_plain,
 )
+from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import riccati as RC
+from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import rollout as RO
+from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import se3
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline_so3 as S
@@ -67,6 +72,12 @@ GATES["so3"] = {torch.float32: {"B10": 1e-4, "B11": 1e-3, "B12": 1e-4},
                 torch.float64: {"B10": 1e-9, "B11": 1e-9, "B12": 1e-9}}
 SO3_OUTPUTS = {"B10": S.LIN, "B11": ("k", "K", "gvec", "lN"),
                "B12": ("qR", "xi", "us") + tuple("new_" + n for n in S.LIN)}
+
+# The generic fast tier's kernels: B13 as B2 (a long recursion through a
+# Cholesky), B14 as B4.
+GATES["fast"] = {torch.float32: {"B13": 1e-3, "B14": 1e-4},
+                 torch.float64: {"B13": 1e-9, "B14": 1e-9}}
+FAST_OUTPUTS = {"B13": ("k", "K", "Vx1", "Vxx1"), "B14": ("qR", "qp", "xi", "us")}
 
 
 def rel_err(a, b):
@@ -127,17 +138,23 @@ def calls(s, *, dt, gravity=False, exact_grav=False):
     return out
 
 
-def compare(s, **kw):
+def _compare(pairs, outputs, lin=LIN):
     """{kernel: {"max_rel", "max_abs", "per_output": {output: rel error}}}
-    for every pair of `calls` (keyword arguments as there)."""
+    for every (kernel_call, plain_call) pair, the outputs named by
+    ``outputs[kernel]`` (linearization dicts flattened in ``lin`` order)."""
     out = {}
-    for name, (kern, plain) in calls(s, **kw).items():
-        a, b = _flat(kern()), _flat(plain())
-        per = {n: rel_err(x, y) for n, x, y in zip(OUTPUTS[name], a, b)}
+    for name, (kern, plain) in pairs.items():
+        a, b = _flat(kern(), lin), _flat(plain(), lin)
+        per = {n: rel_err(x, y) for n, x, y in zip(outputs[name], a, b, strict=True)}
         out[name] = {"max_rel": max(per.values()),
                      "max_abs": max((x - y).abs().max().item() for x, y in zip(a, b)),
                      "per_output": per}
     return out
+
+
+def compare(s, **kw):
+    """`_compare` of every pair of `calls` (keyword arguments as there)."""
+    return _compare(calls(s, **kw), OUTPUTS)
 
 
 def polish_inputs(solver, dyn, cost, q0s, xi0s, us0, luu_al=False, seed=0):
@@ -257,17 +274,51 @@ def so3_calls(s, *, dt, pendulum):
 
 
 def so3_compare(s, **kw):
-    """{kernel: {"max_rel", "max_abs", "per_output": {output: rel error}}}
-    for B10-B12 (keyword arguments as `so3_calls`)."""
-    out = {}
-    for name, (kern, plain) in so3_calls(s, **kw).items():
-        a, b = _flat(kern(), S.LIN), _flat(plain(), S.LIN)
-        per = {n: rel_err(x, y) for n, x, y in zip(SO3_OUTPUTS[name], a, b,
-                                                    strict=True)}
-        out[name] = {"max_rel": max(per.values()),
-                     "max_abs": max((x - y).abs().max().item() for x, y in zip(a, b)),
-                     "per_output": per}
+    """`_compare` of B10-B12 (keyword arguments as `so3_calls`)."""
+    return _compare(so3_calls(s, **kw), SO3_OUTPUTS, S.LIN)
+
+
+def fast_inputs(solver, params, q0s, xi0s, us0):
+    """A real iterate of ``solver`` (a `FastBatchSolver`) in lane layout, the
+    arrays the kernels read after their wrappers' transposes: the
+    linearization of the trajectory after ``solver.iterations`` iterations
+    (Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu; Lx and Lxx with the terminal stage)
+    and the gains of its backward pass (plain version), i.e. every input B13
+    takes; with ``solver.pallas_rollout_dt`` set (the free body) also the
+    trajectory, fxi, Exp(d_q) and f(x)^-1, i.e. every input B14 takes."""
+    cp = params["cost"]
+    st = solver.solve(params, q0s, xi0s, us0, cp.q_ref, cp.xi_ref)
+    lin = solver._linearize(params, st.qs, st.xis, st.us)
+    tl = lambda x: x.movedim(0, -1).contiguous()   # (B, N, ...) -> (N, ..., B)
+    s = {n: tl(lin[n]) for n in ("Fx", "Fu", "d", "Lx", "Lu", "Lxx", "Lux", "Luu")}
+    s["us"] = tl(st.us)
+    s["k"], s["K"], _, _ = RC.backward_plain(*(s[n] for n in READS["B13"]))
+    if solver.pallas_rollout_dt is not None:
+        dp = params["dyn"]
+        exp_d, fq_inv = se3.exp(lin["d"][..., :6]), se3.inverse(lin["fq"])
+        s.update(qR=tl(st.qs[:, :, :3, :3]), qp=tl(st.qs[:, :, :3, 3]),
+                 xi=tl(st.xis), fxi=tl(lin["fxi"]), edR=tl(exp_d[:, :, :3, :3]),
+                 edp=tl(exp_d[:, :, :3, 3]), fiR=tl(fq_inv[:, :, :3, :3]),
+                 fip=tl(fq_inv[:, :, :3, 3]), J=dp.J.contiguous(),
+                 Jinv=dp.Jinv.contiguous(), dt=solver.pallas_rollout_dt)
+    return s
+
+
+def fast_calls(s):
+    """{kernel: (kernel_call, plain_call)} for B13 (and B14 when ``s`` holds
+    its inputs) on the inputs ``s`` of `fast_inputs`."""
+    bargs = tuple(s[n] for n in READS["B13"])
+    out = {"B13": (lambda: RC.backward_lane(*bargs), lambda: RC.backward_plain(*bargs))}
+    if "edR" in s:
+        rargs = tuple(s[n] for n in READS["B14"]) + (s["J"], s["Jinv"])
+        out["B14"] = (lambda: RO.rollout_lane(*rargs, dt=s["dt"]),
+                      lambda: RO.rollout_plain(*rargs, dt=s["dt"]))
     return out
+
+
+def fast_compare(s):
+    """`_compare` of B13 (and B14) on the inputs ``s`` of `fast_inputs`."""
+    return _compare(fast_calls(s), FAST_OUTPUTS)
 
 
 # -- the least time a call could take ---------------------------------------------
@@ -289,7 +340,11 @@ READS = {"B1": ("qR", "qp", "xi", "us"),
          "B6": _ROLL, "tail": ("qR", "qp", "xi", "evals"),
          "B10": ("qR", "xi", "us"),
          "B11": ("Fx", "fu2", "d", "lx", "lu", "lxx", "qR[N]", "xi[N]"),
-         "B12": ("qR", "xi", "us", "k", "K", "d", "fqR", "fxi")}
+         "B12": ("qR", "xi", "us", "k", "K", "d", "fqR", "fxi"),
+         # the generic fast tier: Lx and Lxx hold the terminal stage
+         "B13": ("Fx", "Fu", "d", "Lx", "Lu", "Lxx", "Lux", "Luu"),
+         "B14": ("qR", "qp", "xi", "us", "k", "K", "d", "fxi", "edR", "edp",
+                 "fiR", "fip")}
 READS["B2_al"] = READS["B2"] + ("luu_al",)
 READS["B5_al"] = READS["B5"] + ("luu_al",)
 
@@ -307,6 +362,18 @@ def _riccati_ops(nx, nu, h):
             + nu ** 3 // 3)
 
 
+def _fast_riccati_ops(nx, nu):
+    """The products of one dense Riccati stage (`ops/riccati.riccati_step`),
+    2 operations per multiply-add: V_xx d, Fx^T and Fu^T of V_x + V_xx d;
+    V_xx Fx, Fx^T and Fu^T of it; V_xx Fu and Fu^T of it; the Cholesky
+    factor and its solves for K and k; K^T Q_uu, the three value-gradient
+    terms, K^T Q_uu K, K^T Q_ux and Q_ux^T K."""
+    return (2 * (2 * nx * nx + nx * nu + 2 * nx ** 3 + nu * nx * nx
+                 + nx * nx * nu + nu * nu * nx + nu * nu * (nx + 1) + nx * nu * nu
+                 + 3 * nx * nu + 3 * nx * nx * nu)
+            + nu ** 3 // 3)
+
+
 def _linearize_ops(h):
     """Four products of h x h blocks: two for Fx, two for the cost Hessian."""
     return 8 * h ** 3
@@ -317,12 +384,16 @@ def _rollout_ops(nx, nu):
     return 2 * nu * nx + 3 * 54
 
 
-def _ops(name, nu):
+def _ops(name, nu, nx):
     """(operations per problem and stage, dtype or None for the run's) of
     kernel ``name``: an estimate from its dense products (the kernels skip
     some of their zero blocks; the exponentials, logarithms and series are
     left out).  It decides no bound: every kernel's bytes take at least
     twice as long."""
+    if name == "B13":
+        return _fast_riccati_ops(nx, nu), None
+    if name == "B14":
+        return _rollout_ops(12, 6), None
     if name in ("B10", "B11", "B12"):
         return {"B10": _linearize_ops(3), "B11": _riccati_ops(6, 3, 3),
                 "B12": _rollout_ops(6, 3) + _linearize_ops(3)}[name], None
@@ -353,8 +424,8 @@ def _tensors(x):
 
 
 def work(name, s, out):
-    """What kernel ``name`` (a key of `calls`, `polish_calls` or
-    `so3_calls`) must move and compute on the inputs ``s`` when it returns
+    """What kernel ``name`` (a key of `calls`, `polish_calls`, `so3_calls`
+    or `fast_calls`) must move and compute on the inputs ``s`` when it returns
     ``out``: {"bytes": the bytes of the arrays it reads (`READS`), each read
     once, plus those of the tensors it returns that are not among them,
     "ops": {dtype: operations}} (`_ops` per problem and stage)."""
@@ -362,7 +433,7 @@ def work(name, s, out):
     outs = [t for t in _tensors(out) if not any(t is x for x in ins)]
     nbytes = sum(t.numel() * t.element_size() for t in ins + outs)
     N, nu, B = s["us"].shape
-    per, dtype = _ops(name, nu)
+    per, dtype = _ops(name, nu, _array(s, "d").shape[1])
     return {"bytes": nbytes, "ops": {dtype or s["us"].dtype: per * N * B}}
 
 

@@ -1,14 +1,15 @@
 """Rigid-body dynamics families on SO(3)/SE(3) (part of the JAX
 `models/dynamics.py`).
 
-Ported so far: the parameter containers of the SO(3) free attitude, the 3-D
+Ported: the parameter containers of the SO(3) free attitude, the 3-D
 pendulum actuated at its pivot, the SE(3) free body, the rigid body with
 gravity and the drone (a rigid body with a 6x4 input projection); the
-semi-implicit Euler `step` functions of all five, and the analytic
-Jacobians (Fx, Fu) of the two SO(3) families.  They are written batch-first
-with the group operations of `ops/so3.py` and `ops/se3.py`, independently
-of the lane stage math in `ops/linearize.py` and `solvers/pipeline_so3.py`,
-which the tests hold against them.
+semi-implicit Euler `step` functions and the analytic Jacobians (Fx, Fu) of
+all five, and their `DynamicsDef` factories (`models/base.py`), which the
+generic `solvers/batched.FastBatchSolver` takes.  They are written
+batch-first with the group operations of `ops/so3.py` and `ops/se3.py`,
+independently of the lane stage math in `ops/linearize.py` and
+`solvers/pipeline_so3.py`, which the tests hold against them.
 
 Quirk flags kept from the reference (see the JAX module docstring):
 ``ref_coad_swap`` selects the reference's coad-swap in the Jacobian's H
@@ -21,7 +22,9 @@ import dataclasses
 
 import torch
 
+from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import DynamicsDef
 from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import se3, so3
+from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SE3, SO3
 from trajectory_optimization_matrix_lie_groups_tpu_torch.utils.linalg import setup_inv
 
 _DOWN = (0.0, 0.0, -1.0)
@@ -214,3 +217,85 @@ def _rigid_body_step(p: RigidBodyParams, q, xi, u, i=None):
     q_next = se3.normalize(q @ se3.exp(xi * p.dt))
     xi_next = xi + _bmv(p.Jinv, wrench) * p.dt
     return q_next, xi_next
+
+
+# -- batch-first SE(3) Jacobians ----------------------------------------------
+
+def _coad_for_jac(p, xi):
+    """coad(xi) for the H block, with the reference's omega/v swap quirk
+    unless ``p.ref_coad_swap`` is False."""
+    if p.ref_coad_swap:
+        return se3.coad(torch.cat([xi[..., 3:], xi[..., :3]], dim=-1))
+    return se3.coad(xi)
+
+
+def _se3_G(p, xi):
+    """G = [[hat(Ib w), m hat(v)], [m hat(v), 0]]."""
+    Gw = so3.hat(_bmv(p.Ib, xi[..., :3]))
+    Gv = p.m * so3.hat(xi[..., 3:])
+    return _blk2(Gw, Gv, Gv, torch.zeros_like(Gw))
+
+
+def _se3_pose_blocks(p, xi):
+    """(Ad(Exp(tau))^-1, Jr(tau) dt), tau = xi dt."""
+    tau = xi * p.dt
+    return se3.Ad(se3.exp(-tau)), se3.right_jacobian(tau) * p.dt
+
+
+def _se3_jac(p: SE3Params, q, xi, u, i=None):
+    """Free body: Fx = [[Ad(Exp(-tau)), Jr(tau) dt], [0, I + H dt]] with
+    H = Jinv (coad(xi) J + G); Fu = [0; Jinv] dt.
+    Returns (Fx (..., 12, 12), Fu (..., 12, 6))."""
+    del q, u, i
+    J_q_q, J_q_xi = _se3_pose_blocks(p, xi)
+    H = p.Jinv @ (_coad_for_jac(p, xi) @ p.J + _se3_G(p, xi))
+    eye6 = torch.eye(6, dtype=xi.dtype, device=xi.device).expand(H.shape)
+    Fx = _blk2(J_q_q, J_q_xi, torch.zeros_like(H), eye6 + H * p.dt)
+    Fu = torch.cat([torch.zeros_like(p.Jinv), p.Jinv], dim=-2) * p.dt
+    return Fx, Fu.expand(H.shape[:-2] + (12, 6))
+
+
+def _rigid_body_jac(p: RigidBodyParams, q, xi, u, i=None):
+    """The free-body Jacobian plus the gravity block
+    J_xi_q = Jinv [[0, 0], [J_v_R, 0]] dt, J_v_R = hat(R^T down) (times m g
+    only with ``exact_gravity_jacobian``: the reference omits it), and
+    Fu = [0; Jinv Pu] dt.  Returns (Fx (..., 12, 12), Fu (..., 12, nu))."""
+    del u, i
+    J_q_q, J_q_xi = _se3_pose_blocks(p, xi)
+    H = p.Jinv @ (_coad_for_jac(p, xi) @ p.J + _se3_G(p, xi))
+    down = torch.tensor(_DOWN, dtype=q.dtype, device=q.device)
+    J_v_R = so3.hat(_bmv(q[..., :3, :3].transpose(-1, -2), down))
+    if p.exact_gravity_jacobian:
+        J_v_R = p.m * p.g * J_v_R
+    Z3 = torch.zeros_like(J_v_R)
+    J_xi_q = p.Jinv @ _blk2(Z3, Z3, J_v_R, Z3) * p.dt
+    eye6 = torch.eye(6, dtype=xi.dtype, device=xi.device).expand(H.shape)
+    Fx = _blk2(J_q_q, J_q_xi, J_xi_q, eye6 + H * p.dt)
+    bt = p.Jinv @ p.Pu
+    Fu = torch.cat([torch.zeros_like(bt), bt], dim=-2) * p.dt
+    return Fx, Fu.expand(H.shape[:-2] + (12, p.Pu.shape[-1]))
+
+
+# -- DynamicsDef factories ------------------------------------------------------
+
+def so3_dynamics():
+    return DynamicsDef(group=SO3, nx=6, nu=3, step=_so3_step, jac=_so3_jac)
+
+
+def pendulum3d_dynamics():
+    return DynamicsDef(group=SO3, nx=6, nu=3, step=_pendulum3d_step,
+                       jac=_pendulum3d_jac)
+
+
+def se3_dynamics():
+    return DynamicsDef(group=SE3, nx=12, nu=6, step=_se3_step, jac=_se3_jac)
+
+
+def rigid_body_dynamics():
+    return DynamicsDef(group=SE3, nx=12, nu=6, step=_rigid_body_step,
+                       jac=_rigid_body_jac)
+
+
+def drone_dynamics():
+    return DynamicsDef(group=SE3, nx=12, nu=4, step=_rigid_body_step,
+                       jac=_rigid_body_jac)

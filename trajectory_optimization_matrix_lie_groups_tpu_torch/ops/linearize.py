@@ -226,12 +226,13 @@ def lane_refs(q_ref_inv, Ad_ref, xi_ref):
 
 
 def linearize(qs, xis, us, q_ref_inv, Ad_ref, xi_ref, Jm, Jinv, W1, W2, dt,
-              Pu=None, mg=None, gravity=False, exact_grav=False):
+              Pu=None, mg=None, gravity=False, exact_grav=False, plain=False):
     """Fused stage linearization in solver layout (counterpart of
     `pallas_linearize`): qs (B, N+1, 4, 4), xis (B, N+1, 6), us (B, N, nu);
     references q_ref_inv (N+1, 4, 4), Ad_ref (N+1, 6, 6), xi_ref (N+1, 6);
     constants Jm/Jinv/W1/W2 (6, 6).  Returns dict(fq, fxi, d, Fx, lx, lxx, l)
-    in solver layout for stages 0..N-1."""
+    in solver layout for stages 0..N-1.  ``plain`` runs the plain version
+    whatever the device (the counterpart of ``interpret``)."""
     B, Np1 = qs.shape[0], qs.shape[1]
     N = Np1 - 1
     tl = lambda x: x.movedim(0, -1).contiguous()
@@ -240,9 +241,10 @@ def linearize(qs, xis, us, q_ref_inv, Ad_ref, xi_ref, Jm, Jinv, W1, W2, dt,
     consts = dict(J=Jm.contiguous(), Jinv=Jinv.contiguous(),
                   W1=W1.contiguous(), W2=W2.contiguous(), Pu=Pu.contiguous(),
                   mg=0.0 if mg is None else float(mg))
-    out = linearize_lane(tl(qs[:, :, :3, :3]), tl(qs[:, :, :3, 3]), tl(xis),
-                         tl(us), lane_refs(q_ref_inv, Ad_ref, xi_ref), consts,
-                         dt=float(dt), gravity=gravity, exact_grav=exact_grav)
+    out = (linearize_plain if plain else linearize_lane)(
+        tl(qs[:, :, :3, :3]), tl(qs[:, :, :3, 3]), tl(xis), tl(us),
+        lane_refs(q_ref_inv, Ad_ref, xi_ref), consts, dt=float(dt),
+        gravity=gravity, exact_grav=exact_grav)
     bk = lambda x: x.movedim(-1, 0)
     fq = torch.zeros((B, N, 4, 4), dtype=us.dtype, device=us.device)
     fq[:, :, :3, :3] = bk(out["fqR"])

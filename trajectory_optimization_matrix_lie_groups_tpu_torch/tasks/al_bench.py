@@ -19,9 +19,11 @@ import numpy as np
 import torch
 
 from trajectory_optimization_matrix_lie_groups_tpu_torch.models import costs, dynamics
+from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import make_model
 from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SE3
 
-__all__ = ["build_al1400", "build_screw200", "screw_batch", "load_screw200_golden"]
+__all__ = ["build_al1400", "build_screw200", "screw200_model", "screw_batch",
+           "load_screw200_golden"]
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
@@ -65,6 +67,26 @@ def build_screw200(dtype=torch.float64, device=torch.device("cuda"), horizon=200
     cost = params["cost"]
     cost.R = r * torch.eye(6, dtype=dtype, device=device)
     return params["dyn"], cost, q0, xi0
+
+
+def screw200_model(dtype=torch.float64, device=torch.device("cuda"), horizon=200,
+                   drone=False):
+    """`build_screw200` as the (model, params) pair of `make_model` that the
+    generic `solvers/batched.FastBatchSolver` takes: the free body with the
+    SE(3) tracking cost and R = 1e-3 I, or with ``drone`` the drone
+    (`drone_params(J, dt)`: gravity, 3 torques + z-thrust) with R = 1e-2 I4.
+    On ``device`` (the card unless asked for another).
+    Returns (model, params, q0, xi0); the reference is params["cost"]'s."""
+    dyn, cost, q0, xi0 = build_screw200(dtype, device, horizon)
+    if drone:
+        dyn = dynamics.drone_params(dyn.J, dyn.dt)
+        cost.R = 1e-2 * torch.eye(4, dtype=dtype, device=device)
+        model, params = make_model(dynamics.drone_dynamics(),
+                                   costs.tracking_cost(SE3, 4), dyn, cost)
+    else:
+        model, params = make_model(dynamics.se3_dynamics(),
+                                   costs.tracking_cost(SE3, 6), dyn, cost)
+    return model, params, q0, xi0
 
 
 def screw_batch(q0, xi0, B, seed, scale=0.05):

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from trajectory_optimization_matrix_lie_groups_tpu_torch.models import costs, dynamics
+from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import make_model
 from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import so3
 from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SO3
 from trajectory_optimization_matrix_lie_groups_tpu_torch.utils.trajectories import (
@@ -33,7 +34,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.utils.trajectories impo
 )
 
 __all__ = ["PROBLEMS", "build_so3_track249", "build_pendulum_swingup80",
-           "so3_batch", "load_so3_golden"]
+           "so3_track249_model", "so3_batch", "load_so3_golden"]
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 INERTIA = (0.5, 0.7, 0.9)
@@ -73,6 +74,19 @@ def build_pendulum_swingup80(dtype=torch.float64, device=torch.device("cuda"),
     """The 3-D pendulum swing-up (``horizon`` cuts N = 80).
     Returns (dyn `Pendulum3dParams`, cost, q0 (3, 3), xi0 (3,))."""
     return _build("pendulum_swingup80", dtype, device, horizon)
+
+
+def so3_track249_model(dtype=torch.float64, device=torch.device("cuda"),
+                       horizon=None):
+    """`build_so3_track249` as the (model, params) pair of `make_model` that
+    the generic `solvers/batched.FastBatchSolver` takes: the free attitude
+    with the SO(3) tracking cost and its terminal quirk.
+    Returns (model, params, q0, xi0); the reference is params["cost"]'s."""
+    dyn, cost, q0, xi0 = build_so3_track249(dtype, device, horizon)
+    model, params = make_model(dynamics.so3_dynamics(),
+                               costs.tracking_cost(SO3, 3, ref_so3_terminal_quirk=True),
+                               dyn, cost)
+    return model, params, q0, xi0
 
 
 def so3_batch(q0, xi0, B, seed, scale=0.05):

@@ -8,3 +8,39 @@ def setup_inv(M):
     """Inverse of a small setup-time matrix, computed in f64 and returned in
     ``M``'s dtype and device (as the JAX package does on the host)."""
     return torch.linalg.inv(M.to(torch.float64)).to(M.dtype)
+
+
+def chol_solve_psd(A, B):
+    """Solve A X = B for symmetric positive definite A (..., n, n), B
+    (..., n, m) or (..., n), by an unrolled Cholesky factorization and
+    forward/back substitution (n small)."""
+    vec = B.dim() == A.dim() - 1
+    if vec:
+        B = B[..., None]
+    n = A.shape[-1]
+    L = [[None] * n for _ in range(n)]
+    for j in range(n):
+        s = A[..., j, j]
+        for k in range(j):
+            s = s - L[j][k] * L[j][k]
+        L[j][j] = torch.sqrt(s)
+        inv_jj = 1.0 / L[j][j]
+        for i in range(j + 1, n):
+            s = A[..., i, j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            L[i][j] = s * inv_jj
+    Y = [None] * n
+    for i in range(n):
+        s = B[..., i, :]
+        for k in range(i):
+            s = s - L[i][k][..., None] * Y[k]
+        Y[i] = s / L[i][i][..., None]
+    X = [None] * n
+    for i in reversed(range(n)):
+        s = Y[i]
+        for k in range(i + 1, n):
+            s = s - L[k][i][..., None] * X[k]
+        X[i] = s / L[i][i][..., None]
+    out = torch.stack(X, dim=-2)
+    return out[..., 0] if vec else out
