@@ -4,6 +4,7 @@ stated, on the same numpy inputs:
 - the batch-first SE(3) Jacobians (`models/dynamics._se3_jac`,
   `_rigid_body_jac`) with the quirk flags on and off, and the generic
   `models/costs.tracking_cost` for SE(3) and SO(3);
+- `utils/linalg.chol_solve_psd`, the f64 loop backward's solve;
 - kernel B13's plain version (`ops/riccati`) against the JAX
   `pallas_backward` (interpret mode) at every (nx, nu) it is built for;
 - kernel B14's plain version (`ops/rollout`) against the JAX
@@ -32,6 +33,9 @@ from trajectory_optimization_matrix_lie_groups_tpu.ops.pallas_rollout import (
 from trajectory_optimization_matrix_lie_groups_tpu.solvers.batched import (
     FastBatchSolver as JaxFastBatchSolver,
 )
+from trajectory_optimization_matrix_lie_groups_tpu.utils.linalg import (
+    chol_solve_psd as jchol_solve_psd,
+)
 from trajectory_optimization_matrix_lie_groups_tpu_torch.convert import dyn_from_numpy
 from trajectory_optimization_matrix_lie_groups_tpu_torch.models import costs as tcosts
 from trajectory_optimization_matrix_lie_groups_tpu_torch.models import dynamics as tdyn
@@ -41,6 +45,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.riccati import (
     fast_backward,
 )
 from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.rollout import fast_rollout
+from trajectory_optimization_matrix_lie_groups_tpu_torch.utils.linalg import chol_solve_psd
 
 from test_torch_pipeline_so3 import problem as so3_problem
 from torch_port_cases import TORCH_DTYPE, initial_batch, problem
@@ -170,6 +175,23 @@ def _random_riccati_problem(B, N, nx, nu, seed):
             0.01 * n((B, N, nx)), n((B, N + 1, nx)), n((B, N, nu)),
             W @ np.swapaxes(W, -1, -2) * 0.1 + np.eye(nx), 0.1 * n((B, N, nu, nx)),
             U @ np.swapaxes(U, -1, -2) * 0.1 + np.eye(nu))
+
+
+@pytest.mark.parametrize("rhs", [(), (12,)], ids=["vector", "matrix"])
+def test_chol_solve_psd_matches_jax(rhs):
+    """The port's `utils/linalg.chol_solve_psd` (the f64 loop backward's
+    solve, on the lane Cholesky that B13's plain version uses) against the
+    JAX one, f64, batch (3, 2) of 6 x 6 positive definite systems."""
+    rng = np.random.default_rng(5)
+    W = rng.standard_normal((3, 2, 6, 6))
+    A = W @ np.swapaxes(W, -1, -2) + 0.5 * np.eye(6)
+    B = rng.standard_normal((3, 2, 6) + rhs)
+    want = np.asarray(jchol_solve_psd(jnp.asarray(A), jnp.asarray(B)))
+    got = chol_solve_psd(T(A), T(B)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(A @ (got if rhs else got[..., None]),
+                               B if rhs else B[..., None], atol=1e-11)
 
 
 @pytest.mark.parametrize("dtype", [jnp.float64, jnp.float32], ids=["f64", "f32"])

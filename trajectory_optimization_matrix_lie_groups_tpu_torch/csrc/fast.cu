@@ -251,8 +251,8 @@ __global__ void __launch_bounds__(kThreads) fast_riccati_kernel(FastRiccatiArgs<
 // precomputed as the TPU kernel takes them.  Shares stage.cuh's deviation
 // (se3 inverse, compose, log), free-body dynamics evaluation (with the
 // identity input projection) and quaternion renormalization with B4.
-// What bounds it on an H100: it reads 144 values and writes 24 per stage and
-// problem, serial over stages, with B / 128 blocks; the carry (R, p, xi)
+// What bounds it on an H100: it reads 138 values (of d only the twist rows)
+// and writes 24 per stage and problem, serial over stages, with B / 128 blocks; the carry (R, p, xi)
 // stays in registers.
 template <typename T>
 struct FastRolloutArgs {

@@ -310,7 +310,8 @@ def fast_calls(s):
     bargs = tuple(s[n] for n in READS["B13"])
     out = {"B13": (lambda: RC.backward_lane(*bargs), lambda: RC.backward_plain(*bargs))}
     if "edR" in s:
-        rargs = tuple(s[n] for n in READS["B14"]) + (s["J"], s["Jinv"])
+        rargs = tuple(s[n] for n in ("qR", "qp", "xi", "us", "k", "K", "d", "fxi",
+                                     "edR", "edp", "fiR", "fip", "J", "Jinv"))
         out["B14"] = (lambda: RO.rollout_lane(*rargs, dt=s["dt"]),
                       lambda: RO.rollout_plain(*rargs, dt=s["dt"]))
     return out
@@ -330,8 +331,9 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 
 # The arrays each kernel reads, each once: entries of its inputs ``s`` (or
 # of s["lin"]); "qR[N]" is the terminal stage alone (the Riccati kernels'
-# terminal quadratization).  The references and model constants, shared by
-# the batch (a few KB), are left out.
+# terminal quadratization), "d_xi" the twist rows d[:, 6:] alone (B14 takes
+# Exp(d_q) precomputed).  The references and model constants, shared by the
+# batch (a few KB), are left out.
 _ROLL = ("qR", "qp", "xi", "us", "k", "K", "d", "fqR", "fqp", "fxi")
 READS = {"B1": ("qR", "qp", "xi", "us"),
          "B2": ("Fx", "d", "lx", "lu", "lxx", "qR[N]", "qp[N]", "xi[N]"),
@@ -343,7 +345,7 @@ READS = {"B1": ("qR", "qp", "xi", "us"),
          "B12": ("qR", "xi", "us", "k", "K", "d", "fqR", "fxi"),
          # the generic fast tier: Lx and Lxx hold the terminal stage
          "B13": ("Fx", "Fu", "d", "Lx", "Lu", "Lxx", "Lux", "Luu"),
-         "B14": ("qR", "qp", "xi", "us", "k", "K", "d", "fxi", "edR", "edp",
+         "B14": ("qR", "qp", "xi", "us", "k", "K", "d_xi", "fxi", "edR", "edp",
                  "fiR", "fip")}
 READS["B2_al"] = READS["B2"] + ("luu_al",)
 READS["B5_al"] = READS["B5"] + ("luu_al",)
@@ -412,6 +414,8 @@ def _ops(name, nu, nx):
 def _array(s, name):
     if name.endswith("[N]"):
         return _array(s, name[:-3])[-1]
+    if name == "d_xi":
+        return _array(s, "d")[:, 6:]
     return s[name] if name in s else s["lin"][name]
 
 

@@ -22,44 +22,13 @@ import torch
 
 from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
 from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import lane_lie as ll
+from trajectory_optimization_matrix_lie_groups_tpu_torch.utils.linalg import (
+    chol_factor,
+    chol_solve,
+)
 
 # the (nx, nu) instantiations of the kernel
 SHAPES = ((12, 6), (12, 4), (6, 3))
-
-
-def _chol(Quu, nu):
-    """Unrolled nu x nu Cholesky of lane values: L[i][j] (L[j][j] the
-    square root of the pivot)."""
-    L = [[None] * nu for _ in range(nu)]
-    for j in range(nu):
-        s = Quu[j, j]
-        for kk in range(j):
-            s = s - L[j][kk] * L[j][kk]
-        L[j][j] = torch.sqrt(s)
-        inv = 1.0 / L[j][j]
-        for i in range(j + 1, nu):
-            s = Quu[i, j]
-            for kk in range(j):
-                s = s - L[i][kk] * L[j][kk]
-            L[i][j] = s * inv
-    return L
-
-
-def _chol_solve(L, Bm, nu):
-    """Solve (L L^T) X = Bm for Bm (nu, p, *b)."""
-    Y = [None] * nu
-    for i in range(nu):
-        s = Bm[i]
-        for kk in range(i):
-            s = s - L[i][kk] * Y[kk]
-        Y[i] = s / L[i][i]
-    X = [None] * nu
-    for i in reversed(range(nu)):
-        s = Y[i]
-        for kk in range(i + 1, nu):
-            s = s - L[kk][i] * X[kk]
-        X[i] = s / L[i][i]
-    return torch.stack(X)
 
 
 def riccati_step(fx, fu, dd, lx, lu, lxx, lux, luu, Vx, Vxx):
@@ -74,9 +43,9 @@ def riccati_step(fx, fu, dd, lx, lu, lxx, lux, luu, Vx, Vxx):
     Qxx = lxx + ll.matmul(fxT, VF)
     Qux = lux + ll.matmul(fuT, VF)
     Quu = luu + ll.matmul(fuT, ll.matmul(Vxx, fu))
-    L = _chol(Quu, nu)
-    K = -_chol_solve(L, Qux, nu)
-    k = -_chol_solve(L, Qu[:, None], nu)[:, 0]
+    L = chol_factor(Quu, nu)
+    K = -chol_solve(L, Qux, nu)
+    k = -chol_solve(L, Qu[:, None], nu)[:, 0]
     KT, QuxT = ll.transpose(K), ll.transpose(Qux)
     KTQuu = ll.matmul(KT, Quu)
     Vx_new = Qx + ll.matvec(KTQuu, k) + ll.matvec(KT, Qu) + ll.matvec(QuxT, k)

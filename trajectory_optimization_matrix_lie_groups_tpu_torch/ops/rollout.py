@@ -70,7 +70,7 @@ def rollout_lane(qR, qp, xi, us, k, K, d, fxi, edR, edp, fiR, fip, J, Jinv, *, d
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (float32 or float64), or raise.  On an H100 one thread per problem walks
-    the stages with the carry (R, p, xi) in registers, reading 144 values
+    the stages with the carry (R, p, xi) in registers, reading 138 values
     and writing 24 per stage."""
     args = (qR, qp, xi, us, k, K, d, fxi, edR, edp, fiR, fip, J, Jinv)
     if us.device.type == "cpu":
