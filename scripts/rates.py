@@ -1,0 +1,173 @@
+#!/usr/bin/env python3
+"""The end-to-end rates of the PyTorch port's paths and the times of its
+Riccati kernels B2 and B5, for one checkout on one card: the numbers on
+which two commits are compared.  Prints one JSON line.
+
+    python3 scripts/rates.py [--root DIR]
+
+``--root``: the checkout whose package is measured (default: the one this
+script lies in), so that two trees compare in one call on one card, e.g.
+the parent unpacked into ``build/parent``: parent, change, change, parent.
+It measures what `chip_smoke.py`'s timing phases measure, with the same
+shapes, schedules and repetitions, in ~3 minutes a tree; `chip_smoke.py`
+(~10 minutes) also checks every kernel and path, mostly against plain
+solves on the host.
+
+Measured, in this order (the f32 path first: earlier work in a process
+moves B2's time by up to 2%):
+  f32           the fused f32 pipeline on screw-200, B=8192, 12 iterations:
+                median of 7 reps after a warm-up, a new batch each;
+  B2            kernel ms (CUDA events, mean of 5 launches after one) on a
+                real f32 iterate at B=8192 and at B=16384;
+  polish        the f32 phase (7 iterations) and the mixed polish (2),
+                B=16384: median of 5 reps of the two phases' sum; the
+                warm-up's lane 0 against the screw-200 golden;
+  B5            kernel ms on the polish's real iterate at B=16384;
+  so3           both SO(3) families, B=8192, 30 iterations, median of 7;
+  fast          the fast tier's free body (B1/B13/B14), B=8192, 12
+                iterations, median of 7; the drone and the free attitude one
+                rep each (host-bound: their rollouts are stage loops of small
+                PyTorch ops).
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+N, B_F32, B_POLISH, ITERS, SO3_ITERS = 200, 8192, 16384, 12, 30
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("rates: needs a CUDA device")
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build, kernel_check
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import batched as F
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline_so3 as S
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.df_pipeline import join_us
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench, so3_bench
+
+    pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(P.__file__))))
+    assert pkg_root == root, f"measured {P.__file__}, not the package under {root}"
+    dev = torch.device("cuda", 0)
+    out = {"root": root, "card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(), "build_s": _build.build()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    def event_ms(fn, reps=5):
+        fn()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    def median_rate(solve, batch, B, reps, seed):
+        solve(*batch(seed))  # warm-up
+        secs = []
+        for r in range(reps):
+            a = batch(seed + 1 + r)
+            secs.append(timed(lambda: solve(*a))[1])
+        return B / statistics.median(secs)
+
+    problems = {dt: al_bench.build_screw200(dt, dev, horizon=N)
+                for dt in (torch.float32, torch.float64)}
+
+    def screw(dtype, B, seed):
+        dyn, cost, q0, xi0 = problems[dtype]
+        q0s, xi0s = al_bench.screw_batch(q0, xi0, B, seed)
+        return dyn, cost, q0s, xi0s, torch.zeros((B, N, 6), dtype=dtype, device=dev)
+
+    dt = float(problems[torch.float32][0].dt)
+    fused = P.PipelineSolver(N, ITERS, dt)
+    out["f32_solves_per_s"] = median_rate(
+        fused.solve, lambda s: screw(torch.float32, B_F32, s), B_F32, 7, 100)
+    for B in (B_F32, B_POLISH):
+        s = kernel_check.kernel_inputs(P.PipelineSolver(N, 2, dt), *screw(torch.float32, B, 200))
+        out[f"B2_B{B}_ms"] = event_ms(kernel_check.calls(s, dt=dt)["B2"][0])
+        del s
+
+    dt64 = float(problems[torch.float64][0].dt)
+    mx = DM.MixedDFPipelineSolver(N, dt64, 7, 2)
+    us_gold, _ = al_bench.load_screw200_golden()
+    warm = mx.solve(*screw(torch.float64, B_POLISH, 0))
+    out["polish_lane0_us_max_abs_err"] = float(
+        np.abs(join_us(warm)[0].cpu().numpy() - us_gold).max())
+    del warm
+    tot = []
+    for r in range(5):
+        a = screw(torch.float64, B_POLISH, 301 + r)
+        handoff, t_f32 = timed(lambda: mx.f32_phase(*a))
+        _, t_pol = timed(lambda: mx.polish(a[0], a[1], *handoff))
+        tot.append(t_f32 + t_pol)
+        del handoff
+    out["gate_passing_solves_per_s"] = B_POLISH / statistics.median(tot)
+    s = kernel_check.polish_inputs(mx, *screw(torch.float64, B_POLISH, 400))
+    out["B5_B16384_ms"] = event_ms(kernel_check.polish_calls(s, mx)["B5"][0])
+    del s
+
+    for name in ("so3_track249", "pendulum_swingup80"):
+        pendulum, dt_p, n_p = so3_bench.PROBLEMS[name][:3]
+        build = (so3_bench.build_pendulum_swingup80 if pendulum
+                 else so3_bench.build_so3_track249)
+        dyn, cost, q0, xi0 = build(torch.float32, dev)
+
+        def so3_batch(seed, dyn=dyn, cost=cost, q0=q0, xi0=xi0, n_p=n_p):
+            q0s, xi0s = so3_bench.so3_batch(q0, xi0, B_F32, seed)
+            return dyn, cost, q0s, xi0s, torch.zeros((B_F32, n_p, 3), device=dev)
+
+        solver = S.SO3PipelineSolver(n_p, SO3_ITERS, dt_p, pendulum=pendulum)
+        out[f"{name}_solves_per_s"] = median_rate(solver.solve, so3_batch, B_F32, 7, 500)
+
+    for kind in ("free_body", "drone", "so3_track249"):
+        if kind == "so3_track249":
+            model, params, q0, xi0 = so3_bench.so3_track249_model(torch.float32, dev)
+            fbatch, n_k, it_k, kw = so3_bench.so3_batch, 249, SO3_ITERS, {}
+        else:
+            model, params, q0, xi0 = al_bench.screw200_model(torch.float32, dev, horizon=N,
+                                                            drone=kind == "drone")
+            fbatch, n_k, it_k = al_bench.screw_batch, N, ITERS
+            kw = ({} if kind == "drone" else dict(pallas_rollout_dt=float(params["dyn"].dt),
+                                                  use_pallas_linearize=True))
+        cp = params["cost"]
+
+        def fargs(seed, model=model, params=params, q0=q0, xi0=xi0, fbatch=fbatch, n_k=n_k,
+                  cp=cp):
+            q0s, xi0s = fbatch(q0, xi0, B_F32, seed)
+            return (params, q0s, xi0s, torch.zeros((B_F32, n_k, model.nu), device=dev),
+                    cp.q_ref, cp.xi_ref)
+
+        solver = F.FastBatchSolver(model, n_k, it_k, **kw)
+        if kind == "free_body":
+            out["fast_free_body_solves_per_s"] = median_rate(solver.solve, fargs, B_F32, 7, 700)
+        else:
+            out[f"fast_{kind}_solves_per_s"] = B_F32 / timed(
+                lambda: solver.solve(*fargs(710)))[1]
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

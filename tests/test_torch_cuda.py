@@ -43,7 +43,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (
 
 pytestmark = pytest.mark.cuda
 
-H, B = 16, 130  # B crosses a 128-thread block boundary
+H, B = 16, 130  # B crosses a 128-thread block boundary and ends a ragged 8-problem block
 
 
 @pytest.fixture
@@ -53,15 +53,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def _problem(dtype, device, drone):
-    dyn, cost, q0, xi0 = build_screw200(dtype, device, horizon=H)
+def _problem(dtype, device, drone, B_=B, H_=H):
+    dyn, cost, q0, xi0 = build_screw200(dtype, device, horizon=H_)
     nu = 6
     if drone:
         dyn = drone_params(dyn.J, dyn.dt)
         cost.R = 1e-2 * torch.eye(4, dtype=dtype, device=device)
         nu = 4
-    q0s, xi0s = screw_batch(q0, xi0, B, seed=1)
-    us0 = torch.zeros((B, H, nu), dtype=dtype, device=device)
+    q0s, xi0s = screw_batch(q0, xi0, B_, seed=1)
+    us0 = torch.zeros((B_, H_, nu), dtype=dtype, device=device)
     return dyn, cost, q0s, xi0s, us0
 
 
@@ -129,6 +129,69 @@ def test_polish_kernels_match_plain(cuda, drone):
     for name, e in errs.items():
         for out, err in e["per_output"].items():
             assert err <= GATES["mixed"][name][out], (name, out, err)
+
+
+# The group Riccati kernels (B2, B5) at their edges: one problem, a ragged
+# last block of 8 problems (7, 257), rows that are not 16-byte aligned (odd
+# B), one and three stages, nu = 6 (free body) and 4 (the drone, with the
+# gravity block of Fx), each with and without the AL diagonal on Q_uu.
+_EDGES = [pytest.param(B_, N_, id=f"B{B_}-N{N_}") for B_ in (1, 7, 257) for N_ in (1, 3)]
+
+
+@pytest.mark.parametrize("B_,N_", _EDGES)
+@pytest.mark.parametrize("drone", [False, True], ids=["nu6", "nu4_drone"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_group_riccati_b2_edges(cuda, dtype, drone, B_, N_):
+    dyn, cost, q0s, xi0s, us0 = _problem(dtype, cuda, drone, B_, N_)
+    solver = P.PipelineSolver(N_, 2, float(dyn.dt), gravity=drone,
+                              exact_gravity_jacobian=drone)
+    s = kernel_inputs(solver, dyn, cost, q0s, xi0s, us0, luu_al=True)
+    errs = compare(s, dt=solver.dt, gravity=drone, exact_grav=drone)
+    torch.cuda.synchronize()
+    for name in ("B2", "B2_al"):
+        assert errs[name]["max_rel"] <= GATES[dtype][name], (name, errs[name]["per_output"])
+
+
+@pytest.mark.parametrize("B_,N_", _EDGES)
+@pytest.mark.parametrize("drone", [False, True], ids=["nu6", "nu4_drone"])
+def test_group_riccati_b5_edges(cuda, drone, B_, N_):
+    dyn, cost, q0s, xi0s, us0 = _problem(torch.float64, cuda, drone, B_, N_)
+    solver = DM.MixedDFPipelineSolver(N_, float(dyn.dt), 7, 1, gravity=drone,
+                                      exact_gravity_jacobian=drone)
+    s = polish_inputs(solver, dyn, cost, q0s, xi0s, us0, luu_al=True)
+    errs = polish_compare(s, solver)
+    torch.cuda.synchronize()
+    for name in ("B5", "B5_al"):
+        for out, err in errs[name]["per_output"].items():
+            assert err <= GATES["mixed"][name][out], (name, out, err)
+
+
+def test_riccati_wrappers_raise_when_the_launch_fails(cuda):
+    """nu = 5 passes the wrappers' shape checks and reaches the launchers,
+    which take nu = 6 or 4 and return an error: B2's and B5's wrappers raise,
+    count no launch and do not fall back to their plain versions."""
+    N_, B_, nu = 2, 3, 5
+    g = torch.Generator().manual_seed(0)
+    r = lambda *shape, dtype=torch.float64: torch.randn(
+        shape, generator=g, dtype=torch.float64).to(dtype=dtype, device=cuda)
+    lin = dict(Fx=r(N_, 12, 12, B_), d=r(N_, 12, B_), lx=r(N_, 12, B_),
+               lxx=r(N_, 12, 12, B_))
+    refs = dict(RbiR=r(N_ + 1, 3, 3), Rbip=r(N_ + 1, 3), Adb=r(N_ + 1, 6, 6),
+                xib=r(N_ + 1, 6))
+    consts = dict(W1N=r(6, 6), W2N=r(6, 6), fu2=r(6, nu), Luu=r(nu, nu))
+    launches = P.backward_lane.launches
+    with pytest.raises(RuntimeError, match="riccati"):
+        P.backward_lane(lin, r(N_, nu, B_), r(N_ + 1, 3, 3, B_), r(N_ + 1, 3, B_),
+                        r(N_ + 1, 6, B_), refs, consts, glow=False)
+    assert P.backward_lane.launches == launches
+    f32 = torch.float32
+    lin_mx = dict(Fx=lin["Fx"], d=lin["d"], lx=lin["lx"], lxx32=lin["lxx"].to(f32))
+    consts32 = dict(fu2=consts["fu2"].to(f32), Luu=consts["Luu"].to(f32))
+    launches = DM.backward_mx_lane.launches
+    with pytest.raises(RuntimeError, match="riccati_mx"):
+        DM.backward_mx_lane(lin_mx, r(N_, nu, B_), r(12, B_), r(12, 12, B_, dtype=f32),
+                            consts, consts32, glow=False)
+    assert DM.backward_mx_lane.launches == launches
 
 
 @pytest.mark.parametrize("fx_mode", ["df", "hybrid"])

@@ -1,13 +1,14 @@
 // Kernels B2 (Riccati backward), B3 (rollout fused with the next
 // linearization) and B4 (rollout) of the MS-iLQR pipeline.
 //
-// All three are sequential recursions over the N stages of one problem, so
-// the design is one thread per problem (grid ceil(B / 128) x 128), the stage
-// loop inside the thread and the carry in thread-local arrays.  The TPU
-// kernels carried the same recursion across a sequential grid axis with the
-// carry in VMEM scratch; on the GPU blocks run in no order, so the loop moves
-// into the thread.
+// All three are sequential recursions over the N stages of one problem.  The
+// TPU kernels carried the recursion across a sequential grid axis with the
+// carry in VMEM scratch; on the GPU blocks run in no order, so the stage loop
+// moves inside the block.  B3 and B4 run one problem per thread (grid
+// ceil(B / 128) x 128) with the carry in registers; B2 runs one problem per
+// group of 16 threads (riccati_group.cuh).
 #include "common.cuh"
+#include "riccati_group.cuh"
 #include "stage.cuh"
 
 namespace traopt {
@@ -17,13 +18,16 @@ namespace traopt {
 // ._backward_lane).  Defect-aware Riccati backward with const Fu = [0; fu2]
 // and Luu = 2R, Lux = 0, the terminal quadratization computed in-kernel,
 // an unrolled nu x nu Cholesky and the optional AL diagonal on Quu.
-// What bounds it on an H100: the carry (V_x 12, V_xx 144) plus the stage
-// temporaries (Fx 144, Q_ux and K 6 x 12, ...) are ~500 live scalars per
-// thread, above the 255-register limit, so it spills to local memory; and a
-// batch of B problems gives only B / 128 blocks (64 at B = 8192) for 132
-// SMs.  The design keeps one 144-entry buffer for V_xx -> V_xx F -> Q_xx ->
-// V_xx (updated in place row by row and column by column) and reads each
-// stage input once, coalesced over b.
+// What bounds it on an H100: its bytes (Fx and l_xx, 288 values per problem
+// and stage, read once) would take 0.79 ms at B = 8192; its ~10 k operations
+// per problem and stage, if each thread ran a whole problem, keep ~500 values
+// live (V_xx, V_xx F, Q_xx, Q_ux, K), which spill to local memory that does
+// not fit in L2.  The design: a group of 16 threads per problem and 8
+// problems per block (B / 8 blocks, 1,024 at B = 8192), lane r keeps row r
+// of V_xx in registers and the group exchanges V_xx F, S and M through its
+// slice of shared memory; the block copies stage t - 1's inputs into shared
+// memory (cp.async) while it computes stage t, and stages its outputs there
+// to store them coalesced over its problems.
 template <typename T>
 struct RiccatiArgs {
   const T *Fx, *d, *lx, *lu, *lxx, *luual;  // (N, ..., B); luual may be null
@@ -36,30 +40,47 @@ struct RiccatiArgs {
 };
 
 template <typename T, int NU>
-__global__ void __launch_bounds__(kThreads) riccati_kernel(RiccatiArgs<T> a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const int B = a.B, N = a.N;
-  T Vx[12], V[144];
-  {
+__global__ void __launch_bounds__(kGroupThreads) riccati_kernel(RiccatiArgs<T> a) {
+  using L = RiccatiLayout<T, T, NU>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, g = tid / kGroup, r = tid % kGroup;
+  const int B = a.B, N = a.N, b = blockIdx.x * kProblems + g;
+  riccati_consts<T, T, NU>(smem, a.c.fu2, a.c.fu2, a.c.Luu, tid);
+  auto& gs = *reinterpret_cast<GroupScratch<T, T, NU>*>(smem + L::ogroup + g * L::gstride);
+  if (r == 0) {
+    // the terminal quadratization into the group's scratch (problems past B
+    // take problem B - 1's)
+    const int bc = min(b, B - 1);
     T R[9], p[3], xi[6];
-    load<9>(R, lane<9>(a.qR, N, B, b));
-    load<3>(p, lane<3>(a.qp, N, B, b));
-    load<6>(xi, lane<6>(a.xi, N, B, b));
-    a.lN[b] = stage_cost_quad<T>(&Vx[0], &V[0], R, p, xi, a.refs.RbiR + N * 9,
-                                 a.refs.Rbip + N * 3, a.refs.Adb + N * 36,
-                                 a.refs.xib + N * 6, a.c.W1N, a.c.W2N);
+    load<9>(R, lane<9>(a.qR, N, B, bc));
+    load<3>(p, lane<3>(a.qp, N, B, bc));
+    load<6>(xi, lane<6>(a.xi, N, B, bc));
+    const T l = stage_cost_quad<T>(&gs.Vm[0], &gs.VS[0], R, p, xi, a.refs.RbiR + N * 9,
+                                   a.refs.Rbip + N * 3, a.refs.Adb + N * 36,
+                                   a.refs.xib + N * 6, a.c.W1N, a.c.W2N);
+    if (b < B) a.lN[b] = l;
   }
-  for (int t = N - 1; t >= 0; --t) {
-    Lane<const T> al;
-    if (a.luual) al = lane<NU>(a.luual, t, B, b);
-    riccati_stage<T, T, NU, 6>(
-        Vx, V, lane<144>(a.Fx, t, B, b), lane<12>(a.d, t, B, b),
-        lane<12>(a.lx, t, B, b), lane<NU>(a.lu, t, B, b),
-        lane<144>(a.lxx, t, B, b), a.luual ? &al : nullptr, a.c.fu2, a.c.fu2,
-        a.c.Luu, a.glow != 0, lane<NU>(a.k, t, B, b), lane<NU * 12>(a.K, t, B, b),
-        lane<NU>(a.gvec, t, B, b));
+  __syncwarp();
+  T V[12], Vx = T(0);
+#pragma unroll
+  for (int j = 0; j < 12; ++j) V[j] = T(0);
+  if (r < 12) {
+    lds<T, 12>(V, gs.VS + r * 12);
+    Vx = gs.Vm[r];
   }
+  riccati_group_sweep<T, T, NU>(smem, N, B, V, Vx, a.Fx, a.d, a.lx, a.lu, a.lxx, a.luual,
+                                a.glow != 0, a.K, a.k, a.gvec);
+}
+
+template <typename T, int NU>
+int launch_riccati(const RiccatiArgs<T>& a, cudaStream_t s) {
+  constexpr size_t bytes = RiccatiLayout<T, T, NU>::bytes;
+  if (cudaError_t e = cudaFuncSetAttribute(riccati_kernel<T, NU>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes))
+    return (int)e;
+  riccati_kernel<T, NU><<<group_grid(a.B), kGroupThreads, bytes, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // ---- B3 and B4 -------------------------------------------------------------
@@ -174,14 +195,9 @@ extern "C" int TRAOPT_FN(riccati)(
   if (N <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   if (cudaError_t e = cudaSetDevice(device)) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid = traopt::batch_grid(B);
-  if (nu == 6)
-    traopt::riccati_kernel<T, 6><<<grid, traopt::kThreads, 0, s>>>(a);
-  else if (nu == 4)
-    traopt::riccati_kernel<T, 4><<<grid, traopt::kThreads, 0, s>>>(a);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (nu == 6) return traopt::launch_riccati<T, 6>(a, s);
+  if (nu == 4) return traopt::launch_riccati<T, 4>(a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // B4 when the new-linearization pointers are null, else B3.

@@ -13,20 +13,25 @@
 //
 // This unit is built once (-DTRAOPT_SUFFIX=mx): its scalar types are fixed.
 #include "common.cuh"
+#include "riccati_group.cuh"
 #include "stage.cuh"
 
 namespace traopt {
 
 // ---- B5 ------------------------------------------------------------------
 // Replaces solvers/df_mixed.py::_riccati_kernel_mx (MixedDFPipelineSolver
-// ._backward_mx_k).  One thread per problem runs the reverse recursion over
-// the N stages, the carry fp64 V_x (12) and f32 V_xx (144), starting from
-// the terminal quadratization (VxN, VxxN), which the caller computes.  Fx, d,
-// lx, lu are fp64; lxx and the optional AL diagonal luual are f32.
-// What bounds it on an H100: as B2, the ~500 live values per stage exceed
-// the register file and spill to local memory, and now ~60 of them are
-// fp64 (Fx alone is 1,152 bytes a thread); fp64 runs at half the f32 rate.
-// The design is B2's (riccati_stage shared, <float, double>).
+// ._backward_mx_k).  The reverse recursion over the N stages with the carry
+// fp64 V_x (12) and f32 V_xx (144), starting from the terminal quadratization
+// (VxN, VxxN), which the caller computes.  Fx, d, lx, lu are fp64; lxx and
+// the optional AL diagonal luual are f32.
+// What bounds it on an H100: its bytes (fp64 Fx and f32 l_xx, 1,728 bytes
+// per problem and stage, read once) would take 2.3 ms at B = 16384; one
+// thread per problem would keep ~500 live values, ~60 of them fp64, and
+// spill.  The design is B2's (riccati_group.cuh, <float, double>): a group of
+// 16 threads per problem, V_xx rows in registers, the stage inputs copied
+// ahead into shared memory; each stage's fp64 Fx is rounded to f32 once, in
+// shared memory, for the f32 products, and read in fp64 only by the
+// adjoint Q_x = l_x + Fx^T (V_x + V_xx d).
 struct RiccatiMxArgs {
   const double *Fx, *d, *lx, *lu;  // (N, 12, 12, B), (N, 12, B), (N, 12, B), (N, nu, B)
   const float *lxx, *luual;        // (N, 12, 12, B), (N, nu, B) or null
@@ -41,24 +46,34 @@ struct RiccatiMxArgs {
 };
 
 template <int NU>
-__global__ void __launch_bounds__(kThreads) riccati_mx_kernel(RiccatiMxArgs a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const int B = a.B, N = a.N;
-  double Vx[12];
-  float V[144];
-  load<12>(Vx, lane<12>(a.VxN, 0, B, b));
-  load<144>(V, lane<144>(a.VxxN, 0, B, b));
-  for (int t = N - 1; t >= 0; --t) {
-    Lane<const float> al;
-    if (a.luual) al = lane<NU>(a.luual, t, B, b);
-    riccati_stage<float, double, NU, 6>(
-        Vx, V, lane<144>(a.Fx, t, B, b), lane<12>(a.d, t, B, b),
-        lane<12>(a.lx, t, B, b), lane<NU>(a.lu, t, B, b),
-        lane<144>(a.lxx, t, B, b), a.luual ? &al : nullptr, a.fu2, a.fu2_32,
-        a.Luu, a.glow != 0, lane<NU>(a.k, t, B, b), lane<NU * 12>(a.K, t, B, b),
-        lane<NU>(a.gvec, t, B, b));
+__global__ void __launch_bounds__(kGroupThreads) riccati_mx_kernel(RiccatiMxArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, g = tid / kGroup, r = tid % kGroup;
+  const int B = a.B;
+  const int bc = min(int(blockIdx.x) * kProblems + g, B - 1);  // past B: problem B - 1's
+  riccati_consts<float, double, NU>(smem, a.fu2_32, a.fu2, a.Luu, tid);
+  float V[12];
+  double Vx = 0.0;
+#pragma unroll
+  for (int j = 0; j < 12; ++j) V[j] = 0.f;
+  if (r < 12) {
+    Vx = a.VxN[(long long)r * B + bc];
+#pragma unroll
+    for (int j = 0; j < 12; ++j) V[j] = a.VxxN[((long long)r * 12 + j) * B + bc];
   }
+  riccati_group_sweep<float, double, NU>(smem, a.N, B, V, Vx, a.Fx, a.d, a.lx, a.lu, a.lxx,
+                                         a.luual, a.glow != 0, a.K, a.k, a.gvec);
+}
+
+template <int NU>
+int launch_riccati_mx(const RiccatiMxArgs& a, cudaStream_t s) {
+  constexpr size_t bytes = RiccatiLayout<float, double, NU>::bytes;
+  if (cudaError_t e = cudaFuncSetAttribute(riccati_mx_kernel<NU>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes))
+    return (int)e;
+  riccati_mx_kernel<NU><<<group_grid(a.B), kGroupThreads, bytes, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // ---- B6 ------------------------------------------------------------------
@@ -193,14 +208,9 @@ extern "C" int TRAOPT_FN(riccati)(
   if (N <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   if (cudaError_t e = cudaSetDevice(device)) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid = traopt::batch_grid(B);
-  if (nu == 6)
-    traopt::riccati_mx_kernel<6><<<grid, traopt::kThreads, 0, s>>>(a);
-  else if (nu == 4)
-    traopt::riccati_mx_kernel<4><<<grid, traopt::kThreads, 0, s>>>(a);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (nu == 6) return traopt::launch_riccati_mx<6>(a, s);
+  if (nu == 4) return traopt::launch_riccati_mx<4>(a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int TRAOPT_FN(rollout)(

@@ -275,11 +275,11 @@ __device__ __forceinline__ Tp stage_cost_quad(
 // Two scalar types.  Tr carries the residual (adjoint) chain: Fx, d, lx,
 // lu, V_x, Q_x, Q_u = gvec.  Tp carries the preconditioner: V_xx, Q_xx, Q_ux,
 // Q_uu, the Cholesky, the gains and the vanishing V_x corrections, from the
-// Tp roundings of Fx, d and Q_u.  The f32 pipeline (B2) runs <T, T, nu, 6>;
-// the mixed polish (B5, solvers/df_mixed.py riccati_stage_mx)
-// <float, double, nu, 6>; the SO(3) pipeline (B11) <T, T, 3, 3>.  fu2
-// (H x nu, row-major) is given in both types (fu2r: Tr, fu2: Tp), constant
-// (B2, B5) or loaded by the caller for each stage (B11).
+// Tp roundings of Fx, d and Q_u.  The SO(3) pipeline (B11) runs
+// <T, T, 3, 3>; B2 and B5 run the same step with H = 6 on a group of 16
+// threads per problem (riccati_group.cuh, <T, T> and <float, double>).
+// fu2 (H x nu, row-major) is given in both types (fu2r: Tr, fu2: Tp),
+// loaded by the caller for each stage (B11).
 template <typename Tp, typename Tr, int NU, int H>
 __device__ __forceinline__ void riccati_stage(
     Tr* Vx, Tp* V, const Lane<const Tr>& Fxl, const Lane<const Tr>& ddl,

@@ -220,6 +220,28 @@ def _check_device(t, name):
         raise ValueError(f"{name}: no kernel for device {t.device}")
 
 
+def _backward_mx_kernel(fn, stream, lin, lu, VxN, VxxN, consts, consts32, *,
+                        glow, luu_al):
+    N, nu, B = lu.shape
+    a = lambda t, shape, name, dt=F64: _build.arg(t, shape, lu, name, dtype=dt)
+    k = torch.empty((N, nu, B), dtype=F32, device=lu.device)
+    K = torch.empty((N, nu, NX, B), dtype=F32, device=lu.device)
+    gvec = torch.empty_like(lu)
+    err = fn(a(lin["Fx"], (N, NX, NX, B), "Fx"), a(lin["d"], (N, NX, B), "d"),
+             a(lin["lx"], (N, NX, B), "lx"), a(lu, (N, nu, B), "lu"),
+             a(lin["lxx32"], (N, NX, NX, B), "lxx32", F32),
+             None if luu_al is None else a(luu_al, (N, nu, B), "luu_al", F32),
+             a(VxN, (NX, B), "VxN"), a(VxxN, (NX, NX, B), "VxxN", F32),
+             a(consts["fu2"], (6, nu), "fu2"),
+             a(consts32["fu2"], (6, nu), "fu2_32", F32),
+             a(consts32["Luu"], (nu, nu), "Luu32", F32), int(glow),
+             a(k, k.shape, "k", F32), a(K, K.shape, "K", F32),
+             a(gvec, gvec.shape, "gvec"), N, nu, B, _build.device_index(lu),
+             stream)
+    _build.check(err, "riccati_mx")
+    return k, K, gvec
+
+
 def backward_mx_lane(lin, lu, VxN, VxxN, consts, consts32, *, glow,
                      luu_al=None):
     """Kernel B5 (replaces `solvers/df_mixed.py::_riccati_kernel_mx` as
@@ -234,32 +256,18 @@ def backward_mx_lane(lin, lu, VxN, VxxN, consts, consts32, *, glow,
     Returns k32 (N, nu, B), K32 (N, nu, 12, B) f32 and gvec = Q_u (N, nu, B)
     fp64.
 
-    On an H100 one thread runs one problem's recursion, as B2, with an fp64
-    V_x and an f32 V_xx carry; it spills to local memory like B2."""
+    On an H100 a group of 16 threads runs one problem's recursion, as B2,
+    with the fp64 V_x and f32 V_xx rows of the carry in registers and each
+    stage's inputs copied ahead into shared memory."""
     kw = dict(glow=glow, luu_al=luu_al)
     if lu.device.type == "cpu":
         return backward_mx_plain(lin, lu, VxN, VxxN, consts, consts32, **kw)
     _check_device(lu, "backward_mx_lane")
-    N, nu, B = lu.shape
-    a = lambda t, shape, name, dt=F64: _build.arg(t, shape, lu, name, dtype=dt)
-    k = torch.empty((N, nu, B), dtype=F32, device=lu.device)
-    K = torch.empty((N, nu, NX, B), dtype=F32, device=lu.device)
-    gvec = torch.empty_like(lu)
     fn = _build.function("polish", "riccati", "mx", _RICCATI_ARGS)
-    err = fn(a(lin["Fx"], (N, NX, NX, B), "Fx"), a(lin["d"], (N, NX, B), "d"),
-             a(lin["lx"], (N, NX, B), "lx"), a(lu, (N, nu, B), "lu"),
-             a(lin["lxx32"], (N, NX, NX, B), "lxx32", F32),
-             None if luu_al is None else a(luu_al, (N, nu, B), "luu_al", F32),
-             a(VxN, (NX, B), "VxN"), a(VxxN, (NX, NX, B), "VxxN", F32),
-             a(consts["fu2"], (6, nu), "fu2"),
-             a(consts32["fu2"], (6, nu), "fu2_32", F32),
-             a(consts32["Luu"], (nu, nu), "Luu32", F32), int(glow),
-             a(k, k.shape, "k", F32), a(K, K.shape, "K", F32),
-             a(gvec, gvec.shape, "gvec"), N, nu, B, _build.device_index(lu),
-             _stream(lu))
-    _build.check(err, "riccati_mx")
+    out = _backward_mx_kernel(fn, _stream(lu), lin, lu, VxN, VxxN, consts,
+                              consts32, **kw)
     backward_mx_lane.launches += 1
-    return k, K, gvec
+    return out
 
 
 backward_mx_lane.launches = 0

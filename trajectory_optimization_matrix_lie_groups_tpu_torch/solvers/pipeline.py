@@ -221,9 +221,10 @@ def backward_lane(lin, lu, qR, qp, xi, refs, consts, *, glow, luu_al=None):
     optional (N, nu, B) diagonal Quu additions (input-box AL penalty).
     Returns k (N, nu, B), K (N, nu, 12, B), gvec = Qu (N, nu, B), lN (B,).
 
-    On an H100 one thread runs one problem's 200-stage recursion with ~500
-    live scalars (V_xx, Q_xx, K, Q_ux), beyond the register file, so it
-    spills; it reuses one 144-entry buffer for V_xx, V_xx F and Q_xx."""
+    On an H100 a group of 16 threads runs one problem's recursion: lane r
+    keeps row r of V_xx in registers, the group exchanges V_xx F, K and the
+    new V_xx's halves through shared memory, and each stage's inputs are
+    copied there one stage ahead."""
     kw = dict(glow=glow, luu_al=luu_al)
     if lu.device.type == "cpu":
         return backward_plain(lin, lu, qR, qp, xi, refs, consts, **kw)
