@@ -20,8 +20,9 @@ drone (nu = 4) on screw-200 and the free attitude (so3_track249) on B13,
 B = 8192, 12 (30) f32 iterations.  Phases, each printed as one JSON line:
 
   device        the card (nvidia-smi), torch/CUDA versions, the kernels'
-                build time and ptxas registers/spills (B2 f32 and B5 must
-                not spill: their carry lives in registers);
+                build time and ptxas registers/spills (B2 f32, B5 and B13
+                f32 at nx = 12 must not spill: their carry lives in
+                registers);
   kernels       B1-B4 against their plain versions on the same real
                 iterate, at N=200, B=256 in f32 and f64, gated per output;
                 B2 also with an AL diagonal on Quu (B2_al);
@@ -34,7 +35,9 @@ B = 8192, 12 (30) f32 iterations.  Phases, each printed as one JSON line:
                 iterations, lane 0's controls against the golden;
   timing        the f32 path (median of 7 reps, a new batch each), its
                 plain path (one rep) and B1-B4 against their plain versions
-                at B=8192, each with its bound;
+                at B=8192, each with its bound, and B3's yardstick: the sum
+                of B4's and B1's times (B3 computes B4's trajectory and B1's
+                linearization of it);
   kernels_polish  B5-B9 against their plain versions on the polish's real
                 handoff iterate at N=200, B=256, gated per output, B5 also
                 with an AL diagonal (B5_al);
@@ -240,13 +243,15 @@ def main():
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device_name": torch.cuda.get_device_name(0),
           "build_s": build_s, "ptxas": ptxas})
-    # the group Riccati kernels keep their carry in registers: B2 f32 and B5
-    # must not spill
+    # the group Riccati kernels keep their carry in registers: B2 f32, B5 and
+    # B13 f32 (at nx = 12; (6, 3) runs fast_riccati_thread_kernel) must not
+    # spill
     group = {k: v for k, v in ptxas.items()
-             if "traopt::riccati_kernel<float," in k or "traopt::riccati_mx_kernel<" in k}
-    require(len(group) == 4 and all(v.get("spill_stores") == 0 and v.get("spill_loads") == 0
+             if "traopt::riccati_kernel<float," in k or "traopt::riccati_mx_kernel<" in k
+             or "traopt::fast_riccati_kernel<float," in k}
+    require(len(group) == 6 and all(v.get("spill_stores") == 0 and v.get("spill_loads") == 0
                                     for v in group.values()),
-            f"B2 f32 / B5 spill: {group}")
+            f"B2 f32 / B5 / B13 f32 spill: {group}")
 
     us_gold, meta = al_bench.load_screw200_golden()
     problems = {dt: al_bench.build_screw200(dt, dev, horizon=N)
@@ -373,6 +378,8 @@ def main():
           "plain_path_solves_per_s": BATCH / plain_s,
           "plain_path_ms_per_iteration": plain_s * 1e3 / ITERS,
           "per_kernel": per_kernel,
+          "B3_ms": per_kernel["B3"]["ms"],
+          "B4_plus_B1_ms": per_kernel["B4"]["ms"] + per_kernel["B1"]["ms"],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     for k, v in per_kernel.items():
         require(v["max_err"] <= v["gate"], f"{k} at B={BATCH}: {v['max_err']}")

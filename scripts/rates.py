@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The end-to-end rates of the PyTorch port's paths and the times of its
-Riccati kernels B2 and B5, for one checkout on one card: the numbers on
-which two commits are compared.  Prints one JSON line.
+kernels B1-B5 and B13, for one checkout on one card: the numbers on which
+two commits are compared.  Prints one JSON line.
 
     python3 scripts/rates.py [--root DIR]
 
@@ -17,8 +17,9 @@ Measured, in this order (the f32 path first: earlier work in a process
 moves B2's time by up to 2%):
   f32           the fused f32 pipeline on screw-200, B=8192, 12 iterations:
                 median of 7 reps after a warm-up, a new batch each;
-  B2            kernel ms (CUDA events, mean of 5 launches after one) on a
-                real f32 iterate at B=8192 and at B=16384;
+  B1-B4         kernel ms (CUDA events, mean of 5 launches after one) on a
+                real f32 iterate at B=8192, and B2 and B3 at B=16384; B3's
+                yardstick, the sum of B4's and B1's times at B=8192;
   polish        the f32 phase (7 iterations) and the mixed polish (2),
                 B=16384: median of 5 reps of the two phases' sum; the
                 warm-up's lane 0 against the screw-200 golden;
@@ -27,7 +28,8 @@ moves B2's time by up to 2%):
   fast          the fast tier's free body (B1/B13/B14), B=8192, 12
                 iterations, median of 7; the drone and the free attitude one
                 rep each (host-bound: their rollouts are stage loops of small
-                PyTorch ops).
+                PyTorch ops); B13 at each path's (nx, nu), (12, 6), (12, 4)
+                and (6, 3), on a real iterate at B=8192.
 """
 
 import argparse
@@ -107,8 +109,11 @@ def main():
         fused.solve, lambda s: screw(torch.float32, B_F32, s), B_F32, 7, 100)
     for B in (B_F32, B_POLISH):
         s = kernel_check.kernel_inputs(P.PipelineSolver(N, 2, dt), *screw(torch.float32, B, 200))
-        out[f"B2_B{B}_ms"] = event_ms(kernel_check.calls(s, dt=dt)["B2"][0])
-        del s
+        calls = kernel_check.calls(s, dt=dt)
+        for k in ("B2", "B3") if B == B_POLISH else ("B1", "B2", "B3", "B4"):
+            out[f"{k}_B{B}_ms"] = event_ms(calls[k][0])
+        del s, calls
+    out[f"B4_plus_B1_B{B_F32}_ms"] = out[f"B4_B{B_F32}_ms"] + out[f"B1_B{B_F32}_ms"]
 
     dt64 = float(problems[torch.float64][0].dt)
     mx = DM.MixedDFPipelineSolver(N, dt64, 7, 2)
@@ -166,6 +171,11 @@ def main():
         else:
             out[f"fast_{kind}_solves_per_s"] = B_F32 / timed(
                 lambda: solver.solve(*fargs(710)))[1]
+        # B13 at this path's (nx, nu), on a real iterate
+        s = kernel_check.fast_inputs(F.FastBatchSolver(model, n_k, 2, **kw), *fargs(720)[:4])
+        out[f"B13_{model.nx}x{model.nu}_B{B_F32}_ms"] = event_ms(
+            kernel_check.fast_calls(s)["B13"][0])
+        del s
     print(json.dumps(out), flush=True)
 
 

@@ -24,6 +24,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
 )
 from trajectory_optimization_matrix_lie_groups_tpu_torch.models.dynamics import (
     drone_params,
+    rigid_body_params,
 )
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
@@ -286,3 +287,67 @@ def test_fast_kernel_solve_matches_plain_solve(cuda, kind):
     ref = solver.solve(params, *args, cp.q_ref, cp.xi_ref)
     torch.testing.assert_close(out.us, ref.us, rtol=0, atol=1e-10)
     torch.testing.assert_close(out.J_opt, ref.J_opt, rtol=1e-12, atol=0)
+
+
+# B13 on the group design at its edges: one problem, a ragged last block of
+# 8 problems (7, 257), rows that are not 16-byte aligned (odd B), one, three
+# and 200 stages, (nx, nu) = (12, 6) (free body) and (12, 4) (drone).
+_FAST_EDGES = [pytest.param(B_, N_, id=f"B{B_}-N{N_}") for B_ in (1, 7, 257)
+               for N_ in (1, 3, 200)]
+
+
+@pytest.mark.parametrize("B_,N_", _FAST_EDGES)
+@pytest.mark.parametrize("kind", ["free_body", "drone"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_group_riccati_b13_edges(cuda, dtype, kind, B_, N_):
+    solver, params, *args = _fast_case(kind, dtype, cuda, B_=B_, H_=N_)
+    errs = fast_compare(fast_inputs(solver, params, *args))
+    torch.cuda.synchronize()
+    assert errs["B13"]["max_rel"] <= GATES["fast"][dtype]["B13"], errs["B13"]["per_output"]
+
+
+# B3 (rollout phase, then B1's kernel on the new trajectory) and B4 at their
+# edges: one problem, a ragged block of one warp (7), a ragged last block
+# (257), nu = 6 and 4, gravity off and on (nu = 6 with gravity: the rigid
+# body).
+@pytest.mark.parametrize("B_", [1, 7, 257])
+@pytest.mark.parametrize("gravity", [False, True], ids=["no_gravity", "gravity"])
+@pytest.mark.parametrize("nu", [6, 4], ids=["nu6", "nu4_drone"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rollout_b3_b4_edges(cuda, dtype, nu, gravity, B_):
+    dyn, cost, q0s, xi0s, us0 = _problem(dtype, cuda, nu == 4, B_)
+    if nu == 6 and gravity:
+        dyn = rigid_body_params(dyn.J, dyn.dt)
+    solver = P.PipelineSolver(H, 2, float(dyn.dt), gravity=gravity,
+                              exact_gravity_jacobian=gravity)
+    s = kernel_inputs(solver, dyn, cost, q0s, xi0s, us0)
+    errs = compare(s, dt=solver.dt, gravity=gravity, exact_grav=gravity)
+    torch.cuda.synchronize()
+    for name in ("B3", "B4"):
+        assert errs[name]["max_rel"] <= GATES[dtype][name], (name, errs[name]["per_output"])
+
+
+def test_fast_and_rollout_launchers_refuse_what_they_do_not_take(cuda):
+    """(nx, nu) = (12, 5) reaches B13's launcher and nu = 5 the rollout's
+    (the kernel calls' shape checks pass), which return an error that the
+    kernel calls raise, with no fallback to the plain versions."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import riccati as RC
+
+    N_, B_, nx, nu = 2, 3, 12, 5
+    g = torch.Generator().manual_seed(0)
+    r = lambda *shape: torch.randn(shape, generator=g, dtype=torch.float64).to(cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    fn = _build.function("fast", "fast_riccati", "f64", RC._ARGS)
+    with pytest.raises(RuntimeError, match="fast_riccati"):
+        RC._backward_kernel(fn, stream, r(N_, nx, nx, B_), r(N_, nx, nu, B_), r(N_, nx, B_),
+                            r(N_ + 1, nx, B_), r(N_, nu, B_), r(N_ + 1, nx, nx, B_),
+                            r(N_, nu, nx, B_), r(N_, nu, nu, B_))
+    lin = dict(d=r(N_, 12, B_), fqR=r(N_, 3, 3, B_), fqp=r(N_, 3, B_), fxi=r(N_, 6, B_))
+    consts = dict(J=r(6, 6), Jinv=r(6, 6), Pu=r(6, nu), mg=0.0)
+    fn = _build.function("pipeline", "rollout", "f64", P._ROLLOUT_ARGS)
+    with pytest.raises(RuntimeError, match="rollout"):
+        P._rollout_kernel(fn, stream, r(N_ + 1, 3, 3, B_), r(N_ + 1, 3, B_),
+                          r(N_ + 1, 6, B_), r(N_, nu, B_), r(N_, nu, B_), r(N_, nu, 12, B_),
+                          lin, None, consts, dt=0.01, gravity=False, exact_grav=False,
+                          fused=False)

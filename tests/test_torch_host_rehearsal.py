@@ -1,7 +1,11 @@
-"""The group Riccati kernels B2 and B5 (csrc/riccati_group.cuh) run by the
-host rehearsal (tests/host_rehearsal.py: each thread of a block an OS thread,
-real barriers, the block's shared memory a buffer) on CPU tensors, against
-their plain versions.
+"""The kernels that exchange through shared memory or copy their inputs
+ahead into it, run by the host rehearsal (tests/host_rehearsal.py: each
+thread of a block an OS thread, real barriers, the block's shared memory a
+buffer) on CPU tensors, against their plain versions: the group Riccati
+kernels B2 and B5 (csrc/riccati_group.cuh), B13 (csrc/fast.cu, the same
+group design on a dense step) and the rollout B4 and B3 (csrc/pipeline.cu:
+a thread per problem copying stage t + 1's inputs ahead, then, for B3, B1's
+kernel on the new trajectory).
 
 This runs the kernels' own code, barriers and shared-memory exchanges
 included, which the CPU tests of the wrappers cannot reach (on CPU tensors
@@ -15,21 +19,34 @@ import torch
 
 import host_rehearsal as HR
 from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
+    FAST_OUTPUTS,
     GATES,
+    OUTPUTS,
+    READS,
+    _flat,
+    fast_inputs,
     kernel_inputs,
     polish_inputs,
     rel_err,
 )
-from trajectory_optimization_matrix_lie_groups_tpu_torch.models.dynamics import drone_params
+from trajectory_optimization_matrix_lie_groups_tpu_torch.models.dynamics import (
+    drone_params,
+    rigid_body_params,
+)
+from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import riccati as RC
+from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.batched import FastBatchSolver
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
+from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import so3_bench
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (
     build_screw200,
+    screw200_model,
     screw_batch,
 )
 
 UNITS = {"f32": ("pipeline", "f32", "float"), "f64": ("pipeline", "f64", "double"),
-         "mx": ("polish", "mx", None)}
+         "mx": ("polish", "mx", None), "fast_f32": ("fast", "f32", "float"),
+         "fast_f64": ("fast", "f64", "double")}
 # one problem in a block of 8; a ragged last block with rows not 16-byte
 # aligned (odd B)
 SHAPES = [pytest.param(1, 1, id="B1-N1"), pytest.param(9, 3, id="B9-N3")]
@@ -120,3 +137,96 @@ def test_riccati_launchers_refuse_what_they_do_not_take(libs):
         DM._backward_mx_kernel(fn, None, lin_mx, r(N, nu, B), r(12, B), r(12, 12, B).to(f32),
                                consts, dict(fu2=consts["fu2"].to(f32), Luu=consts["Luu"].to(f32)),
                                glow=False, luu_al=None)
+
+
+# B13: one problem in a block of 8 groups, a ragged block of 7, a ragged
+# second block (9)
+FAST_SHAPES = [pytest.param(B_, N_, id=f"B{B_}-N{N_}") for B_ in (1, 7, 9) for N_ in (1, 3)]
+
+
+def _fast_inputs(kind, dtype, B, N):
+    """A real FastBatchSolver iterate (2 iterations, plain) of the free body
+    (12, 6), the drone (12, 4) or the free attitude (6, 3)."""
+    if kind == "so3":
+        model, params, q0, xi0 = so3_bench.so3_track249_model(dtype, "cpu", horizon=N)
+        q0s, xi0s = so3_bench.so3_batch(q0, xi0, B, seed=1)
+    else:
+        model, params, q0, xi0 = screw200_model(dtype, "cpu", horizon=N,
+                                                drone=kind == "drone")
+        q0s, xi0s = screw_batch(q0, xi0, B, seed=1)
+    us0 = torch.zeros((B, N, model.nu), dtype=dtype)
+    return fast_inputs(FastBatchSolver(model, N, 2), params, q0s, xi0s, us0)
+
+
+@pytest.mark.parametrize("B,N", FAST_SHAPES)
+@pytest.mark.parametrize("kind", ["free_body", "drone", "so3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b13_host_rehearsal_matches_plain(libs, dtype, kind, B, N):
+    """B13 at (12, 6), (12, 4) and (6, 3) within its card gate of the plain
+    version (f32); f64 to 1e-12."""
+    s = _fast_inputs(kind, dtype, B, N)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    fn = HR.function(libs[f"fast_{tag}"], f"fast_riccati_{tag}", RC._ARGS)
+    args = tuple(s[n] for n in READS["B13"])
+    kern, plain = RC._backward_kernel(fn, None, *args), RC.backward_plain(*args)
+    gate = GATES["fast"][dtype]["B13"] if dtype == torch.float32 else 1e-12
+    for name, a, b in zip(FAST_OUTPUTS["B13"], kern, plain, strict=True):
+        assert rel_err(a, b) <= gate, (name, rel_err(a, b))
+
+
+# B3/B4: one problem in a block of 32 threads, a ragged one (9), a ragged
+# second block (33)
+ROLL_SHAPES = [pytest.param(B_, N_, id=f"B{B_}-N{N_}") for B_, N_ in ((1, 1), (9, 3), (33, 3))]
+
+
+@pytest.mark.parametrize("B,N", ROLL_SHAPES)
+@pytest.mark.parametrize("gravity", [False, True], ids=["no_gravity", "gravity"])
+@pytest.mark.parametrize("drone", MODELS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b3_b4_host_rehearsal_match_plain(libs, dtype, drone, gravity, B, N):
+    """B3 (the rollout phase, then B1's kernel on its trajectory) and B4
+    (the rollout alone), nu = 6 and 4, gravity off and on (nu = 6 with
+    gravity: the rigid body), within their card gates of the plain versions
+    (f32); f64 to 1e-12."""
+    dyn, cost, q0s, xi0s, us0 = _problem(dtype, drone, B, N)
+    if gravity and not drone:
+        dyn = rigid_body_params(dyn.J, dyn.dt)
+    solver = P.PipelineSolver(N, 2, float(dyn.dt), gravity=gravity,
+                              exact_gravity_jacobian=gravity)
+    s = kernel_inputs(solver, dyn, cost, q0s, xi0s, us0)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    fn = HR.function(libs[tag], f"rollout_{tag}", P._ROLLOUT_ARGS)
+    traj = (s["qR"], s["qp"], s["xi"], s["us"], s["k"], s["K"], s["lin"])
+    kw = dict(dt=solver.dt, gravity=gravity)
+    for name, fused in (("B3", True), ("B4", False)):
+        kern = P._rollout_kernel(fn, None, *traj, s["refs"], s["consts"], fused=fused,
+                                 exact_grav=gravity, **kw)
+        if fused:
+            plain = P.rollout_linearize_plain(*traj, s["refs"], s["consts"],
+                                              exact_grav=gravity, **kw)
+        else:
+            kern, plain = kern[:4], P.rollout_plain(*traj, s["consts"], **kw)
+        gate = GATES[dtype][name] if dtype == torch.float32 else 1e-12
+        for out, a, b in zip(OUTPUTS[name], _flat(kern), _flat(plain), strict=True):
+            assert rel_err(a, b) <= gate, (name, out, rel_err(a, b))
+
+
+def test_fast_and_rollout_launchers_refuse_what_they_do_not_take(libs):
+    """(nx, nu) = (12, 5) reaches B13's launcher and nu = 5 the rollout's
+    (the calls' shape checks pass), which return an error that the kernel
+    calls raise."""
+    N, B, nx, nu = 2, 3, 12, 5
+    g = torch.Generator().manual_seed(0)
+    r = lambda *shape: torch.randn(shape, generator=g, dtype=torch.float64)
+    fn = HR.function(libs["fast_f64"], "fast_riccati_f64", RC._ARGS)
+    with pytest.raises(RuntimeError, match="fast_riccati"):
+        RC._backward_kernel(fn, None, r(N, nx, nx, B), r(N, nx, nu, B), r(N, nx, B),
+                            r(N + 1, nx, B), r(N, nu, B), r(N + 1, nx, nx, B),
+                            r(N, nu, nx, B), r(N, nu, nu, B))
+    lin = dict(d=r(N, 12, B), fqR=r(N, 3, 3, B), fqp=r(N, 3, B), fxi=r(N, 6, B))
+    consts = dict(J=r(6, 6), Jinv=r(6, 6), Pu=r(6, nu), mg=0.0)
+    fn = HR.function(libs["f64"], "rollout_f64", P._ROLLOUT_ARGS)
+    with pytest.raises(RuntimeError, match="rollout"):
+        P._rollout_kernel(fn, None, r(N + 1, 3, 3, B), r(N + 1, 3, B), r(N + 1, 6, B),
+                          r(N, nu, B), r(N, nu, B), r(N, nu, 12, B), lin, None, consts,
+                          dt=0.01, gravity=False, exact_grav=False, fused=False)

@@ -4,12 +4,14 @@
 // and ops/rollout.py (rollout_plain), which follow the JAX kernels formula by
 // formula.
 //
-// Both are sequential recursions over the N stages of one problem: one thread
-// per problem (grid ceil(B / 128) x 128), the stage loop inside the thread,
-// the carry in thread-local arrays, every per-stage array batch-last so a
-// warp's 32 problems read 32 neighbouring addresses.  The TPU kernels carried
-// the recursion across a sequential grid axis with the carry in VMEM scratch.
+// Both are sequential recursions over the N stages of one problem, the stage
+// loop inside the block (the TPU kernels carried the recursion across a
+// sequential grid axis with the carry in VMEM scratch), every per-stage array
+// batch-last: B13 runs one problem per group of 16 threads (group.cuh), B14
+// one problem per thread (grid ceil(B / 128) x 128) with the carry in
+// registers, a warp's 32 problems reading 32 neighbouring addresses.
 #include "common.cuh"
+#include "group.cuh"
 #include "stage.cuh"
 
 namespace traopt {
@@ -18,12 +20,22 @@ namespace traopt {
 // Replaces ops/pallas_riccati.py::_riccati_kernel (pallas_backward).  A dense
 // step on per-stage Fx (NX x NX), Fu (NX x NU), Lux and Luu, mu = 0, an
 // unrolled NU x NU Cholesky (diagonal stored as the square root, substitutions
-// divide, as the JAX kernel does).
-// What bounds it on an H100: at NX = 12 the carry (V_x 12, V_xx 144) and the
-// stage's Q_ux, K, K^T Q_uu (72 each) exceed the 255-register limit, so they
-// live in local memory.  Fx is not held: its entries are read from global
-// memory (L1) where they are used, V_xx F and F^T (V_xx F) one row / column
-// at a time into the V_xx buffer (V_xx -> V_xx F -> Q_xx -> V_xx in place).
+// divide, as the JAX kernel does), from the terminal Lx[N], Lxx[N]; the
+// carry before each stage's update is an output (Vx1, Vxx1).
+// What bounds it on an H100: its bytes (Fx, Lxx and the rest, ~500 values per
+// problem and stage, read once; the carry, ~160 values, written once) take
+// 1.4 ms at (12, 6), B = 8192, N = 200.  One thread per problem would keep
+// ~500 values live (V_xx, V_xx F, Q_xx, Q_ux, K), which spill to local memory
+// that does not fit in L2.  The design is B2's (riccati_group.cuh): a group
+// of kGroup = 16 threads per problem and kProblems = 8 problems per block
+// (group.cuh); lane r < NX keeps row r of V_xx and V_x[r] in registers and,
+// per stage, column r of Q_xx, Q_ux and K (lane NX: Q_u and k); the group
+// exchanges V_xx F, V_xx Fu, Q_uu, K, K^T Q_uu, Q_ux and the new V_xx's
+// unsymmetrised X through its slice of shared memory between __syncwarp()s;
+// the block copies stage t - 1's inputs into shared memory (cp.async) while it
+// computes stage t, and stages its outputs to store them coalesced.  Every
+// entry keeps the one-thread step's sum order (the k-loop outermost where an
+// entry sums over k), so the result agrees with backward_plain to rounding.
 template <typename T>
 struct FastRiccatiArgs {
   const T *Fx, *Fu, *d, *Lx, *Lu, *Lxx, *Lux, *Luu;  // Lx, Lxx: N+1 stages
@@ -31,8 +43,378 @@ struct FastRiccatiArgs {
   int N, B;
 };
 
+// One group's scratch.
 template <typename T, int NX, int NU>
-__global__ void __launch_bounds__(kThreads) fast_riccati_kernel(FastRiccatiArgs<T> a) {
+struct FastScratch {
+  static constexpr int NUP = vpad<T>(NU);
+  alignas(16) T Vm[vpad<T>(NX)];   // V_x + V_xx d
+  alignas(16) T Qu[NUP];           // Q_u
+  alignas(16) T VS[NX * NX];       // (V_xx F)^T in A-B, X (row-major) in D-E
+  alignas(16) T VFu[NX * NUP];     // V_xx Fu
+  alignas(16) T KT[(NX + 1) * NUP];  // row c < NX: column c of K; row NX: k
+  alignas(16) T KQ[NX * NUP];      // K^T Q_uu
+  alignas(16) T QuxT[NX * NUP];    // Q_ux^T
+  alignas(16) T Quu[NU * NUP];
+};
+
+// Shared memory of a block: two stage buffers (the stage being computed and
+// the one being copied), two output buffers (the stage being written and the
+// one being stored), and the groups' scratch.  Byte offsets, each 16-byte
+// aligned (a row of pitch<T>(ne) elements is a whole number of 16 bytes).
+template <typename T, int NX, int NU>
+struct FastLayout {
+  static constexpr int P = kProblems;
+  // one stage buffer: a row of pitch<T>(ne) per problem for each input
+  static constexpr int pF = pitch<T>(NX * NX), pFu = pitch<T>(NX * NU), pd = pitch<T>(NX),
+                       pu = pitch<T>(NU), pux = pitch<T>(NU * NX), puu = pitch<T>(NU * NU);
+  static constexpr size_t oF = 0, oFu = oF + P * pF * sizeof(T),
+                          od = oFu + P * pFu * sizeof(T), olx = od + P * pd * sizeof(T),
+                          olu = olx + P * pd * sizeof(T), olxx = olu + P * pu * sizeof(T),
+                          olux = olxx + P * pF * sizeof(T), oluu = olux + P * pux * sizeof(T),
+                          stage = oluu + P * puu * sizeof(T);
+  // one output buffer: K, k, Vx1, Vxx1, entry e of problem p at e * kOutStride + p
+  static constexpr int eK = 0, ek = NU * NX, eVx = ek + NU, eVxx = eVx + NX,
+                       nout = eVxx + NX * NX;
+  static constexpr size_t out = align16(nout * kOutStride * sizeof(T));
+  // the block
+  static constexpr size_t ostage = 0, oout = 2 * stage, ogroup = oout + 2 * out,
+                          gstride = group_stride(sizeof(FastScratch<T, NX, NU>)),
+                          bytes = ogroup + P * gstride;
+};
+
+// One problem's view of a stage buffer and of an output buffer.
+template <typename T>
+struct FastIn {
+  const T *F, *Fu, *d, *lx, *lu, *lxx, *lux, *luu;
+};
+
+template <typename T>
+struct FastOut {
+  T *K, *k, *Vx, *Vxx;  // entry e at [e * kOutStride]
+};
+
+template <typename T, int NX, int NU>
+__device__ __forceinline__ FastIn<T> fast_in(const unsigned char* buf, int p) {
+  using L = FastLayout<T, NX, NU>;
+  const auto at = [&](size_t off, int pt) { return reinterpret_cast<const T*>(buf + off) + p * pt; };
+  return {at(L::oF, L::pF),    at(L::oFu, L::pFu),  at(L::od, L::pd),    at(L::olx, L::pd),
+          at(L::olu, L::pu),   at(L::olxx, L::pF),  at(L::olux, L::pux), at(L::oluu, L::puu)};
+}
+
+template <typename T, int NX, int NU>
+__device__ __forceinline__ FastOut<T> fast_out(unsigned char* buf, int p) {
+  using L = FastLayout<T, NX, NU>;
+  T* o = reinterpret_cast<T*>(buf) + p;
+  return {o + L::eK * kOutStride, o + L::ek * kOutStride, o + L::eVx * kOutStride,
+          o + L::eVxx * kOutStride};
+}
+
+// The block's copy of stage t's inputs into a stage buffer.
+template <typename T, int NX, int NU>
+__device__ __forceinline__ void fast_copy(unsigned char* buf, const FastRiccatiArgs<T>& a, int t,
+                                          int b0, int tid) {
+  using L = FastLayout<T, NX, NU>;
+  const auto at = [&](size_t off) { return reinterpret_cast<T*>(buf + off); };
+  copy_stage<NX * NX, false>(at(L::oF), a.Fx, t, b0, a.B, tid);
+  copy_stage<NX * NU, false>(at(L::oFu), a.Fu, t, b0, a.B, tid);
+  copy_stage<NX, false>(at(L::od), a.d, t, b0, a.B, tid);
+  copy_stage<NX, false>(at(L::olx), a.Lx, t, b0, a.B, tid);
+  copy_stage<NU, false>(at(L::olu), a.Lu, t, b0, a.B, tid);
+  copy_stage<NX * NX, false>(at(L::olxx), a.Lxx, t, b0, a.B, tid);
+  copy_stage<NU * NX, false>(at(L::olux), a.Lux, t, b0, a.B, tid);
+  copy_stage<NU * NU, false>(at(L::oluu), a.Luu, t, b0, a.B, tid);
+}
+
+// The block's store of stage t's outputs from an output buffer.
+template <typename T, int NX, int NU>
+__device__ __forceinline__ void fast_store(const FastRiccatiArgs<T>& a, const unsigned char* buf,
+                                           int t, int b0, int tid) {
+  using L = FastLayout<T, NX, NU>;
+  const T* o = reinterpret_cast<const T*>(buf);
+  store_stage<NU * NX>(a.K, o + L::eK * kOutStride, t, b0, a.B, tid);
+  store_stage<NU>(a.k, o + L::ek * kOutStride, t, b0, a.B, tid);
+  store_stage<NX>(a.Vx1, o + L::eVx * kOutStride, t, b0, a.B, tid);
+  store_stage<NX * NX>(a.Vxx1, o + L::eVxx * kOutStride, t, b0, a.B, tid);
+}
+
+// One dense Riccati step for lane r of a group: (V, Vx) hold row r of V_xx
+// and V_x[r] of stage t + 1 on entry and of stage t on exit (lanes r < NX);
+// out gets the carry on entry (Vx1, Vxx1) and K, k.  The phases:
+//   A  row r of V_xx F (stored transposed) and of V_xx Fu, V_x + V_xx d;
+//   B  column r of Q_xx = L_xx + F^T (V_xx F) and of Q_ux = L_ux + Fu^T (V_xx F),
+//      Q_x[r]; lane a < NU row a of Q_uu = L_uu + Fu^T (V_xx Fu), lane NX Q_u;
+//   C  every lane the Cholesky factor of Q_uu, then lane c <= NX one
+//      right-hand side of -Q_uu^-1 [Q_ux | Q_u]: column c of K, or k; row r of
+//      K^T Q_uu;
+//   D  V_x[r], and column r of X = Q_xx + K^T Q_uu K + K^T Q_ux + Q_ux^T K;
+//   E  row r of V_xx = (X + X^T) / 2.
+// Every lane of the warp calls it (it synchronises the warp).
+template <typename T, int NX, int NU>
+__device__ __forceinline__ void fast_group_step(int r, T (&V)[NX], T& Vx, const FastIn<T>& in,
+                                                FastScratch<T, NX, NU>& g,
+                                                const FastOut<T>& out) {
+  constexpr int NUP = FastScratch<T, NX, NU>::NUP;
+  const bool own = r < NX;
+
+  // ---- A ----
+  if (own) {
+    out.Vx[r * kOutStride] = Vx;
+#pragma unroll
+    for (int j = 0; j < NX; ++j) out.Vxx[(r * NX + j) * kOutStride] = V[j];
+    {
+      T dd[NX];
+      lds<T, NX>(dd, in.d);
+      T s = V[0] * dd[0];
+#pragma unroll
+      for (int j = 1; j < NX; ++j) s += V[j] * dd[j];
+      g.Vm[r] = Vx + s;
+    }
+    T vf[NX], vfu[NU];
+#pragma unroll
+    for (int k = 0; k < NX; ++k) {
+      T f[NX], fu[NU];
+      lds<T, NX>(f, in.F + k * NX);
+      lds<T, NU>(fu, in.Fu + k * NU);
+#pragma unroll
+      for (int j = 0; j < NX; ++j) vf[j] = k == 0 ? V[0] * f[j] : vf[j] + V[k] * f[j];
+#pragma unroll
+      for (int c = 0; c < NU; ++c) vfu[c] = k == 0 ? V[0] * fu[c] : vfu[c] + V[k] * fu[c];
+    }
+#pragma unroll
+    for (int j = 0; j < NX; ++j) g.VS[j * NX + r] = vf[j];
+#pragma unroll
+    for (int c = 0; c < NU; ++c) g.VFu[r * NUP + c] = vfu[c];
+  }
+  __syncwarp();
+
+  // ---- B ----
+  T qxx[NX], qux[NU], qx = T(0), qu[NU];
+#pragma unroll
+  for (int a = 0; a < NU; ++a) qu[a] = T(0);
+  if (own) {
+    T vfc[NX];
+    lds<T, NX>(vfc, g.VS + r * NX);  // column r of V_xx F
+#pragma unroll
+    for (int k = 0; k < NX; ++k) {
+      T f[NX];
+      lds<T, NX>(f, in.F + k * NX);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) qxx[i] = k == 0 ? f[i] * vfc[0] : qxx[i] + f[i] * vfc[k];
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) qxx[i] = in.lxx[i * NX + r] + qxx[i];
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+      T s = in.Fu[a] * vfc[0];
+#pragma unroll
+      for (int k = 1; k < NX; ++k) s += in.Fu[k * NU + a] * vfc[k];
+      qux[a] = in.lux[a * NX + r] + s;
+    }
+    {
+      T vm[NX];
+      lds<T, NX>(vm, g.Vm);
+      T s = in.F[r] * vm[0];
+#pragma unroll
+      for (int k = 1; k < NX; ++k) s += in.F[k * NX + r] * vm[k];
+      qx = in.lx[r] + s;
+    }
+  } else if (r == NX) {
+    T vm[NX];
+    lds<T, NX>(vm, g.Vm);
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+      T s = in.Fu[a] * vm[0];
+#pragma unroll
+      for (int k = 1; k < NX; ++k) s += in.Fu[k * NU + a] * vm[k];
+      qu[a] = in.lu[a] + s;
+      g.Qu[a] = qu[a];
+    }
+  }
+  if (r < NU) {
+    T q[NU];
+#pragma unroll
+    for (int k = 0; k < NX; ++k) {
+      T vfu[NUP];
+      lds<T, NUP>(vfu, g.VFu + k * NUP);
+      const T fk = in.Fu[k * NU + r];
+#pragma unroll
+      for (int c = 0; c < NU; ++c) q[c] = k == 0 ? fk * vfu[c] : q[c] + fk * vfu[c];
+    }
+#pragma unroll
+    for (int c = 0; c < NU; ++c) g.Quu[r * NUP + c] = in.luu[r * NU + c] + q[c];
+  }
+  __syncwarp();
+
+  // ---- C ----
+  T Q[NU * NU], L[NU * NU];
+#pragma unroll
+  for (int a = 0; a < NU; ++a) {
+    T row[NUP];
+    lds<T, NUP>(row, g.Quu + a * NUP);
+#pragma unroll
+    for (int c = 0; c < NU; ++c) Q[a * NU + c] = row[c];
+  }
+#pragma unroll
+  for (int j = 0; j < NU; ++j) {
+    T s = Q[j * NU + j];
+#pragma unroll
+    for (int kk = 0; kk < j; ++kk) s = s - L[j * NU + kk] * L[j * NU + kk];
+    L[j * NU + j] = xsqrt(s);
+    const T inv = T(1) / L[j * NU + j];
+#pragma unroll
+    for (int i = j + 1; i < NU; ++i) {
+      T s2 = Q[i * NU + j];
+#pragma unroll
+      for (int kk = 0; kk < j; ++kk) s2 = s2 - L[i * NU + kk] * L[j * NU + kk];
+      L[i * NU + j] = s2 * inv;
+    }
+  }
+  T kc[NU];  // column r of K (r < NX) or k (r = NX)
+  {
+    T Y[NU], X[NU];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      T s = own ? qux[i] : qu[i];
+#pragma unroll
+      for (int kk = 0; kk < i; ++kk) s = s - L[i * NU + kk] * Y[kk];
+      Y[i] = s / L[i * NU + i];
+    }
+#pragma unroll
+    for (int i = NU - 1; i >= 0; --i) {
+      T s = Y[i];
+#pragma unroll
+      for (int kk = i + 1; kk < NU; ++kk) s = s - L[kk * NU + i] * X[kk];
+      X[i] = s / L[i * NU + i];
+    }
+#pragma unroll
+    for (int a = 0; a < NU; ++a) kc[a] = -X[a];
+  }
+  T kq[NU];
+  if (own) {
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+      g.KT[r * NUP + a] = kc[a];
+      g.QuxT[r * NUP + a] = qux[a];
+      out.K[(a * NX + r) * kOutStride] = kc[a];
+      T s = kc[0] * Q[a];
+#pragma unroll
+      for (int c = 1; c < NU; ++c) s += kc[c] * Q[c * NU + a];
+      kq[a] = s;
+      g.KQ[r * NUP + a] = s;
+    }
+  } else if (r == NX) {
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+      g.KT[NX * NUP + a] = kc[a];
+      out.k[a * kOutStride] = kc[a];
+    }
+  }
+  __syncwarp();
+
+  // ---- D ----
+  T xcol[NX];
+  if (own) {
+    T kk[NUP], quv[NUP];
+    lds<T, NUP>(kk, g.KT + NX * NUP);
+    lds<T, NUP>(quv, g.Qu);
+    T s1 = kq[0] * kk[0], s2 = kc[0] * quv[0], s3 = qux[0] * kk[0];
+#pragma unroll
+    for (int a = 1; a < NU; ++a) {
+      s1 += kq[a] * kk[a];
+      s2 += kc[a] * quv[a];
+      s3 += qux[a] * kk[a];
+    }
+    Vx = ((qx + s1) + s2) + s3;
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      T kqi[NUP], kti[NUP], qti[NUP];
+      lds<T, NUP>(kqi, g.KQ + i * NUP);
+      lds<T, NUP>(kti, g.KT + i * NUP);
+      lds<T, NUP>(qti, g.QuxT + i * NUP);
+      T av = kqi[0] * kc[0], bv = kti[0] * qux[0], cv = qti[0] * kc[0];
+#pragma unroll
+      for (int a = 1; a < NU; ++a) {
+        av += kqi[a] * kc[a];
+        bv += kti[a] * qux[a];
+        cv += qti[a] * kc[a];
+      }
+      xcol[i] = ((qxx[i] + av) + bv) + cv;
+      g.VS[i * NX + r] = xcol[i];
+    }
+  }
+  __syncwarp();
+
+  // ---- E ----
+  if (own) {
+    T xrow[NX];
+    lds<T, NX>(xrow, g.VS + r * NX);
+#pragma unroll
+    for (int j = 0; j < NX; ++j) V[j] = T(0.5) * (xrow[j] + xcol[j]);
+  }
+}
+
+// The stage loop, from the carry of stage N (Lx[N], Lxx[N]) down to stage 0:
+// while the group computes stage t, the block copies stage t - 1's inputs
+// into the other stage buffer and stores stage t + 1's outputs from the other
+// output buffer; one block barrier per stage makes each stage's copies
+// visible.  Problems past B (the ragged last block) run problem B - 1's
+// recursion and store nothing.
+template <typename T, int NX, int NU>
+__global__ void __launch_bounds__(kGroupThreads) fast_riccati_kernel(FastRiccatiArgs<T> a) {
+  using L = FastLayout<T, NX, NU>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, g = tid / kGroup, r = tid % kGroup;
+  const int B = a.B, N = a.N, b0 = blockIdx.x * kProblems, bc = min(b0 + g, B - 1);
+  auto& gs = *reinterpret_cast<FastScratch<T, NX, NU>*>(smem + L::ogroup + g * L::gstride);
+  unsigned char* stage = smem + L::ostage;
+  unsigned char* outb = smem + L::oout;
+  T V[NX], Vx = T(0);
+#pragma unroll
+  for (int j = 0; j < NX; ++j) V[j] = T(0);
+  if (r < NX) {
+    const Lane<const T> lxx = lane<NX * NX>(a.Lxx, N, B, bc);
+#pragma unroll
+    for (int j = 0; j < NX; ++j) V[j] = lxx[r * NX + j];
+    Vx = lane<NX>(a.Lx, N, B, bc)[r];
+  }
+  fast_copy<T, NX, NU>(stage, a, N - 1, b0, tid);
+  cp_async_commit();
+  for (int t = N - 1; t >= 0; --t) {
+    const int cur = (N - 1 - t) & 1;
+    cp_async_wait_all();
+    __syncthreads();
+    if (t > 0) {
+      fast_copy<T, NX, NU>(stage + (cur ^ 1) * L::stage, a, t - 1, b0, tid);
+      cp_async_commit();
+    }
+    if (t < N - 1) fast_store<T, NX, NU>(a, outb + ((t + 1) & 1) * L::out, t + 1, b0, tid);
+    fast_group_step<T, NX, NU>(r, V, Vx, fast_in<T, NX, NU>(stage + cur * L::stage, g), gs,
+                               fast_out<T, NX, NU>(outb + (t & 1) * L::out, g));
+  }
+  __syncthreads();
+  fast_store<T, NX, NU>(a, outb, 0, b0, tid);
+}
+
+template <typename T, int NX, int NU>
+int launch_fast_riccati(const FastRiccatiArgs<T>& a, cudaStream_t s) {
+  constexpr size_t bytes = FastLayout<T, NX, NU>::bytes;
+  if (cudaError_t e = cudaFuncSetAttribute(fast_riccati_kernel<T, NX, NU>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes))
+    return (int)e;
+  fast_riccati_kernel<T, NX, NU><<<group_grid(a.B), kGroupThreads, bytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// B13 at nx = 6, (6, 3): one thread per problem (grid ceil(B / 128) x 128)
+// with the carry (V_x, V_xx) and the stage's products in registers (168 of
+// them in f32, no spill).  At this size the group design's fixed cost per
+// stage (five warp barriers, a block barrier, the staged copies for 7 busy
+// lanes of 16) outweighs its warps: 1.794 ms against 1.449 at B = 8192,
+// N = 249 (PERF.md).  The same step, sum order and Cholesky as the group
+// kernel's.
+template <typename T, int NX, int NU>
+__global__ void __launch_bounds__(kThreads) fast_riccati_thread_kernel(FastRiccatiArgs<T> a) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.B) return;
   const int B = a.B, N = a.N;
@@ -351,16 +733,13 @@ extern "C" int TRAOPT_FN(fast_riccati)(
   if (N <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   if (cudaError_t e = cudaSetDevice(device)) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid = traopt::batch_grid(B);
-  if (nx == 12 && nu == 6)
-    traopt::fast_riccati_kernel<T, 12, 6><<<grid, traopt::kThreads, 0, s>>>(a);
-  else if (nx == 12 && nu == 4)
-    traopt::fast_riccati_kernel<T, 12, 4><<<grid, traopt::kThreads, 0, s>>>(a);
-  else if (nx == 6 && nu == 3)
-    traopt::fast_riccati_kernel<T, 6, 3><<<grid, traopt::kThreads, 0, s>>>(a);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (nx == 12 && nu == 6) return traopt::launch_fast_riccati<T, 12, 6>(a, s);
+  if (nx == 12 && nu == 4) return traopt::launch_fast_riccati<T, 12, 4>(a, s);
+  if (nx == 6 && nu == 3) {
+    traopt::fast_riccati_thread_kernel<T, 6, 3><<<traopt::batch_grid(B), traopt::kThreads, 0, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int TRAOPT_FN(fast_rollout)(

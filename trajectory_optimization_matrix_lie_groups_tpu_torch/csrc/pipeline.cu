@@ -1,13 +1,19 @@
-// Kernels B2 (Riccati backward), B3 (rollout fused with the next
-// linearization) and B4 (rollout) of the MS-iLQR pipeline.
+// Kernels B2 (Riccati backward), B3 (rollout, then the linearization of the
+// new trajectory) and B4 (rollout) of the MS-iLQR pipeline.
 //
 // All three are sequential recursions over the N stages of one problem.  The
 // TPU kernels carried the recursion across a sequential grid axis with the
 // carry in VMEM scratch; on the GPU blocks run in no order, so the stage loop
-// moves inside the block.  B3 and B4 run one problem per thread (grid
-// ceil(B / 128) x 128) with the carry in registers; B2 runs one problem per
-// group of 16 threads (riccati_group.cuh).
+// moves inside the block.  B3 and B4 run one problem per thread on blocks of
+// one warp with the carry in registers (ahead.cuh), B3 then B1's kernel on
+// the new trajectory; B2 runs one problem per group of 16 threads
+// (riccati_group.cuh).
+#include <algorithm>
+#include <mutex>
+
+#include "ahead.cuh"
 #include "common.cuh"
+#include "linearize.cuh"
 #include "riccati_group.cuh"
 #include "stage.cuh"
 
@@ -87,12 +93,23 @@ int launch_riccati(const RiccatiArgs<T>& a, cudaStream_t s) {
 // B4 replaces solvers/pipeline.py::_rollout_kernel_lane (._rollout_lane),
 // B3 replaces solvers/pipeline.py::_rollout_linearize_kernel
 // (._rollout_linearize_lane): the same gap-closing rollout, and in B3 the
-// linearization of stage t of the new trajectory reusing the rollout's
-// dynamics evaluation (the next iteration's B1 pass disappears).
-// What bounds them on an H100: B4 reads ~90 values and writes ~22 per stage
-// and problem; B3 adds the B1 outputs (Fx, lxx: 288 values per stage), so it
-// is store-bound like B1 but serial over stages, with B / 128 blocks.  The
-// carry (R, p, xi) stays in registers across the stage loop.
+// linearization of every stage of the new trajectory.
+// What bounds them on an H100: B4 reads ~150 values and writes ~24 per stage
+// and problem, in a chain of dependent steps (Log, the feedback, Exp, three
+// compositions) serial over the stages; B3 adds B1's outputs (Fx, lxx: 288
+// values per stage), store-bound.  The TPU kernel computed the linearization
+// of stage t inside the rollout's stage loop; here B3 runs in two phases: the
+// rollout (B4's kernel), then B1's kernel on the new trajectory, a thread per
+// (problem, stage), so the linearization's stores no longer wait behind the
+// rollout's chain; the rollout phase writes its dynamics evaluation at the new
+// (x_t, u_t), which the linearization phase reads instead of computing it
+// again.  Both compute what the fused loop did (the same stage functions on
+// the same values).  The rollout runs one problem per thread on blocks of one
+// warp (ahead.cuh: B / 32 blocks) with the carry (R, p, xi) in registers, and
+// copies stage t + 1's inputs into shared memory while it computes stage t.
+// Its 256 warps at B = 8192 leave most of the card idle, so B3 cuts the
+// stages into chunks and linearizes each chunk while the next one rolls out
+// (launch_rollout).
 template <typename T>
 struct RolloutArgs {
   const T *qR, *qp, *xi, *u;      // nominal trajectory (N+1, ...) and (N, nu, B)
@@ -103,70 +120,179 @@ struct RolloutArgs {
   T *oR, *op, *oxi, *ou;          // new trajectory (N+1, ...), controls (N, nu, B)
   T *nfqR, *nfqp, *nfxi, *nd, *nFx, *nlx, *nlxx, *nl;  // B3: new linearization
   int N, B;
+  int t0, t1;  // the stages of the launch; the carry at t0 > 0 is the new state there
 };
 
+// The entries of one stage in a thread's column: the nominal x_t and
+// x_{t+1}, u_t, the gains, the nominal's defect and dynamics evaluation.
+template <int NU>
+struct RolloutColumn {
+  static constexpr int Rt = 0, pt = 9, xit = 12, Rn = 18, pn = 27, xin = 30, u = 36,
+                       k = u + NU, K = k + NU, d = K + 12 * NU, fqR = d + 12, fqp = fqR + 9,
+                       fxi = fqp + 3, n = fxi + 6;
+};
+
+template <typename T, int NU>
+constexpr size_t rollout_bytes() {
+  return 2 * RolloutColumn<NU>::n * kAheadThreads * sizeof(T);
+}
+
+template <typename T, int NU>
+__device__ __forceinline__ void rollout_copy(T* col, const RolloutArgs<T>& a, int t, int b) {
+  using C = RolloutColumn<NU>;
+  constexpr int P = kAheadThreads;
+  const int B = a.B;
+  copy_column<9>(col + C::Rt * P, a.qR, t, B, b);
+  copy_column<3>(col + C::pt * P, a.qp, t, B, b);
+  copy_column<6>(col + C::xit * P, a.xi, t, B, b);
+  copy_column<9>(col + C::Rn * P, a.qR, t + 1, B, b);
+  copy_column<3>(col + C::pn * P, a.qp, t + 1, B, b);
+  copy_column<6>(col + C::xin * P, a.xi, t + 1, B, b);
+  copy_column<NU>(col + C::u * P, a.u, t, B, b);
+  copy_column<NU>(col + C::k * P, a.k, t, B, b);
+  copy_column<12 * NU>(col + C::K * P, a.K, t, B, b);
+  copy_column<12>(col + C::d * P, a.d, t, B, b);
+  copy_column<9>(col + C::fqR * P, a.fqR, t, B, b);
+  copy_column<3>(col + C::fqp * P, a.fqp, t, B, b);
+  copy_column<6>(col + C::fxi * P, a.fxi, t, B, b);
+  cp_async_commit();
+}
+
+// With LIN (B3's first phase) the dynamics evaluation at the new (x_t, u_t)
+// is written too, for the linearization phase.
 template <typename T, int NU, bool LIN>
-__device__ __forceinline__ void rollout_sweep(const RolloutArgs<T>& a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const int B = a.B, N = a.N;
+__global__ void __launch_bounds__(kAheadThreads) rollout_kernel(RolloutArgs<T> a) {
+  using C = RolloutColumn<NU>;
+  constexpr int P = kAheadThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int B = a.B, b = blockIdx.x * P + threadIdx.x, bc = min(b, B - 1);
+  const bool live = b < B;
+  T* col = reinterpret_cast<T*>(smem) + threadIdx.x;  // slot s at col + s * C::n * P
+  const int t0 = a.t0, t1 = a.t1;
   T R[9], p[3], xi[6];
-  load<9>(R, lane<9>(a.qR, 0, B, b));
-  load<3>(p, lane<3>(a.qp, 0, B, b));
-  load<6>(xi, lane<6>(a.xi, 0, B, b));
-  store<9>(lane<9>(a.oR, 0, B, b), R);
-  store<3>(lane<3>(a.op, 0, B, b), p);
-  store<6>(lane<6>(a.oxi, 0, B, b), xi);
-  for (int t = 0; t < N; ++t) {
-    if (LIN) {
-      // the linearization of the new stage t needs only (R, p, xi)
-      stage_jacobian(lane<144>(a.nFx, t, B, b), R, xi, a.c);
-      a.nl[(long long)t * B + b] = stage_cost_quad<T>(
-          lane<12>(a.nlx, t, B, b), lane<144>(a.nlxx, t, B, b), R, p, xi,
-          a.refs.RbiR + t * 9, a.refs.Rbip + t * 3, a.refs.Adb + t * 36,
-          a.refs.xib + t * 6, a.c.W1, a.c.W2);
+  if (t0 == 0) {
+    load<9>(R, lane<9>(a.qR, 0, B, bc));
+    load<3>(p, lane<3>(a.qp, 0, B, bc));
+    load<6>(xi, lane<6>(a.xi, 0, B, bc));
+    if (live) {
+      store<9>(lane<9>(a.oR, 0, B, b), R);
+      store<3>(lane<3>(a.op, 0, B, b), p);
+      store<6>(lane<6>(a.oxi, 0, B, b), xi);
     }
+  } else {
+    load<9>(R, lane<9>(a.oR, t0, B, bc));
+    load<3>(p, lane<3>(a.op, t0, B, bc));
+    load<6>(xi, lane<6>(a.oxi, t0, B, bc));
+  }
+  rollout_copy<T, NU>(col, a, t0, bc);
+  for (int t = t0; t < t1; ++t) {
+    cp_async_wait_all();
+    if (t + 1 < t1) rollout_copy<T, NU>(col + ((t + 1 - t0) & 1) * C::n * P, a, t + 1, bc);
+    const T* cur = col + ((t - t0) & 1) * C::n * P;
+    const auto in = [&](int e) { return column(cur + e * P); };
     T Rt[9], pt[3], xit[6], Rn[9], pn[3], xin[6], ut[NU], kt[NU], Kt[NU * 12];
     T dd[12], fqRt[9], fqpt[3], fxit[6];
-    load<9>(Rt, lane<9>(a.qR, t, B, b));
-    load<3>(pt, lane<3>(a.qp, t, B, b));
-    load<6>(xit, lane<6>(a.xi, t, B, b));
-    load<9>(Rn, lane<9>(a.qR, t + 1, B, b));
-    load<3>(pn, lane<3>(a.qp, t + 1, B, b));
-    load<6>(xin, lane<6>(a.xi, t + 1, B, b));
-    load<NU>(ut, lane<NU>(a.u, t, B, b));
-    load<NU>(kt, lane<NU>(a.k, t, B, b));
-    load<NU * 12>(Kt, lane<NU * 12>(a.K, t, B, b));
-    load<12>(dd, lane<12>(a.d, t, B, b));
-    load<9>(fqRt, lane<9>(a.fqR, t, B, b));
-    load<3>(fqpt, lane<3>(a.fqp, t, B, b));
-    load<6>(fxit, lane<6>(a.fxi, t, B, b));
+    load<9>(Rt, in(C::Rt));
+    load<3>(pt, in(C::pt));
+    load<6>(xit, in(C::xit));
+    load<9>(Rn, in(C::Rn));
+    load<3>(pn, in(C::pn));
+    load<6>(xin, in(C::xin));
+    load<NU>(ut, in(C::u));
+    load<NU>(kt, in(C::k));
+    load<NU * 12>(Kt, in(C::K));
+    load<12>(dd, in(C::d));
+    load<9>(fqRt, in(C::fqR));
+    load<3>(fqpt, in(C::fqp));
+    load<6>(fxit, in(C::fxi));
     T u[NU], fqR[9], fqp[3], fxi[6];
     rollout_stage<T, T, NU>(R, p, xi, u, fqR, fqp, fxi, Rt, pt, xit, Rn, pn,
                             xin, ut, kt, Kt, dd, fqRt, fqpt, fxit, a.c);
-    store<9>(lane<9>(a.oR, t + 1, B, b), R);
-    store<3>(lane<3>(a.op, t + 1, B, b), p);
-    store<6>(lane<6>(a.oxi, t + 1, B, b), xi);
-    store<NU>(lane<NU>(a.ou, t, B, b), u);
-    if (LIN) {
-      T nd[12];
-      defect(nd, R, p, xi, fqR, fqp, fxi);
-      store<9>(lane<9>(a.nfqR, t, B, b), fqR);
-      store<3>(lane<3>(a.nfqp, t, B, b), fqp);
-      store<6>(lane<6>(a.nfxi, t, B, b), fxi);
-      store<12>(lane<12>(a.nd, t, B, b), nd);
+    if (live) {
+      store<9>(lane<9>(a.oR, t + 1, B, b), R);
+      store<3>(lane<3>(a.op, t + 1, B, b), p);
+      store<6>(lane<6>(a.oxi, t + 1, B, b), xi);
+      store<NU>(lane<NU>(a.ou, t, B, b), u);
+      if (LIN) {
+        store<9>(lane<9>(a.nfqR, t, B, b), fqR);
+        store<3>(lane<3>(a.nfqp, t, B, b), fqp);
+        store<6>(lane<6>(a.nfxi, t, B, b), fxi);
+      }
     }
   }
 }
 
-template <typename T, int NU>
-__global__ void __launch_bounds__(kThreads) rollout_kernel(RolloutArgs<T> a) {
-  rollout_sweep<T, NU, false>(a);
+// B3's chunks: the rollout runs on a stream of the highest priority in
+// kChunks launches of consecutive stages, and the linearization of each chunk
+// on the caller's stream as soon as that chunk's rollout has ended, so that
+// it overlaps the next chunk's rollout (whose one warp per block leaves most
+// of the card idle).  One such stream and its events per device, made at
+// first use and kept.
+constexpr int kChunks = 4;
+
+struct ChunkStreams {
+  cudaStream_t roll = nullptr;
+  cudaEvent_t ready = nullptr, chunk[kChunks] = {};
+};
+
+inline cudaError_t chunk_streams(int device, ChunkStreams** out) {
+  constexpr int kDevices = 64;
+  static std::mutex m;
+  static ChunkStreams per[kDevices];
+  if (device < 0 || device >= kDevices) return cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> lock(m);
+  ChunkStreams& c = per[device];
+  if (!c.roll) {
+    int least, greatest;
+    cudaError_t e = cudaDeviceGetStreamPriorityRange(&least, &greatest);
+    cudaStream_t roll = nullptr;
+    if (!e) e = cudaStreamCreateWithPriority(&roll, cudaStreamNonBlocking, greatest);
+    if (!e) e = cudaEventCreateWithFlags(&c.ready, cudaEventDisableTiming);
+    for (int i = 0; i < kChunks && !e; ++i)
+      e = cudaEventCreateWithFlags(&c.chunk[i], cudaEventDisableTiming);
+    if (e) return e;
+    c.roll = roll;
+  }
+  *out = &c;
+  return cudaSuccess;
 }
 
-template <typename T, int NU>
-__global__ void __launch_bounds__(kThreads) rollout_linearize_kernel(RolloutArgs<T> a) {
-  rollout_sweep<T, NU, true>(a);
+// B4: the rollout, one launch on the caller's stream.  B3: the rollout, then
+// B1's kernel on the new trajectory (taking the rollout's dynamics
+// evaluation), in min(kChunks, N) chunks of stages.
+template <typename T, int NU, bool LIN>
+int launch_rollout(RolloutArgs<T> a, cudaStream_t s, int device) {
+  constexpr size_t bytes = rollout_bytes<T, NU>();
+  if (cudaError_t e = cudaFuncSetAttribute(rollout_kernel<T, NU, LIN>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes))
+    return (int)e;
+  if (!LIN) {
+    a.t0 = 0;
+    a.t1 = a.N;
+    rollout_kernel<T, NU, LIN><<<ahead_grid(a.B), kAheadThreads, bytes, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  ChunkStreams* cs = nullptr;
+  if (cudaError_t e = chunk_streams(device, &cs)) return (int)e;
+  cudaStream_t roll = cs->roll;
+  if (cudaError_t e = cudaEventRecord(cs->ready, s)) return (int)e;
+  if (cudaError_t e = cudaStreamWaitEvent(roll, cs->ready, 0)) return (int)e;
+  LinearizeArgs<T> l{a.oR, a.op, a.oxi, a.ou, a.refs, a.c, a.nfqR, a.nfqp, a.nfxi,
+                     a.nd, a.nFx, a.nlx, a.nlxx, a.nl, a.N, a.B, 0};
+  const int K = std::min(kChunks, a.N);
+  for (int c = 0; c < K; ++c) {
+    a.t0 = c * a.N / K;
+    a.t1 = (c + 1) * a.N / K;
+    rollout_kernel<T, NU, LIN><<<ahead_grid(a.B), kAheadThreads, bytes, roll>>>(a);
+    if (cudaError_t e = cudaGetLastError()) return (int)e;
+    if (cudaError_t e = cudaEventRecord(cs->chunk[c], roll)) return (int)e;
+    if (cudaError_t e = cudaStreamWaitEvent(s, cs->chunk[c], 0)) return (int)e;
+    l.t0 = a.t0;
+    linearize_kernel<T, NU, false><<<batch_grid(a.B, a.t1 - a.t0), kThreads, 0, s>>>(l);
+    if (cudaError_t e = cudaGetLastError()) return (int)e;
+  }
+  return 0;
 }
 
 }  // namespace traopt
@@ -225,18 +351,11 @@ extern "C" int TRAOPT_FN(rollout)(
   a.N = N; a.B = B;
   if (N <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   if (cudaError_t e = cudaSetDevice(device)) return (int)e;
-  const bool lin = nFx != nullptr;
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid = traopt::batch_grid(B);
-  if (nu == 6 && lin)
-    traopt::rollout_linearize_kernel<T, 6><<<grid, traopt::kThreads, 0, s>>>(a);
-  else if (nu == 4 && lin)
-    traopt::rollout_linearize_kernel<T, 4><<<grid, traopt::kThreads, 0, s>>>(a);
-  else if (nu == 6)
-    traopt::rollout_kernel<T, 6><<<grid, traopt::kThreads, 0, s>>>(a);
-  else if (nu == 4)
-    traopt::rollout_kernel<T, 4><<<grid, traopt::kThreads, 0, s>>>(a);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  const bool lin = nFx != nullptr;
+  if (nu == 6) return lin ? traopt::launch_rollout<T, 6, true>(a, s, device)
+                          : traopt::launch_rollout<T, 6, false>(a, s, device);
+  if (nu == 4) return lin ? traopt::launch_rollout<T, 4, true>(a, s, device)
+                          : traopt::launch_rollout<T, 4, false>(a, s, device);
+  return (int)cudaErrorInvalidValue;
 }

@@ -73,25 +73,11 @@ _P, _I = _build.PTR, _build.INT
 _ARGS = [_P] * 12 + [_I] * 5 + [_P]
 
 
-def backward_lane(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu):
-    """Kernel B13 (replaces `ops/pallas_riccati.py::_riccati_kernel` as
-    called by `pallas_backward`).  Lane layout as in the module docstring;
-    returns (k, K, Vx1, Vxx1).
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32 or float64, (nx, nu) one of `SHAPES`), or raise.  On an H100
-    one thread runs one problem's stage recursion with the carry (V_x, V_xx)
-    and the stage's Q_xx, Q_ux, K in thread-local arrays; at nx = 12 they
-    exceed the register file and spill to local memory."""
-    if d.device.type == "cpu":
-        return backward_plain(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu)
-    if d.device.type != "cuda":
-        raise ValueError(f"backward_lane: no kernel for device {d.device}")
+def _backward_kernel(fn, stream, Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu):
+    """Kernel B13 through the C entry point ``fn`` on ``stream``: the
+    arguments checked, the outputs allocated on ``d``'s device."""
     N, nx, B = d.shape
     nu = Lu.shape[1]
-    if (nx, nu) not in SHAPES:
-        raise ValueError(f"backward_lane: no kernel for (nx, nu) = ({nx}, {nu})")
-    fn = _build.function("fast", "fast_riccati", _build.suffix(d.dtype), _ARGS)
     a = lambda t, shape, name: _build.arg(t, shape, d, name)
     e = lambda *shape: torch.empty(shape, dtype=d.dtype, device=d.device)
     k, K, Vx1, Vxx1 = e(N, nu, B), e(N, nu, nx, B), e(N, nx, B), e(N, nx, nx, B)
@@ -100,11 +86,35 @@ def backward_lane(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu):
              a(Lu, (N, nu, B), "Lu"), a(Lxx, (N + 1, nx, nx, B), "Lxx"),
              a(Lux, (N, nu, nx, B), "Lux"), a(Luu, (N, nu, nu, B), "Luu"),
              a(k, k.shape, "k"), a(K, K.shape, "K"), a(Vx1, Vx1.shape, "Vx1"),
-             a(Vxx1, Vxx1.shape, "Vxx1"), N, nx, nu, B, _build.device_index(d),
-             torch.cuda.current_stream(d.device).cuda_stream)
+             a(Vxx1, Vxx1.shape, "Vxx1"), N, nx, nu, B, _build.device_index(d), stream)
     _build.check(err, "fast_riccati")
-    backward_lane.launches += 1
     return k, K, Vx1, Vxx1
+
+
+def backward_lane(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu):
+    """Kernel B13 (replaces `ops/pallas_riccati.py::_riccati_kernel` as
+    called by `pallas_backward`).  Lane layout as in the module docstring;
+    returns (k, K, Vx1, Vxx1).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (float32 or float64, (nx, nu) one of `SHAPES`), or raise.  On an H100,
+    at nx = 12 a group of 16 threads runs one problem's stage recursion,
+    lane r holding row r of V_xx in registers, the group exchanging the
+    stage's products through shared memory, and the block copies each
+    stage's inputs into shared memory a stage ahead; at (6, 3) one thread
+    runs one problem with its carry in registers (`csrc/fast.cu`)."""
+    if d.device.type == "cpu":
+        return backward_plain(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu)
+    if d.device.type != "cuda":
+        raise ValueError(f"backward_lane: no kernel for device {d.device}")
+    nx, nu = d.shape[1], Lu.shape[1]
+    if (nx, nu) not in SHAPES:
+        raise ValueError(f"backward_lane: no kernel for (nx, nu) = ({nx}, {nu})")
+    fn = _build.function("fast", "fast_riccati", _build.suffix(d.dtype), _ARGS)
+    out = _backward_kernel(fn, torch.cuda.current_stream(d.device).cuda_stream,
+                           Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu)
+    backward_lane.launches += 1
+    return out
 
 
 backward_lane.launches = 0

@@ -558,15 +558,12 @@ class MixedDFPipelineSolver(DFPipelineBase):
 
     def f32_phase(self, dyn, cost, q0s, xi0s, us0, al=None):
         """The f32 phase of `solve`: the handoff (qR, qp, xi, us) in fp64
-        lane layout, with stage 0 set back to the fp64 initial state (the
-        JAX package polishes from the f32-rounded one, whose rounding moves
-        the fixed point: by 1.3e-7 in the controls of the H = 8 test
-        problem)."""
-        qR, qp, xi, us = (x.to(F64) for x in
-                          self._solve_f32(dyn, cost, q0s, xi0s, us0, al=al))
-        x0 = lambda x: torch.as_tensor(x).to(device=us.device, dtype=F64).movedim(0, -1)
-        qR[0], qp[0], xi[0] = x0(q0s)[:3, :3], x0(q0s)[:3, 3], x0(xi0s)
-        return qR, qp, xi, us
+        lane layout, the f32 solve's iterate promoted exactly.  Stage 0 stays
+        the f32 rounding of the initial state, as the JAX package leaves it:
+        the polish keeps stage 0 fixed, so its fixed point is that of the
+        f32-rounded start."""
+        return tuple(x.to(F64) for x in
+                     self._solve_f32(dyn, cost, q0s, xi0s, us0, al=al))
 
     def solve(self, dyn, cost, q0s, xi0s, us0, al=None):
         """``dyn``, ``cost``: fp64 `SE3Params` (or `RigidBodyParams` with

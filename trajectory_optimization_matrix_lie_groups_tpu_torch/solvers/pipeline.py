@@ -380,7 +380,8 @@ def rollout_lane(qR, qp, xi, us, k, K, lin, consts, *, dt, gravity=False):
     (qR, qp, xi) (N+1 stages, stage 0 unchanged) and us (N, nu, B).
 
     On an H100: one thread per problem walks the stages with the carry
-    (R, p, xi) in registers, reading ~90 values per stage."""
+    (R, p, xi) in registers, on blocks of one warp, and copies the next
+    stage's ~150 inputs into shared memory while it computes a stage."""
     kw = dict(dt=dt, gravity=gravity)
     if us.device.type == "cpu":
         return rollout_plain(qR, qp, xi, us, k, K, lin, consts, **kw)
@@ -408,8 +409,13 @@ def rollout_linearize_lane(qR, qp, xi, us, k, K, lin, refs, consts, *, dt,
     Arguments as `rollout_lane` plus ``refs`` and ``consts`` W1, W2.
     Returns (qR, qp, xi, us, lin) with ``lin`` as `linearize_lane` returns it.
 
-    On an H100 it is store-bound like B1 (Fx and lxx, 288 values per stage)
-    but serial over stages with one thread per problem."""
+    On an H100 it runs in two phases, counted as one launch: B4's rollout,
+    then B1's kernel on the new trajectory (a thread per problem and stage),
+    so the linearization's stores (Fx and lxx, 288 values per stage) do not
+    wait behind the rollout's serial chain; the stages go in four chunks,
+    each chunk's linearization overlapping the next chunk's rollout.  The
+    values are the fused loop's: the same stage functions on the same
+    inputs."""
     kw = dict(dt=dt, gravity=gravity, exact_grav=exact_grav)
     if us.device.type == "cpu":
         return rollout_linearize_plain(qR, qp, xi, us, k, K, lin, refs, consts,
