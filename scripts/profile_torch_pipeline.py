@@ -1,9 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one solve goes on the card: torch.profiler over one of
-the PyTorch port's paths, device time by kernel (and each kernel's share of
-their sum), the device's busy and idle share of the wall time (busy: the
-union of the device events' intervals, since kernels on two streams
-overlap).  On screw-200: ``--path f32``, the fused f32
+the PyTorch port's paths, device time by kernel, the device's busy and idle
+share of the wall time.  On screw-200: ``--path f32``, the fused f32
 pipeline (B=8192, 12 iterations); ``--path polish``, the f32 pipeline and
 the mixed-precision polish (B=16384, 7 + 2 iterations), with the wall time
 of each phase.  ``--path so3_track249`` or ``pendulum_swingup80``: the SO(3)
@@ -48,17 +46,6 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (
     screw200_model,
     screw_batch,
 )
-
-
-def union_ms(intervals):
-    """The total length in ms of the union of (start, end) intervals in
-    microseconds."""
-    total, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total / 1e3
 
 
 def main():
@@ -133,22 +120,17 @@ def main():
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[2])
-    kernel_ms = sum(r[2] for r in rows)
-    # the device is busy while any device event runs: kernels on two streams
-    # (B3's chunks) overlap, so the busy time is the union of their intervals
-    busy_ms = union_ms([(e.time_range.start, e.time_range.end) for e in prof.events()
-                        if e.device_type == torch.autograd.DeviceType.CUDA])
+    busy_ms = sum(r[2] for r in rows)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(json.dumps({
         "card": card, "path": args.path, "batch": B, "f32_iterations": iters,
         "wall_ms": wall * 1e3, **phases, "device_busy_ms": busy_ms,
-        "device_busy_share": busy_ms / (wall * 1e3),
-        "device_idle_share": 1 - busy_ms / (wall * 1e3),
-        "device_time_sum_ms": kernel_ms,
+        "device_busy_share": busy_ms / (wall * 1e3) if busy_ms else None,
+        "device_idle_share": 1 - busy_ms / (wall * 1e3) if busy_ms else None,
         "kernels": [{"name": k[:90], "count": c, "device_ms": ms,
-                     "share_of_device_time": ms / kernel_ms} for k, c, ms in rows[:25]],
+                     "share_of_busy": ms / busy_ms} for k, c, ms in rows[:25]],
     }))
 
 

@@ -35,33 +35,12 @@ inline thread_local dim3 threadIdx, blockIdx, blockDim;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-typedef void* cudaEvent_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum { cudaStreamNonBlocking = 1, cudaEventDisableTiming = 2 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t cudaSetDevice(int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
-// Launches run at once, in the order they are made, so streams and events
-// order nothing further.
-inline cudaError_t cudaDeviceGetStreamPriorityRange(int* least, int* greatest) {
-  *least = 0;
-  *greatest = -1;
-  return 0;
-}
-inline cudaError_t cudaStreamCreateWithPriority(cudaStream_t* s, unsigned, int) {
-  static char handle;
-  *s = &handle;
-  return 0;
-}
-inline cudaError_t cudaEventCreateWithFlags(cudaEvent_t* e, unsigned) {
-  static char handle;
-  *e = &handle;
-  return 0;
-}
-inline cudaError_t cudaEventRecord(cudaEvent_t, cudaStream_t) { return 0; }
-inline cudaError_t cudaStreamWaitEvent(cudaStream_t, cudaEvent_t, unsigned) { return 0; }
 
 namespace traopt_emu {
 struct Block {

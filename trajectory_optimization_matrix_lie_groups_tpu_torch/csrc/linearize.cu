@@ -19,7 +19,7 @@ extern "C" int TRAOPT_FN(linearize)(
                           (T)mg, (T)dt, gravity, exact_grav};
   a.fqR = (T*)fqR; a.fqp = (T*)fqp; a.fxi = (T*)fxi; a.d = (T*)d;
   a.Fx = (T*)Fx; a.lx = (T*)lx; a.lxx = (T*)lxx; a.l = (T*)l;
-  a.N = N; a.B = B; a.t0 = 0;
+  a.N = N; a.B = B;
   if (N <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   if (cudaError_t e = cudaSetDevice(device)) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;

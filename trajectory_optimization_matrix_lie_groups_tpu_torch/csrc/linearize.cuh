@@ -12,7 +12,7 @@
 //   cost quad       lx, lxx, l (Gauss-Newton tracking)
 //
 // Grid: (ceil(B / 128), N), one thread per (problem, stage); stages are
-// independent (B3 launches it on chunks of stages).  What bounds it on an H100: it writes 2 x 144 + 40 values per
+// independent.  What bounds it on an H100: it writes 2 x 144 + 40 values per
 // thread (Fx and lxx dominate: N * 288 * B * 4 bytes, 1.9 GB at N=200,
 // B=8192 in f32), about 3 k flops per thread, so it is store-bound; the
 // design writes every output entry once, coalesced over b, straight from
@@ -31,36 +31,25 @@ struct LinearizeArgs {
   Consts<T> c;
   T *fqR, *fqp, *fxi, *d, *Fx, *lx, *lxx, *l;  // (N, ..., B)
   int N, B;
-  int t0;  // the first stage of the launch: stage t0 + blockIdx.y
 };
 
-// With DYN, the dynamics evaluation at (x_t, u_t) is computed and written
-// (B1); without, it is read from fqR, fqp, fxi, where B3's rollout phase wrote
-// it, and u is not read.
-template <typename T, int NU, bool DYN = true>
+template <typename T, int NU>
 __global__ void __launch_bounds__(kThreads) linearize_kernel(LinearizeArgs<T> a) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int t = a.t0 + blockIdx.y;
+  const int t = blockIdx.y;
   if (b >= a.B) return;
   const int B = a.B;
-  T R[9], p[3], xi[6];
+  T R[9], p[3], xi[6], u[NU];
   load<9>(R, lane<9>(a.qR, t, B, b));
   load<3>(p, lane<3>(a.qp, t, B, b));
   load<6>(xi, lane<6>(a.xi, t, B, b));
+  load<NU>(u, lane<NU>(a.u, t, B, b));
 
   T fqR[9], fqp[3], fxi[6];
-  if constexpr (DYN) {
-    T u[NU];
-    load<NU>(u, lane<NU>(a.u, t, B, b));
-    stage_dynamics_eval<T, NU>(fqR, fqp, fxi, R, p, xi, u, a.c);
-    store<9>(lane<9>(a.fqR, t, B, b), fqR);
-    store<3>(lane<3>(a.fqp, t, B, b), fqp);
-    store<6>(lane<6>(a.fxi, t, B, b), fxi);
-  } else {
-    load<9>(fqR, lane<9>(a.fqR, t, B, b));
-    load<3>(fqp, lane<3>(a.fqp, t, B, b));
-    load<6>(fxi, lane<6>(a.fxi, t, B, b));
-  }
+  stage_dynamics_eval<T, NU>(fqR, fqp, fxi, R, p, xi, u, a.c);
+  store<9>(lane<9>(a.fqR, t, B, b), fqR);
+  store<3>(lane<3>(a.fqp, t, B, b), fqp);
+  store<6>(lane<6>(a.fxi, t, B, b), fxi);
   {
     T Rn[9], pn[3], xin[6], d[12];
     load<9>(Rn, lane<9>(a.qR, t + 1, B, b));
@@ -77,4 +66,3 @@ __global__ void __launch_bounds__(kThreads) linearize_kernel(LinearizeArgs<T> a)
 }
 
 }  // namespace traopt
-

@@ -8,9 +8,6 @@
 // one warp with the carry in registers (ahead.cuh), B3 then B1's kernel on
 // the new trajectory; B2 runs one problem per group of 16 threads
 // (riccati_group.cuh).
-#include <algorithm>
-#include <mutex>
-
 #include "ahead.cuh"
 #include "common.cuh"
 #include "linearize.cuh"
@@ -98,29 +95,22 @@ int launch_riccati(const RiccatiArgs<T>& a, cudaStream_t s) {
 // and problem, in a chain of dependent steps (Log, the feedback, Exp, three
 // compositions) serial over the stages; B3 adds B1's outputs (Fx, lxx: 288
 // values per stage), store-bound.  The TPU kernel computed the linearization
-// of stage t inside the rollout's stage loop; here B3 runs in two phases: the
-// rollout (B4's kernel), then B1's kernel on the new trajectory, a thread per
-// (problem, stage), so the linearization's stores no longer wait behind the
-// rollout's chain; the rollout phase writes its dynamics evaluation at the new
-// (x_t, u_t), which the linearization phase reads instead of computing it
-// again.  Both compute what the fused loop did (the same stage functions on
-// the same values).  The rollout runs one problem per thread on blocks of one
-// warp (ahead.cuh: B / 32 blocks) with the carry (R, p, xi) in registers, and
-// copies stage t + 1's inputs into shared memory while it computes stage t.
-// Its 256 warps at B = 8192 leave most of the card idle, so B3 cuts the
-// stages into chunks and linearizes each chunk while the next one rolls out
-// (launch_rollout).
+// of stage t inside the rollout's stage loop; here B3 runs in two phases on
+// the caller's stream: the rollout (B4's kernel), then B1's kernel on the new
+// trajectory, a thread per (problem, stage), so the linearization's stores no
+// longer wait behind the rollout's chain.  Both compute what the fused loop
+// did (the same stage functions on the same values).  The rollout runs one
+// problem per thread on blocks of one warp (ahead.cuh: B / 32 blocks) with
+// the carry (R, p, xi) in registers, and copies stage t + 1's inputs into
+// shared memory while it computes stage t.
 template <typename T>
 struct RolloutArgs {
   const T *qR, *qp, *xi, *u;      // nominal trajectory (N+1, ...) and (N, nu, B)
   const T *k, *K;                 // gains (N, nu, B), (N, nu, 12, B)
   const T *d, *fqR, *fqp, *fxi;   // nominal linearization (N, ..., B)
-  Refs<T> refs;                   // B3 only
   Consts<T> c;
   T *oR, *op, *oxi, *ou;          // new trajectory (N+1, ...), controls (N, nu, B)
-  T *nfqR, *nfqp, *nfxi, *nd, *nFx, *nlx, *nlxx, *nl;  // B3: new linearization
   int N, B;
-  int t0, t1;  // the stages of the launch; the carry at t0 > 0 is the new state there
 };
 
 // The entries of one stage in a thread's column: the nominal x_t and
@@ -158,37 +148,28 @@ __device__ __forceinline__ void rollout_copy(T* col, const RolloutArgs<T>& a, in
   cp_async_commit();
 }
 
-// With LIN (B3's first phase) the dynamics evaluation at the new (x_t, u_t)
-// is written too, for the linearization phase.
-template <typename T, int NU, bool LIN>
+template <typename T, int NU>
 __global__ void __launch_bounds__(kAheadThreads) rollout_kernel(RolloutArgs<T> a) {
   using C = RolloutColumn<NU>;
   constexpr int P = kAheadThreads;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int B = a.B, b = blockIdx.x * P + threadIdx.x, bc = min(b, B - 1);
+  const int B = a.B, N = a.N, b = blockIdx.x * P + threadIdx.x, bc = min(b, B - 1);
   const bool live = b < B;
   T* col = reinterpret_cast<T*>(smem) + threadIdx.x;  // slot s at col + s * C::n * P
-  const int t0 = a.t0, t1 = a.t1;
   T R[9], p[3], xi[6];
-  if (t0 == 0) {
-    load<9>(R, lane<9>(a.qR, 0, B, bc));
-    load<3>(p, lane<3>(a.qp, 0, B, bc));
-    load<6>(xi, lane<6>(a.xi, 0, B, bc));
-    if (live) {
-      store<9>(lane<9>(a.oR, 0, B, b), R);
-      store<3>(lane<3>(a.op, 0, B, b), p);
-      store<6>(lane<6>(a.oxi, 0, B, b), xi);
-    }
-  } else {
-    load<9>(R, lane<9>(a.oR, t0, B, bc));
-    load<3>(p, lane<3>(a.op, t0, B, bc));
-    load<6>(xi, lane<6>(a.oxi, t0, B, bc));
+  load<9>(R, lane<9>(a.qR, 0, B, bc));
+  load<3>(p, lane<3>(a.qp, 0, B, bc));
+  load<6>(xi, lane<6>(a.xi, 0, B, bc));
+  if (live) {
+    store<9>(lane<9>(a.oR, 0, B, b), R);
+    store<3>(lane<3>(a.op, 0, B, b), p);
+    store<6>(lane<6>(a.oxi, 0, B, b), xi);
   }
-  rollout_copy<T, NU>(col, a, t0, bc);
-  for (int t = t0; t < t1; ++t) {
+  rollout_copy<T, NU>(col, a, 0, bc);
+  for (int t = 0; t < N; ++t) {
     cp_async_wait_all();
-    if (t + 1 < t1) rollout_copy<T, NU>(col + ((t + 1 - t0) & 1) * C::n * P, a, t + 1, bc);
-    const T* cur = col + ((t - t0) & 1) * C::n * P;
+    if (t + 1 < N) rollout_copy<T, NU>(col + ((t + 1) & 1) * C::n * P, a, t + 1, bc);
+    const T* cur = col + (t & 1) * C::n * P;
     const auto in = [&](int e) { return column(cur + e * P); };
     T Rt[9], pt[3], xit[6], Rn[9], pn[3], xin[6], ut[NU], kt[NU], Kt[NU * 12];
     T dd[12], fqRt[9], fqpt[3], fxit[6];
@@ -213,86 +194,23 @@ __global__ void __launch_bounds__(kAheadThreads) rollout_kernel(RolloutArgs<T> a
       store<3>(lane<3>(a.op, t + 1, B, b), p);
       store<6>(lane<6>(a.oxi, t + 1, B, b), xi);
       store<NU>(lane<NU>(a.ou, t, B, b), u);
-      if (LIN) {
-        store<9>(lane<9>(a.nfqR, t, B, b), fqR);
-        store<3>(lane<3>(a.nfqp, t, B, b), fqp);
-        store<6>(lane<6>(a.nfxi, t, B, b), fxi);
-      }
     }
   }
 }
 
-// B3's chunks: the rollout runs on a stream of the highest priority in
-// kChunks launches of consecutive stages, and the linearization of each chunk
-// on the caller's stream as soon as that chunk's rollout has ended, so that
-// it overlaps the next chunk's rollout (whose one warp per block leaves most
-// of the card idle).  One such stream and its events per device, made at
-// first use and kept.
-constexpr int kChunks = 4;
-
-struct ChunkStreams {
-  cudaStream_t roll = nullptr;
-  cudaEvent_t ready = nullptr, chunk[kChunks] = {};
-};
-
-inline cudaError_t chunk_streams(int device, ChunkStreams** out) {
-  constexpr int kDevices = 64;
-  static std::mutex m;
-  static ChunkStreams per[kDevices];
-  if (device < 0 || device >= kDevices) return cudaErrorInvalidValue;
-  std::lock_guard<std::mutex> lock(m);
-  ChunkStreams& c = per[device];
-  if (!c.roll) {
-    int least, greatest;
-    cudaError_t e = cudaDeviceGetStreamPriorityRange(&least, &greatest);
-    cudaStream_t roll = nullptr;
-    if (!e) e = cudaStreamCreateWithPriority(&roll, cudaStreamNonBlocking, greatest);
-    if (!e) e = cudaEventCreateWithFlags(&c.ready, cudaEventDisableTiming);
-    for (int i = 0; i < kChunks && !e; ++i)
-      e = cudaEventCreateWithFlags(&c.chunk[i], cudaEventDisableTiming);
-    if (e) return e;
-    c.roll = roll;
-  }
-  *out = &c;
-  return cudaSuccess;
-}
-
-// B4: the rollout, one launch on the caller's stream.  B3: the rollout, then
-// B1's kernel on the new trajectory (taking the rollout's dynamics
-// evaluation), in min(kChunks, N) chunks of stages.
-template <typename T, int NU, bool LIN>
-int launch_rollout(RolloutArgs<T> a, cudaStream_t s, int device) {
+// B4: the rollout.  B3 (lin not null): the rollout, then B1's kernel on the
+// new trajectory (lin's inputs are the rollout's outputs), both on stream s.
+template <typename T, int NU>
+int launch_rollout(const RolloutArgs<T>& a, const LinearizeArgs<T>* lin, cudaStream_t s) {
   constexpr size_t bytes = rollout_bytes<T, NU>();
-  if (cudaError_t e = cudaFuncSetAttribute(rollout_kernel<T, NU, LIN>,
+  if (cudaError_t e = cudaFuncSetAttribute(rollout_kernel<T, NU>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes))
     return (int)e;
-  if (!LIN) {
-    a.t0 = 0;
-    a.t1 = a.N;
-    rollout_kernel<T, NU, LIN><<<ahead_grid(a.B), kAheadThreads, bytes, s>>>(a);
-    return (int)cudaGetLastError();
-  }
-  ChunkStreams* cs = nullptr;
-  if (cudaError_t e = chunk_streams(device, &cs)) return (int)e;
-  cudaStream_t roll = cs->roll;
-  if (cudaError_t e = cudaEventRecord(cs->ready, s)) return (int)e;
-  if (cudaError_t e = cudaStreamWaitEvent(roll, cs->ready, 0)) return (int)e;
-  LinearizeArgs<T> l{a.oR, a.op, a.oxi, a.ou, a.refs, a.c, a.nfqR, a.nfqp, a.nfxi,
-                     a.nd, a.nFx, a.nlx, a.nlxx, a.nl, a.N, a.B, 0};
-  const int K = std::min(kChunks, a.N);
-  for (int c = 0; c < K; ++c) {
-    a.t0 = c * a.N / K;
-    a.t1 = (c + 1) * a.N / K;
-    rollout_kernel<T, NU, LIN><<<ahead_grid(a.B), kAheadThreads, bytes, roll>>>(a);
-    if (cudaError_t e = cudaGetLastError()) return (int)e;
-    if (cudaError_t e = cudaEventRecord(cs->chunk[c], roll)) return (int)e;
-    if (cudaError_t e = cudaStreamWaitEvent(s, cs->chunk[c], 0)) return (int)e;
-    l.t0 = a.t0;
-    linearize_kernel<T, NU, false><<<batch_grid(a.B, a.t1 - a.t0), kThreads, 0, s>>>(l);
-    if (cudaError_t e = cudaGetLastError()) return (int)e;
-  }
-  return 0;
+  rollout_kernel<T, NU><<<ahead_grid(a.B), kAheadThreads, bytes, s>>>(a);
+  if (cudaError_t e = cudaGetLastError()) return (int)e;
+  if (lin) linearize_kernel<T, NU><<<batch_grid(a.B, a.N), kThreads, 0, s>>>(*lin);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace traopt
@@ -341,21 +259,23 @@ extern "C" int TRAOPT_FN(rollout)(
   a.qR = (const T*)qR; a.qp = (const T*)qp; a.xi = (const T*)xi; a.u = (const T*)u;
   a.k = (const T*)k; a.K = (const T*)K; a.d = (const T*)d;
   a.fqR = (const T*)fqR; a.fqp = (const T*)fqp; a.fxi = (const T*)fxi;
-  a.refs = {(const T*)RbiR, (const T*)Rbip, (const T*)Adb, (const T*)xib};
   a.c = traopt::Consts<T>{(const T*)J, (const T*)Jinv, (const T*)W1, (const T*)W2,
                           nullptr, nullptr, (const T*)Pu, nullptr, nullptr,
                           (T)mg, (T)dt, gravity, exact_grav};
   a.oR = (T*)oR; a.op = (T*)op; a.oxi = (T*)oxi; a.ou = (T*)ou;
-  a.nfqR = (T*)nfqR; a.nfqp = (T*)nfqp; a.nfxi = (T*)nfxi; a.nd = (T*)nd;
-  a.nFx = (T*)nFx; a.nlx = (T*)nlx; a.nlxx = (T*)nlxx; a.nl = (T*)nl;
   a.N = N; a.B = B;
+  traopt::LinearizeArgs<T> l;
+  l.qR = a.oR; l.qp = a.op; l.xi = a.oxi; l.u = a.ou;
+  l.refs = {(const T*)RbiR, (const T*)Rbip, (const T*)Adb, (const T*)xib};
+  l.c = a.c;
+  l.fqR = (T*)nfqR; l.fqp = (T*)nfqp; l.fxi = (T*)nfxi; l.d = (T*)nd;
+  l.Fx = (T*)nFx; l.lx = (T*)nlx; l.lxx = (T*)nlxx; l.l = (T*)nl;
+  l.N = N; l.B = B;
+  const traopt::LinearizeArgs<T>* lin = nFx ? &l : nullptr;
   if (N <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   if (cudaError_t e = cudaSetDevice(device)) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool lin = nFx != nullptr;
-  if (nu == 6) return lin ? traopt::launch_rollout<T, 6, true>(a, s, device)
-                          : traopt::launch_rollout<T, 6, false>(a, s, device);
-  if (nu == 4) return lin ? traopt::launch_rollout<T, 4, true>(a, s, device)
-                          : traopt::launch_rollout<T, 4, false>(a, s, device);
+  if (nu == 6) return traopt::launch_rollout<T, 6>(a, lin, s);
+  if (nu == 4) return traopt::launch_rollout<T, 4>(a, lin, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -404,16 +404,14 @@ def rollout_linearize_lane(qR, qp, xi, us, k, K, lin, refs, consts, *, dt,
     """Kernel B3 (replaces `solvers/pipeline.py::_rollout_linearize_kernel`
     as called by `PallasPipelineSolver._rollout_linearize_lane`).
 
-    The B4 rollout of stage t fused with the linearization of stage t of the
-    NEW trajectory (the rollout's dynamics evaluation is the linearizer's).
+    B4's new trajectory and B1's linearization of it.
     Arguments as `rollout_lane` plus ``refs`` and ``consts`` W1, W2.
     Returns (qR, qp, xi, us, lin) with ``lin`` as `linearize_lane` returns it.
 
-    On an H100 it runs in two phases, counted as one launch: B4's rollout,
-    then B1's kernel on the new trajectory (a thread per problem and stage),
-    so the linearization's stores (Fx and lxx, 288 values per stage) do not
-    wait behind the rollout's serial chain; the stages go in four chunks,
-    each chunk's linearization overlapping the next chunk's rollout.  The
+    On an H100 it runs in two phases on the caller's stream, counted as one
+    launch: B4's rollout, then B1's kernel on the new trajectory (a thread
+    per problem and stage), so the linearization's stores (Fx and lxx, 288
+    values per stage) do not wait behind the rollout's serial chain.  The
     values are the fused loop's: the same stage functions on the same
     inputs."""
     kw = dict(dt=dt, gravity=gravity, exact_grav=exact_grav)
