@@ -53,7 +53,7 @@ def host_source(src):
         grid, block, nbytes, _stream = _split_top(m.group(2))
         return f"traopt_emu::launch({m.group(1)}, {grid}, {block}, {nbytes}, {m.group(3)});"
 
-    return re.sub(r"([\w:]+(?:<[^<>;]*>)?)<<<(.+?)>>>\((.*?)\);", launch, src)
+    return re.sub(r"([\w:]+(?:<[^<>;]*>)?)\s*<<<(.+?)>>>\((.*?)\);", launch, src, flags=re.S)
 
 
 def build(unit, suffix, scalar, out_dir):

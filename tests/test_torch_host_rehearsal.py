@@ -3,9 +3,11 @@ ahead into it, run by the host rehearsal (tests/host_rehearsal.py: each
 thread of a block an OS thread, real barriers, the block's shared memory a
 buffer) on CPU tensors, against their plain versions: the group Riccati
 kernels B2 and B5 (csrc/riccati_group.cuh), B13 (csrc/fast.cu, the same
-group design on a dense step) and the rollout B4 and B3 (csrc/pipeline.cu:
-a thread per problem copying stage t + 1's inputs ahead, then, for B3, B1's
-kernel on the new trajectory).
+group design on a dense step) and B11 (csrc/so3.cu, B2's step at nx = 6 on
+a group of 8), and the rollouts B4 and B3 (csrc/pipeline.cu: a thread per
+problem copying stage t + 1's inputs ahead, then, for B3, B1's kernel on
+the new trajectory) and B12 (csrc/so3.cu: the same for SO(3), then B10's
+kernel).
 
 This runs the kernels' own code, barriers and shared-memory exchanges
 included, which the CPU tests of the wrappers cannot reach (on CPU tensors
@@ -23,11 +25,13 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
     GATES,
     OUTPUTS,
     READS,
+    SO3_OUTPUTS,
     _flat,
     fast_inputs,
     kernel_inputs,
     polish_inputs,
     rel_err,
+    so3_inputs,
 )
 from trajectory_optimization_matrix_lie_groups_tpu_torch.models.dynamics import (
     drone_params,
@@ -37,6 +41,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import riccati as R
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.batched import FastBatchSolver
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
+from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline_so3 as S
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import so3_bench
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (
     build_screw200,
@@ -46,7 +51,8 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (
 
 UNITS = {"f32": ("pipeline", "f32", "float"), "f64": ("pipeline", "f64", "double"),
          "mx": ("polish", "mx", None), "fast_f32": ("fast", "f32", "float"),
-         "fast_f64": ("fast", "f64", "double")}
+         "fast_f64": ("fast", "f64", "double"), "so3_f32": ("so3", "f32", "float"),
+         "so3_f64": ("so3", "f64", "double")}
 # one problem in a block of 8; a ragged last block with rows not 16-byte
 # aligned (odd B)
 SHAPES = [pytest.param(1, 1, id="B1-N1"), pytest.param(9, 3, id="B9-N3")]
@@ -230,3 +236,90 @@ def test_fast_and_rollout_launchers_refuse_what_they_do_not_take(libs):
         P._rollout_kernel(fn, None, r(N + 1, 3, 3, B), r(N + 1, 3, B), r(N + 1, 6, B),
                           r(N, nu, B), r(N, nu, B), r(N, nu, 12, B), lin, None, consts,
                           dt=0.01, gravity=False, exact_grav=False, fused=False)
+
+
+# B11 and B12 on both SO(3) families at SHAPES: for B11 one problem in a
+# block of 16 groups, a ragged block with rows not 16-byte aligned (odd B);
+# for B12's rollout one problem, a ragged warp.
+FAMILIES = [pytest.param(False, id="free_attitude"), pytest.param(True, id="pendulum")]
+
+
+def _so3_inputs(pendulum, dtype, B, N):
+    """A real SO3PipelineSolver iterate (2 iterations, plain) of a family,
+    and its dt."""
+    build = so3_bench.build_pendulum_swingup80 if pendulum else so3_bench.build_so3_track249
+    dyn, cost, q0, xi0 = build(dtype, "cpu", horizon=N)
+    q0s, xi0s = so3_bench.so3_batch(q0, xi0, B, seed=1)
+    solver = S.SO3PipelineSolver(N, 2, float(dyn.dt), pendulum=pendulum)
+    us0 = torch.zeros((B, N, 3), dtype=dtype)
+    return so3_inputs(solver, dyn, cost, q0s, xi0s, us0), solver.dt
+
+
+@pytest.mark.parametrize("B,N", SHAPES)
+@pytest.mark.parametrize("pendulum", FAMILIES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b11_host_rehearsal_matches_plain(libs, dtype, pendulum, B, N):
+    """B11 on both families within its card gate of the plain version (f32);
+    f64 to 1e-12."""
+    s, _ = _so3_inputs(pendulum, dtype, B, N)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    fn = HR.function(libs[f"so3_{tag}"], f"riccati_so3_{tag}", S._RICCATI_ARGS)
+    bargs = (s["lin"], s["lu"], s["qR"], s["xi"], s["refs"], s["consts"])
+    kern = S._backward_so3_kernel(fn, None, *bargs, pendulum=pendulum)
+    plain = S.backward_so3_plain(*bargs, pendulum=pendulum)
+    gate = GATES["so3"][dtype]["B11"] if dtype == torch.float32 else 1e-12
+    for name, a, b in zip(SO3_OUTPUTS["B11"], kern, plain, strict=True):
+        assert rel_err(a, b) <= gate, (name, rel_err(a, b))
+
+
+@pytest.mark.parametrize("B,N", SHAPES)
+@pytest.mark.parametrize("pendulum", FAMILIES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b12_host_rehearsal_matches_plain(libs, dtype, pendulum, B, N):
+    """B12 (the rollout phase, then B10's kernel on its trajectory) on both
+    families within its card gate of the plain version (f32), f64 to 1e-12;
+    and equal, bit for bit, to the rollout phase alone followed by B10's
+    entry point on the new trajectory."""
+    s, dt = _so3_inputs(pendulum, dtype, B, N)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    lib = libs[f"so3_{tag}"]
+    fn = HR.function(lib, f"rollout_so3_{tag}", S._ROLLOUT_ARGS)
+    rargs = (s["qR"], s["xi"], s["us"], s["k"], s["K"], s["lin"], s["refs"], s["consts"])
+    kw = dict(dt=dt, pendulum=pendulum)
+    kern = S._rollout_so3_kernel(fn, None, *rargs, **kw)
+    plain = S.rollout_linearize_so3_plain(*rargs, **kw)
+    gate = GATES["so3"][dtype]["B12"] if dtype == torch.float32 else 1e-12
+    for name, a, b in zip(SO3_OUTPUTS["B12"], _flat(kern, S.LIN), _flat(plain, S.LIN),
+                          strict=True):
+        assert rel_err(a, b) <= gate, (name, rel_err(a, b))
+    oR, oxi, ou, empty = S._rollout_so3_kernel(fn, None, *rargs, linearize=False, **kw)
+    assert empty == {}
+    lin_fn = HR.function(lib, f"linearize_so3_{tag}", S._LINEARIZE_ARGS)
+    new = S._linearize_so3_kernel(lin_fn, None, oR, oxi, ou, s["refs"], s["consts"], **kw)
+    for name, a, b in zip(SO3_OUTPUTS["B12"], _flat(kern, S.LIN),
+                          _flat((oR, oxi, ou, new), S.LIN), strict=True):
+        assert torch.equal(a, b), name
+
+
+def test_so3_launchers_refuse_what_they_do_not_take(libs):
+    """An empty horizon (N = 0) reaches B11's and B12's launchers (the
+    calls' shape checks pass), which return an error that the kernel calls
+    raise."""
+    N, B = 0, 3
+    g = torch.Generator().manual_seed(0)
+    r = lambda *shape: torch.randn(shape, generator=g, dtype=torch.float64)
+    lin = dict(Fx=r(N, 6, 6, B), fu2=r(N, 3, 3, B), d=r(N, 6, B), lx=r(N, 6, B),
+               lxx=r(N, 6, 6, B), fqR=r(N, 3, 3, B), fxi=r(N, 3, B))
+    refs = dict(RbiR=r(N + 1, 3, 3), xib=r(N + 1, 3))
+    consts = {k: r(3, 3) for k in ("J", "Jinv", "W1", "W2", "W1vN", "W2vN", "W1hN", "W2hN",
+                                   "Luu")}
+    consts.update(mgr=r(3), mr=r(3))
+    fn = HR.function(libs["so3_f64"], "riccati_so3_f64", S._RICCATI_ARGS)
+    with pytest.raises(RuntimeError, match="riccati_so3"):
+        S._backward_so3_kernel(fn, None, lin, r(N, 3, B), r(N + 1, 3, 3, B), r(N + 1, 3, B),
+                               refs, consts, pendulum=False)
+    fn = HR.function(libs["so3_f64"], "rollout_so3_f64", S._ROLLOUT_ARGS)
+    with pytest.raises(RuntimeError, match="rollout_so3"):
+        S._rollout_so3_kernel(fn, None, r(N + 1, 3, 3, B), r(N + 1, 3, B), r(N, 3, B),
+                              r(N, 3, B), r(N, 3, 6, B), lin, refs, consts, dt=0.01,
+                              pendulum=False)

@@ -1,17 +1,21 @@
-// Kernels B10 (linearization), B11 (Riccati backward) and B12 (rollout
-// fused with the next linearization) of the SO(3)-family MS-iLQR pipeline
-// (solvers/pipeline_so3.py): the free rigid-body attitude and the 3-D
-// pendulum actuated at its pivot.  The state is (R, xi) with nx = 6, nu = 3.
+// Kernels B10 (linearization), B11 (Riccati backward) and B12 (rollout, then
+// the linearization of the new trajectory) of the SO(3)-family MS-iLQR
+// pipeline (solvers/pipeline_so3.py): the free rigid-body attitude and the
+// 3-D pendulum actuated at its pivot.  The state is (R, xi) with nx = 6,
+// nu = 3.
 //
 // The stage math below follows the plain versions in solvers/pipeline_so3.py
 // (so3_stage_dynamics_eval, so3_stage_jacobian, so3_stage_cost_quad,
-// so3_rollout_stage) formula by formula; the Riccati step is stage.cuh's
-// riccati_stage<T, T, 3, 3>, B2's with the pose half 3.  The pendulum's Fu
-// = [0; fu2] depends on the stage's R: B10 and B12 write fu2 per stage, B11
-// reads it per stage.  Batch-last arrays as in stage.cuh; the model
-// constants (J, Jinv, weights, m g rho, m rho) and the per-stage references
-// (RbiR, xib) are small row-major arrays shared by the batch.
+// so3_rollout_stage) formula by formula; the Riccati step is B2's group step
+// (riccati_group.cuh) with the pose half 3.  The pendulum's Fu = [0; fu2]
+// depends on the stage's R: B10 writes fu2 per stage, B11 reads it per
+// stage.  Batch-last arrays as in stage.cuh; the model constants (J, Jinv,
+// weights, m g rho, m rho) and the per-stage references (RbiR, xib) are small
+// row-major arrays shared by the batch.
+#include "ahead.cuh"
 #include "common.cuh"
+#include "group.cuh"
+#include "riccati_group.cuh"
 #include "stage.cuh"
 
 namespace traopt {
@@ -272,14 +276,15 @@ __global__ void __launch_bounds__(kThreads) linearize_so3_kernel(LinearizeSo3Arg
 
 // ---- B11 -----------------------------------------------------------------
 // Replaces solvers/pipeline_so3.py::_riccati_kernel_so3
-// (SO3PipelineSolver._backward_lane).  One thread per problem: the terminal
-// quadratization with the quirk weights (value and gradient W1vN, W2vN;
-// Hessian W1hN, W2hN), then riccati_stage<T, T, 3, 3> over the stages in
-// reverse with glow = pendulum and fu2 read per stage.
-// What bounds it on an H100: it reads 93 values and writes 24 per stage and
-// problem; the carry (V_x 6, V_xx 36) and the stage's Fx (36), Q_ux and K
-// (3 x 6) are ~150 live values, a quarter of B2's, so they fit in the
-// register file; a batch of B problems gives B / 128 blocks.
+// (SO3PipelineSolver._backward_lane): the terminal quadratization with the
+// quirk weights (value and gradient W1vN, W2vN; Hessian W1hN, W2hN), then
+// riccati_stage<T, T, 3, 3> over the stages in reverse with glow = pendulum
+// and fu2 read per stage.
+// What bounds it on an H100: it reads 96 values and writes 24 per stage and
+// problem (0.29 ms at B = 8192, N = 249).  One thread per problem on blocks
+// of one warp (ahead.cuh: B / 32 blocks over all SMs), the carry in
+// registers; each thread copies stage t - 1's inputs into its shared-memory
+// column while it computes stage t.
 template <typename T>
 struct RiccatiSo3Args {
   const T *Fx, *fu2, *d, *lx, *lu, *lxx;  // (N, ..., B)
@@ -292,11 +297,34 @@ struct RiccatiSo3Args {
   int N, B;
 };
 
+// The entries of one stage in a thread's column.
+struct RiccatiSo3Column {
+  static constexpr int Fx = 0, fu2 = 36, d = 45, lx = 51, lu = 57, lxx = 60, n = 96;
+};
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) riccati_so3_kernel(RiccatiSo3Args<T> a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const int B = a.B, N = a.N;
+__device__ __forceinline__ void riccati_so3_copy(T* col, const RiccatiSo3Args<T>& a, int t,
+                                                 int b) {
+  using C = RiccatiSo3Column;
+  constexpr int P = kAheadThreads;
+  const int B = a.B;
+  copy_column<36>(col + C::Fx * P, a.Fx, t, B, b);
+  copy_column<9>(col + C::fu2 * P, a.fu2, t, B, b);
+  copy_column<6>(col + C::d * P, a.d, t, B, b);
+  copy_column<6>(col + C::lx * P, a.lx, t, B, b);
+  copy_column<3>(col + C::lu * P, a.lu, t, B, b);
+  copy_column<36>(col + C::lxx * P, a.lxx, t, B, b);
+  cp_async_commit();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kAheadThreads) riccati_so3_kernel(RiccatiSo3Args<T> a) {
+  using C = RiccatiSo3Column;
+  constexpr int P = kAheadThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int B = a.B, N = a.N, b = blockIdx.x * P + threadIdx.x;
+  if (b >= B) return;
+  T* col = reinterpret_cast<T*>(smem) + threadIdx.x;  // slot s at col + s * C::n * P
   T Vx[6], V[36];
   {
     T R[9], xi[3];
@@ -305,116 +333,188 @@ __global__ void __launch_bounds__(kThreads) riccati_so3_kernel(RiccatiSo3Args<T>
     a.lN[b] = so3_cost_quad<T>(&Vx[0], &V[0], R, xi, a.RbiR + N * 9, a.xib + N * 3,
                                a.W1vN, a.W2vN, a.W1hN, a.W2hN);
   }
+  riccati_so3_copy(col, a, N - 1, b);
   for (int t = N - 1; t >= 0; --t) {
+    const int cur = (N - 1 - t) & 1;
+    cp_async_wait_all();
+    if (t > 0) riccati_so3_copy(col + (cur ^ 1) * C::n * P, a, t - 1, b);
+    const T* in = col + cur * C::n * P;
     T fu2[9];
-    load<9>(fu2, lane<9>(a.fu2, t, B, b));
+    load<9>(fu2, column(in + C::fu2 * P));
     riccati_stage<T, T, 3, 3>(
-        Vx, V, lane<36>(a.Fx, t, B, b), lane<6>(a.d, t, B, b),
-        lane<6>(a.lx, t, B, b), lane<3>(a.lu, t, B, b), lane<36>(a.lxx, t, B, b),
-        nullptr, fu2, fu2, a.Luu, a.pendulum != 0, lane<3>(a.k, t, B, b),
-        lane<18>(a.K, t, B, b), lane<3>(a.gvec, t, B, b));
+        Vx, V, column(in + C::Fx * P), column(in + C::d * P), column(in + C::lx * P),
+        column(in + C::lu * P), column(in + C::lxx * P), nullptr, fu2, fu2, a.Luu,
+        a.pendulum != 0, lane<3>(a.k, t, B, b), lane<18>(a.K, t, B, b),
+        lane<3>(a.gvec, t, B, b));
   }
+}
+
+template <typename T>
+int launch_riccati_so3(const RiccatiSo3Args<T>& a, cudaStream_t s) {
+  constexpr size_t bytes = 2 * RiccatiSo3Column::n * kAheadThreads * sizeof(T);
+  if (cudaError_t e = cudaFuncSetAttribute(riccati_so3_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes))
+    return (int)e;
+  riccati_so3_kernel<T><<<ahead_grid(a.B), kAheadThreads, bytes, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // ---- B12 -----------------------------------------------------------------
 // Replaces solvers/pipeline_so3.py::_rollout_linearize_kernel_so3
-// (SO3PipelineSolver._rollout_linearize_lane): the gap-closing rollout of
-// stage t, x+ = x_next Exp(d) f(xbar)^-1 f(x_new) after the feedback
-// u = u_t + k_t + K_t xs_err, fused with the linearization of stage t of
-// the new trajectory (the rollout's dynamics evaluation is reused; the
-// pendulum's Jacobian needs the new u, so it follows the rollout step).
-// What bounds it on an H100: per stage and problem it reads 56 values and
-// writes 113, so, like B10, its stores (Fx, lxx, fu2) bound it, but serial
-// over stages with B / 128 blocks.  The carry (R, xi) stays in registers.
+// (SO3PipelineSolver._rollout_linearize_lane): the gap-closing rollout,
+// x+ = x_next Exp(d) f(xbar)^-1 f(x_new) after the feedback
+// u = u_t + k_t + K_t xs_err, and the linearization of every stage of the
+// new trajectory.
+// What bounds it on an H100: per stage and problem the rollout reads 66
+// values and writes 15 in a chain of dependent steps (Log, the feedback,
+// Exp, three compositions) serial over the stages; the linearization writes
+// B10's 100 values (Fx, lxx and fu2 are 81 of them), store-bound.  The TPU
+// kernel linearized stage t inside the rollout's stage loop; here B12 runs in
+// two phases on the caller's stream, as B3 does: the rollout
+// (rollout_so3_kernel), then B10's kernel on the new trajectory, a thread
+// per (problem, stage), so the linearization's stores no longer wait behind
+// the rollout's chain.  Both compute what the fused loop did (the same stage
+// functions on the same values).  The rollout runs one problem per thread
+// on blocks of one warp (ahead.cuh: B / 32 blocks) with the carry (R, xi) in
+// registers, and copies stage t + 1's inputs into shared memory while it
+// computes stage t.
 template <typename T>
 struct RolloutSo3Args {
   const T *qR, *xi, *u;     // nominal (N+1, 3, 3, B), (N+1, 3, B), (N, 3, B)
   const T *k, *K;           // (N, 3, B), (N, 3, 6, B)
   const T *d, *fqR, *fxi;   // nominal linearization (N, ..., B)
-  const T *RbiR, *xib;      // (N+1, 3, 3), (N+1, 3)
   So3Consts<T> c;
   T *oR, *oxi, *ou;         // new trajectory (N+1, ...), controls (N, 3, B)
-  T *nfqR, *nfxi, *nd, *nFx, *nfu2, *nlx, *nlxx, *nl;  // new linearization
   int N, B;
 };
 
+// Gap-closing rollout step (solvers/pipeline_so3.py so3_rollout_stage): the
+// feedback on the deviation from the nominal, then
+// x+ = x_next Exp(d) f(xbar)^-1 f(x_new).  (R, xi) hold the new state of
+// stage t on entry and of stage t + 1 on exit; u gets the new control.  The
+// nominal stage (Rt, xit, ut), its successor (Rn, xin), the gains (kt, Kt),
+// the defect dd and the nominal evaluation (fqRt, fxit) come from the
+// previous iterate.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) rollout_linearize_so3_kernel(RolloutSo3Args<T> a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const int B = a.B, N = a.N;
-  T R[9], xi[3];
-  load<9>(R, lane<9>(a.qR, 0, B, b));
-  load<3>(xi, lane<3>(a.xi, 0, B, b));
-  store<9>(lane<9>(a.oR, 0, B, b), R);
-  store<3>(lane<3>(a.oxi, 0, B, b), xi);
-  for (int t = 0; t < N; ++t) {
-    // the cost quadratization of the new stage t needs only (R, xi)
-    a.nl[(long long)t * B + b] = so3_cost_quad<T>(
-        lane<6>(a.nlx, t, B, b), lane<36>(a.nlxx, t, B, b), R, xi,
-        a.RbiR + t * 9, a.xib + t * 3, a.c.W1, a.c.W2, a.c.W1, a.c.W2);
-    T u[3], fqR[9], fxi[3], Rnn[9], xinn[3];
+__device__ __forceinline__ void so3_rollout_stage(T* R, T* xi, T* u, const T* Rt, const T* xit,
+                                                  const T* Rn, const T* xin, const T* ut,
+                                                  const T* kt, const T* Kt, const T* dd,
+                                                  const T* fqRt, const T* fxit,
+                                                  const So3Consts<T>& c) {
+  {
+    T xs_err[6];
     {
-      T Rt[9], xit[3], xs_err[6];
-      load<9>(Rt, lane<9>(a.qR, t, B, b));
-      load<3>(xit, lane<3>(a.xi, t, B, b));
-      {
-        T Rtt[9], M[9];
-        transpose3(Rtt, Rt);
-        mat_mul<3, 3, 3>(M, Rtt, R);
-        so3_log(xs_err, M);
-      }
-#pragma unroll
-      for (int i = 0; i < 3; ++i) xs_err[3 + i] = xi[i] - xit[i];
-      T ut[3], kt[3], Kt[18];
-      load<3>(ut, lane<3>(a.u, t, B, b));
-      load<3>(kt, lane<3>(a.k, t, B, b));
-      load<18>(Kt, lane<18>(a.K, t, B, b));
-#pragma unroll
-      for (int r = 0; r < 3; ++r) {
-        T s = Kt[r * 6] * xs_err[0];
-#pragma unroll
-        for (int j = 1; j < 6; ++j) s += Kt[r * 6 + j] * xs_err[j];
-        u[r] = (ut[r] + kt[r]) + s;
-      }
+      T Rtt[9], M[9];
+      transpose3(Rtt, Rt);
+      mat_mul<3, 3, 3>(M, Rtt, R);
+      so3_log(xs_err, M);
     }
-    so3_dynamics_eval(fqR, fxi, R, xi, u, a.c);
-    {
-      T dd[6], Rn[9], xin[3], fqRt[9], fxit[3], E[9], Ra[9], Rb[9], Ft[9];
-      load<6>(dd, lane<6>(a.d, t, B, b));
-      load<9>(Rn, lane<9>(a.qR, t + 1, B, b));
-      load<3>(xin, lane<3>(a.xi, t + 1, B, b));
-      load<9>(fqRt, lane<9>(a.fqR, t, B, b));
-      load<3>(fxit, lane<3>(a.fxi, t, B, b));
-      so3_exp(E, dd);
-      mat_mul<3, 3, 3>(Ra, Rn, E);
-      transpose3(Ft, fqRt);
-      mat_mul<3, 3, 3>(Rb, Ra, Ft);
-      mat_mul<3, 3, 3>(Rnn, Rb, fqR);
-      so3_normalize(Rnn);
 #pragma unroll
-      for (int i = 0; i < 3; ++i) xinn[i] = ((xin[i] + fxi[i]) - fxit[i]) + dd[3 + i];
-    }
-    {
-      T fu2[9];
-      so3_jacobian(lane<36>(a.nFx, t, B, b), fu2, R, xi, u, a.c);
-      store<9>(lane<9>(a.nfu2, t, B, b), fu2);
-    }
-    {
-      T nd[6];
-      so3_defect(nd, Rnn, xinn, fqR, fxi);
-      store<6>(lane<6>(a.nd, t, B, b), nd);
-    }
-    store<9>(lane<9>(a.nfqR, t, B, b), fqR);
-    store<3>(lane<3>(a.nfxi, t, B, b), fxi);
-    store<3>(lane<3>(a.ou, t, B, b), u);
-    store<9>(lane<9>(a.oR, t + 1, B, b), Rnn);
-    store<3>(lane<3>(a.oxi, t + 1, B, b), xinn);
+    for (int i = 0; i < 3; ++i) xs_err[3 + i] = xi[i] - xit[i];
 #pragma unroll
-    for (int i = 0; i < 9; ++i) R[i] = Rnn[i];
+    for (int r = 0; r < 3; ++r) {
+      T s = Kt[r * 6] * xs_err[0];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) xi[i] = xinn[i];
+      for (int j = 1; j < 6; ++j) s += Kt[r * 6 + j] * xs_err[j];
+      u[r] = (ut[r] + kt[r]) + s;
+    }
   }
+  T fqR[9], fxi[3];
+  so3_dynamics_eval(fqR, fxi, R, xi, u, c);
+  T E[9], Ra[9], Rb[9], Ft[9];
+  so3_exp(E, dd);
+  mat_mul<3, 3, 3>(Ra, Rn, E);
+  transpose3(Ft, fqRt);
+  mat_mul<3, 3, 3>(Rb, Ra, Ft);
+  mat_mul<3, 3, 3>(R, Rb, fqR);
+  so3_normalize(R);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) xi[i] = ((xin[i] + fxi[i]) - fxit[i]) + dd[3 + i];
+}
+
+// The entries of one stage in a thread's column: the nominal x_t and
+// x_{t+1}, u_t, the gains, the nominal's defect and dynamics evaluation.
+struct RolloutSo3Column {
+  static constexpr int Rt = 0, xit = 9, Rn = 12, xin = 21, u = 24, k = 27, K = 30, d = 48,
+                       fqR = 54, fxi = 63, n = 66;
+};
+
+template <typename T>
+__device__ __forceinline__ void rollout_so3_copy(T* col, const RolloutSo3Args<T>& a, int t,
+                                                 int b) {
+  using C = RolloutSo3Column;
+  constexpr int P = kAheadThreads;
+  const int B = a.B;
+  copy_column<9>(col + C::Rt * P, a.qR, t, B, b);
+  copy_column<3>(col + C::xit * P, a.xi, t, B, b);
+  copy_column<9>(col + C::Rn * P, a.qR, t + 1, B, b);
+  copy_column<3>(col + C::xin * P, a.xi, t + 1, B, b);
+  copy_column<3>(col + C::u * P, a.u, t, B, b);
+  copy_column<3>(col + C::k * P, a.k, t, B, b);
+  copy_column<18>(col + C::K * P, a.K, t, B, b);
+  copy_column<6>(col + C::d * P, a.d, t, B, b);
+  copy_column<9>(col + C::fqR * P, a.fqR, t, B, b);
+  copy_column<3>(col + C::fxi * P, a.fxi, t, B, b);
+  cp_async_commit();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kAheadThreads) rollout_so3_kernel(RolloutSo3Args<T> a) {
+  using C = RolloutSo3Column;
+  constexpr int P = kAheadThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int B = a.B, N = a.N, b = blockIdx.x * P + threadIdx.x, bc = min(b, B - 1);
+  const bool live = b < B;
+  T* col = reinterpret_cast<T*>(smem) + threadIdx.x;  // slot s at col + s * C::n * P
+  T R[9], xi[3];
+  load<9>(R, lane<9>(a.qR, 0, B, bc));
+  load<3>(xi, lane<3>(a.xi, 0, B, bc));
+  if (live) {
+    store<9>(lane<9>(a.oR, 0, B, b), R);
+    store<3>(lane<3>(a.oxi, 0, B, b), xi);
+  }
+  rollout_so3_copy(col, a, 0, bc);
+  for (int t = 0; t < N; ++t) {
+    cp_async_wait_all();
+    if (t + 1 < N) rollout_so3_copy(col + ((t + 1) & 1) * C::n * P, a, t + 1, bc);
+    const T* cur = col + (t & 1) * C::n * P;
+    const auto in = [&](int e) { return column(cur + e * P); };
+    T Rt[9], xit[3], Rn[9], xin[3], ut[3], kt[3], Kt[18], dd[6], fqRt[9], fxit[3];
+    load<9>(Rt, in(C::Rt));
+    load<3>(xit, in(C::xit));
+    load<9>(Rn, in(C::Rn));
+    load<3>(xin, in(C::xin));
+    load<3>(ut, in(C::u));
+    load<3>(kt, in(C::k));
+    load<18>(Kt, in(C::K));
+    load<6>(dd, in(C::d));
+    load<9>(fqRt, in(C::fqR));
+    load<3>(fxit, in(C::fxi));
+    T u[3];
+    so3_rollout_stage(R, xi, u, Rt, xit, Rn, xin, ut, kt, Kt, dd, fqRt, fxit, a.c);
+    if (live) {
+      store<9>(lane<9>(a.oR, t + 1, B, b), R);
+      store<3>(lane<3>(a.oxi, t + 1, B, b), xi);
+      store<3>(lane<3>(a.ou, t, B, b), u);
+    }
+  }
+}
+
+// The rollout; with lin (its inputs the rollout's outputs), then B10's kernel
+// on the new trajectory, both on stream s.
+template <typename T>
+int launch_rollout_so3(const RolloutSo3Args<T>& a, const LinearizeSo3Args<T>* lin,
+                       cudaStream_t s) {
+  constexpr size_t bytes = 2 * RolloutSo3Column::n * kAheadThreads * sizeof(T);
+  if (cudaError_t e = cudaFuncSetAttribute(rollout_so3_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes))
+    return (int)e;
+  rollout_so3_kernel<T><<<ahead_grid(a.B), kAheadThreads, bytes, s>>>(a);
+  if (cudaError_t e = cudaGetLastError()) return (int)e;
+  if (lin) linearize_so3_kernel<T><<<batch_grid(a.B, a.N), kThreads, 0, s>>>(*lin);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace traopt
@@ -473,11 +573,10 @@ extern "C" int TRAOPT_FN(riccati_so3)(
   a.N = N; a.B = B;
   if (N <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   if (cudaError_t e = cudaSetDevice(device)) return (int)e;
-  traopt::riccati_so3_kernel<T>
-      <<<traopt::batch_grid(B), traopt::kThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return traopt::launch_riccati_so3<T>(a, (cudaStream_t)stream);
 }
 
+// The rollout alone when the new-linearization pointers are null, else B12.
 extern "C" int TRAOPT_FN(rollout_so3)(
     const void* qR, const void* xi, const void* u, const void* k,
     const void* K, const void* d, const void* fqR, const void* fxi,
@@ -491,15 +590,17 @@ extern "C" int TRAOPT_FN(rollout_so3)(
   a.qR = (const T*)qR; a.xi = (const T*)xi; a.u = (const T*)u;
   a.k = (const T*)k; a.K = (const T*)K; a.d = (const T*)d;
   a.fqR = (const T*)fqR; a.fxi = (const T*)fxi;
-  a.RbiR = (const T*)RbiR; a.xib = (const T*)xib;
   a.c = so3_consts(J, Jinv, W1, W2, mgr, mr, dt, pendulum);
   a.oR = (T*)oR; a.oxi = (T*)oxi; a.ou = (T*)ou;
-  a.nfqR = (T*)nfqR; a.nfxi = (T*)nfxi; a.nd = (T*)nd; a.nFx = (T*)nFx;
-  a.nfu2 = (T*)nfu2; a.nlx = (T*)nlx; a.nlxx = (T*)nlxx; a.nl = (T*)nl;
   a.N = N; a.B = B;
+  traopt::LinearizeSo3Args<T> l;
+  l.qR = a.oR; l.xi = a.oxi; l.u = a.ou;
+  l.RbiR = (const T*)RbiR; l.xib = (const T*)xib;
+  l.c = a.c;
+  l.fqR = (T*)nfqR; l.fxi = (T*)nfxi; l.d = (T*)nd; l.Fx = (T*)nFx;
+  l.fu2 = (T*)nfu2; l.lx = (T*)nlx; l.lxx = (T*)nlxx; l.l = (T*)nl;
+  l.N = N; l.B = B;
   if (N <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   if (cudaError_t e = cudaSetDevice(device)) return (int)e;
-  traopt::rollout_linearize_so3_kernel<T>
-      <<<traopt::batch_grid(B), traopt::kThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return traopt::launch_rollout_so3<T>(a, nFx ? &l : nullptr, (cudaStream_t)stream);
 }

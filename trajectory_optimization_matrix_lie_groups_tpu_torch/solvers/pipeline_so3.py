@@ -1,6 +1,6 @@
 """Lane-layout MS-iLQR pipeline for the SO(3) family (counterpart of the JAX
 `solvers/pipeline_so3.py`), with kernels B10 (linearization), B11 (Riccati
-backward) and B12 (rollout fused with the next linearization).
+backward) and B12 (rollout and the linearization of the new trajectory).
 
 It covers both SO(3)-family dynamics of the reference: the free rigid-body
 attitude (constant Fu = [0; Jinv] dt) and the 3-D pendulum actuated at its
@@ -171,6 +171,21 @@ def _launch(name, x):
     return fn, torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _linearize_so3_kernel(fn, stream, qR, xi, us, refs, consts, *, dt, pendulum):
+    """B10's C entry point ``fn`` on ``stream`` (arguments and outputs as
+    `linearize_so3_lane`); raises if the launch fails."""
+    N, _, B = us.shape
+    a = lambda t, shape, name: _build.arg(t, shape, us, name)
+    out = _alloc_lin(lambda *s: torch.empty(s, dtype=us.dtype, device=us.device), N, B)
+    err = fn(a(qR, (N + 1, 3, 3, B), "qR"), a(xi, (N + 1, 3, B), "xi"),
+             a(us, (N, NU, B), "us"), a(refs["RbiR"], (N + 1, 3, 3), "RbiR"),
+             a(refs["xib"], (N + 1, 3), "xib"), *_model_ptrs(a, consts),
+             float(dt), int(pendulum), *[a(out[k], out[k].shape, k) for k in LIN],
+             N, B, _build.device_index(us), stream)
+    _build.check(err, "linearize_so3")
+    return out
+
+
 def linearize_so3_lane(qR, xi, us, refs, consts, *, dt, pendulum):
     """Kernel B10 (replaces `solvers/pipeline_so3.py::_linearize_kernel_so3`
     as called by `SO3PipelineSolver._linearize_lane`).
@@ -189,16 +204,8 @@ def linearize_so3_lane(qR, xi, us, refs, consts, *, dt, pendulum):
         return linearize_so3_plain(qR, xi, us, refs, consts, **kw)
     if us.device.type != "cuda":
         raise ValueError(f"linearize_so3_lane: no kernel for device {us.device}")
-    fn, stream = _launch("linearize_so3", us)
-    N, _, B = us.shape
-    a = lambda t, shape, name: _build.arg(t, shape, us, name)
-    out = _alloc_lin(lambda *s: torch.empty(s, dtype=us.dtype, device=us.device), N, B)
-    err = fn(a(qR, (N + 1, 3, 3, B), "qR"), a(xi, (N + 1, 3, B), "xi"),
-             a(us, (N, NU, B), "us"), a(refs["RbiR"], (N + 1, 3, 3), "RbiR"),
-             a(refs["xib"], (N + 1, 3), "xib"), *_model_ptrs(a, consts),
-             float(dt), int(pendulum), *[a(out[k], out[k].shape, k) for k in LIN],
-             N, B, _build.device_index(us), stream)
-    _build.check(err, "linearize_so3")
+    out = _linearize_so3_kernel(*_launch("linearize_so3", us), qR, xi, us, refs, consts,
+                                **kw)
     linearize_so3_lane.launches += 1
     return out
 
@@ -235,26 +242,9 @@ def backward_so3_plain(lin, lu, qR, xi, refs, consts, *, pendulum):
 _RICCATI_ARGS = [_P] * 15 + [_I] + [_P] * 4 + [_I] * 3 + [_P]
 
 
-def backward_so3_lane(lin, lu, qR, xi, refs, consts, *, pendulum):
-    """Kernel B11 (replaces `solvers/pipeline_so3.py::_riccati_kernel_so3` as
-    called by `SO3PipelineSolver._backward_lane`).
-
-    ``lin``: Fx (N, 6, 6, B), fu2 (N, 3, 3, B), d (N, 6, B), lx (N, 6, B),
-    lxx (N, 6, 6, B); ``lu`` (N, 3, B); the terminal state is stage N of
-    qR (N+1, 3, 3, B) and xi (N+1, 3, B); ``refs`` as `linearize_so3_lane`;
-    ``consts`` the terminal weights W1vN, W2vN, W1hN, W2hN and Luu = 2 R
-    (3, 3).  Returns k (N, 3, B), K (N, 3, 6, B), gvec = Qu (N, 3, B),
-    lN (B,).
-
-    On an H100 one thread runs one problem's recursion; the carry (V_x 6,
-    V_xx 36) and the stage's Fx (36) are a quarter of B2's, small enough
-    for the register file."""
-    kw = dict(pendulum=pendulum)
-    if lu.device.type == "cpu":
-        return backward_so3_plain(lin, lu, qR, xi, refs, consts, **kw)
-    if lu.device.type != "cuda":
-        raise ValueError(f"backward_so3_lane: no kernel for device {lu.device}")
-    fn, stream = _launch("riccati_so3", lu)
+def _backward_so3_kernel(fn, stream, lin, lu, qR, xi, refs, consts, *, pendulum):
+    """B11's C entry point ``fn`` on ``stream`` (arguments and outputs as
+    `backward_so3_lane`); raises if the launch fails."""
     N, _, B = lu.shape
     a = lambda t, shape, name: _build.arg(t, shape, lu, name)
     e = lambda *s: torch.empty(s, dtype=lu.dtype, device=lu.device)
@@ -269,14 +259,39 @@ def backward_so3_lane(lin, lu, qR, xi, refs, consts, *, pendulum):
              a(gvec, gvec.shape, "gvec"), a(lN, lN.shape, "lN"),
              N, B, _build.device_index(lu), stream)
     _build.check(err, "riccati_so3")
-    backward_so3_lane.launches += 1
     return k, K, gvec, lN
+
+
+def backward_so3_lane(lin, lu, qR, xi, refs, consts, *, pendulum):
+    """Kernel B11 (replaces `solvers/pipeline_so3.py::_riccati_kernel_so3` as
+    called by `SO3PipelineSolver._backward_lane`).
+
+    ``lin``: Fx (N, 6, 6, B), fu2 (N, 3, 3, B), d (N, 6, B), lx (N, 6, B),
+    lxx (N, 6, 6, B); ``lu`` (N, 3, B); the terminal state is stage N of
+    qR (N+1, 3, 3, B) and xi (N+1, 3, B); ``refs`` as `linearize_so3_lane`;
+    ``consts`` the terminal weights W1vN, W2vN, W1hN, W2hN and Luu = 2 R
+    (3, 3).  Returns k (N, 3, B), K (N, 3, 6, B), gvec = Qu (N, 3, B),
+    lN (B,).
+
+    On an H100 a group of 8 threads runs one problem's recursion (16
+    problems per block): lane r keeps row r of V_xx in registers, the group
+    exchanges V_xx F, K and the new V_xx's halves through shared memory, and
+    each stage's inputs are copied there one stage ahead."""
+    kw = dict(pendulum=pendulum)
+    if lu.device.type == "cpu":
+        return backward_so3_plain(lin, lu, qR, xi, refs, consts, **kw)
+    if lu.device.type != "cuda":
+        raise ValueError(f"backward_so3_lane: no kernel for device {lu.device}")
+    out = _backward_so3_kernel(*_launch("riccati_so3", lu), lin, lu, qR, xi, refs,
+                               consts, **kw)
+    backward_so3_lane.launches += 1
+    return out
 
 
 backward_so3_lane.launches = 0
 
 
-# -- B12: rollout fused with the next linearization ------------------------------
+# -- B12: rollout and the linearization of the new trajectory -----------------------
 
 def rollout_linearize_so3_plain(qR, xi, us, k, K, lin, refs, consts, *, dt,
                                 pendulum):
@@ -311,34 +326,17 @@ def rollout_linearize_so3_plain(qR, xi, us, k, K, lin, refs, consts, *, dt,
 _ROLLOUT_ARGS = [_P] * 16 + [_D, _I] + [_P] * 11 + [_I] * 3 + [_P]
 
 
-def rollout_linearize_so3_lane(qR, xi, us, k, K, lin, refs, consts, *, dt,
-                               pendulum):
-    """Kernel B12 (replaces
-    `solvers/pipeline_so3.py::_rollout_linearize_kernel_so3` as called by
-    `SO3PipelineSolver._rollout_linearize_lane`).
-
-    The gap-closing rollout of stage t fused with the linearization of
-    stage t of the NEW trajectory (the rollout's dynamics evaluation is the
-    linearizer's).  Nominal qR (N+1, 3, 3, B), xi (N+1, 3, B), us (N, 3, B);
-    gains k (N, 3, B), K (N, 3, 6, B); ``lin`` d, fqR, fxi of the nominal;
-    ``refs`` and ``consts`` as `linearize_so3_lane`.  Returns the new
-    (qR, xi) (N+1 stages, stage 0 unchanged), us and ``lin`` as
-    `linearize_so3_lane` returns it.
-
-    On an H100: one thread per problem walks the stages with the carry
-    (R, xi) in registers; like B10 it is bound by the stores of Fx, lxx
-    and fu2, but serial over stages."""
-    kw = dict(dt=dt, pendulum=pendulum)
-    if us.device.type == "cpu":
-        return rollout_linearize_so3_plain(qR, xi, us, k, K, lin, refs, consts, **kw)
-    if us.device.type != "cuda":
-        raise ValueError(f"rollout_linearize_so3_lane: no kernel for device {us.device}")
-    fn, stream = _launch("rollout_so3", us)
+def _rollout_so3_kernel(fn, stream, qR, xi, us, k, K, lin, refs, consts, *, dt,
+                        pendulum, linearize=True):
+    """B12's C entry point ``fn`` on ``stream`` (arguments and outputs as
+    `rollout_linearize_so3_lane`); raises if the launch fails.  With
+    ``linearize`` False only the rollout phase runs, and the returned
+    linearization is empty."""
     N, _, B = us.shape
     a = lambda t, shape, name: _build.arg(t, shape, us, name)
     e = lambda *s: torch.empty(s, dtype=us.dtype, device=us.device)
     oR, oxi, ou = e(N + 1, 3, 3, B), e(N + 1, 3, B), e(N, NU, B)
-    new = _alloc_lin(e, N, B)
+    new = _alloc_lin(e, N, B) if linearize else {}
     err = fn(a(qR, (N + 1, 3, 3, B), "qR"), a(xi, (N + 1, 3, B), "xi"),
              a(us, (N, NU, B), "us"), a(k, (N, NU, B), "k"), a(K, (N, NU, NX, B), "K"),
              a(lin["d"], (N, NX, B), "d"), a(lin["fqR"], (N, 3, 3, B), "fqR"),
@@ -346,11 +344,43 @@ def rollout_linearize_so3_lane(qR, xi, us, k, K, lin, refs, consts, *, dt,
              a(refs["RbiR"], (N + 1, 3, 3), "RbiR"), a(refs["xib"], (N + 1, 3), "xib"),
              *_model_ptrs(a, consts), float(dt), int(pendulum),
              a(oR, oR.shape, "oR"), a(oxi, oxi.shape, "oxi"), a(ou, ou.shape, "ou"),
-             *[a(new[k_], new[k_].shape, k_) for k_ in LIN],
+             *([a(new[k_], new[k_].shape, k_) for k_ in LIN] if linearize
+               else [None] * len(LIN)),
              N, B, _build.device_index(us), stream)
     _build.check(err, "rollout_so3")
-    rollout_linearize_so3_lane.launches += 1
     return oR, oxi, ou, new
+
+
+def rollout_linearize_so3_lane(qR, xi, us, k, K, lin, refs, consts, *, dt,
+                               pendulum):
+    """Kernel B12 (replaces
+    `solvers/pipeline_so3.py::_rollout_linearize_kernel_so3` as called by
+    `SO3PipelineSolver._rollout_linearize_lane`).
+
+    The gap-closing rollout and the linearization of every stage of the
+    NEW trajectory.  Nominal qR (N+1, 3, 3, B), xi (N+1, 3, B), us
+    (N, 3, B); gains k (N, 3, B), K (N, 3, 6, B); ``lin`` d, fqR, fxi of the
+    nominal; ``refs`` and ``consts`` as `linearize_so3_lane`.  Returns the
+    new (qR, xi) (N+1 stages, stage 0 unchanged), us and ``lin`` as
+    `linearize_so3_lane` returns it.
+
+    On an H100 it runs in two phases on the caller's stream, counted as one
+    launch: the rollout (one problem per thread on blocks of one warp, the
+    carry (R, xi) in registers, each stage's inputs copied into shared
+    memory a stage ahead), then B10's kernel on the new trajectory (a
+    thread per problem and stage), so the linearization's stores (Fx, lxx
+    and fu2, 81 values per stage) do not wait behind the rollout's serial
+    chain.  The values are the fused loop's: the same stage functions on
+    the same inputs."""
+    kw = dict(dt=dt, pendulum=pendulum)
+    if us.device.type == "cpu":
+        return rollout_linearize_so3_plain(qR, xi, us, k, K, lin, refs, consts, **kw)
+    if us.device.type != "cuda":
+        raise ValueError(f"rollout_linearize_so3_lane: no kernel for device {us.device}")
+    out = _rollout_so3_kernel(*_launch("rollout_so3", us), qR, xi, us, k, K, lin, refs,
+                              consts, **kw)
+    rollout_linearize_so3_lane.launches += 1
+    return out
 
 
 rollout_linearize_so3_lane.launches = 0
