@@ -20,8 +20,8 @@ drone (nu = 4) on screw-200 and the free attitude (so3_track249) on B13,
 B = 8192, 12 (30) f32 iterations.  Phases, each printed as one JSON line:
 
   device        the card (nvidia-smi), torch/CUDA versions, the kernels'
-                build time and ptxas registers/spills (B2 f32, B5 and B13
-                f32 at nx = 12 must not spill: their carry lives in
+                build time and ptxas registers/spills (B2 f32, B5, B11 f32
+                and B13 f32 at nx = 12 must not spill: their carry lives in
                 registers);
   kernels       B1-B4 against their plain versions on the same real
                 iterate, at N=200, B=256 in f32 and f64, gated per output;
@@ -59,7 +59,10 @@ B = 8192, 12 (30) f32 iterations.  Phases, each printed as one JSON line:
                 against the plain solve of the same lanes on the host, an
                 f64 solve of lanes 0..255 with the golden's iteration count;
   timing_so3    each family (median of 7 reps, a new batch each) and B10-B12
-                against their plain versions at B=8192;
+                against their plain versions at B=8192, and B12's yardstick:
+                its rollout phase alone plus B10, each by CUDA events (B12
+                computes that rollout's trajectory and B10's linearization
+                of it);
   kernels_fast  B13 at (nx, nu) = (12, 6), (12, 4), (6, 3) and B14 against
                 their plain versions on a real iterate of each fast path,
                 B=256, in f32 and f64;
@@ -243,15 +246,16 @@ def main():
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device_name": torch.cuda.get_device_name(0),
           "build_s": build_s, "ptxas": ptxas})
-    # the group Riccati kernels keep their carry in registers: B2 f32, B5 and
-    # B13 f32 (at nx = 12; (6, 3) runs fast_riccati_thread_kernel) must not
-    # spill
+    # the Riccati kernels keep their carry in registers: B2 f32, B5, B13 f32
+    # (the group kernels; B13 at nx = 12, (6, 3) runs
+    # fast_riccati_thread_kernel) and B11 f32 must not spill
     group = {k: v for k, v in ptxas.items()
              if "traopt::riccati_kernel<float," in k or "traopt::riccati_mx_kernel<" in k
-             or "traopt::fast_riccati_kernel<float," in k}
-    require(len(group) == 6 and all(v.get("spill_stores") == 0 and v.get("spill_loads") == 0
+             or "traopt::fast_riccati_kernel<float," in k
+             or "traopt::riccati_so3_kernel<float>" in k}
+    require(len(group) == 7 and all(v.get("spill_stores") == 0 and v.get("spill_loads") == 0
                                     for v in group.values()),
-            f"B2 f32 / B5 / B13 f32 spill: {group}")
+            f"B2 f32 / B5 / B11 f32 / B13 f32 spill: {group}")
 
     us_gold, meta = al_bench.load_screw200_golden()
     problems = {dt: al_bench.build_screw200(dt, dev, horizon=N)
@@ -615,12 +619,20 @@ def main():
                          "max_err": errs[k]["max_rel"], "max_abs_err": errs[k]["max_abs"],
                          "gate": kernel_check.GATES["so3"][torch.float32][k],
                          **bound(k, s, kern()), "library_ms": None}
+        # B12's first phase alone: the rollout, without B10 on its trajectory
+        fn = S._launch("rollout_so3", s["us"])
+        rargs = (s["qR"], s["xi"], s["us"], s["k"], s["K"], s["lin"], s["refs"], s["consts"])
+        rollout_ms = event_ms(lambda: S._rollout_so3_kernel(*fn, *rargs, linearize=False,
+                                                            **kw), 5)
         del s
         so3_kernel[name] = kern_t
         emit({"phase": "timing_so3", "problem": name, "card": card, "B": BATCH,
               "N": so3[name]["N"], "iterations": SO3_ITERS, "rep_s": reps, "median_s": med_s,
               "solves_per_s": BATCH / med_s, "ms_per_iteration": med_s * 1e3 / SO3_ITERS,
-              "per_kernel": kern_t, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+              "per_kernel": kern_t, "B12_ms": kern_t["B12"]["ms"],
+              "B12_rollout_phase_ms": rollout_ms,
+              "B12_rollout_phase_plus_B10_ms": rollout_ms + kern_t["B10"]["ms"],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
         for k, v in kern_t.items():
             require(v["max_err"] <= v["gate"], f"{k} {name} at B={BATCH}: {v['max_err']}")
     per_kernel.update(so3_kernel[SO3_PROBLEMS[0]])

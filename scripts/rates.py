@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The end-to-end rates of the PyTorch port's paths and the times of its
-kernels B1-B5 and B13, for one checkout on one card: the numbers on which
-two commits are compared.  Prints one JSON line.
+kernels B1-B5 and B10-B13, for one checkout on one card: the numbers on
+which two commits are compared.  Prints one JSON line.
 
     python3 scripts/rates.py [--root DIR]
 
@@ -25,6 +25,9 @@ moves B2's time by up to 2%):
                 warm-up's lane 0 against the screw-200 golden;
   B5            kernel ms on the polish's real iterate at B=16384;
   so3           both SO(3) families, B=8192, 30 iterations, median of 7;
+                B10-B12 at each family's N on a real iterate at B=8192,
+                and B12's yardstick, its rollout phase alone plus B10
+                (null for a tree whose B12 has no separate rollout phase);
   fast          the fast tier's free body (B1/B13/B14), B=8192, 12
                 iterations, median of 7; the drone and the free attitude one
                 rep each (host-bound: their rollouts are stage loops of small
@@ -146,6 +149,19 @@ def main():
 
         solver = S.SO3PipelineSolver(n_p, SO3_ITERS, dt_p, pendulum=pendulum)
         out[f"{name}_solves_per_s"] = median_rate(solver.solve, so3_batch, B_F32, 7, 500)
+        s = kernel_check.so3_inputs(S.SO3PipelineSolver(n_p, 2, dt_p, pendulum=pendulum),
+                                    *so3_batch(600))
+        kw = dict(dt=dt_p, pendulum=pendulum)
+        for k, (kern, _) in kernel_check.so3_calls(s, **kw).items():
+            out[f"{k}_{name}_ms"] = event_ms(kern)
+        out[f"B12_rollout_phase_plus_B10_{name}_ms"] = None
+        if hasattr(S, "_rollout_so3_kernel"):
+            fn = S._launch("rollout_so3", s["us"])
+            args = (s["qR"], s["xi"], s["us"], s["k"], s["K"], s["lin"], s["refs"], s["consts"])
+            out[f"B12_rollout_phase_plus_B10_{name}_ms"] = event_ms(
+                lambda: S._rollout_so3_kernel(*fn, *args, linearize=False, **kw)) + \
+                out[f"B10_{name}_ms"]
+        del s
 
     for kind in ("free_body", "drone", "so3_track249"):
         if kind == "so3_track249":

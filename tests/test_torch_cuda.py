@@ -244,6 +244,67 @@ def test_so3_kernel_solve_matches_plain_solve(cuda, pendulum):
     torch.testing.assert_close(out.J_opt, ref.J_opt, rtol=1e-12, atol=0)
 
 
+@pytest.mark.parametrize("pendulum", [False, True], ids=["free_attitude", "pendulum"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_so3_b12_is_its_rollout_then_b10(cuda, dtype, pendulum):
+    """B12's outputs equal, bit for bit, its rollout phase alone followed by
+    B10 (`linearize_so3_lane`) on the new trajectory."""
+    dyn, cost, q0s, xi0s, us0 = _so3_problem(pendulum, dtype, cuda, B)
+    solver = S.SO3PipelineSolver(H, 2, float(dyn.dt), pendulum=pendulum)
+    s = so3_inputs(solver, dyn, cost, q0s, xi0s, us0)
+    args = (s["qR"], s["xi"], s["us"], s["k"], s["K"], s["lin"], s["refs"], s["consts"])
+    kw = dict(dt=solver.dt, pendulum=pendulum)
+    oR, oxi, ou, new = S.rollout_linearize_so3_lane(*args, **kw)
+    rR, rxi, ru, empty = S._rollout_so3_kernel(*S._launch("rollout_so3", s["us"]), *args,
+                                               linearize=False, **kw)
+    lin = S.linearize_so3_lane(rR, rxi, ru, s["refs"], s["consts"], **kw)
+    torch.cuda.synchronize()
+    assert empty == {}
+    for name, a, b in (("qR", oR, rR), ("xi", oxi, rxi), ("us", ou, ru),
+                       *((n, new[n], lin[n]) for n in S.LIN)):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("pendulum", [False, True], ids=["free_attitude", "pendulum"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_so3_kernels_match_plain_at_a_ragged_batch(cuda, dtype, pendulum):
+    """B11 and B12 at B = 8191, a ragged last block of one warp (B11 and
+    B12's rollout) and of 128 threads (B10), within
+    kernel_check.GATES["so3"]."""
+    dyn, cost, q0s, xi0s, us0 = _so3_problem(pendulum, dtype, cuda, 8191)
+    solver = S.SO3PipelineSolver(H, 2, float(dyn.dt), pendulum=pendulum)
+    errs = so3_compare(so3_inputs(solver, dyn, cost, q0s, xi0s, us0),
+                       dt=solver.dt, pendulum=pendulum)
+    torch.cuda.synchronize()
+    for name in ("B11", "B12"):
+        assert errs[name]["max_rel"] <= GATES["so3"][dtype][name], (name,
+                                                                    errs[name]["per_output"])
+
+
+def test_so3_launchers_refuse_what_they_do_not_take(cuda):
+    """An empty horizon (N = 0) reaches B11's and B12's launchers, which
+    return an error that the kernel calls raise, with no fallback to the
+    plain versions."""
+    N_, B_ = 0, 3
+    g = torch.Generator().manual_seed(0)
+    r = lambda *shape: torch.randn(shape, generator=g, dtype=torch.float64).to(cuda)
+    lin = dict(Fx=r(N_, 6, 6, B_), fu2=r(N_, 3, 3, B_), d=r(N_, 6, B_), lx=r(N_, 6, B_),
+               lxx=r(N_, 6, 6, B_), fqR=r(N_, 3, 3, B_), fxi=r(N_, 3, B_))
+    refs = dict(RbiR=r(N_ + 1, 3, 3), xib=r(N_ + 1, 3))
+    consts = {k: r(3, 3) for k in ("J", "Jinv", "W1", "W2", "W1vN", "W2vN", "W1hN", "W2hN",
+                                   "Luu")}
+    consts.update(mgr=r(3), mr=r(3))
+    lu = r(N_, 3, B_)
+    with pytest.raises(RuntimeError, match="riccati_so3"):
+        S._backward_so3_kernel(*S._launch("riccati_so3", lu), lin, lu, r(N_ + 1, 3, 3, B_),
+                               r(N_ + 1, 3, B_), refs, consts, pendulum=False)
+    us = r(N_, 3, B_)
+    with pytest.raises(RuntimeError, match="rollout_so3"):
+        S._rollout_so3_kernel(*S._launch("rollout_so3", us), r(N_ + 1, 3, 3, B_),
+                              r(N_ + 1, 3, B_), us, r(N_, 3, B_), r(N_, 3, 6, B_), lin, refs,
+                              consts, dt=0.01, pendulum=False)
+
+
 def _fast_case(kind, dtype, device, B_=B, H_=H, iterations=2):
     """(solver, params, q0s, xi0s, us0) of the generic fast tier: the free
     body on all three kernels (B1, B13, B14), the drone and the free

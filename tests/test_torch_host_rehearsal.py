@@ -3,11 +3,11 @@ ahead into it, run by the host rehearsal (tests/host_rehearsal.py: each
 thread of a block an OS thread, real barriers, the block's shared memory a
 buffer) on CPU tensors, against their plain versions: the group Riccati
 kernels B2 and B5 (csrc/riccati_group.cuh), B13 (csrc/fast.cu, the same
-group design on a dense step) and B11 (csrc/so3.cu, B2's step at nx = 6 on
-a group of 8), and the rollouts B4 and B3 (csrc/pipeline.cu: a thread per
-problem copying stage t + 1's inputs ahead, then, for B3, B1's kernel on
-the new trajectory) and B12 (csrc/so3.cu: the same for SO(3), then B10's
-kernel).
+group design on a dense step), the rollouts B4 and B3 (csrc/pipeline.cu: a
+thread per problem copying stage t + 1's inputs ahead, then, for B3, B1's
+kernel on the new trajectory) and the SO(3) kernels B11 and B12
+(csrc/so3.cu: a thread per problem copying the next stage's inputs ahead,
+then, for B12, B10's kernel on the new trajectory).
 
 This runs the kernels' own code, barriers and shared-memory exchanges
 included, which the CPU tests of the wrappers cannot reach (on CPU tensors
@@ -238,9 +238,8 @@ def test_fast_and_rollout_launchers_refuse_what_they_do_not_take(libs):
                           dt=0.01, gravity=False, exact_grav=False, fused=False)
 
 
-# B11 and B12 on both SO(3) families at SHAPES: for B11 one problem in a
-# block of 16 groups, a ragged block with rows not 16-byte aligned (odd B);
-# for B12's rollout one problem, a ragged warp.
+# B11 and B12 on both SO(3) families at SHAPES: one problem, a ragged block
+# of one warp.
 FAMILIES = [pytest.param(False, id="free_attitude"), pytest.param(True, id="pendulum")]
 
 

@@ -1,19 +1,18 @@
-// The machinery of the group kernels (B2, B5, B13, B11): a group of G
-// threads per problem and P problems per block (template parameters; G = 16,
-// P = 8 by default, B2's, B5's and B13's: a half-warp per problem; B11 runs
-// G = 8, P = 16); each stage's inputs for the block's problems copied one
-// stage ahead into shared memory with cp.async; the outputs staged in shared
-// memory and stored coalesced over the block's problems.
+// The machinery of the group kernels (B2, B5): a group of kGroup threads
+// per problem and kProblems problems per block; each stage's inputs for the
+// block's problems copied one stage ahead into shared memory with cp.async;
+// the outputs staged in shared memory and stored coalesced over the block's
+// problems.
 //
 // Batch-last arrays (N, ne, B) hold entry e of stage t for the block's
-// problems b0 .. b0 + P - 1 in one contiguous run, so a warp's copy of
-// 32 / P entries x P problems reads whole 32-byte sectors (f32, P = 8).  The
-// copies are element-wise (4 or 8 bytes), so they need no alignment beyond
-// the element's, whatever B and the tensors' offsets, and each element can
-// land anywhere in shared memory: one problem's entries sit in a row of
-// `pitch` elements (or transposed, for a square matrix), so that the groups
-// of a warp read rows 20 banks apart.  Problems past B (the ragged last
-// block) read problem B - 1 and store nothing.
+// problems b0 .. b0 + kProblems - 1 in one contiguous run, so a warp's copy
+// of 4 entries x 8 problems reads 4 whole 32-byte sectors (f32).  The copies
+// are element-wise (4 or 8 bytes), so they need no alignment beyond the
+// element's, whatever B and the tensors' offsets, and each element can land
+// anywhere in shared memory: one problem's entries sit in a row of
+// `pitch` elements (or transposed, for a 12 x 12 matrix), so that the two
+// groups of a warp read rows 20 banks apart.  Problems past B (the ragged
+// last block) read problem B - 1 and store nothing.
 #pragma once
 
 #include "common.cuh"
@@ -24,16 +23,12 @@
 
 namespace traopt {
 
-// Staged outputs of P problems: entry e of problem p at e * (P + 1) + p.
-__host__ __device__ constexpr int out_stride(int P) { return P + 1; }
-
 constexpr int kGroup = 16;                          // threads per problem: a half-warp
 constexpr int kProblems = 8;                        // problems per block
 constexpr int kGroupThreads = kGroup * kProblems;   // 128
-constexpr int kOutStride = out_stride(kProblems);   // 9
+constexpr int kOutStride = kProblems + 1;           // staged output: entry e of problem p at e * 9 + p
 
-template <int P = kProblems>
-inline dim3 group_grid(int B) { return dim3((B + P - 1) / P); }
+inline dim3 group_grid(int B) { return dim3((B + kProblems - 1) / kProblems); }
 
 // The row of one problem's entries in shared memory: at least ne elements,
 // a multiple of 16 bytes, and 20 banks (mod 32) from the next problem's row.
@@ -105,41 +100,38 @@ __device__ __forceinline__ void cp_async_wait_all() {
 #endif
 }
 
-// Copy stage t of the batch-last array src (N, ne, B) for the block's P
-// problems (G threads each) into dst: problem p's entry e at
-// dst[p * pitch<T>(ne) + e], or, with TRANSPOSE (ne = m * m, m = 12 or 6),
-// entry (i, j) of the m x m matrix at j * m + i.
-template <int ne, bool TRANSPOSE, int G = kGroup, int P = kProblems, typename T>
+// Copy stage t of the batch-last array src (N, ne, B) for the block's
+// problems into dst: problem p's entry e at dst[p * pitch<T>(ne) + e], or,
+// with TRANSPOSE (ne = 144), entry (i, j) of the 12 x 12 matrix at j * 12 + i.
+template <int ne, bool TRANSPOSE, typename T>
 __device__ __forceinline__ void copy_stage(T* dst, const T* src, int t, int b0, int B,
                                            int tid) {
-  constexpr int n = ne * P, pt = pitch<T>(ne), NT = G * P;
-  constexpr int m = ne == 144 ? 12 : 6;
-  static_assert(!TRANSPOSE || m * m == ne, "the transposed copy is of a 12 x 12 or 6 x 6 matrix");
+  constexpr int n = ne * kProblems, pt = pitch<T>(ne);
+  static_assert(!TRANSPOSE || ne == 144, "the transposed copy is of a 12 x 12 matrix");
 #pragma unroll
-  for (int q0 = 0; q0 < n; q0 += NT) {
+  for (int q0 = 0; q0 < n; q0 += kGroupThreads) {
     const int q = q0 + tid;
-    if (n % NT == 0 || q < n) {
-      const int e = q / P, p = q % P;
+    if (n % kGroupThreads == 0 || q < n) {
+      const int e = q / kProblems, p = q % kProblems;
       const int b = min(b0 + p, B - 1);
-      const int s = TRANSPOSE ? (e % m) * m + e / m : e;
+      const int s = TRANSPOSE ? (e % 12) * 12 + e / 12 : e;
       cp_async<sizeof(T)>(dst + p * pt + s, src + ((long long)t * ne + e) * B + b);
     }
   }
 }
 
-// Store stage t of the batch-last array dst (N, ne, B) for the block's P
-// problems (G threads each) from the staged buf (entry e of problem p at
-// e * out_stride(P) + p).
-template <int ne, int G = kGroup, int P = kProblems, typename T>
+// Store stage t of the batch-last array dst (N, ne, B) for the block's
+// problems from the staged buf (entry e of problem p at e * kOutStride + p).
+template <int ne, typename T>
 __device__ __forceinline__ void store_stage(T* dst, const T* buf, int t, int b0, int B,
                                             int tid) {
-  constexpr int n = ne * P, NT = G * P;
+  constexpr int n = ne * kProblems;
 #pragma unroll
-  for (int q0 = 0; q0 < n; q0 += NT) {
+  for (int q0 = 0; q0 < n; q0 += kGroupThreads) {
     const int q = q0 + tid;
-    if (n % NT == 0 || q < n) {
-      const int e = q / P, p = q % P;
-      if (b0 + p < B) dst[((long long)t * ne + e) * B + b0 + p] = buf[e * out_stride(P) + p];
+    if (n % kGroupThreads == 0 || q < n) {
+      const int e = q / kProblems, p = q % kProblems;
+      if (b0 + p < B) dst[((long long)t * ne + e) * B + b0 + p] = buf[e * kOutStride + p];
     }
   }
 }

@@ -1,20 +1,19 @@
-// The defect-aware Riccati step (`stage.cuh` riccati_stage) for one problem
-// held by a group of threads (group.cuh), and the shared-memory layout of
-// the kernels B2 and B5 that loop it over the stages.  B2 and B5 run the pose
-// half H = 6 (nx = 12) on a group of 16 threads; B11 (so3.cu) runs H = 3
-// (nx = 6) on a group of 8.
+// The defect-aware Riccati step of B2 and B5 (`stage.cuh` riccati_stage with
+// the pose half H = 6) for one problem held by a group of kGroup = 16
+// threads (group.cuh), and the shared-memory layout of the kernels that loop
+// it over the stages.
 //
-// Lane r < nx owns row r of V_xx and V_x[r] in registers (the carry), and in
-// each stage column r of Q_xx, Q_ux and K; lane nx owns Q_u and k.  Between
+// Lane r < 12 owns row r of V_xx and V_x[r] in registers (the carry), and in
+// each stage column r of Q_xx, Q_ux and K; lane 12 owns Q_u and k.  Between
 // the five phases of a step, the group exchanges through its slice of shared
 // memory (GroupScratch), after a __syncwarp:
-//   A  row r of V_xx F (stored transposed), V_x + V_xx d, and for r >= H the
-//      row r - H of V_xx[H:, H:] fu2;
-//   B  column r of Q_xx = l_xx + F^T (V_xx F), of Q_ux = fu2^T (V_xx F)[H:],
+//   A  row r of V_xx F (stored transposed), V_x + V_xx d, and for r >= 6 the
+//      row r - 6 of V_xx[6:, 6:] fu2;
+//   B  column r of Q_xx = l_xx + F^T (V_xx F), of Q_ux = fu2^T (V_xx F)[6:],
 //      Q_x[r] = l_x[r] + F[:, r]^T (V_x + V_xx d); lane a < nu row a of Q_uu,
-//      lane nx Q_u;
+//      lane 12 Q_u;
 //   C  every lane the Cholesky factor of Q_uu (diagonal as 1 / sqrt(pivot)),
-//      then lane c <= nx one right-hand side of -Q_uu^-1 [Q_ux | Q_u]: column
+//      then lane c <= 12 one right-hand side of -Q_uu^-1 [Q_ux | Q_u]: column
 //      c of K, or k; row r of K^T Q_uu;
 //   D  V_x[r], and column r of S = Q_xx + K^T Q_uu K and of M = K^T Q_ux;
 //   E  row r of V_xx = (S + S^T) / 2 + M + M^T.
@@ -31,21 +30,20 @@
 
 namespace traopt {
 
-// One group's scratch for the pose half H (nx = 2 H).  Tp is the
-// preconditioner's type, Tr the residual's.
-template <typename Tp, typename Tr, int NU, int H = 6>
+// One group's scratch.  Tp is the preconditioner's type, Tr the residual's.
+template <typename Tp, typename Tr, int NU>
 struct GroupScratch {
   static constexpr bool kMixed = !std::is_same<Tp, Tr>::value;
-  static constexpr int NX = 2 * H, NUP = vpad<Tp>(NU), NUR = vpad<Tr>(NU);
-  alignas(16) Tr Vm[vpad<Tr>(NX)];    // V_x + V_xx d; l_x of the terminal stage
-  alignas(16) Tr Qu[NUR];             // Q_u
-  alignas(16) Tp VS[NX * NX];         // (V_xx F)^T in A-B, S (row-major) in D-E; the terminal l_xx
-  alignas(16) Tp M[NX * NX];          // M = K^T Q_ux (row-major)
-  alignas(16) Tp KT[(NX + 1) * NUP];  // row c < nx: column c of K; row nx: k
-  alignas(16) Tp KQ[NX * NUP];        // K^T Q_uu
+  static constexpr int NUP = vpad<Tp>(NU), NUR = vpad<Tr>(NU);
+  alignas(16) Tr Vm[12];        // V_x + V_xx d; l_x of the terminal stage
+  alignas(16) Tr Qu[NUR];       // Q_u
+  alignas(16) Tp VS[144];       // (V_xx F)^T in A-B, S (row-major) in D-E; the terminal l_xx
+  alignas(16) Tp M[144];        // M = K^T Q_ux (row-major)
+  alignas(16) Tp KT[13 * NUP];  // row c < 12: column c of K; row 12: k
+  alignas(16) Tp KQ[12 * NUP];  // K^T Q_uu
   alignas(16) Tp Quu[NU * NUP];
-  alignas(16) Tp Tm[H * NUP];         // V_xx[H:, H:] fu2
-  alignas(16) Tp Fp[kMixed ? NX * NX : 4];  // the Tp rounding of F (mixed only)
+  alignas(16) Tp Tm[6 * NUP];   // V_xx[6:, 6:] fu2
+  alignas(16) Tp Fp[kMixed ? 144 : 4];  // the Tp rounding of F (mixed only)
 };
 
 // Shared memory of a block: the constants, two stage buffers (the stage
@@ -144,42 +142,36 @@ __device__ __forceinline__ void riccati_consts(unsigned char* smem, const Tp* fu
     reinterpret_cast<Tp*>(smem + L::oLuu)[(q / NU) * L::NUP + q % NU] = Luu[q];
 }
 
-// Row k of F (nx = 2 H) in Tp into f: all nx entries, or (tail) only those
-// of the D block, f[H ..] (H = 6 in f32 loads f[4 .. 11]).
-template <typename Tp, int H>
+// Row k of F in Tp into f: all 12 entries, or (tail) only those of the D
+// block, f[6 .. 11] (f32 loads f[4 .. 11]).
+template <typename Tp>
 __device__ __forceinline__ void f_row(Tp* f, const Tp* Fp, int k, bool tail) {
-  constexpr int NX = 2 * H;
   if (!tail) {
-    lds<Tp, NX>(f, Fp + k * NX);
-  } else if constexpr (H == 6 && sizeof(Tp) == 4) {
+    lds<Tp, 12>(f, Fp + k * 12);
+  } else if constexpr (sizeof(Tp) == 4) {
     lds<Tp, 8>(f + 4, Fp + k * 12 + 4);
   } else {
-    lds<Tp, H>(f + H, Fp + k * NX + H);
+    lds<Tp, 6>(f + 6, Fp + k * 12 + 6);
   }
 }
 
 // One Riccati step for lane r of a group: (V, Vx) hold row r of V_xx and
-// V_x[r] of stage t + 1 on entry and of stage t on exit (lanes r < nx).
-// fu2 (H x nu; row stride FS) in both types, and Luu (rows of vpad(nu)); for
-// B2 and B5 the block's constants (riccati_consts), for B11 fu2 is the
-// stage's.  out gets K, k and gvec = Q_u, staged for the block's P problems.
-// Every lane of the warp calls it (it synchronises the warp).
-template <typename Tp, typename Tr, int NU, int H = 6, int P = kProblems,
-          int FS = vpad<Tp>(NU)>
+// V_x[r] of stage t + 1 on entry and of stage t on exit (lanes r < 12).
+// fu2, fu2r and Luu are the block's constants (riccati_consts); out gets K,
+// k and gvec = Q_u.  Every lane of the warp calls it (it synchronises the
+// warp).
+template <typename Tp, typename Tr, int NU>
 __device__ __forceinline__ void riccati_group_step(
-    int r, Tp (&V)[2 * H], Tr& Vx, const StageIn<Tp, Tr>& in, const Tp* fu2, const Tr* fu2r,
-    const Tp* Luu, bool glow, GroupScratch<Tp, Tr, NU, H>& g, const StageOut<Tp, Tr>& out) {
-  using S = GroupScratch<Tp, Tr, NU, H>;
+    int r, Tp (&V)[12], Tr& Vx, const StageIn<Tp, Tr>& in, const Tp* fu2, const Tr* fu2r,
+    const Tp* Luu, bool glow, GroupScratch<Tp, Tr, NU>& g, const StageOut<Tp, Tr>& out) {
+  using S = GroupScratch<Tp, Tr, NU>;
   constexpr bool kMixed = S::kMixed;
-  constexpr int NX = S::NX, NUP = S::NUP, NUR = S::NUR, OS = out_stride(P);
-  constexpr int FSR = kMixed ? NUR : FS;  // fu2r's row stride
-  static_assert(!kMixed || FS == NUP, "B5 reads fu2 and fu2r from the block's constants");
+  constexpr int NX = 12, H = 6, NUP = S::NUP, NUR = S::NUR;
   const bool own = r < NX;
   const Tp* Fp;
   if constexpr (kMixed) {
-    static_assert(NX * NX % kGroup == 0, "B5: the group of 16 rounds F");
 #pragma unroll
-    for (int i = 0; i < NX * NX / kGroup; ++i) g.Fp[r + kGroup * i] = Tp(in.F[r + kGroup * i]);
+    for (int i = 0; i < 144 / kGroup; ++i) g.Fp[r + kGroup * i] = Tp(in.F[r + kGroup * i]);
     __syncwarp();
     Fp = g.Fp;
   } else {
@@ -201,7 +193,7 @@ __device__ __forceinline__ void riccati_group_step(
     for (int k = 0; k < NX; ++k) {
       Tp f[NX];
       const bool tail = k >= H && !glow;
-      f_row<Tp, H>(f, Fp, k, tail);
+      f_row(f, Fp, k, tail);
 #pragma unroll
       for (int j = 0; j < NX; ++j) {
         if (j < H && k >= H && !glow) continue;
@@ -215,7 +207,7 @@ __device__ __forceinline__ void riccati_group_step(
       for (int a = 0; a < NU; ++a) {
         Tp s = V[H] * fu2[a];
 #pragma unroll
-        for (int k = 1; k < H; ++k) s += V[H + k] * fu2[k * FS + a];
+        for (int k = 1; k < H; ++k) s += V[H + k] * fu2[k * NUP + a];
         g.Tm[(r - H) * NUP + a] = s;
       }
     }
@@ -234,7 +226,7 @@ __device__ __forceinline__ void riccati_group_step(
     for (int k = 0; k < NX; ++k) {
       Tp f[NX];
       const bool tail = k >= H && !glow;
-      f_row<Tp, H>(f, Fp, k, tail);
+      f_row(f, Fp, k, tail);
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
         if (i < H && k >= H && !glow) continue;
@@ -251,7 +243,7 @@ __device__ __forceinline__ void riccati_group_step(
     for (int a = 0; a < NU; ++a) {
       Tp s = fu2[a] * vfc[H];
 #pragma unroll
-      for (int k = 1; k < H; ++k) s += fu2[k * FS + a] * vfc[H + k];
+      for (int k = 1; k < H; ++k) s += fu2[k * NUP + a] * vfc[H + k];
       qux[a] = s;
     }
     {
@@ -273,7 +265,7 @@ __device__ __forceinline__ void riccati_group_step(
     for (int a = 0; a < NU; ++a) {
       Tr s = fu2r[a] * vm[H];
 #pragma unroll
-      for (int k = 1; k < H; ++k) s += fu2r[k * FSR + a] * vm[H + k];
+      for (int k = 1; k < H; ++k) s += fu2r[k * NUR + a] * vm[H + k];
       qu[a] = in.lu[a] + s;
       g.Qu[a] = qu[a];
     }
@@ -284,7 +276,7 @@ __device__ __forceinline__ void riccati_group_step(
     for (int k = 0; k < H; ++k) {
       Tp tm[NUP];
       lds<Tp, NUP>(tm, g.Tm + k * NUP);
-      const Tp fk = fu2[k * FS + r];
+      const Tp fk = fu2[k * NUP + r];
 #pragma unroll
       for (int b2 = 0; b2 < NU; ++b2) q[b2] = k == 0 ? fk * tm[b2] : q[b2] + fk * tm[b2];
     }
@@ -348,7 +340,7 @@ __device__ __forceinline__ void riccati_group_step(
 #pragma unroll
     for (int a = 0; a < NU; ++a) {
       g.KT[r * NUP + a] = kc[a];
-      out.K[(a * NX + r) * OS] = kc[a];
+      out.K[(a * NX + r) * kOutStride] = kc[a];
       Tp s = kc[0] * Q[a];
 #pragma unroll
       for (int b2 = 1; b2 < NU; ++b2) s += kc[b2] * Q[b2 * NU + a];
@@ -359,8 +351,8 @@ __device__ __forceinline__ void riccati_group_step(
 #pragma unroll
     for (int a = 0; a < NU; ++a) {
       g.KT[NX * NUP + a] = kc[a];
-      out.k[a * OS] = kc[a];
-      out.g[a * OS] = qu[a];
+      out.k[a * kOutStride] = kc[a];
+      out.g[a * kOutStride] = qu[a];
     }
   }
   __syncwarp();

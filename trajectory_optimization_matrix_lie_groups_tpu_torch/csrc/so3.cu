@@ -6,16 +6,14 @@
 //
 // The stage math below follows the plain versions in solvers/pipeline_so3.py
 // (so3_stage_dynamics_eval, so3_stage_jacobian, so3_stage_cost_quad,
-// so3_rollout_stage) formula by formula; the Riccati step is B2's group step
-// (riccati_group.cuh) with the pose half 3.  The pendulum's Fu = [0; fu2]
-// depends on the stage's R: B10 writes fu2 per stage, B11 reads it per
-// stage.  Batch-last arrays as in stage.cuh; the model constants (J, Jinv,
-// weights, m g rho, m rho) and the per-stage references (RbiR, xib) are small
-// row-major arrays shared by the batch.
+// so3_rollout_stage) formula by formula; the Riccati step is stage.cuh's
+// riccati_stage<T, T, 3, 3>, B2's with the pose half 3.  The pendulum's Fu
+// = [0; fu2] depends on the stage's R: B10 writes fu2 per stage, B11 reads it
+// per stage.  Batch-last arrays as in stage.cuh; the model constants (J,
+// Jinv, weights, m g rho, m rho) and the per-stage references (RbiR, xib) are
+// small row-major arrays shared by the batch.
 #include "ahead.cuh"
 #include "common.cuh"
-#include "group.cuh"
-#include "riccati_group.cuh"
 #include "stage.cuh"
 
 namespace traopt {
@@ -277,23 +275,19 @@ __global__ void __launch_bounds__(kThreads) linearize_so3_kernel(LinearizeSo3Arg
 // ---- B11 -----------------------------------------------------------------
 // Replaces solvers/pipeline_so3.py::_riccati_kernel_so3
 // (SO3PipelineSolver._backward_lane): the terminal quadratization with the
-// quirk weights (value and gradient W1vN, W2vN; Hessian W1hN, W2hN), then the
-// Riccati step (solvers/pipeline.py riccati_stage, half = 3) over the stages
-// in reverse with glow = pendulum and fu2 read per stage.
+// quirk weights (value and gradient W1vN, W2vN; Hessian W1hN, W2hN), then
+// riccati_stage<T, T, 3, 3> over the stages in reverse with glow = pendulum
+// and fu2 read per stage.
 // What bounds it on an H100: it reads 96 values and writes 24 per stage and
 // problem (0.29 ms at B = 8192, N = 249); a stage is a chain of ~900
-// multiply-adds and a 3 x 3 Cholesky.  One thread per problem left 64 blocks
-// of 128 threads on the 132 SMs, each thread waiting on its loads and its
-// chain.  The design is B2's (riccati_group.cuh) at nx = 6: a group of
-// kSo3Group = 8 threads per problem and kSo3Problems = 16 problems per block
-// (B / 16 blocks); lane r < 6 keeps row r of V_xx and V_x[r] in registers,
-// lane 6 owns Q_u and k, and the group exchanges V_xx F, Q_uu, K and the new
-// V_xx's halves through its slice of shared memory between __syncwarp()s;
-// the block copies stage t - 1's inputs (fu2 among them) into shared memory
-// while it computes stage t, and stages its outputs to store them coalesced.
-// Every entry keeps the plain step's sum order.
-constexpr int kSo3Group = 8, kSo3Problems = 16, kSo3Threads = kSo3Group * kSo3Problems;
-
+// multiply-adds and a 3 x 3 Cholesky on a carry (V_x 6, V_xx 36) that fits
+// in the registers.  One thread per problem on blocks of one warp (ahead.cuh:
+// B / 32 blocks over all SMs), the carry in registers; each thread copies
+// stage t - 1's 96 inputs into its shared-memory column while it computes
+// stage t, so the chain no longer waits on device memory.  At B = 8192 this
+// took 0.50 ms, the same kernel reading device memory inside the chain on
+// 128-thread blocks 0.79, and B2's group design at nx = 6 (8 threads per
+// problem, 16 problems per block) 1.28 (PERF.md).
 template <typename T>
 struct RiccatiSo3Args {
   const T *Fx, *fu2, *d, *lx, *lu, *lxx;  // (N, ..., B)
@@ -306,122 +300,66 @@ struct RiccatiSo3Args {
   int N, B;
 };
 
-// Shared memory of a block: Luu (rows of vpad(3)), two stage buffers (a row
-// of pitch<T>(ne) per problem for each input: Fx, fu2, d, lx, lu, l_xx
-// transposed), two output buffers (K, k, gvec staged), the groups' scratch.
-// Byte offsets, each 16-byte aligned.
-template <typename T>
-struct RiccatiSo3Layout {
-  static constexpr int P = kSo3Problems, OS = out_stride(P), NUP = vpad<T>(3);
-  static constexpr int pF = pitch<T>(36), pu2 = pitch<T>(9), pd = pitch<T>(6), pu = pitch<T>(3);
-  static constexpr size_t oF = 0, ofu2 = oF + P * pF * sizeof(T),
-                          od = ofu2 + P * pu2 * sizeof(T), olx = od + P * pd * sizeof(T),
-                          olu = olx + P * pd * sizeof(T), oxx = olu + P * pu * sizeof(T),
-                          stage = oxx + P * pF * sizeof(T);
-  static constexpr size_t oK = 0, ok = align16(18 * OS * sizeof(T)),
-                          og = ok + align16(3 * OS * sizeof(T)),
-                          out = og + align16(3 * OS * sizeof(T));
-  static constexpr size_t oLuu = 0, ostage = align16(3 * NUP * sizeof(T)),
-                          oout = ostage + 2 * stage, ogroup = oout + 2 * out,
-                          gstride = group_stride(sizeof(GroupScratch<T, T, 3, 3>)),
-                          bytes = ogroup + P * gstride;
+// The entries of one stage in a thread's column.
+struct RiccatiSo3Column {
+  static constexpr int Fx = 0, fu2 = 36, d = 45, lx = 51, lu = 57, lxx = 60, n = 96;
 };
 
 template <typename T>
-__device__ __forceinline__ void riccati_so3_copy(unsigned char* buf, const RiccatiSo3Args<T>& a,
-                                                 int t, int b0, int tid) {
-  using L = RiccatiSo3Layout<T>;
-  constexpr int G = kSo3Group, P = kSo3Problems;
-  const auto at = [&](size_t off) { return reinterpret_cast<T*>(buf + off); };
-  copy_stage<36, false, G, P>(at(L::oF), a.Fx, t, b0, a.B, tid);
-  copy_stage<9, false, G, P>(at(L::ofu2), a.fu2, t, b0, a.B, tid);
-  copy_stage<6, false, G, P>(at(L::od), a.d, t, b0, a.B, tid);
-  copy_stage<6, false, G, P>(at(L::olx), a.lx, t, b0, a.B, tid);
-  copy_stage<3, false, G, P>(at(L::olu), a.lu, t, b0, a.B, tid);
-  copy_stage<36, true, G, P>(at(L::oxx), a.lxx, t, b0, a.B, tid);
-}
-
-template <typename T>
-__device__ __forceinline__ void riccati_so3_store(const RiccatiSo3Args<T>& a,
-                                                  const unsigned char* buf, int t, int b0,
-                                                  int tid) {
-  using L = RiccatiSo3Layout<T>;
-  constexpr int G = kSo3Group, P = kSo3Problems;
-  const auto at = [&](size_t off) { return reinterpret_cast<const T*>(buf + off); };
-  store_stage<18, G, P>(a.K, at(L::oK), t, b0, a.B, tid);
-  store_stage<3, G, P>(a.k, at(L::ok), t, b0, a.B, tid);
-  store_stage<3, G, P>(a.gvec, at(L::og), t, b0, a.B, tid);
-}
-
-// The stage loop: while the groups compute stage t, the block copies stage
-// t - 1's inputs into the other stage buffer and stores stage t + 1's outputs
-// from the other output buffer; one block barrier per stage makes each
-// stage's copies visible.  Problems past B (the ragged last block) run problem
-// B - 1's recursion and store nothing.
-template <typename T>
-__global__ void __launch_bounds__(kSo3Threads) riccati_so3_kernel(RiccatiSo3Args<T> a) {
-  using L = RiccatiSo3Layout<T>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, g = tid / kSo3Group, r = tid % kSo3Group;
-  const int B = a.B, N = a.N, b0 = blockIdx.x * kSo3Problems, b = b0 + g;
-  T* Luu = reinterpret_cast<T*>(smem + L::oLuu);
-  if (tid < 9) Luu[(tid / 3) * L::NUP + tid % 3] = a.Luu[tid];
-  auto& gs = *reinterpret_cast<GroupScratch<T, T, 3, 3>*>(smem + L::ogroup + g * L::gstride);
-  if (r == 0) {
-    // the terminal quadratization into the group's scratch (problems past B
-    // take problem B - 1's)
-    const int bc = min(b, B - 1);
-    T R[9], xi[3];
-    load<9>(R, lane<9>(a.qR, N, B, bc));
-    load<3>(xi, lane<3>(a.xi, N, B, bc));
-    const T l = so3_cost_quad<T>(&gs.Vm[0], &gs.VS[0], R, xi, a.RbiR + N * 9, a.xib + N * 3,
-                                 a.W1vN, a.W2vN, a.W1hN, a.W2hN);
-    if (b < B) a.lN[b] = l;
-  }
-  __syncwarp();
-  T V[6], Vx = T(0);
-#pragma unroll
-  for (int j = 0; j < 6; ++j) V[j] = T(0);
-  if (r < 6) {
-    lds<T, 6>(V, gs.VS + r * 6);
-    Vx = gs.Vm[r];
-  }
-  unsigned char* stage = smem + L::ostage;
-  unsigned char* outb = smem + L::oout;
-  riccati_so3_copy(stage, a, N - 1, b0, tid);
+__device__ __forceinline__ void riccati_so3_copy(T* col, const RiccatiSo3Args<T>& a, int t,
+                                                 int b) {
+  using C = RiccatiSo3Column;
+  constexpr int P = kAheadThreads;
+  const int B = a.B;
+  copy_column<36>(col + C::Fx * P, a.Fx, t, B, b);
+  copy_column<9>(col + C::fu2 * P, a.fu2, t, B, b);
+  copy_column<6>(col + C::d * P, a.d, t, B, b);
+  copy_column<6>(col + C::lx * P, a.lx, t, B, b);
+  copy_column<3>(col + C::lu * P, a.lu, t, B, b);
+  copy_column<36>(col + C::lxx * P, a.lxx, t, B, b);
   cp_async_commit();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kAheadThreads) riccati_so3_kernel(RiccatiSo3Args<T> a) {
+  using C = RiccatiSo3Column;
+  constexpr int P = kAheadThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int B = a.B, N = a.N, b = blockIdx.x * P + threadIdx.x;
+  if (b >= B) return;
+  T* col = reinterpret_cast<T*>(smem) + threadIdx.x;  // slot s at col + s * C::n * P
+  T Vx[6], V[36];
+  {
+    T R[9], xi[3];
+    load<9>(R, lane<9>(a.qR, N, B, b));
+    load<3>(xi, lane<3>(a.xi, N, B, b));
+    a.lN[b] = so3_cost_quad<T>(&Vx[0], &V[0], R, xi, a.RbiR + N * 9, a.xib + N * 3,
+                               a.W1vN, a.W2vN, a.W1hN, a.W2hN);
+  }
+  riccati_so3_copy(col, a, N - 1, b);
   for (int t = N - 1; t >= 0; --t) {
     const int cur = (N - 1 - t) & 1;
     cp_async_wait_all();
-    __syncthreads();
-    if (t > 0) {
-      riccati_so3_copy(stage + (cur ^ 1) * L::stage, a, t - 1, b0, tid);
-      cp_async_commit();
-    }
-    if (t < N - 1) riccati_so3_store(a, outb + ((t + 1) & 1) * L::out, t + 1, b0, tid);
-    // problem g's rows of the stage buffer, its column of the output buffer
-    const unsigned char* buf = stage + cur * L::stage;
-    const auto in = [&](size_t off, int pt) { return reinterpret_cast<const T*>(buf + off) + g * pt; };
-    const auto out = [&](size_t off) { return reinterpret_cast<T*>(outb + (t & 1) * L::out + off) + g; };
-    const T* fu2 = in(L::ofu2, L::pu2);
-    riccati_group_step<T, T, 3, 3, kSo3Problems, 3>(
-        r, V, Vx,
-        StageIn<T, T>{in(L::oF, L::pF), in(L::od, L::pd), in(L::olx, L::pd), in(L::olu, L::pu),
-                      in(L::oxx, L::pF), nullptr},
-        fu2, fu2, Luu, a.pendulum != 0, gs, StageOut<T, T>{out(L::oK), out(L::ok), out(L::og)});
+    if (t > 0) riccati_so3_copy(col + (cur ^ 1) * C::n * P, a, t - 1, b);
+    const T* in = col + cur * C::n * P;
+    T fu2[9];
+    load<9>(fu2, column(in + C::fu2 * P));
+    riccati_stage<T, T, 3, 3>(
+        Vx, V, column(in + C::Fx * P), column(in + C::d * P), column(in + C::lx * P),
+        column(in + C::lu * P), column(in + C::lxx * P), nullptr, fu2, fu2, a.Luu,
+        a.pendulum != 0, lane<3>(a.k, t, B, b), lane<18>(a.K, t, B, b),
+        lane<3>(a.gvec, t, B, b));
   }
-  __syncthreads();
-  riccati_so3_store(a, outb, 0, b0, tid);
 }
 
 template <typename T>
 int launch_riccati_so3(const RiccatiSo3Args<T>& a, cudaStream_t s) {
-  constexpr size_t bytes = RiccatiSo3Layout<T>::bytes;
+  constexpr size_t bytes = 2 * RiccatiSo3Column::n * kAheadThreads * sizeof(T);
   if (cudaError_t e = cudaFuncSetAttribute(riccati_so3_kernel<T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes))
     return (int)e;
-  riccati_so3_kernel<T><<<group_grid<kSo3Problems>(a.B), kSo3Threads, bytes, s>>>(a);
+  riccati_so3_kernel<T><<<ahead_grid(a.B), kAheadThreads, bytes, s>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -273,10 +273,9 @@ def backward_so3_lane(lin, lu, qR, xi, refs, consts, *, pendulum):
     (3, 3).  Returns k (N, 3, B), K (N, 3, 6, B), gvec = Qu (N, 3, B),
     lN (B,).
 
-    On an H100 a group of 8 threads runs one problem's recursion (16
-    problems per block): lane r keeps row r of V_xx in registers, the group
-    exchanges V_xx F, K and the new V_xx's halves through shared memory, and
-    each stage's inputs are copied there one stage ahead."""
+    On an H100 one thread runs one problem's recursion on blocks of one
+    warp, with the carry (V_x 6, V_xx 36) in registers, and copies each
+    stage's 96 inputs into shared memory one stage ahead."""
     kw = dict(pendulum=pendulum)
     if lu.device.type == "cpu":
         return backward_so3_plain(lin, lu, qR, xi, refs, consts, **kw)
