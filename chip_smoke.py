@@ -249,13 +249,13 @@ def main():
     # the Riccati kernels keep their carry in registers: B2 f32, B5, B13 f32
     # (the group kernels; B13 at nx = 12, (6, 3) runs
     # fast_riccati_thread_kernel) and B11 f32 must not spill
-    group = {k: v for k, v in ptxas.items()
+    carry = {k: v for k, v in ptxas.items()
              if "traopt::riccati_kernel<float," in k or "traopt::riccati_mx_kernel<" in k
              or "traopt::fast_riccati_kernel<float," in k
              or "traopt::riccati_so3_kernel<float>" in k}
-    require(len(group) == 7 and all(v.get("spill_stores") == 0 and v.get("spill_loads") == 0
-                                    for v in group.values()),
-            f"B2 f32 / B5 / B11 f32 / B13 f32 spill: {group}")
+    require(len(carry) == 7 and all(v.get("spill_stores") == 0 and v.get("spill_loads") == 0
+                                    for v in carry.values()),
+            f"B2 f32 / B5 / B11 f32 / B13 f32 spill: {carry}")
 
     us_gold, meta = al_bench.load_screw200_golden()
     problems = {dt: al_bench.build_screw200(dt, dev, horizon=N)

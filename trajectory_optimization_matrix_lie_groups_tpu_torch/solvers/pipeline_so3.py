@@ -290,7 +290,7 @@ def backward_so3_lane(lin, lu, qR, xi, refs, consts, *, pendulum):
 backward_so3_lane.launches = 0
 
 
-# -- B12: rollout and the linearization of the new trajectory -----------------------
+# -- B12: rollout, then the linearization of the new trajectory --------------
 
 def rollout_linearize_so3_plain(qR, xi, us, k, K, lin, refs, consts, *, dt,
                                 pendulum):
