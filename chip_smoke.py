@@ -20,8 +20,8 @@ drone (nu = 4) on screw-200 and the free attitude (so3_track249) on B13,
 B = 8192, 12 (30) f32 iterations.  Phases, each printed as one JSON line:
 
   device        the card (nvidia-smi), torch/CUDA versions, the kernels'
-                build time and ptxas registers/spills (B2 f32, B5, B11 f32
-                and B13 f32 at nx = 12 must not spill: their carry lives in
+                build time and ptxas registers/spills (B2 f32, B5, B11 f32,
+                B13 f32 and B14 f32 must not spill: their carry lives in
                 registers);
   kernels       B1-B4 against their plain versions on the same real
                 iterate, at N=200, B=256 in f32 and f64, gated per output;
@@ -247,15 +247,18 @@ def main():
           "cuda": torch.version.cuda, "device_name": torch.cuda.get_device_name(0),
           "build_s": build_s, "ptxas": ptxas})
     # the Riccati kernels keep their carry in registers: B2 f32, B5, B13 f32
-    # (the group kernels; B13 at nx = 12, (6, 3) runs
-    # fast_riccati_thread_kernel) and B11 f32 must not spill
+    # (the group kernels at nx = 12 and the one-thread kernel at (6, 3)) and
+    # B11 f32 must not spill, nor B14 f32 (its carry and the stage's
+    # carry-independent compositions)
     carry = {k: v for k, v in ptxas.items()
              if "traopt::riccati_kernel<float," in k or "traopt::riccati_mx_kernel<" in k
              or "traopt::fast_riccati_kernel<float," in k
+             or "traopt::fast_riccati_thread_kernel<float," in k
+             or "traopt::fast_rollout_kernel<float>" in k
              or "traopt::riccati_so3_kernel<float>" in k}
-    require(len(carry) == 7 and all(v.get("spill_stores") == 0 and v.get("spill_loads") == 0
+    require(len(carry) == 9 and all(v.get("spill_stores") == 0 and v.get("spill_loads") == 0
                                     for v in carry.values()),
-            f"B2 f32 / B5 / B11 f32 / B13 f32 spill: {carry}")
+            f"B2 f32 / B5 / B11 f32 / B13 f32 / B14 f32 spill: {carry}")
 
     us_gold, meta = al_bench.load_screw200_golden()
     problems = {dt: al_bench.build_screw200(dt, dev, horizon=N)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The end-to-end rates of the PyTorch port's paths and the times of its
-kernels B1-B5 and B10-B13, for one checkout on one card: the numbers on
+kernels B1-B5 and B10-B14, for one checkout on one card: the numbers on
 which two commits are compared.  Prints one JSON line.
 
     python3 scripts/rates.py [--root DIR]
@@ -32,7 +32,8 @@ moves B2's time by up to 2%):
                 iterations, median of 7; the drone and the free attitude one
                 rep each (host-bound: their rollouts are stage loops of small
                 PyTorch ops); B13 at each path's (nx, nu), (12, 6), (12, 4)
-                and (6, 3), on a real iterate at B=8192.
+                and (6, 3), and B14 on the free body, on a real iterate at
+                B=8192.
 """
 
 import argparse
@@ -187,11 +188,14 @@ def main():
         else:
             out[f"fast_{kind}_solves_per_s"] = B_F32 / timed(
                 lambda: solver.solve(*fargs(710)))[1]
-        # B13 at this path's (nx, nu), on a real iterate
+        # B13 at this path's (nx, nu), and B14 on the free body, on a real
+        # iterate
         s = kernel_check.fast_inputs(F.FastBatchSolver(model, n_k, 2, **kw), *fargs(720)[:4])
-        out[f"B13_{model.nx}x{model.nu}_B{B_F32}_ms"] = event_ms(
-            kernel_check.fast_calls(s)["B13"][0])
-        del s
+        calls = kernel_check.fast_calls(s)
+        out[f"B13_{model.nx}x{model.nu}_B{B_F32}_ms"] = event_ms(calls["B13"][0])
+        if "B14" in calls:
+            out[f"B14_B{B_F32}_ms"] = event_ms(calls["B14"][0])
+        del s, calls
     print(json.dumps(out), flush=True)
 
 

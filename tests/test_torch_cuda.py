@@ -367,6 +367,38 @@ def test_group_riccati_b13_edges(cuda, dtype, kind, B_, N_):
     assert errs["B13"]["max_rel"] <= GATES["fast"][dtype]["B13"], errs["B13"]["per_output"]
 
 
+# B13 at (6, 3) and B14, one thread per problem on blocks of one warp with
+# each stage's inputs copied ahead, at their edges: one problem, a ragged
+# block of one warp (31), a ragged second block (33), a ragged last block
+# past B = 8192 (8193).  f64 takes 67,584 B (B13) and 79,872 B (B14) of
+# shared memory, above the 48 KB a launch gets without the launchers' opt-in.
+@pytest.mark.parametrize("B_", [1, 31, 33, 8193])
+@pytest.mark.parametrize("name,kind", [("B13", "so3"), ("B14", "free_body")],
+                         ids=["B13_6x3", "B14"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_ahead_b13_b14_edges(cuda, dtype, name, kind, B_):
+    solver, params, *args = _fast_case(kind, dtype, cuda, B_=B_)
+    errs = fast_compare(fast_inputs(solver, params, *args))
+    torch.cuda.synchronize()
+    assert errs[name]["max_rel"] <= GATES["fast"][dtype][name], errs[name]["per_output"]
+
+
+def test_b13_refuses_a_shape_it_has_no_kernel_for(cuda):
+    """A CUDA tensor at (nx, nu) = (6, 2) raises from backward_lane: no
+    kernel, and no fallback to the plain version."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import riccati as RC
+
+    N_, B_, nx, nu = 2, 3, 6, 2
+    g = torch.Generator().manual_seed(0)
+    r = lambda *shape: torch.randn(shape, generator=g, dtype=torch.float32).to(cuda)
+    launches = RC.backward_lane.launches
+    with pytest.raises(ValueError, match=r"\(nx, nu\) = \(6, 2\)"):
+        RC.backward_lane(r(N_, nx, nx, B_), r(N_, nx, nu, B_), r(N_, nx, B_),
+                         r(N_ + 1, nx, B_), r(N_, nu, B_), r(N_ + 1, nx, nx, B_),
+                         r(N_, nu, nx, B_), r(N_, nu, nu, B_))
+    assert RC.backward_lane.launches == launches
+
+
 # B3 (rollout phase, then B1's kernel on the new trajectory) and B4 at their
 # edges: one problem, a ragged block of one warp (7), a ragged last block
 # (257), nu = 6 and 4, gravity off and on (nu = 6 with gravity: the rigid

@@ -2,12 +2,14 @@
 ahead into it, run by the host rehearsal (tests/host_rehearsal.py: each
 thread of a block an OS thread, real barriers, the block's shared memory a
 buffer) on CPU tensors, against their plain versions: the group Riccati
-kernels B2 and B5 (csrc/riccati_group.cuh), B13 (csrc/fast.cu, the same
-group design on a dense step), the rollouts B4 and B3 (csrc/pipeline.cu: a
-thread per problem copying stage t + 1's inputs ahead, then, for B3, B1's
-kernel on the new trajectory) and the SO(3) kernels B11 and B12
-(csrc/so3.cu: a thread per problem copying the next stage's inputs ahead,
-then, for B12, B10's kernel on the new trajectory).
+kernels B2 and B5 (csrc/riccati_group.cuh); B13 and B14 (csrc/fast.cu: at
+nx = 12 B13 is the same group design on a dense step, at (6, 3) a thread
+per problem copying stage t - 1's inputs ahead, and B14 a thread per
+problem copying stage t + 1's inputs ahead); the rollouts B4 and B3
+(csrc/pipeline.cu: a thread per problem copying stage t + 1's inputs
+ahead, then, for B3, B1's kernel on the new trajectory) and the SO(3)
+kernels B11 and B12 (csrc/so3.cu: a thread per problem copying the next
+stage's inputs ahead, then, for B12, B10's kernel on the new trajectory).
 
 This runs the kernels' own code, barriers and shared-memory exchanges
 included, which the CPU tests of the wrappers cannot reach (on CPU tensors
@@ -22,6 +24,7 @@ import torch
 import host_rehearsal as HR
 from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
     FAST_OUTPUTS,
+    FAST_ROLLOUT_ARGS,
     GATES,
     OUTPUTS,
     READS,
@@ -38,6 +41,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.models.dynamics import 
     rigid_body_params,
 )
 from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import riccati as RC
+from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import rollout as RO
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.batched import FastBatchSolver
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
@@ -145,14 +149,19 @@ def test_riccati_launchers_refuse_what_they_do_not_take(libs):
                                glow=False, luu_al=None)
 
 
-# B13: one problem in a block of 8 groups, a ragged block of 7, a ragged
-# second block (9)
-FAST_SHAPES = [pytest.param(B_, N_, id=f"B{B_}-N{N_}") for B_ in (1, 7, 9) for N_ in (1, 3)]
+# B13 at nx = 12 (a group per problem): one problem in a block of 8 groups,
+# a ragged block of 7, a ragged second block (9); at (6, 3) (a thread per
+# problem on one-warp blocks) also a ragged second block of one warp (33).
+FAST_CASES = [pytest.param(kind, B_, N_, id=f"{kind}-B{B_}-N{N_}")
+              for kind in ("free_body", "drone", "so3")
+              for B_ in (1, 7, 9) + ((33,) if kind == "so3" else ()) for N_ in (1, 3)]
 
 
 def _fast_inputs(kind, dtype, B, N):
     """A real FastBatchSolver iterate (2 iterations, plain) of the free body
-    (12, 6), the drone (12, 4) or the free attitude (6, 3)."""
+    (12, 6; with B14's inputs: its solver rolls out as B14 does), the drone
+    (12, 4) or the free attitude (6, 3)."""
+    kw = {}
     if kind == "so3":
         model, params, q0, xi0 = so3_bench.so3_track249_model(dtype, "cpu", horizon=N)
         q0s, xi0s = so3_bench.so3_batch(q0, xi0, B, seed=1)
@@ -160,12 +169,13 @@ def _fast_inputs(kind, dtype, B, N):
         model, params, q0, xi0 = screw200_model(dtype, "cpu", horizon=N,
                                                 drone=kind == "drone")
         q0s, xi0s = screw_batch(q0, xi0, B, seed=1)
+        if kind == "free_body":
+            kw = dict(pallas_rollout_dt=float(params["dyn"].dt), use_pallas_linearize=True)
     us0 = torch.zeros((B, N, model.nu), dtype=dtype)
-    return fast_inputs(FastBatchSolver(model, N, 2), params, q0s, xi0s, us0)
+    return fast_inputs(FastBatchSolver(model, N, 2, **kw), params, q0s, xi0s, us0)
 
 
-@pytest.mark.parametrize("B,N", FAST_SHAPES)
-@pytest.mark.parametrize("kind", ["free_body", "drone", "so3"])
+@pytest.mark.parametrize("kind,B,N", FAST_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_b13_host_rehearsal_matches_plain(libs, dtype, kind, B, N):
     """B13 at (12, 6), (12, 4) and (6, 3) within its card gate of the plain
@@ -177,6 +187,24 @@ def test_b13_host_rehearsal_matches_plain(libs, dtype, kind, B, N):
     kern, plain = RC._backward_kernel(fn, None, *args), RC.backward_plain(*args)
     gate = GATES["fast"][dtype]["B13"] if dtype == torch.float32 else 1e-12
     for name, a, b in zip(FAST_OUTPUTS["B13"], kern, plain, strict=True):
+        assert rel_err(a, b) <= gate, (name, rel_err(a, b))
+
+
+@pytest.mark.parametrize("B", [1, 9, 33], ids=["B1", "B9", "B33"])
+@pytest.mark.parametrize("N", [1, 3], ids=["N1", "N3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b14_host_rehearsal_matches_plain(libs, dtype, N, B):
+    """B14 on the free body (one problem in a block of 32 threads, a ragged
+    one (9), a ragged second block (33)) within its card gate of the plain
+    version (f32); f64 to 1e-12."""
+    s = _fast_inputs("free_body", dtype, B, N)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    fn = HR.function(libs[f"fast_{tag}"], f"fast_rollout_{tag}", RO._ARGS)
+    args = tuple(s[n] for n in FAST_ROLLOUT_ARGS)
+    kern = RO._rollout_kernel(fn, None, *args, dt=s["dt"])
+    plain = RO.rollout_plain(*args, dt=s["dt"])
+    gate = GATES["fast"][dtype]["B14"] if dtype == torch.float32 else 1e-12
+    for name, a, b in zip(FAST_OUTPUTS["B14"], kern, plain, strict=True):
         assert rel_err(a, b) <= gate, (name, rel_err(a, b))
 
 

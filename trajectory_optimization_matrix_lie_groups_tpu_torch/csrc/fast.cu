@@ -7,9 +7,11 @@
 // Both are sequential recursions over the N stages of one problem, the stage
 // loop inside the block (the TPU kernels carried the recursion across a
 // sequential grid axis with the carry in VMEM scratch), every per-stage array
-// batch-last: B13 runs one problem per group of 16 threads (group.cuh), B14
-// one problem per thread (grid ceil(B / 128) x 128) with the carry in
-// registers, a warp's 32 problems reading 32 neighbouring addresses.
+// batch-last: B13 at nx = 12 runs one problem per group of 16 threads
+// (group.cuh); B13 at (6, 3) and B14 one problem per thread on blocks of one
+// warp with the carry in registers and each stage's inputs copied a stage
+// ahead into shared memory (ahead.cuh).
+#include "ahead.cuh"
 #include "common.cuh"
 #include "group.cuh"
 #include "stage.cuh"
@@ -406,33 +408,72 @@ int launch_fast_riccati(const FastRiccatiArgs<T>& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// B13 at nx = 6, (6, 3): one thread per problem (grid ceil(B / 128) x 128)
-// with the carry (V_x, V_xx) and the stage's products in registers (168 of
-// them in f32, no spill).  At this size the group design's fixed cost per
-// stage (five warp barriers, a block barrier, the staged copies for 7 busy
-// lanes of 16) outweighs its warps: 1.794 ms against 1.449 at B = 8192,
-// N = 249 (PERF.md).  The same step, sum order and Cholesky as the group
+// B13 at nx = 6, (6, 3): B11's design (so3.cu).  One thread per problem on
+// blocks of one warp (ahead.cuh: B / 32 blocks over all SMs, 256 at B =
+// 8192), the carry (V_x, V_xx) and the stage's products in registers; each
+// thread copies stage t - 1's 132 inputs into its own shared-memory column
+// with cp.async while it computes stage t, so the chain no longer waits on
+// device memory, and reads back only what it copied (no barrier): 1.20 ms
+// at B = 8192, N = 249, against 1.45 for the same step reading device
+// memory inside the chain on 128-thread blocks and 1.79 for the group
+// design, whose fixed cost per stage (five warp barriers, a block barrier,
+// the staged copies for 7 busy lanes of 16) outweighed its warps at this
+// size (PERF.md).  The same step, sum order and Cholesky as the group
 // kernel's.
+
+// The entries of one stage in a thread's column.
+template <int NX, int NU>
+struct FastColumn {
+  static constexpr int Fx = 0, Fu = NX * NX, d = Fu + NX * NU, lx = d + NX, lu = lx + NX,
+                       lxx = lu + NU, lux = lxx + NX * NX, luu = lux + NU * NX,
+                       n = luu + NU * NU;
+};
+
 template <typename T, int NX, int NU>
-__global__ void __launch_bounds__(kThreads) fast_riccati_thread_kernel(FastRiccatiArgs<T> a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const int B = a.B, N = a.N;
+__device__ __forceinline__ void fast_column_copy(T* col, const FastRiccatiArgs<T>& a, int t,
+                                                 int b) {
+  using C = FastColumn<NX, NU>;
+  constexpr int P = kAheadThreads;
+  const int B = a.B;
+  copy_column<NX * NX>(col + C::Fx * P, a.Fx, t, B, b);
+  copy_column<NX * NU>(col + C::Fu * P, a.Fu, t, B, b);
+  copy_column<NX>(col + C::d * P, a.d, t, B, b);
+  copy_column<NX>(col + C::lx * P, a.Lx, t, B, b);
+  copy_column<NU>(col + C::lu * P, a.Lu, t, B, b);
+  copy_column<NX * NX>(col + C::lxx * P, a.Lxx, t, B, b);
+  copy_column<NU * NX>(col + C::lux * P, a.Lux, t, B, b);
+  copy_column<NU * NU>(col + C::luu * P, a.Luu, t, B, b);
+  cp_async_commit();
+}
+
+template <typename T, int NX, int NU>
+__global__ void __launch_bounds__(kAheadThreads) fast_riccati_thread_kernel(FastRiccatiArgs<T> a) {
+  using C = FastColumn<NX, NU>;
+  constexpr int P = kAheadThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int B = a.B, N = a.N, b = blockIdx.x * P + threadIdx.x;
+  if (b >= B) return;
+  T* col = reinterpret_cast<T*>(smem) + threadIdx.x;  // slot s at col + s * C::n * P
   constexpr int NC = NX + 1;  // Q_ux's NX columns and Q_u
   T Vx[NX], V[NX * NX];
   load<NX>(Vx, lane<NX>(a.Lx, N, B, b));
   load<NX * NX>(V, lane<NX * NX>(a.Lxx, N, B, b));
+  fast_column_copy<T, NX, NU>(col, a, N - 1, b);
   for (int t = N - 1; t >= 0; --t) {
-    const Lane<const T> F = lane<NX * NX>(a.Fx, t, B, b);
+    const int cur = (N - 1 - t) & 1;
+    cp_async_wait_all();
+    if (t > 0) fast_column_copy<T, NX, NU>(col + (cur ^ 1) * C::n * P, a, t - 1, b);
+    const T* in = col + cur * C::n * P;
+    const Lane<const T> F = column(in + C::Fx * P);
     store<NX>(lane<NX>(a.Vx1, t, B, b), Vx);
     store<NX * NX>(lane<NX * NX>(a.Vxx1, t, B, b), V);
     T Fu[NX * NU];
-    load<NX * NU>(Fu, lane<NX * NU>(a.Fu, t, B, b));
+    load<NX * NU>(Fu, column(in + C::Fu * P));
     // Vmod = V_x + V_xx d
     T Vmod[NX];
     {
       T dd[NX];
-      load<NX>(dd, lane<NX>(a.d, t, B, b));
+      load<NX>(dd, column(in + C::d * P));
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
         T s = V[i * NX] * dd[0];
@@ -454,7 +495,7 @@ __global__ void __launch_bounds__(kThreads) fast_riccati_thread_kernel(FastRicca
           for (int k = 1; k < NX; ++k) s += V[i * NX + k] * Fu[k * NU + c];
           VFu[i * NU + c] = s;
         }
-      const Lane<const T> luu = lane<NU * NU>(a.Luu, t, B, b);
+      const Lane<const T> luu = column(in + C::luu * P);
 #pragma unroll
       for (int r = 0; r < NU; ++r)
 #pragma unroll
@@ -468,7 +509,7 @@ __global__ void __launch_bounds__(kThreads) fast_riccati_thread_kernel(FastRicca
     // Q_x = L_x + F^T Vmod, Q_u = L_u + Fu^T Vmod
     T Qx[NX], Qu[NU];
     {
-      const Lane<const T> lx = lane<NX>(a.Lx, t, B, b);
+      const Lane<const T> lx = column(in + C::lx * P);
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
         T s = F[i] * Vmod[0];
@@ -476,7 +517,7 @@ __global__ void __launch_bounds__(kThreads) fast_riccati_thread_kernel(FastRicca
         for (int k = 1; k < NX; ++k) s += F[k * NX + i] * Vmod[k];
         Qx[i] = lx[i] + s;
       }
-      const Lane<const T> lu = lane<NU>(a.Lu, t, B, b);
+      const Lane<const T> lu = column(in + C::lu * P);
 #pragma unroll
       for (int r = 0; r < NU; ++r) {
         T s = Fu[r] * Vmod[0];
@@ -502,7 +543,7 @@ __global__ void __launch_bounds__(kThreads) fast_riccati_thread_kernel(FastRicca
     // Q_ux = L_ux + Fu^T (V_xx F)
     T Qux[NU * NX];
     {
-      const Lane<const T> lux = lane<NU * NX>(a.Lux, t, B, b);
+      const Lane<const T> lux = column(in + C::lux * P);
 #pragma unroll
       for (int r = 0; r < NU; ++r)
 #pragma unroll
@@ -515,19 +556,19 @@ __global__ void __launch_bounds__(kThreads) fast_riccati_thread_kernel(FastRicca
     }
     // V <- Q_xx = L_xx + F^T (V_xx F), column by column
     {
-      const Lane<const T> lxx = lane<NX * NX>(a.Lxx, t, B, b);
+      const Lane<const T> lxx = column(in + C::lxx * P);
 #pragma unroll
       for (int j = 0; j < NX; ++j) {
-        T col[NX];
+        T qcol[NX];
 #pragma unroll
         for (int i = 0; i < NX; ++i) {
           T s = F[i] * V[j];
 #pragma unroll
           for (int k = 1; k < NX; ++k) s += F[k * NX + i] * V[k * NX + j];
-          col[i] = s;
+          qcol[i] = s;
         }
 #pragma unroll
-        for (int i = 0; i < NX; ++i) V[i * NX + j] = lxx[i * NX + j] + col[i];
+        for (int i = 0; i < NX; ++i) V[i * NX + j] = lxx[i * NX + j] + qcol[i];
       }
     }
     // Cholesky Q_uu = L L^T
@@ -627,6 +668,17 @@ __global__ void __launch_bounds__(kThreads) fast_riccati_thread_kernel(FastRicca
   }
 }
 
+template <typename T, int NX, int NU>
+int launch_fast_riccati_thread(const FastRiccatiArgs<T>& a, cudaStream_t s) {
+  constexpr size_t bytes = 2 * FastColumn<NX, NU>::n * kAheadThreads * sizeof(T);
+  if (cudaError_t e = cudaFuncSetAttribute(fast_riccati_thread_kernel<T, NX, NU>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes))
+    return (int)e;
+  fast_riccati_thread_kernel<T, NX, NU><<<ahead_grid(a.B), kAheadThreads, bytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // ---- B14 ------------------------------------------------------------------
 // Replaces ops/pallas_rollout.py::_rollout_kernel (pallas_rollout): B4's
 // gap-closing step for the free body, with Exp(d_q) and f(x_i)^-1 read
@@ -634,8 +686,18 @@ __global__ void __launch_bounds__(kThreads) fast_riccati_thread_kernel(FastRicca
 // (se3 inverse, compose, log), free-body dynamics evaluation (with the
 // identity input projection) and quaternion renormalization with B4.
 // What bounds it on an H100: it reads 138 values (of d only the twist rows)
-// and writes 24 per stage and problem, serial over stages, with B / 128 blocks; the carry (R, p, xi)
-// stays in registers.
+// and writes 24 per stage and problem (0.32 ms at B = 8192, N = 200), in a
+// chain of dependent steps serial over the stages.  B4's design (ahead.cuh):
+// one thread per problem on blocks of one warp (B / 32 blocks over all
+// SMs), the carry (R, p, xi) in registers; each thread copies stage t + 1's
+// inputs into its own shared-memory column with cp.async while it computes
+// stage t, and reads back only what it copied (no barrier).  Once a stage's
+// column has landed, the carry-independent part, G_t = (q_{t+1} Exp(d_q))
+// f(x_t)^-1 and the nominal inverse q_t^-1, is computed off the chain, so
+// the chain is Log(q_t^-1 q), the feedback, the dynamics, G_t f and the
+// renormalization: the same functions in the same order as rollout_plain.
+// 0.80 ms at B = 8192, N = 200, against 1.68 for the same step reading
+// device memory inside the chain on 128-thread blocks (PERF.md).
 template <typename T>
 struct FastRolloutArgs {
   const T *qR, *qp, *xi;           // nominal trajectory, N+1 stages
@@ -647,11 +709,48 @@ struct FastRolloutArgs {
   int N, B;
 };
 
+// The entries of one stage in a thread's column: the nominal x_t and
+// x_{t+1} (both in the column, so that no nominal is carried in registers
+// through the chain: B4's choice), u_t, the gains, the twist rows of the
+// defect, the nominal's twist evaluation, Exp(d_q) and f(x_t)^-1.
+struct FastRolloutColumn {
+  static constexpr int Rt = 0, pt = 9, xit = 12, Rn = 18, pn = 27, xin = 30, u = 36, k = 42,
+                       K = 48, dxi = 120, fxi = 126, edR = 132, edp = 141, fiR = 144,
+                       fip = 153, n = 156;
+};
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) fast_rollout_kernel(FastRolloutArgs<T> a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const int B = a.B, N = a.N;
+__device__ __forceinline__ void fast_rollout_copy(T* col, const FastRolloutArgs<T>& a, int t,
+                                                  int b) {
+  using C = FastRolloutColumn;
+  constexpr int P = kAheadThreads;
+  const int B = a.B;
+  copy_column<9>(col + C::Rt * P, a.qR, t, B, b);
+  copy_column<3>(col + C::pt * P, a.qp, t, B, b);
+  copy_column<6>(col + C::xit * P, a.xi, t, B, b);
+  copy_column<9>(col + C::Rn * P, a.qR, t + 1, B, b);
+  copy_column<3>(col + C::pn * P, a.qp, t + 1, B, b);
+  copy_column<6>(col + C::xin * P, a.xi, t + 1, B, b);
+  copy_column<6>(col + C::u * P, a.u, t, B, b);
+  copy_column<6>(col + C::k * P, a.k, t, B, b);
+  copy_column<72>(col + C::K * P, a.K, t, B, b);
+  copy_column<6, 12>(col + C::dxi * P, a.d + 6LL * B, t, B, b);  // rows 6..11 of d
+  copy_column<6>(col + C::fxi * P, a.fxi, t, B, b);
+  copy_column<9>(col + C::edR * P, a.edR, t, B, b);
+  copy_column<3>(col + C::edp * P, a.edp, t, B, b);
+  copy_column<9>(col + C::fiR * P, a.fiR, t, B, b);
+  copy_column<3>(col + C::fip * P, a.fip, t, B, b);
+  cp_async_commit();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kAheadThreads) fast_rollout_kernel(FastRolloutArgs<T> a) {
+  using C = FastRolloutColumn;
+  constexpr int P = kAheadThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int B = a.B, N = a.N, b = blockIdx.x * P + threadIdx.x;
+  if (b >= B) return;
+  T* col = reinterpret_cast<T*>(smem) + threadIdx.x;  // slot s at col + s * C::n * P
   T eye[36];  // the free body's wrench takes u directly
 #pragma unroll
   for (int i = 0; i < 36; ++i) eye[i] = i % 7 == 0 ? T(1) : T(0);
@@ -661,14 +760,32 @@ __global__ void __launch_bounds__(kThreads) fast_rollout_kernel(FastRolloutArgs<
   load<9>(R, lane<9>(a.qR, 0, B, b));
   load<3>(p, lane<3>(a.qp, 0, B, b));
   load<6>(xi, lane<6>(a.xi, 0, B, b));
+  fast_rollout_copy(col, a, 0, b);
   for (int t = 0; t < N; ++t) {
+    cp_async_wait_all();
+    if (t + 1 < N) fast_rollout_copy(col + ((t + 1) & 1) * C::n * P, a, t + 1, b);
+    const T* cur = col + (t & 1) * C::n * P;
+    const auto in = [&](int e) { return column(cur + e * P); };
+    // off the chain: q_t^-1 and G_t = (q_{t+1} Exp(d_q)) f(x_t)^-1
+    T Ri[9], pi[3], GR[9], Gp[3];
+    {
+      T Rt[9], pt[3], Rn[9], pn[3], Ed[9], ed[3], Fi[9], fi[3], Ra[9], pa[3];
+      load<9>(Rt, in(C::Rt));
+      load<3>(pt, in(C::pt));
+      load<9>(Rn, in(C::Rn));
+      load<3>(pn, in(C::pn));
+      load<9>(Ed, in(C::edR));
+      load<3>(ed, in(C::edp));
+      load<9>(Fi, in(C::fiR));
+      load<3>(fi, in(C::fip));
+      se3_inverse(Ri, pi, Rt, pt);
+      se3_compose(Ra, pa, Rn, pn, Ed, ed);
+      se3_compose(GR, Gp, Ra, pa, Fi, fi);
+    }
     T xs_err[12];
     {
-      T Rt[9], pt[3], xit[6], Ri[9], pi[3], Re[9], pe[3];
-      load<9>(Rt, lane<9>(a.qR, t, B, b));
-      load<3>(pt, lane<3>(a.qp, t, B, b));
-      load<6>(xit, lane<6>(a.xi, t, B, b));
-      se3_inverse(Ri, pi, Rt, pt);
+      T xit[6], Re[9], pe[3];
+      load<6>(xit, in(C::xit));
       se3_compose(Re, pe, Ri, pi, R, p);
       se3_log(xs_err, Re, pe);
 #pragma unroll
@@ -676,8 +793,7 @@ __global__ void __launch_bounds__(kThreads) fast_rollout_kernel(FastRolloutArgs<
     }
     T u[6];
     {
-      const Lane<const T> ut = lane<6>(a.u, t, B, b), kt = lane<6>(a.k, t, B, b);
-      const Lane<const T> Kt = lane<72>(a.K, t, B, b);
+      const Lane<const T> ut = in(C::u), kt = in(C::k), Kt = in(C::K);
 #pragma unroll
       for (int r = 0; r < 6; ++r) {
         T s = Kt[r * 12] * xs_err[0];
@@ -688,30 +804,29 @@ __global__ void __launch_bounds__(kThreads) fast_rollout_kernel(FastRolloutArgs<
     }
     T fqR[9], fqp[3], fxn[6];
     stage_dynamics_eval<T, 6>(fqR, fqp, fxn, R, p, xi, u, c);
+    se3_compose(R, p, GR, Gp, fqR, fqp);
+    so3_normalize(R);
     {
-      T Rn[9], pn[3], Ed[9], ed[3], Fi[9], fi[3], Ra[9], pa[3], Rb[9], pb[3];
-      load<9>(Rn, lane<9>(a.qR, t + 1, B, b));
-      load<3>(pn, lane<3>(a.qp, t + 1, B, b));
-      load<9>(Ed, lane<9>(a.edR, t, B, b));
-      load<3>(ed, lane<3>(a.edp, t, B, b));
-      load<9>(Fi, lane<9>(a.fiR, t, B, b));
-      load<3>(fi, lane<3>(a.fip, t, B, b));
-      se3_compose(Ra, pa, Rn, pn, Ed, ed);
-      se3_compose(Rb, pb, Ra, pa, Fi, fi);
-      se3_compose(R, p, Rb, pb, fqR, fqp);
-      so3_normalize(R);
-    }
-    {
-      const Lane<const T> xin = lane<6>(a.xi, t + 1, B, b);
-      const Lane<const T> fxt = lane<6>(a.fxi, t, B, b), dd = lane<12>(a.d, t, B, b);
+      const Lane<const T> xin = in(C::xin), fxt = in(C::fxi), dxi = in(C::dxi);
 #pragma unroll
-      for (int i = 0; i < 6; ++i) xi[i] = ((xin[i] + fxn[i]) - fxt[i]) + dd[6 + i];
+      for (int i = 0; i < 6; ++i) xi[i] = ((xin[i] + fxn[i]) - fxt[i]) + dxi[i];
     }
     store<9>(lane<9>(a.oR, t, B, b), R);
     store<3>(lane<3>(a.op, t, B, b), p);
     store<6>(lane<6>(a.oxi, t, B, b), xi);
     store<6>(lane<6>(a.ou, t, B, b), u);
   }
+}
+
+template <typename T>
+int launch_fast_rollout(const FastRolloutArgs<T>& a, cudaStream_t s) {
+  constexpr size_t bytes = 2 * FastRolloutColumn::n * kAheadThreads * sizeof(T);
+  if (cudaError_t e = cudaFuncSetAttribute(fast_rollout_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes))
+    return (int)e;
+  fast_rollout_kernel<T><<<ahead_grid(a.B), kAheadThreads, bytes, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace traopt
@@ -735,10 +850,7 @@ extern "C" int TRAOPT_FN(fast_riccati)(
   cudaStream_t s = (cudaStream_t)stream;
   if (nx == 12 && nu == 6) return traopt::launch_fast_riccati<T, 12, 6>(a, s);
   if (nx == 12 && nu == 4) return traopt::launch_fast_riccati<T, 12, 4>(a, s);
-  if (nx == 6 && nu == 3) {
-    traopt::fast_riccati_thread_kernel<T, 6, 3><<<traopt::batch_grid(B), traopt::kThreads, 0, s>>>(a);
-    return (int)cudaGetLastError();
-  }
+  if (nx == 6 && nu == 3) return traopt::launch_fast_riccati_thread<T, 6, 3>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -760,6 +872,5 @@ extern "C" int TRAOPT_FN(fast_rollout)(
   if (N <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   if (cudaError_t e = cudaSetDevice(device)) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
-  traopt::fast_rollout_kernel<T><<<traopt::batch_grid(B), traopt::kThreads, 0, s>>>(a);
-  return (int)cudaGetLastError();
+  return traopt::launch_fast_rollout<T>(a, s);
 }

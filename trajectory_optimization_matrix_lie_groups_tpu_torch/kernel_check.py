@@ -304,14 +304,18 @@ def fast_inputs(solver, params, q0s, xi0s, us0):
     return s
 
 
+# B14's positional arguments, entries of the inputs of `fast_inputs`
+FAST_ROLLOUT_ARGS = ("qR", "qp", "xi", "us", "k", "K", "d", "fxi", "edR", "edp", "fiR", "fip",
+                     "J", "Jinv")
+
+
 def fast_calls(s):
     """{kernel: (kernel_call, plain_call)} for B13 (and B14 when ``s`` holds
     its inputs) on the inputs ``s`` of `fast_inputs`."""
     bargs = tuple(s[n] for n in READS["B13"])
     out = {"B13": (lambda: RC.backward_lane(*bargs), lambda: RC.backward_plain(*bargs))}
     if "edR" in s:
-        rargs = tuple(s[n] for n in ("qR", "qp", "xi", "us", "k", "K", "d", "fxi",
-                                     "edR", "edp", "fiR", "fip", "J", "Jinv"))
+        rargs = tuple(s[n] for n in FAST_ROLLOUT_ARGS)
         out["B14"] = (lambda: RO.rollout_lane(*rargs, dt=s["dt"]),
                       lambda: RO.rollout_plain(*rargs, dt=s["dt"]))
     return out

@@ -102,7 +102,9 @@ def backward_lane(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu):
     lane r holding row r of V_xx in registers, the group exchanging the
     stage's products through shared memory, and the block copies each
     stage's inputs into shared memory a stage ahead; at (6, 3) one thread
-    runs one problem with its carry in registers (`csrc/fast.cu`)."""
+    runs one problem with its carry in registers, on blocks of one warp,
+    copying each stage's 132 inputs into shared memory a stage ahead
+    (`csrc/fast.cu`)."""
     if d.device.type == "cpu":
         return backward_plain(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu)
     if d.device.type != "cuda":

@@ -63,22 +63,11 @@ _P = _build.PTR
 _ARGS = [_P] * 14 + [_build.DBL] + [_P] * 4 + [_build.INT] * 3 + [_P]
 
 
-def rollout_lane(qR, qp, xi, us, k, K, d, fxi, edR, edp, fiR, fip, J, Jinv, *, dt):
-    """Kernel B14 (replaces `ops/pallas_rollout.py::_rollout_kernel` as
-    called by `pallas_rollout`).  Lane layout as in the module docstring;
-    returns (oR, op, oxi, ou).
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32 or float64), or raise.  On an H100 one thread per problem walks
-    the stages with the carry (R, p, xi) in registers, reading 138 values
-    and writing 24 per stage."""
-    args = (qR, qp, xi, us, k, K, d, fxi, edR, edp, fiR, fip, J, Jinv)
-    if us.device.type == "cpu":
-        return rollout_plain(*args, dt=dt)
-    if us.device.type != "cuda":
-        raise ValueError(f"rollout_lane: no kernel for device {us.device}")
+def _rollout_kernel(fn, stream, qR, qp, xi, us, k, K, d, fxi, edR, edp, fiR, fip, J,
+                    Jinv, *, dt):
+    """Kernel B14 through the C entry point ``fn`` on ``stream``: the
+    arguments checked, the outputs allocated on ``us``'s device."""
     N, nu, B = us.shape
-    fn = _build.function("fast", "fast_rollout", _build.suffix(us.dtype), _ARGS)
     a = lambda t, shape, name: _build.arg(t, shape, us, name)
     e = lambda *shape: torch.empty(shape, dtype=us.dtype, device=us.device)
     oR, op, oxi, ou = e(N, 3, 3, B), e(N, 3, B), e(N, 6, B), e(N, 6, B)
@@ -90,11 +79,31 @@ def rollout_lane(qR, qp, xi, us, k, K, d, fxi, edR, edp, fiR, fip, J, Jinv, *, d
              a(fiR, (N, 3, 3, B), "fiR"), a(fip, (N, 3, B), "fip"),
              a(J, (6, 6), "J"), a(Jinv, (6, 6), "Jinv"), float(dt),
              a(oR, oR.shape, "oR"), a(op, op.shape, "op"), a(oxi, oxi.shape, "oxi"),
-             a(ou, ou.shape, "ou"), N, B, _build.device_index(us),
-             torch.cuda.current_stream(us.device).cuda_stream)
+             a(ou, ou.shape, "ou"), N, B, _build.device_index(us), stream)
     _build.check(err, "fast_rollout")
-    rollout_lane.launches += 1
     return oR, op, oxi, ou
+
+
+def rollout_lane(qR, qp, xi, us, k, K, d, fxi, edR, edp, fiR, fip, J, Jinv, *, dt):
+    """Kernel B14 (replaces `ops/pallas_rollout.py::_rollout_kernel` as
+    called by `pallas_rollout`).  Lane layout as in the module docstring;
+    returns (oR, op, oxi, ou).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (float32 or float64), or raise.  On an H100 one thread per problem walks
+    the stages with the carry (R, p, xi) in registers, on blocks of one
+    warp, copying each stage's 156 inputs into shared memory a stage ahead
+    and composing (q_{t+1} Exp(d_q)) f(x_t)^-1 and q_t^-1 off the carry's
+    chain (`csrc/fast.cu`)."""
+    args = (qR, qp, xi, us, k, K, d, fxi, edR, edp, fiR, fip, J, Jinv)
+    if us.device.type == "cpu":
+        return rollout_plain(*args, dt=dt)
+    if us.device.type != "cuda":
+        raise ValueError(f"rollout_lane: no kernel for device {us.device}")
+    fn = _build.function("fast", "fast_rollout", _build.suffix(us.dtype), _ARGS)
+    out = _rollout_kernel(fn, torch.cuda.current_stream(us.device).cuda_stream, *args, dt=dt)
+    rollout_lane.launches += 1
+    return out
 
 
 rollout_lane.launches = 0
