@@ -8,9 +8,12 @@ of each phase.  ``--path so3_track249`` or ``pendulum_swingup80``: the SO(3)
 pipeline on that problem (`tasks/so3_bench.py`; B=8192, 30 f32 iterations).
 ``--path fast``: the generic fast tier on screw-200, the free body through
 `solvers/batched.FastBatchSolver` on kernels B1, B13 and B14 (B=8192, 12
-iterations).
+iterations).  ``--path al_fast``: one inner solve of `ALFastSolver`, the
+fast tier on the augmented-Lagrangian cost (the first 200 stages of the
+N=1400 AL problem, box +-10, its initial multipliers; B13 and B14, the
+linearization batch-first; B=8192, 3 iterations).
 
-    python3 scripts/profile_torch_pipeline.py [--path f32|polish|fast|so3_track249|pendulum_swingup80]
+    python3 scripts/profile_torch_pipeline.py [--path f32|polish|fast|al_fast|so3_track249|pendulum_swingup80]
         [--batch B] [--iterations I] [--trace PATH]
 
 Prints one JSON line; ``--trace`` also writes the Chrome trace.  Needs a
@@ -41,7 +44,15 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.pipeline_so3 im
     SO3PipelineSolver,
 )
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import so3_bench  # noqa: E402
+from trajectory_optimization_matrix_lie_groups_tpu_torch.models import (  # noqa: E402
+    constraints,
+    costs,
+    dynamics,
+)
+from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import make_model  # noqa: E402
+from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SE3  # noqa: E402
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (  # noqa: E402
+    build_al1400,
     build_screw200,
     screw200_model,
     screw_batch,
@@ -50,7 +61,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("f32", "polish", "fast", *so3_bench.PROBLEMS),
+    ap.add_argument("--path", choices=("f32", "polish", "fast", "al_fast", *so3_bench.PROBLEMS),
                     default="f32")
     ap.add_argument("--batch", type=int, default=None,
                     help="default 8192 (f32), 16384 (polish)")
@@ -65,7 +76,8 @@ def main():
     polish = args.path == "polish"
     so3 = args.path in so3_bench.PROBLEMS
     B = args.batch or (16384 if polish else 8192)
-    iters = args.iterations or (7 if polish else 30 if so3 else 12)
+    iters = args.iterations or (7 if polish else 30 if so3 else
+                                3 if args.path == "al_fast" else 12)
     dtype = torch.float64 if polish else torch.float32
     if so3:
         pendulum, dt, N = so3_bench.PROBLEMS[args.path][:3]
@@ -83,13 +95,24 @@ def main():
             model, params, _, _ = screw200_model(dtype, dev)
             solver = FastBatchSolver(model, N, iters, pallas_rollout_dt=float(dyn.dt),
                                      use_pallas_linearize=True)
+        elif args.path == "al_fast":
+            p, lb, ub, q0, xi0 = build_al1400(dtype, N, dev)[:5]
+            dyn, cost = p["dyn"], p["cost"]
+            box = constraints.input_box(12, 6)
+            model, _ = make_model(dynamics.se3_dynamics(),
+                                  costs.al_cost(costs.tracking_cost(SE3, 6), box), dyn, None)
+            bounds = constraints.input_box_params(torch.tensor(lb, dtype=dtype, device=dev),
+                                                  torch.tensor(ub, dtype=dtype, device=dev), 6)
+            params = {"dyn": dyn, "cost": costs.al_init_params(cost, bounds, N, 12,
+                                                               dtype=dtype)}
+            solver = FastBatchSolver(model, N, iters, pallas_rollout_dt=float(dyn.dt))
         else:
             solver = PipelineSolver(N, iters, float(dyn.dt))
 
     def inputs(seed):
         q0s, xi0s = batch(q0, xi0, B, seed)
         us0 = torch.zeros((B, N, nu), dtype=dtype, device=dev)
-        if args.path == "fast":
+        if args.path in ("fast", "al_fast"):
             return params, q0s, xi0s, us0, cost.q_ref, cost.xi_ref
         return dyn, cost, q0s, xi0s, us0
 

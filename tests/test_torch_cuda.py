@@ -444,3 +444,83 @@ def test_fast_and_rollout_launchers_refuse_what_they_do_not_take(cuda):
                           r(N_ + 1, 6, B_), r(N_, nu, B_), r(N_, nu, B_), r(N_, nu, 12, B_),
                           lin, None, consts, dt=0.01, gravity=False, exact_grav=False,
                           fused=False)
+
+
+# -- the constrained path and the MPC drivers: kernel path against plain path
+# on the same card inputs, B = 33 (a ragged one-warp block), N = 16 -----------
+
+AL_B, AL_BOX = 33, 9.0
+
+
+def _al_case(dtype, device):
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import build_al1400
+
+    params, _, _, q0, xi0, _, _ = build_al1400(dtype, H, device)
+    q0s, xi0s = screw_batch(q0, xi0, AL_B, seed=1)
+    return params["dyn"], params["cost"], q0s, xi0s, torch.zeros((AL_B, H, 6), dtype=dtype,
+                                                                 device=device)
+
+
+def _al_solve(args, plain, iterations=4, n_al_iters=10):
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.al_pipeline import (
+        ALPipelineSolver,
+    )
+
+    pipe = P.PipelineSolver(H, iterations, 0.01, plain=plain)
+    return ALPipelineSolver(pipe, -AL_BOX, AL_BOX).solve(*args, n_al_iters=n_al_iters)
+
+
+def test_al_pipeline_kernel_matches_plain(cuda):
+    """f64: the same outer count and convergence, controls at 1e-9."""
+    args = _al_case(torch.float64, cuda)
+    kern, plain = _al_solve(args, False), _al_solve(args, True)
+    assert kern.outer_iterations == plain.outer_iterations > 1
+    assert kern.constr_converged == plain.constr_converged
+    assert (kern.us.abs() >= AL_BOX - 1e-3).any(), "the box does not bind"
+    assert (kern.us - plain.us).abs().max().item() <= 1e-9
+    assert (kern.lmbd - plain.lmbd).abs().max().item() <= 1e-9 * max(1.0, plain.lmbd.abs().max().item())
+
+
+def test_al_polish_device_kernel_matches_plain(cuda):
+    """The device-ascent polish of one f32 AL result with B5-B9 and with
+    their plain versions: the controls at the kernel-vs-plain polish
+    agreement of chip_smoke.py (1e-5), the f32 multipliers alike."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.al_pipeline import (
+        al_polish_device,
+    )
+
+    dyn, cost, q0s, xi0s, us0 = _al_case(torch.float64, cuda)
+    res = _al_solve((dyn, cost, q0s.float(), xi0s.float(), us0.float()), False, 8)
+    outs = []
+    for plain in (False, True):
+        mx = DM.MixedDFPipelineSolver(H, 0.01, f32_iterations=8, df_iterations=2, plain=plain)
+        outs.append(al_polish_device(mx, {"dyn": dyn, "cost": cost}, -AL_BOX, AL_BOX, res,
+                                     q0s, xi0s))
+    (ok, lk, ik), (op, lp, ip) = outs
+    assert (join_us(ok) - join_us(op)).abs().max().item() <= 1e-5
+    assert ((lk - lp).abs().max() / lp.abs().max().clamp(min=1.0)).item() <= 1e-5
+    assert torch.equal(ik == 0, ip == 0)
+
+
+@pytest.mark.parametrize("constrained", [False, True], ids=["unconstrained", "box"])
+def test_mpc_kernel_matches_plain(cuda, constrained):
+    """Both MPC drivers, f64, T = 3 steps of 3 iterations (the box driver:
+    +-5 and 2 AL outers a step, from the AL problem's offset start)."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import mpc
+
+    T_ = 3
+    model, params, q0, xi0 = screw200_model(torch.float64, cuda, horizon=T_ + H)
+    cp = params["cost"]
+    start = (q0, xi0) if constrained else (cp.q_ref[0], cp.xi_ref[0])
+    q0s, xi0s = screw_batch(*start, AL_B, seed=4)
+    res = []
+    for plain in (False, True):
+        pipe = P.PipelineSolver(H, 3, 0.01, plain=plain)
+        run = (mpc.make_closed_loop_batch_constrained(pipe, model, T_, -5.0, 5.0, n_al_iters=2)
+               if constrained else mpc.make_closed_loop_batch(pipe, model, T_))
+        out = run(params["dyn"], cp, q0s, xi0s)
+        res.append(out[0] if constrained else out)
+    assert (res[0].us - res[1].us).abs().max().item() <= 1e-9
+    assert (res[0].qs - res[1].qs).abs().max().item() <= 1e-9
+    if constrained:
+        assert res[0].us.abs().max().item() == 5.0

@@ -28,7 +28,8 @@ def test_port_has_the_slice_modules():
               "tasks.al_bench", "solvers.pipeline", "solvers.df_pipeline",
               "solvers.df_mixed", "solvers.pipeline_so3", "tasks.so3_bench",
               "kernel_check", "convert", "_build", "models.base", "ops.riccati",
-              "ops.rollout", "solvers.batched"):
+              "ops.rollout", "solvers.batched", "models.constraints",
+              "solvers.al_pipeline", "solvers.al_fast", "solvers.mpc"):
         assert f"{port.__name__}.{m}" in mods, m
 
 

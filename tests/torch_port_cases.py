@@ -4,10 +4,13 @@ seed with numpy, for the JAX package and its PyTorch port.
 The problem is the screw-tracking problem of `tasks/al_bench.build_al1400`
 cut to a short horizon, with R = 1e-3 I (the pipeline's Cholesky needs
 Quu > 0) and no input box; the drone variant swaps in `drone_params`
-(gravity, a 6x4 input projection) with R = 1e-2 I on its 4 inputs.
+(gravity, a 6x4 input projection) with R = 1e-2 I on its 4 inputs.  The
+constrained tests take the problem as it is (`al_problem`: R = 0, the box
+given by each test) from each package's own builder.
 """
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -107,3 +110,117 @@ def check_solves(jout, tout, dtype):
     np.testing.assert_allclose(tout.xis.numpy(), np.asarray(jout.xis), atol=1e-4)
     for f in ("qs", "xis", "us", "J_opt", "grad_norm"):
         assert getattr(tout, f).shape == np.shape(getattr(jout, f)), f
+
+
+@pytest.fixture(scope="module")
+def one_cpu_thread():
+    """The plain versions run thousands of tiny tensor ops; on a shared
+    host, intra-op threads make a small batched matmul ~1000x slower than
+    one thread does.  Modules that import this fixture run on one thread."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def al_problem(H, dtype=jnp.float64, seed=0, B=2, lanes=None):
+    """The reference's AL problem (`build_al1400`: R = 0, box +-10) cut to H
+    stages, from each package's own builder: (jax params, port params,
+    q0s, xi0s, us0) with the batch `al_bench.screw_batch` draws from
+    ``seed`` (lane 0 unperturbed), optionally the given ``lanes`` of it,
+    as numpy arrays in ``dtype``."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import (
+        al_bench as tal,
+    )
+
+    jp = build_al1400(dtype, H)[0]
+    tdt = TORCH_DTYPE[dtype]
+    tp, _, _, q0, xi0, _, _ = tal.build_al1400(tdt, H, device="cpu")
+    n = B if lanes is None else max(lanes) + 1
+    q0s, xi0s = tal.screw_batch(q0, xi0, n, seed)
+    if lanes is not None:
+        q0s, xi0s = q0s[list(lanes)], xi0s[list(lanes)]
+    us0 = np.zeros((q0s.shape[0], H, 6), np.asarray(q0s.numpy()).dtype)
+    return jp, tp, q0s.numpy(), xi0s.numpy(), us0
+
+
+def al_fast_pair(jp, tp, H, box, iterations, tol=1e-2, **port_kw):
+    """The JAX `ALFastSolver` (its XLA path, ``use_pallas=False``) and the
+    port's (B13 and B14's plain versions on CPU tensors), each around an
+    inner `FastBatchSolver` on the AL-wrapped tracking cost with the box
+    +-``box``; returns (jax solver, jax params, port solver, port params)."""
+    from trajectory_optimization_matrix_lie_groups_tpu.models import constraints as jcs
+    from trajectory_optimization_matrix_lie_groups_tpu.models import costs as jc
+    from trajectory_optimization_matrix_lie_groups_tpu.models.base import make_model as jmm
+    from trajectory_optimization_matrix_lie_groups_tpu.solvers.al_fast import (
+        ALFastSolver as JALFast,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu.solvers.batched import (
+        FastBatchSolver as JFast,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import constraints as cs
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import costs as tc
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import dynamics as td
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import make_model
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SE3 as TSE3
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.al_fast import ALFastSolver
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.batched import (
+        FastBatchSolver,
+    )
+
+    dt = jp["cost"].Q1.dtype
+    jcon = jcs.input_box(12, 6)
+    jmodel, _ = jmm(dynamics.se3_dynamics(), jc.al_cost(jc.tracking_cost(SE3, 6), jcon),
+                    jp["dyn"], None)
+    jbox = jax.tree.map(lambda x: jnp.asarray(x, dt), jcs.input_box_params(-box, box, 6))
+    jalp = jc.al_init_params(jp["cost"], jbox, H, 12, mu0=1e-2, dtype=dt)
+    jsolver = JALFast(JFast(jmodel, N=H, iterations=iterations, use_pallas=False), jcon,
+                      tol_constr=tol)
+    tdt = torch.float64 if dt == np.float64 else torch.float32
+    tcon = cs.input_box(12, 6)
+    tmodel, _ = make_model(td.se3_dynamics(), tc.al_cost(tc.tracking_cost(TSE3, 6), tcon),
+                           tp["dyn"], None)
+    talp = tc.al_init_params(tp["cost"], cs.input_box_params(
+        torch.tensor(-box, dtype=tdt), torch.tensor(box, dtype=tdt), 6), H, 12, mu0=1e-2,
+        dtype=tdt)
+    kw = dict(use_pallas=True, pallas_rollout_dt=0.01)
+    kw.update(port_kw)
+    tsolver = ALFastSolver(FastBatchSolver(tmodel, H, iterations, **kw), tcon,
+                           tol_constr=tol)
+    return (jsolver, {"dyn": jp["dyn"], "cost": jalp}, tsolver,
+            {"dyn": tp["dyn"], "cost": talp})
+
+
+def mpc_setup(dtype, steps, H, lanes, offset=False):
+    """Both packages' screw-tracking problems (R = 1e-3 I) over ``steps`` +
+    H + 1 reference entries, their SE(3) tracking models, and a batch
+    q0 Exp(0.05 n) (lane 0 unperturbed) from the reference's start, or with
+    ``offset`` from the AL problem's offset start.  Returns (jax dyn, jax
+    cost, jax model, port dyn, port cost, port model, q0s, xi0s) with the
+    batch as numpy arrays in ``dtype``."""
+    from trajectory_optimization_matrix_lie_groups_tpu.models import costs as jc
+    from trajectory_optimization_matrix_lie_groups_tpu.models.base import make_model as jmm
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import costs as tc
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import dynamics as td
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import make_model
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SE3 as TSE3
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench as tal
+
+    dp, cp, tdp, tcp, q0, xi0, nu = problem(steps + H, dtype)
+    jmodel, _ = jmm(dynamics.se3_dynamics(), jc.tracking_cost(SE3, 6), dp, cp)
+    tmodel, _ = make_model(td.se3_dynamics(), tc.tracking_cost(TSE3, 6), tdp, tcp)
+    start = (torch.as_tensor(np.array(q0)), torch.as_tensor(np.array(xi0))) if offset else (
+        tcp.q_ref[0].double(), tcp.xi_ref[0].double())
+    q0s, xi0s = tal.screw_batch(*start, lanes, seed=4)
+    np_dt = np.float64 if dtype == jnp.float64 else np.float32
+    return (dp, cp, jmodel, tdp, tcp, tmodel, q0s.numpy().astype(np_dt),
+            xi0s.numpy().astype(np_dt))
+
+
+def window_by_hand(cp, t, H):
+    """The reference window of plant step t, sliced by hand."""
+    import dataclasses
+
+    cut = lambda a: a[t:t + H + 1]
+    return dataclasses.replace(cp, q_ref=cut(cp.q_ref), q_ref_inv=cut(cp.q_ref_inv),
+                               Ad_ref=cut(cp.Ad_ref), xi_ref=cut(cp.xi_ref))

@@ -3,13 +3,20 @@
 The JAX package's parameter NamedTuples travel as dicts of numpy arrays,
 ``{k: np.asarray(v) for k, v in p._asdict().items()}``, so that this module
 needs no JAX; the port's containers come back on the given device and dtype.
-The tests use this to feed both packages the same problem.
+The tests use this to feed both packages the same problem, and to carry
+the augmented-Lagrangian state (`ALParams`, the multipliers of an
+`ALPipelineResult`) across, so that the two engines start from the same
+state.
 """
 
 import numpy as np
 import torch
 
+from trajectory_optimization_matrix_lie_groups_tpu_torch.models.constraints import (
+    InputBoxParams,
+)
 from trajectory_optimization_matrix_lie_groups_tpu_torch.models.costs import (
+    ALParams,
     TrackingCostParams,
 )
 from trajectory_optimization_matrix_lie_groups_tpu_torch.models.dynamics import (
@@ -48,3 +55,44 @@ def lane_state_from_numpy(qR, qp, xi, us, device=None):
     ``device``, dtype kept: `MixedDFPipelineSolver.polish` takes them."""
     return tuple(torch.as_tensor(np.array(x), device=device)
                  for x in (qR, qp, xi, us))
+
+
+def _tensor(x, device, dtype=None):
+    """``x`` as a tensor on ``device``; numpy's dtype kept unless ``dtype``."""
+    return torch.as_tensor(np.array(x), device=device).to(
+        **({} if dtype is None else {"dtype": dtype}))
+
+
+def input_box_from_numpy(fields, device=None, dtype=None):
+    """`InputBoxParams` from the JAX `InputBoxParams` fields (lb, ub); the
+    bounds' dtype kept unless ``dtype`` is given."""
+    return InputBoxParams(lb=_tensor(fields["lb"], device, dtype),
+                          ub=_tensor(fields["ub"], device, dtype))
+
+
+def al_params_from_numpy(fields, device=None, dtype=None):
+    """`ALParams` from the fields of a JAX `ALParams`: ``cost`` and
+    ``constr`` as dicts of their fields, ``lmbd``, ``Imu`` and ``mu`` as
+    arrays.  Each array keeps its dtype unless ``dtype`` is given."""
+    cost_dt = dtype if dtype is not None else torch.as_tensor(
+        np.array(fields["cost"]["Q1"])).dtype
+    return ALParams(
+        cost=cost_from_numpy(fields["cost"], device=device, dtype=cost_dt),
+        constr=input_box_from_numpy(fields["constr"], device, dtype),
+        lmbd=_tensor(fields["lmbd"], device, dtype),
+        Imu=_tensor(fields["Imu"], device, dtype),
+        mu=_tensor(fields["mu"], device, dtype))
+
+
+def al_pipeline_result_from_numpy(fields, device=None):
+    """The port's `ALPipelineResult` from the fields of a JAX one
+    (``res._asdict()``, arrays as numpy), every array's dtype kept: the
+    state the polishes (`al_polish`, `al_polish_device`) start from."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.al_pipeline import (
+        ALPipelineResult,
+    )
+
+    arrays = ("qs", "xis", "us", "J_opt", "lmbd", "max_violation", "imu")
+    return ALPipelineResult(**{
+        k: (_tensor(v, device) if k in arrays and v is not None else v)
+        for k, v in fields.items()})

@@ -93,15 +93,19 @@ def _flat(out, lin=LIN):
                                       else [x])]
 
 
-def kernel_inputs(solver, dyn, cost, q0s, xi0s, us0, luu_al=False, seed=0):
+def kernel_inputs(solver, dyn, cost, q0s, xi0s, us0, luu_al=False, seed=0,
+                  kernel_gains=False):
     """A real iterate in lane layout: the trajectory and linearization after
     ``solver.iterations`` fused iterations, and the gains of its backward
-    pass (plain version), i.e. every input B1-B4 take.  With ``luu_al``,
-    also a positive (N, nu, B) AL diagonal for Quu, drawn from ``seed``."""
+    pass (plain version, or with ``kernel_gains`` B2's, for shapes at which
+    the plain recursion on the card takes tens of seconds), i.e. every
+    input B1-B4 take.  With ``luu_al``, also a positive (N, nu, B) AL
+    diagonal for Quu, drawn from ``seed``."""
     s = solver.solve_lane(dyn, cost, q0s, xi0s, us0)
     s["lu"] = 2.0 * torch.einsum("ij,nj...->ni...", s["consts"]["R"],
                                  s["us"]).contiguous()
-    s["k"], s["K"], _, _ = P.backward_plain(
+    backward = P.backward_lane if kernel_gains else P.backward_plain
+    s["k"], s["K"], _, _ = backward(
         s["lin"], s["lu"], s["qR"], s["qp"], s["xi"], s["refs"], s["consts"],
         glow=solver.gravity)
     if luu_al:
@@ -157,25 +161,27 @@ def compare(s, **kw):
     return _compare(calls(s, **kw), OUTPUTS)
 
 
-def polish_inputs(solver, dyn, cost, q0s, xi0s, us0, luu_al=False, seed=0):
+def polish_inputs(solver, dyn, cost, q0s, xi0s, us0, luu_al=False, seed=0,
+                  kernel_gains=False):
     """A real polish iterate in lane layout: the handoff of ``solver``'s f32
     phase (a `MixedDFPipelineSolver`) promoted to fp64, its dynamics
     evaluations and linearization, lu, the terminal carry and the gains of
-    its backward pass (plain versions), i.e. every input B5-B9 take.  With
-    ``luu_al``, also a positive (N, nu, B) f32 AL diagonal for Q_uu, drawn
-    from ``seed``."""
+    its backward pass (plain versions, or with ``kernel_gains`` B7-B9's and
+    B5's), i.e. every input B5-B9 take.  With ``luu_al``, also a positive
+    (N, nu, B) f32 AL diagonal for Q_uu, drawn from ``seed``."""
     qR, qp, xi, us = (x.double() for x in
                       solver._solve_f32(dyn, cost, q0s, xi0s, us0))
     consts, refs, consts32 = solver._df_setup(dyn, cost, us.device)
     kw = dict(dt=solver.dt, gravity=solver.gravity)
     evals = DM.dyn_evals_mx(qR, qp, xi, us, consts, **kw)
-    lin = DM.linearize_tail_mx_plain(qR, qp, xi, evals, refs, consts,
-                                     exact_grav=solver.exact_grav, **kw)
+    tail = DM.linearize_tail_mx_lane if kernel_gains else DM.linearize_tail_mx_plain
+    lin = tail(qR, qp, xi, evals, refs, consts, exact_grav=solver.exact_grav, **kw)
     s = dict(qR=qR, qp=qp, xi=xi, us=us, evals=evals, lin=lin, refs=refs,
              consts=consts, consts32=consts32,
              lu=2.0 * torch.einsum("ij,nj...->ni...", consts["R"], us).contiguous())
     s["VxN"], s["VxxN"] = solver._terminal(qR, qp, xi, refs, consts, consts32)
-    s["k"], s["K"], _ = DM.backward_mx_plain(
+    backward = DM.backward_mx_lane if kernel_gains else DM.backward_mx_plain
+    s["k"], s["K"], _ = backward(
         lin, s["lu"], s["VxN"], s["VxxN"], consts, consts32, glow=solver.gravity)
     if luu_al:
         diag = np.random.default_rng(seed).uniform(0.5, 2.0, tuple(us.shape))

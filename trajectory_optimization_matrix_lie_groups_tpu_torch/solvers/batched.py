@@ -16,8 +16,9 @@ Fixed iteration budget, no line search, fixed mu = 0.  ``line_search=True``
 adds the per-lane batched merit line search: every candidate of the alpha
 ladder is rolled out at once (the ladder folded into the batch) and every
 lane takes its own first acceptable step; lanes with none keep their
-iterate.  The candidate rollouts always take the loop over stages; the
-backward pass stays on B13.
+iterate.  The candidate rollouts take B14 when ``pallas_rollout_dt`` is
+set (all 13 candidates of every lane in one launch), else the loop over
+stages; the backward pass stays on B13.
 
 ``plain=True`` runs the plain versions of B1, B13 and B14 whatever the
 device.  A solve given numpy inputs runs on the card.
@@ -185,22 +186,15 @@ class FastBatchSolver:
     def _rollout(self, params, lin, qs, xis, us, k, K, alpha=None):
         """Gap-closing nonlinear rollout, batched carry.
 
-        ``alpha=None`` is the alpha = 1 path (kernel B14 when
-        ``pallas_rollout_dt`` is set).  An ``alpha`` tensor (A,) rolls out
-        every candidate at once, the ladder folded into the batch
+        ``alpha=None`` is the alpha = 1 path.  An ``alpha`` tensor (A,) rolls
+        out every candidate at once, the ladder folded into the batch
         (candidate a of lane b is lane a * B + b): it scales the feedforward
         and the gap-closing defect (K and the nominal trajectory are
-        untouched) and takes the loop over stages.  Returns (qs, xis, us),
-        batch A * B with an ``alpha``."""
+        untouched).  Either runs on kernel B14 when ``pallas_rollout_dt`` is
+        set (the free body), else as a loop over stages.  Returns (qs, xis,
+        us), batch A * B with an ``alpha``."""
         g = self.model.group
-        d = lin["d"]
-        if alpha is None and self.pallas_rollout_dt is not None:
-            dp = params["dyn"]
-            return fast_rollout(qs, xis, us, k, K, d, lin["fxi"],
-                                se3.exp(d[..., :6]), se3.inverse(lin["fq"]),
-                                dp.J, dp.Jinv, self.pallas_rollout_dt,
-                                plain=self.plain)
-        fq, fxi = lin["fq"], lin["fxi"]
+        d, fq, fxi = lin["d"], lin["fq"], lin["fxi"]
         if alpha is not None:
             A = alpha.shape[0]
             fold = lambda x: x.repeat((A,) + (1,) * (x.dim() - 1))
@@ -208,6 +202,11 @@ class FastBatchSolver:
                                * x[None]).reshape((-1,) + x.shape[1:])
             k, d = scale(k), scale(d)
             qs, xis, us, K, fq, fxi = (fold(x) for x in (qs, xis, us, K, fq, fxi))
+        if self.pallas_rollout_dt is not None:
+            dp = params["dyn"]
+            return fast_rollout(qs, xis, us, k, K, d, fxi, se3.exp(d[..., :6]),
+                                se3.inverse(fq), dp.J, dp.Jinv, self.pallas_rollout_dt,
+                                plain=self.plain)
         dim = g.dim
         exp_d = g.exp(d[..., :dim])
         fq_inv = g.inverse(fq)
@@ -236,9 +235,15 @@ class FastBatchSolver:
     # -- batched merit line search (line_search=True) -------------------------
 
     def _traj_cost_b(self, params, qs, xis, us):
+        """Trajectory cost over any leading batch axes: qs (..., N+1, m, m),
+        xis (..., N+1, d), us (..., N, nu).  Per-problem cost parameters
+        (an AL cost's (B, N+1, c) multipliers) broadcast against the last
+        batch axis."""
         idx = torch.arange(self.N, device=us.device)
-        L = self.model.stage_cost(params, qs[:, :-1], xis[:, :-1], us, idx)
-        LN = self.model.term_cost(params, qs[:, -1], xis[:, -1], self.N)
+        L = self.model.stage_cost(params, qs[..., :-1, :, :], xis[..., :-1, :],
+                                  us, idx)
+        LN = self.model.term_cost(params, qs[..., -1, :, :], xis[..., -1, :],
+                                  self.N)
         return torch.sum(L, dim=-1) + LN
 
     def _defect_norm_b(self, params, qs, xis, us):
@@ -303,7 +308,10 @@ class FastBatchSolver:
         alphas = alpha_ladder(self.n_alphas, dtype=us.dtype, device=us.device)
         A = alphas.shape[0]
         qs_c, xis_c, us_c = self._rollout(params, lin, qs, xis, us, k, K, alpha=alphas)
-        J_a = self._traj_cost_b(params, qs_c, xis_c, us_c).reshape(A, B)
+        # the costs see the candidates as (A, B) so that per-problem cost
+        # parameters broadcast against the lanes
+        unfold = lambda x: x.reshape((A, B) + x.shape[1:])
+        J_a = self._traj_cost_b(params, unfold(qs_c), unfold(xis_c), unfold(us_c))
         dn_a = self._defect_norm_b(params, qs_c, xis_c, us_c).reshape(A, B)
         J_exp = alphas[:, None] * ecc1 + 0.5 * alphas[:, None] ** 2 * ecc2
         merit_a = J_a + d_weight * dn_a

@@ -465,6 +465,7 @@ class PipelineSolver:
         self.gravity = gravity
         self.exact_grav = exact_gravity_jacobian
         self.fused = fused
+        self.plain = plain
         if plain:
             self._linearize, self._backward = linearize_plain, backward_plain
             self._rollout, self._rollout_linearize = (rollout_plain,

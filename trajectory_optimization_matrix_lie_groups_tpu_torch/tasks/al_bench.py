@@ -6,6 +6,10 @@ GN tracking cost with Q = diag(10, 10, 10, 1, ..., 1), P = 10 Q, R = 0,
 input box u in [-10, 10]^6, initial offset p0 = (-1, -1, -0.2) with
 xi0 = (0, 0, 0.1, 2, 0, 0.2).
 
+The f64 golden of the full problem (`golden/al1400_us.npy`,
+`golden/al1400_meta.json`: 11 AL outers, 31 controls railed at +10) is a
+byte-for-byte copy of the JAX package's (`load_al1400_golden`).
+
 `build_screw200` is the port's main-path problem: the first 200 stages with
 R = 1e-3 I (the pipeline's Cholesky needs Quu > 0) and no box.  Its f64
 golden (`golden/screw200_us.npy`, `golden/screw200_meta.json`) comes from
@@ -23,7 +27,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import make
 from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SE3
 
 __all__ = ["build_al1400", "build_screw200", "screw200_model", "screw_batch",
-           "load_screw200_golden"]
+           "load_screw200_golden", "load_al1400_golden"]
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
@@ -105,4 +109,12 @@ def load_screw200_golden():
     """(us (200, 6) f64 numpy, meta dict) of the committed f64 golden."""
     us = np.load(os.path.join(GOLDEN_DIR, "screw200_us.npy"))
     with open(os.path.join(GOLDEN_DIR, "screw200_meta.json")) as f:
+        return us, json.load(f)
+
+
+def load_al1400_golden():
+    """(us (1400, 6) f64 numpy, meta dict) of the committed f64 golden of the
+    full N=1400 AL problem."""
+    us = np.load(os.path.join(GOLDEN_DIR, "al1400_us.npy"))
+    with open(os.path.join(GOLDEN_DIR, "al1400_meta.json")) as f:
         return us, json.load(f)
