@@ -21,7 +21,14 @@ B = 8192, 12 (30) f32 iterations.  The constrained path is the reference's
 N=1400 input-box AL problem (`tasks/al_bench.build_al1400`: R = 0, box
 +-10) on `solvers/al_pipeline.ALPipelineSolver` and its polishes, the AL
 fast tier (`solvers/al_fast.ALFastSolver`) and batched closed-loop MPC
-(`solvers/mpc.py`).  Phases, each printed as one JSON line:
+(`solvers/mpc.py`).  The reference-exact tier is `solvers/lie_ilqr.LieILQR`
+in f64 (MS, the per-stage adaptive LM backward, the nonlinear rollout; on
+the free body the rollout on B14) on both SO(3) problems and screw-200,
+with `solvers/al_ilqr.ALILQR` and `solvers/mpc.make_closed_loop` on it; the
+anchored tier is `solvers/anchored.AnchoredFastSolver` (f32, B13 at
+(12, 6)); the full-precision refiners are `solvers/df_pipeline.
+DFPipelineSolver` (B1-B3 in fp64) and `solvers/polish.HighPrecisionSolver`.
+Phases, each printed as one JSON line:
 
   device        the card (nvidia-smi), torch/CUDA versions, the kernels'
                 build time and ptxas registers/spills (B2 f32, B5, B11 f32,
@@ -113,6 +120,45 @@ fast tier (`solvers/al_fast.ALFastSolver`) and batched closed-loop MPC
   timing_al     the times of these paths: the f32 AL loop, each polish
                 (solve and dual ascent apart), the AL fast tier and MPC
                 solves/s (B T / wall).
+  solve_exact_al  `ALILQR` on the AL problem's first 200 stages (box +-10,
+                R = 0), B = 256: every lane below
+                violation 1e-2, |u| <= 10 (1 + 1e-3), lane 0's tracking J
+                within 1e-4 of `ALFastSolver`'s in f64 on the same lane
+                (the inner at `SolverConfig`'s default tolerance, 1e-6);
+  solve_anchored  the anchored tier, f32, B = 8192, 14 iterations (B13 = 14):
+                lane 0 within 10x the JAX anchored solver's own error of
+                the screw-200 golden (`golden/screw200_anchored_meta.json`),
+                its gradient norms (lane 0, median) below the f32
+                pipeline's on the same lanes and budget, B13 on the
+                anchored iterate against its plain version (gate 1e-3),
+                solves/s beside the fast free body's;
+  solve_refine  `DFPipelineSolver` (10 f32 + 3 fp64 iterations) at
+                B = 16384: launches (B1 = 2, B2 = 14, B3 = 13), lane 0
+                within 1e-4 of the golden, solves/s (median of 3) beside the
+                mixed polish's; fp64 B1-B3 against their plain versions at
+                its shapes with times and bounds; `HighPrecisionSolver`
+                (12 f32 + 2 f64 polish iterations) at B = 1024, lane 0
+                within 1e-4;
+  solve_mpc_exact  `make_closed_loop` on screw-200 (4 plants, H = 40,
+                T = 100, each window to the default 1e-6 within 4
+                iterations): plant 0 equals a host loop of
+                B = 1 `LieILQR.solve` per step to 1e-9, the tracking error
+                falls;
+  solve_exact   `LieILQR` at B = 1024 on so3_track249, pendulum_swingup80
+                and screw-200, each to its golden's final gradient norm:
+                lane 0 within 1e-6 of the golden, lanes 0..3 equal B = 1
+                solves of the same lanes to 1e-9 (the same iterations);
+                on screw-200 the associative backward with the linear
+                rollout agrees with it to 1e-8, and the per-stage PD read's
+                cost (the sequential backward against 'sequential_fixed').
+                The B = 1 reference solves (these and the MPC host loop)
+                run on the host in the worker processes while the card
+                works, so these two lines come last.
+
+Every host-side reference solve (the plain versions' solves of lanes 0..15
+in solve_f32, solve_so3 and solve_fast, and the reference-exact tier's
+B = 1 solves) runs in one of 6 worker processes (one torch thread each),
+its inputs rebuilt there from the same seeds, while the card works.
 
 A kernel's bound is the least time the card could take for its work: the
 larger of the bytes it must move (each array it reads once, each output
@@ -122,7 +168,8 @@ Then the kernels summary line, one entry for each of B1-B14 (B2's times
 at B=8192; launches of B1-B3 from the fused f32 run,
 of B4 from the unfused run, of B5-B9 from the polish run, of B10-B12 from
 the free-attitude run, of B13 and B14 from the free-body fast run, each
-named in "run"),
+named in "run"; "launches_in": the launches in each phase of the
+reference-exact, anchored and refiner paths),
 the card's name and power limit as nvidia-smi prints them, and the result
 line.  The f32 path is timed before any polish or SO(3) work, after the
 same phases as when it was the script's only path, so that its time
@@ -133,10 +180,12 @@ doing anything.
 """
 
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -186,6 +235,28 @@ AL_FAST_N, AL_FAST_BATCH, AL_FAST_ITERS, AL_FAST_OUTERS = 200, 8192, 25, 15
 # line-searched iterations)
 MPC_BATCH, MPC_H, MPC_T, MPC_ITERS, MPC_AL_OUTERS = 1024, 40, 100, 4, 4
 MPC_HOST_STEPS, MPC_HOST_LANES, MPC_RESCUE_T, MPC_RESCUE_OUTERS = 5, 4, 5, 1
+# the reference-exact tier (f64 LieILQR, MS, sequential backward, nonlinear
+# rollout): each problem at B = 1024 to its golden's own final gradient norm
+# (the golden is an f64 solve stopped there; at 1e-10 the JAX LieILQR stops
+# 1.6e-6 from so3_track249's golden), lanes 0..3 against B = 1 solves
+EXACT_PROBLEMS = ("so3_track249", "pendulum_swingup80", "screw200")
+EXACT_BATCH, EXACT_LANES, EXACT_MAX_ITERS, EXACT_GATE = 1024, 4, 100, 1e-6
+# ALILQR on the AL problem's first 200 stages (box +-10, R = 0), B = 256,
+# the inner to `SolverConfig`'s default tolerance (1e-6)
+EXACT_AL_N, EXACT_AL_BATCH, EXACT_AL_OUTERS, EXACT_AL_INNERS = 200, 256, 20, 100
+# make_closed_loop on screw-200: 4 plants, H = 40, T = 100, each window to
+# the default tolerance within the batch drivers' 4 iterations a step, plant
+# 0 against a host loop
+EXACT_MPC_B, EXACT_MPC_H, EXACT_MPC_T, EXACT_MPC_ITERS = 4, 40, 100, 4
+# the anchored tier (f32, B13 at (12, 6)) and the full-precision refiners
+ANCHORED_BATCH, ANCHORED_ITERS = 8192, 14
+REFINE_BATCH, REFINE_F32_ITERS, REFINE_DF_ITERS, REFINE_REPS = 16384, 10, 3, 3
+HIGHPREC_BATCH, HIGHPREC_F32_ITERS, HIGHPREC_POLISH_ITERS = 1024, 12, 2
+# the host-side reference solves (the plain versions' solves of lanes 0..15,
+# the reference-exact tier's B = 1 solves) run in HOST_WORKERS worker
+# processes beside the card's work; each result is waited for at most
+# HOST_WAIT_S
+HOST_WORKERS, HOST_WAIT_S = 6, 600
 
 KERNELS = {
     "B1": ("linearize", "csrc/linearize.cu",
@@ -558,11 +629,505 @@ def constrained_phases(dev, card, counted, expect):
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
 
 
+def host_task(task):
+    """One host-side reference solve on the CPU, in a worker process (one
+    torch thread), its inputs rebuilt there from the same seeds: the plain
+    versions' solves of lanes 0..15 that the f32, SO(3) and fast-tier phases
+    hold their kernels' solves against, and the reference-exact tier's B = 1
+    solves (`host_exact`).  A plain solve returns (J_opt, us, seconds) as
+    numpy arrays and the worker's time."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import batched as F
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline_so3 as S
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench, so3_bench
+
+    if task[0] in ("single", "mpc"):
+        return host_exact(task)
+    torch.set_num_threads(1)
+    cpu, f32 = torch.device("cpu"), torch.float32
+    lanes = slice(0, HOST_LANES)
+    t0 = time.perf_counter()
+    if task[0] == "pipeline":
+        dyn, cost, q0, xi0 = al_bench.build_screw200(f32, cpu, horizon=N)
+        q0s, xi0s = al_bench.screw_batch(q0, xi0, BATCH, SEED)
+        out = P.PipelineSolver(N, ITERS, float(dyn.dt), plain=True).solve(
+            dyn, cost, q0s[lanes], xi0s[lanes], torch.zeros((HOST_LANES, N, 6), dtype=f32))
+    elif task[0] == "so3":
+        name = task[1]
+        pendulum, dt_p, n_p = so3_bench.PROBLEMS[name][:3]
+        build = (so3_bench.build_pendulum_swingup80 if pendulum
+                 else so3_bench.build_so3_track249)
+        dyn, cost, q0, xi0 = build(f32, cpu)
+        q0s, xi0s = so3_bench.so3_batch(q0, xi0, BATCH, SEED)
+        out = S.SO3PipelineSolver(n_p, SO3_ITERS, dt_p, pendulum=pendulum, plain=True).solve(
+            dyn, cost, q0s[lanes], xi0s[lanes], torch.zeros((HOST_LANES, n_p, 3), dtype=f32))
+    else:
+        _, kind, iterations, dtype, B, scale, kw = task
+        dtype = getattr(torch, dtype)
+        model, params, q0, xi0 = al_bench.screw200_model(dtype, cpu, horizon=N,
+                                                         drone=kind == "drone")
+        q0s, xi0s = al_bench.screw_batch(q0, xi0, B, SEED, scale=scale)
+        if kind == "free_body":
+            kw = dict(pallas_rollout_dt=float(params["dyn"].dt), use_pallas_linearize=True,
+                      **kw)
+        cp = params["cost"]
+        out = F.FastBatchSolver(model, N, iterations, plain=True, **kw).solve(
+            params, q0s[lanes], xi0s[lanes],
+            torch.zeros((HOST_LANES, N, model.nu), dtype=dtype), cp.q_ref, cp.xi_ref)
+    return out.J_opt.numpy(), out.us.numpy(), time.perf_counter() - t0
+
+
+# the host-side plain solves, submitted when the run starts
+HOST_PLAIN = {
+    "f32": ("pipeline",),
+    "so3_track249": ("so3", "so3_track249"),
+    "pendulum_swingup80": ("so3", "pendulum_swingup80"),
+    "fast free_body": ("fast", "free_body", ITERS, "float32", BATCH, 0.05, {}),
+    "fast drone": ("fast", "drone", ITERS, "float32", BATCH, 0.05, {}),
+    "fast line_search": ("fast", "free_body", LS_ITERS, "float64", LS_BATCH, LS_SCALE,
+                         {"line_search": True}),
+}
+
+
+def host_plain(host, key):
+    """(solve with J_opt and us as CPU tensors, seconds it took in its
+    worker) of the host-side plain solve ``key`` of `HOST_PLAIN`."""
+    J, us, sec = host[key].get(timeout=HOST_WAIT_S)
+    return types.SimpleNamespace(J_opt=torch.as_tensor(J), us=torch.as_tensor(us)), sec
+
+
+def exact_problem(name, dev):
+    """(model, params, q0s, xi0s, us0, golden us, golden meta, rollout dt) of
+    a reference-exact problem in f64 at EXACT_BATCH lanes, lane 0
+    unperturbed and the others q0 Exp(0.05 n); the rollout dt is the free
+    body's step (its rollout on B14), else None."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import costs, dynamics
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import make_model
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SO3
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench, so3_bench
+
+    f64 = torch.float64
+    kernel_dt = None
+    if name == "screw200":
+        model, params, q0, xi0 = al_bench.screw200_model(f64, dev, horizon=N)
+        gold = al_bench.load_screw200_golden()
+        q0s, xi0s = al_bench.screw_batch(q0, xi0, EXACT_BATCH, SEED)
+        kernel_dt = float(params["dyn"].dt)
+    else:
+        if name == "so3_track249":
+            model, params, q0, xi0 = so3_bench.so3_track249_model(f64, dev)
+        else:
+            dyn, cost, q0, xi0 = so3_bench.build_pendulum_swingup80(f64, dev)
+            model, params = make_model(dynamics.pendulum3d_dynamics(), costs.tracking_cost(
+                SO3, 3, ref_so3_terminal_quirk=True), dyn, cost)
+        gold = so3_bench.load_so3_golden(name)
+        q0s, xi0s = so3_bench.so3_batch(q0, xi0, EXACT_BATCH, SEED)
+    us0 = torch.zeros((EXACT_BATCH, gold[0].shape[0], model.nu), dtype=f64, device=dev)
+    return model, params, q0s, xi0s, us0, *gold, kernel_dt
+
+
+def exact_solver(model, us_g, meta, kernel_dt, **cfg):
+    """The reference-exact `LieILQR` of a problem of `exact_problem`: to the
+    golden's own final gradient norm, at most EXACT_MAX_ITERS iterations."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.lie_ilqr import (
+        LieILQR,
+        SolverConfig,
+    )
+
+    return LieILQR(model, SolverConfig(N=us_g.shape[0], tol_grad_norm=meta["grad_norm_f64"],
+                                       max_iterations=EXACT_MAX_ITERS, **cfg),
+                   pallas_rollout_dt=kernel_dt)
+
+
+def exact_mpc_setup(dev):
+    """The closed-loop MPC problem (screw-200 over T + H + 1 reference
+    entries, f64), its plants' starts and the window solver."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.lie_ilqr import (
+        LieILQR,
+        SolverConfig,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench
+
+    model, mp, _, _ = al_bench.screw200_model(torch.float64, dev,
+                                              horizon=EXACT_MPC_T + EXACT_MPC_H)
+    cp = mp["cost"]
+    q0s, xi0s = al_bench.screw_batch(cp.q_ref[0], cp.xi_ref[0], EXACT_MPC_B, SEED)
+    solver = LieILQR(model, SolverConfig(N=EXACT_MPC_H, max_iterations=EXACT_MPC_ITERS),
+                     pallas_rollout_dt=float(mp["dyn"].dt))
+    return model, mp, q0s, xi0s, solver
+
+
+def host_exact(task):
+    """A B = 1 reference solve on the host CPU, in a worker process:
+    ("single", problem, lane) -> (us (N, nu), iterations) of that lane's
+    `LieILQR.solve`; ("mpc",) -> (qs (T+1, 4, 4), us (T, 6)) of plant 0's
+    closed loop as a host loop of B = 1 `LieILQR.solve` per step."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import mpc as MPC
+
+    torch.set_num_threads(1)
+    cpu = torch.device("cpu")
+    if task[0] == "single":
+        _, name, b = task
+        model, params, q0s, xi0s, us0, us_g, meta, kdt = exact_problem(name, cpu)
+        one = exact_solver(model, us_g, meta, kdt).solve(
+            params, (q0s[b:b + 1], xi0s[b:b + 1]), us0[b:b + 1])
+        return one.us[0].numpy(), int(one.iteration[0])
+    model, mp, q0s, xi0s, solver = exact_mpc_setup(cpu)
+    qs, xis = q0s[:1], xi0s[:1]
+    us_w = torch.zeros((1, EXACT_MPC_H, 6), dtype=torch.float64)
+    q_t, u_t = [qs[0]], []
+    for t in range(EXACT_MPC_T):
+        cp_t = MPC._window(mp["cost"], t, EXACT_MPC_H)
+        out = solver.solve({**mp, "cost": cp_t}, (qs, xis), us_w, cp_t.q_ref, cp_t.xi_ref)
+        qs, xis = model.step(mp, qs, xis, out.us[:, 0], 0)
+        us_w = torch.cat([out.us[:, 1:], out.us[:, -1:]], dim=1)
+        q_t.append(qs[0])
+        u_t.append(out.us[0, 0])
+    return torch.stack(q_t).numpy(), torch.stack(u_t).numpy()
+
+
+def exact_phases(dev, card, counted, expect, rates, pool):
+    """The reference-exact tier, the anchored tier and the full-precision
+    refiners (`solve_exact_al`, `solve_anchored`, `solve_refine`,
+    `solve_mpc_exact`, `solve_exact`); see the module docstring.  Their
+    B = 1 reference solves (lanes 0..3 of each `solve_exact` problem, plant
+    0's closed loop) run on the host in the worker processes of ``pool``
+    while the card works; `solve_mpc_exact` and `solve_exact` are printed
+    once those are in.  ``rates``: the free body's and the mixed polish's
+    solves/s from their timing phases.  Returns {phase: launches} for the
+    kernels line."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import kernel_check
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import constraints as cs
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import costs, dynamics
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import make_model
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SE3
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import batched as F
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import mpc as MPC
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.al_fast import (
+        ALFastSolver,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.al_ilqr import ALILQR
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.anchored import (
+        AnchoredFastSolver,
+        build_anchored,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.df_pipeline import (
+        DFPipelineSolver,
+        join_us,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.lie_ilqr import (
+        LieILQR,
+        SolverConfig,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.polish import (
+        HighPrecisionSolver,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench
+
+    f64 = torch.float64
+    runs = {}
+    lane_err = lambda us, gold: float(np.abs(us.double().cpu().numpy() - gold).max())
+    tasks = [("mpc",)] + [("single", n, b) for n in EXACT_PROBLEMS for b in range(EXACT_LANES)]
+    host = {t: pool.apply_async(host_task, (t,)) for t in tasks}
+
+    # -- solve_exact's batches: LieILQR on each problem at B = 1024 ----------
+    exact = {}
+    for name in EXACT_PROBLEMS:
+        model, params, q0s, xi0s, us0, us_g, meta, kdt = exact_problem(name, dev)
+        solver = exact_solver(model, us_g, meta, kdt)
+        st, sec, runs[f"solve_exact {name}"] = counted(
+            lambda: solver.solve(params, (q0s, xi0s), us0))
+        its = st.iteration.max().item()
+        row = {"phase": "solve_exact", "problem": name, "B": EXACT_BATCH,
+               "N": us_g.shape[0],
+               "config": "MS, backward sequential, rollout nonlinear"
+                         + (" (B14)" if kdt else "") + ", no line search",
+               "tol_grad_norm": meta["grad_norm_f64"],
+               "launches": runs[f"solve_exact {name}"], "iterations_max": its,
+               "iterations_lanes0_3": st.iteration[:EXACT_LANES].tolist(),
+               "converged_share": st.converged.double().mean().item(),
+               "lane0_grad_norm": st.grad_norm[0].item(),
+               "lane0_us_max_abs_err": lane_err(st.us[0], us_g), "gate": EXACT_GATE,
+               "all_finite": bool(torch.isfinite(st.us).all().item()),
+               "solve_s": sec, "solves_per_s": EXACT_BATCH / sec,
+               "ms_per_iteration": sec * 1e3 / its}
+        if name == "screw200":
+            # the associative backward and the linear rollout on the same
+            # batch; the sequential backward's per-stage PD read against
+            # the same recursion without it ('sequential_fixed'), on the
+            # final linearization
+            assoc = exact_solver(model, us_g, meta, None, backward="associative",
+                                 rollout="linear")
+            sa, sa_s, runs["solve_exact screw200 associative"] = counted(
+                lambda: assoc.solve(params, (q0s, xi0s), us0))
+            lin = solver._linearize(params, st.qs, st.xis, st.us)
+            on = torch.ones(EXACT_BATCH, dtype=torch.bool, device=dev)
+            fixed = exact_solver(model, us_g, meta, None, backward="sequential_fixed")
+            seq_s = min(timed(lambda: solver._backward(lin, st.mu, st.delta, on))[1]
+                        for _ in range(3))
+            fix_s = min(timed(lambda: fixed._backward(lin, st.mu, st.delta, on))[1]
+                        for _ in range(3))
+            row.update({
+                "associative_linear_iterations_max": sa.iteration.max().item(),
+                "associative_linear_converged_share": sa.converged.double().mean().item(),
+                "associative_linear_vs_sequential_us_max_abs":
+                    (sa.us - st.us).abs().max().item(),
+                "associative_gate": 1e-8, "associative_linear_s": sa_s,
+                "associative_linear_ms_per_iteration":
+                    sa_s * 1e3 / sa.iteration.max().item(),
+                "sequential_backward_ms": seq_s * 1e3,
+                "sequential_fixed_backward_ms": fix_s * 1e3})
+            del sa, lin
+        exact[name] = (row, st.us[:EXACT_LANES].cpu(), st.iteration[:EXACT_LANES].tolist())
+        require(row["all_finite"], f"non-finite lanes in the {name} exact solve")
+        require(runs[f"solve_exact {name}"] == expect(B14=its if kdt else 0),
+                f"{name} exact launch counts {runs[f'solve_exact {name}']}")
+        require(row["lane0_us_max_abs_err"] <= EXACT_GATE,
+                f"{name} exact lane-0 us err {row['lane0_us_max_abs_err']} > {EXACT_GATE}")
+        if name == "screw200":
+            require(row["associative_linear_vs_sequential_us_max_abs"] <= 1e-8,
+                    f"associative/linear vs sequential "
+                    f"{row['associative_linear_vs_sequential_us_max_abs']}")
+            require(runs["solve_exact screw200 associative"] == expect(),
+                    "the associative/linear solve launched a kernel")
+        del st
+
+    # -- solve_exact_al: ALILQR on the AL problem's first 200 stages ---------
+    al_p, lb, ub, aq0, axi0 = al_bench.build_al1400(f64, EXACT_AL_N, dev)[:5]
+    dt_al = float(al_p["dyn"].dt)
+    aq0s, axi0s = al_bench.screw_batch(aq0, axi0, EXACT_AL_BATCH, SEED)
+    aus0 = torch.zeros((EXACT_AL_BATCH, EXACT_AL_N, 6), dtype=f64, device=dev)
+    constr = cs.input_box(12, 6)
+    box = cs.input_box_params(torch.tensor(lb, dtype=f64, device=dev),
+                              torch.tensor(ub, dtype=f64, device=dev), 6)
+    model_c, _ = make_model(dynamics.se3_dynamics(), costs.al_cost(
+        costs.tracking_cost(SE3, 6), constr), al_p["dyn"], None)
+    alp = costs.al_init_params(al_p["cost"], box, EXACT_AL_N, 12, dtype=f64)
+    al_solver = ALILQR(LieILQR(model_c, SolverConfig(N=EXACT_AL_N,
+                                                     max_iterations=EXACT_AL_INNERS),
+                               pallas_rollout_dt=dt_al), constr, tol_constr=AL_TOL)
+    ares, al_s, runs["solve_exact_al"] = counted(lambda: al_solver.fit(
+        {"dyn": al_p["dyn"], "cost": alp}, (aq0s, axi0s), aus0,
+        n_al_iters=EXACT_AL_OUTERS, n_ilqr_iters=EXACT_AL_INNERS))
+    inner_its = sum(len(h["J"]) for h in ares.inner_histories)
+    maxv = ares.constr_eval.flatten(1).amax(dim=1)
+    # the AL fast tier in f64 on lane 0, and the tracking cost of both
+    fast = ALFastSolver(F.FastBatchSolver(model_c, EXACT_AL_N, AL_FAST_ITERS,
+                                          pallas_rollout_dt=dt_al), constr,
+                        tol_constr=AL_TOL)
+    fres = fast.solve({"dyn": al_p["dyn"], "cost": alp}, aq0s[:1], axi0s[:1], aus0[:1],
+                      n_al_iters=AL_FAST_OUTERS, rescue=True)
+    track, _ = make_model(dynamics.se3_dynamics(), costs.tracking_cost(SE3, 6),
+                          al_p["dyn"], None)
+
+    def J_track(qs, xis, us):
+        idx = torch.arange(EXACT_AL_N, device=dev)
+        return (track.stage_cost(al_p, qs[:, :-1], xis[:, :-1], us, idx).sum(-1)
+                + track.term_cost(al_p, qs[:, -1], xis[:, -1], EXACT_AL_N))
+
+    J_al = J_track(ares.qs[:1], ares.xis[:1], ares.us[:1]).item()
+    J_fast = J_track(fres.qs, fres.xis, fres.us).item()
+    J_rel = abs(J_al - J_fast) / abs(J_fast)
+    box_g = 10.0 * (1 + 1e-3)
+    max_u = ares.us.abs().max().item()
+    emit({"phase": "solve_exact_al", "N": EXACT_AL_N, "B": EXACT_AL_BATCH,
+          "n_al_iters": EXACT_AL_OUTERS, "n_ilqr_iters": EXACT_AL_INNERS,
+          "outer_iterations": ares.outer_iterations, "converged": ares.constr_converged,
+          "inner_iterations_per_outer": [len(h["J"]) for h in ares.inner_histories],
+          "launches": runs["solve_exact_al"], "max_violation_max": maxv.max().item(),
+          "tol": AL_TOL, "max_abs_u": max_u, "box_gate": box_g,
+          "lane0_J_tracking": J_al, "al_fast_f64_lane0_J_tracking": J_fast,
+          "lane0_J_rel": J_rel, "J_gate": 1e-4, "al_fast_outers": fres.outer_iterations,
+          "lane0_us_vs_al_fast_max_abs": (ares.us[0] - fres.us[0]).abs().max().item(),
+          "solve_s": al_s, "ms_per_inner_iteration": al_s * 1e3 / inner_its,
+          "solves_per_s": EXACT_AL_BATCH / al_s})
+    require(ares.constr_converged and maxv.max().item() < AL_TOL,
+            f"exact AL: max violation {maxv.max().item()} after {ares.outer_iterations}")
+    require(max_u <= box_g, f"exact AL controls leave the box: {max_u}")
+    require(J_rel <= 1e-4, f"exact AL vs AL fast lane-0 J rel {J_rel}")
+    require(runs["solve_exact_al"] == expect(B14=inner_its),
+            f"exact AL launch counts {runs['solve_exact_al']}")
+    del ares, fres
+
+    # -- solve_anchored: the anchored tier in f32 on B13 -----------------------
+    us_gold, meta = al_bench.load_screw200_golden()
+    ameta = al_bench.load_screw200_anchored_meta()
+    dyn64, cost64, q0, xi0 = al_bench.build_screw200(f64, dev, horizon=N)
+    prob = build_anchored(dyn64.J, dyn64.dt, torch.block_diag(cost64.Q1, cost64.Q2),
+                          cost64.R, torch.block_diag(cost64.P1, cost64.P2), cost64.q_ref,
+                          cost64.xi_ref, dtype=torch.float32, device=dev)
+    nq0s, nxi0s = al_bench.screw_batch(q0, xi0, ANCHORED_BATCH, SEED)
+    q0_locs = torch.linalg.inv(cost64.q_ref[0])[None] @ nq0s
+    us32 = torch.zeros((ANCHORED_BATCH, N, 6), dtype=torch.float32, device=dev)
+    anch = AnchoredFastSolver(prob, N, ANCHORED_ITERS)
+    (aqs, _, aus, aJ, ag), anch_s, runs["solve_anchored"] = counted(
+        lambda: anch.solve(q0_locs, nxi0s, us32))
+    a_err = lane_err(aus[0], us_gold)
+    a_gate = 10 * ameta["jax_anchored_f32"]["lane0_us_max_abs_err"]
+    # the f32 pipeline on the same lanes and budget: its gradient norms
+    dyn32, cost32 = al_bench.build_screw200(torch.float32, dev, horizon=N)[:2]
+    pipe = P.PipelineSolver(N, ANCHORED_ITERS, float(dyn64.dt)).solve(
+        dyn32, cost32, nq0s.float(), nxi0s.float(), us32)
+    g_a, g_p = ag.double(), pipe.grad_norm.double()
+    # B13 at (12, 6) on the anchored iterate against its plain version
+    s = kernel_check.anchored_inputs(AnchoredFastSolver(prob, N, 2), q0_locs, nxi0s, us32)
+    kern, plain = kernel_check.fast_calls(s)["B13"]
+    e13 = kernel_check.fast_compare(s)["B13"]
+    b13 = {"ms": event_ms(kern, 5), "plain_ms": event_ms(plain, 1),
+           "max_err": e13["max_rel"], "max_abs_err": e13["max_abs"],
+           "gate": kernel_check.GATES["fast"][torch.float32]["B13"],
+           **bound("B13", s, kern()), "library_ms": None,
+           "launches": runs["solve_anchored"]["B13"]}
+    del s
+    fin = bool(torch.isfinite(aus).all().item() and torch.isfinite(aqs).all().item())
+    emit({"phase": "solve_anchored", "card": card, "B": ANCHORED_BATCH, "N": N,
+          "iterations": ANCHORED_ITERS, "launches": runs["solve_anchored"],
+          "all_finite": fin, "lane0_us_max_abs_err": a_err, "lane0_us_gate": a_gate,
+          "jax_anchored_f32_lane0_us_max_abs_err":
+              ameta["jax_anchored_f32"]["lane0_us_max_abs_err"],
+          "lane0_J": aJ[0].item(), "golden_J": meta["J_f64"],
+          "lane0_grad_norm": g_a[0].item(), "pipeline_lane0_grad_norm": g_p[0].item(),
+          "grad_norm_p50": g_a.median().item(),
+          "pipeline_grad_norm_p50": g_p.median().item(),
+          "grad_norm_max": g_a.max().item(), "pipeline_grad_norm_max": g_p.max().item(),
+          "B13_anchored": b13, "solve_s": anch_s,
+          "solves_per_s": ANCHORED_BATCH / anch_s,
+          "fast_free_body_solves_per_s": rates["fast_free_body"]})
+    require(fin, "non-finite lanes in the anchored solve")
+    require(runs["solve_anchored"] == expect(B13=ANCHORED_ITERS),
+            f"anchored launch counts {runs['solve_anchored']}")
+    require(a_err <= a_gate, f"anchored lane-0 us err {a_err} > {a_gate}")
+    require(g_a[0] < g_p[0] and g_a.median() < g_p.median(),
+            "anchored gradient norm not below the f32 pipeline's")
+    require(b13["max_err"] <= b13["gate"], f"B13 on anchored inputs: {b13['max_err']}")
+    del aqs, aus, pipe
+
+    # -- solve_refine: DFPipelineSolver (fp64 B1-B3) and HighPrecisionSolver --
+    rq0s, rxi0s = al_bench.screw_batch(q0, xi0, REFINE_BATCH, SEED)
+    rus0 = torch.zeros((REFINE_BATCH, N, 6), dtype=f64, device=dev)
+    dfp = DFPipelineSolver(N, float(dyn64.dt), REFINE_F32_ITERS, REFINE_DF_ITERS)
+    rout, ref_s, runs["solve_refine"] = counted(
+        lambda: dfp.solve(dyn64, cost64, rq0s, rxi0s, rus0))
+    r_us = join_us(rout)
+    r_err = lane_err(r_us[0], us_gold)
+    g_r = rout.grad_norm.double()
+    fin = bool(torch.isfinite(r_us).all().item())
+    del rout, r_us
+    reps = []
+    for r in range(REFINE_REPS):
+        a = al_bench.screw_batch(q0, xi0, REFINE_BATCH, 900 + r)
+        reps.append(timed(lambda: dfp.solve(dyn64, cost64, *a, rus0))[1])
+    med_r = statistics.median(reps)
+    # fp64 B1, B2 and B3 against their plain versions at the refiner's shapes
+    s = kernel_check.kernel_inputs(P.PipelineSolver(N, 2, float(dyn64.dt)), dyn64, cost64,
+                                   rq0s, rxi0s, rus0, kernel_gains=True)
+    errs = kernel_check.compare(s, dt=float(dyn64.dt))
+    k64 = {}
+    for k, (kern, plain) in kernel_check.calls(s, dt=float(dyn64.dt)).items():
+        if k not in ("B1", "B2", "B3"):
+            continue
+        k64[k] = {"ms": event_ms(kern, 5), "plain_ms": event_ms(plain, 1),
+                  "max_err": errs[k]["max_rel"], "max_abs_err": errs[k]["max_abs"],
+                  "gate": kernel_check.GATES[f64][k], **bound(k, s, kern()),
+                  "library_ms": None, "launches": runs["solve_refine"][k]}
+        k64[k]["share_of_bound"] = k64[k]["bound_ms"] / k64[k]["ms"]
+    del s
+    # HighPrecisionSolver: the f32 pipeline, then f64 polish iterations
+    free, _ = make_model(dynamics.se3_dynamics(), costs.tracking_cost(SE3, 6), dyn64,
+                         cost64)
+    hp = HighPrecisionSolver(free, N, HIGHPREC_F32_ITERS, float(dyn64.dt),
+                             polish_iters=HIGHPREC_POLISH_ITERS)
+    hout, hp_s, runs["solve_refine highprec"] = counted(lambda: hp.solve(
+        {"dyn": dyn64, "cost": cost64}, rq0s[:HIGHPREC_BATCH], rxi0s[:HIGHPREC_BATCH],
+        rus0[:HIGHPREC_BATCH]))
+    h_err = lane_err(hout.us[0], us_gold)
+    del hout
+    emit({"phase": "solve_refine", "card": card, "B": REFINE_BATCH, "N": N,
+          "f32_iterations": REFINE_F32_ITERS, "df_iterations": REFINE_DF_ITERS,
+          "launches": runs["solve_refine"], "all_finite": fin,
+          "lane0_us_max_abs_err": r_err, "gate": POLISH_GATE,
+          "grad_norm_p50": g_r.median().item(), "grad_norm_max": g_r.max().item(),
+          "solve_s_first_call": ref_s, "rep_s": reps, "median_s": med_r,
+          "solves_per_s": REFINE_BATCH / med_r,
+          "mixed_polish_gate_passing_solves_per_s": rates["mixed_polish"],
+          "fp64_kernels": k64,
+          "highprec": {"B": HIGHPREC_BATCH, "f32_iterations": HIGHPREC_F32_ITERS,
+                       "polish_iterations": HIGHPREC_POLISH_ITERS,
+                       "launches": runs["solve_refine highprec"],
+                       "lane0_us_max_abs_err": h_err, "gate": POLISH_GATE,
+                       "solve_s": hp_s, "solves_per_s": HIGHPREC_BATCH / hp_s}})
+    n_f, n_d = REFINE_F32_ITERS, REFINE_DF_ITERS
+    require(runs["solve_refine"] == expect(B1=2, B2=n_f + n_d + 1, B3=n_f + n_d),
+            f"refiner launch counts {runs['solve_refine']}")
+    require(fin, "non-finite lanes in the refiner")
+    require(r_err <= POLISH_GATE, f"refiner lane-0 us err {r_err} > {POLISH_GATE}")
+    for k, v in k64.items():
+        require(v["max_err"] <= v["gate"], f"fp64 {k} at B={REFINE_BATCH}: {v['max_err']}")
+    require(runs["solve_refine highprec"] == expect(B1=1, B2=HIGHPREC_F32_ITERS,
+                                                     B3=HIGHPREC_F32_ITERS),
+            f"high-precision launch counts {runs['solve_refine highprec']}")
+    require(h_err <= POLISH_GATE, f"high-precision lane-0 us err {h_err} > {POLISH_GATE}")
+
+    # -- solve_mpc_exact: make_closed_loop, plant 0 against the host loop ------
+    model, mp, mq0s, mxi0s, msolver = exact_mpc_setup(dev)
+    mres, mpc_s, runs["solve_mpc_exact"] = counted(
+        lambda: MPC.make_closed_loop(msolver, EXACT_MPC_T)(mp, mq0s, mxi0s))
+    (hq, hu), wait_s = timed(lambda: host[("mpc",)].get(timeout=HOST_WAIT_S), sync=False)
+    host_dev = max(np.abs(mres.qs[0].cpu().numpy() - hq).max(),
+                   np.abs(mres.us[0].cpu().numpy() - hu).max())
+    err = lambda q, t: torch.linalg.norm(SE3.log(q @ mp["cost"].q_ref_inv[t]), dim=-1)
+    e0 = err(mq0s, 0).mean().item()
+    eT = err(mres.qs[:, -1], EXACT_MPC_T).mean().item()
+    fin = bool(torch.isfinite(mres.qs).all().item())
+    emit({"phase": "solve_mpc_exact", "B": EXACT_MPC_B, "H": EXACT_MPC_H,
+          "T": EXACT_MPC_T, "tol_grad_norm": 1e-6, "launches": runs["solve_mpc_exact"],
+          "mean_tracking_err_initial": e0, "mean_tracking_err_final": eT,
+          "plant0_vs_host_loop_max_abs": float(host_dev), "gate": 1e-9,
+          "all_finite": fin, "mpc_s": mpc_s, "steps_per_s": EXACT_MPC_T / mpc_s,
+          "plant_solves_per_s": EXACT_MPC_B * EXACT_MPC_T / mpc_s,
+          "host_result_wait_s": wait_s})
+    require(fin and eT < e0, f"exact MPC tracking error {eT} not below {e0}")
+    require(host_dev <= 1e-9, f"exact MPC vs the host loop {host_dev} > 1e-9")
+    require(runs["solve_mpc_exact"]["B14"] > 0
+            and runs["solve_mpc_exact"] == expect(B14=runs["solve_mpc_exact"]["B14"]),
+            f"exact MPC launch counts {runs['solve_mpc_exact']}")
+    del mres
+
+    # -- solve_exact: lanes 0..3 of each batch against their B = 1 solves ------
+    t_wait = time.perf_counter()
+    singles = {t: host[t].get(timeout=HOST_WAIT_S) for t in tasks[1:]}
+    wait_s = time.perf_counter() - t_wait
+    for name in EXACT_PROBLEMS:
+        row, us_b, its_b = exact[name]
+        dev_b = max(float(np.abs(us_b[b].numpy() - singles[("single", name, b)][0]).max())
+                    for b in range(EXACT_LANES))
+        its_1 = [singles[("single", name, b)][1] for b in range(EXACT_LANES)]
+        emit({**row, "host_B1_iterations_lanes0_3": its_1,
+              "batch_vs_host_B1_us_max_abs_lanes0_3": dev_b, "single_gate": 1e-9,
+              "host_result_wait_s": wait_s})
+        require(dev_b <= 1e-9 and its_1 == its_b,
+                f"{name} batch vs B = 1 solves: {dev_b}, {its_1} vs {its_b}")
+    return runs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         sys.exit(2)
+    pool = multiprocessing.get_context("spawn").Pool(HOST_WORKERS)
+    try:
+        run(pool)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def run(pool):
+    """Every phase, in order (module docstring); ``pool`` runs the
+    host-side reference solves."""
+    host = {k: pool.apply_async(host_task, (t,)) for k, t in HOST_PLAIN.items()}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # the plain versions on the host run thousands of tiny ops, slower on
@@ -651,12 +1216,9 @@ def main():
              args[4][:CHECK_BATCH])
     out_u, _, per_unfused = counted(lambda: unfused.solve(*small))
 
-    # the plain solve of lanes 0..15 on the host's copy of them (on the card
-    # the plain versions are bound by per-op overhead: 64 s at B = 8192)
-    plain_solver = P.PipelineSolver(N, ITERS, float(dyn.dt), plain=True)
-    host_args = (*al_bench.build_screw200(torch.float32, "cpu", horizon=N)[:2],
-                 *(x[:HOST_LANES].cpu() for x in args[2:]))
-    out_p, plain_s = timed(lambda: plain_solver.solve(*host_args))
+    # the plain solve of lanes 0..15 on the host (on the card the plain
+    # versions are bound by per-op overhead: 64 s at B = 8192)
+    out_p, plain_s = host_plain(host, "f32")
     us0_err = float(np.abs(out.us[0].double().cpu().numpy() - us_gold).max())
     J0 = out.J_opt[0].item()
     J_rel = abs(J0 - meta["J_f64"]) / abs(meta["J_f64"])
@@ -874,8 +1436,7 @@ def main():
         build = (so3_bench.build_pendulum_swingup80 if pendulum
                  else so3_bench.build_so3_track249)
         so3[name] = dict(pendulum=pendulum, dt=dt_p, N=n_p, gold=so3_bench.load_so3_golden(name),
-                         problem={dt: build(dt, dev) for dt in (torch.float32, torch.float64)},
-                         host=build(torch.float32, "cpu")[:2])
+                         problem={dt: build(dt, dev) for dt in (torch.float32, torch.float64)})
 
     def so3_batch(name, dtype, B, seed):
         dyn, cost, q0, xi0 = so3[name]["problem"][dtype]
@@ -907,11 +1468,10 @@ def main():
         us_g, meta_g = so3[name]["gold"]
         args = so3_batch(name, torch.float32, BATCH, SEED)
         out, sec, per_so3[name] = counted(lambda: so3_solver(name, SO3_ITERS).solve(*args))
-        # the plain solve of lanes 0..15 runs on the host's copy of them:
-        # the plain versions are bound by per-op overhead, which is ~3x
-        # the host's on the card (96 s there for the free attitude)
-        small = so3[name]["host"] + tuple(x[:HOST_LANES].cpu() for x in args[2:])
-        out_p, plain_s = timed(lambda: so3_solver(name, SO3_ITERS, plain=True).solve(*small))
+        # the plain solve of lanes 0..15 runs on the host: the plain
+        # versions are bound by per-op overhead, which is ~3x the host's on
+        # the card (96 s there for the free attitude)
+        out_p, plain_s = host_plain(host, name)
         us0_err = float(np.abs(out.us[0].double().cpu().numpy() - us_g).max())
         J_rel = abs(out.J_opt[0].item() - meta_g["J_f64"]) / abs(meta_g["J_f64"])
         us_gate = 10 * meta_g["jax_f32_pipeline"]["lane0_us_max_abs_err"]
@@ -995,7 +1555,6 @@ def main():
                 dtype, device, horizon=N, drone=kind == "drone")
             fbatch, n_k, it_k = al_bench.screw_batch, N, ITERS
         fast[kind] = dict(problem={dt: make(dt, dev) for dt in (torch.float32, torch.float64)},
-                          host={dt: make(dt, "cpu")[:2] for dt in (torch.float32, torch.float64)},
                           batch=fbatch, N=n_k, iterations=it_k)
 
     def fast_args(kind, dtype, B, seed, scale=0.05):
@@ -1005,9 +1564,8 @@ def main():
         return (params, q0s, xi0s, torch.zeros((B, fast[kind]["N"], model.nu), dtype=dtype,
                                                device=dev), cp.q_ref, cp.xi_ref)
 
-    def fast_solver(kind, iterations, dtype=torch.float32, host=False, **kw):
-        model, params = (fast[kind]["host"][dtype] if host
-                         else fast[kind]["problem"][dtype][:2])
+    def fast_solver(kind, iterations, dtype=torch.float32, **kw):
+        model, params = fast[kind]["problem"][dtype][:2]
         if kind == "free_body":
             kw = dict(pallas_rollout_dt=float(params["dyn"].dt), use_pallas_linearize=True,
                       **kw)
@@ -1032,14 +1590,6 @@ def main():
             require(v["max_rel"] <= v["gate"], f"{k} {run} error {v['max_rel']} > {v['gate']}")
 
     # -- solve_fast: the generic fast tier, each path ------------------------------
-    def host_plain(kind, args, iterations, dtype=torch.float32, **kw):
-        """The plain solve of lanes 0..15 on the host's copy of them."""
-        small = tuple(x[:HOST_LANES].cpu() for x in args[1:4])
-        params = fast[kind]["host"][dtype][1]
-        return timed(lambda: fast_solver(kind, iterations, dtype, host=True, plain=True,
-                                         **kw).solve(params, *small, params["cost"].q_ref,
-                                                     params["cost"].xi_ref))
-
     def j_rel(a, b):
         return ((a.cpu() - b.cpu()).abs() / b.cpu().abs()).max().item()
 
@@ -1059,7 +1609,7 @@ def main():
     pipe = P.PipelineSolver(N, ITERS, float(dyn.dt)).solve(
         dyn, cost, fargs[1][:CHECK_BATCH], fargs[2][:CHECK_BATCH], fargs[3][:CHECK_BATCH])
     Jpipe_rel = j_rel(out.J_opt[:CHECK_BATCH], pipe.J_opt)
-    out_p, plain_s = host_plain("free_body", fargs, ITERS)
+    out_p, plain_s = host_plain(host, "fast free_body")
     Jp_rel = j_rel(out.J_opt[:HOST_LANES], out_p.J_opt)
     fin = finite(out)
     emit({"phase": "solve_fast", "path": "free_body", "B": BATCH, "N": N,
@@ -1082,7 +1632,7 @@ def main():
     # the drone (nu = 4) on B13
     dargs = fast_args("drone", torch.float32, BATCH, SEED)
     out, drone_s, per_fast["drone"] = counted(lambda: fast_solver("drone", ITERS).solve(*dargs))
-    out_p, plain_s = host_plain("drone", dargs, ITERS)
+    out_p, plain_s = host_plain(host, "fast drone")
     Jp_rel = j_rel(out.J_opt[:HOST_LANES], out_p.J_opt)
     fin = finite(out)
     emit({"phase": "solve_fast", "path": "drone", "B": BATCH, "N": N, "iterations": ITERS,
@@ -1121,8 +1671,7 @@ def main():
     largs = fast_args("free_body", torch.float64, LS_BATCH, SEED, scale=LS_SCALE)
     out, ls_s, per_ls = counted(lambda: fast_solver(
         "free_body", LS_ITERS, torch.float64, line_search=True).solve(*largs))
-    out_p, ls_plain_s = host_plain("free_body", largs, LS_ITERS, torch.float64,
-                                   line_search=True)
+    out_p, ls_plain_s = host_plain(host, "fast line_search")
     ls_agree = (out.us[:HOST_LANES].cpu() - out_p.us).abs().max().item()
     fin = finite(out)
     emit({"phase": "solve_fast", "path": "line_search", "dtype": "float64", "B": LS_BATCH,
@@ -1176,10 +1725,14 @@ def main():
     per_kernel["B14"] = fast_kernel["B14 free_body"]
 
     constrained_phases(dev, card, counted, expect)
+    exact_runs = exact_phases(dev, card, counted, expect, {
+        "fast_free_body": BATCH / med_f, "mixed_polish": POLISH_BATCH / med_p}, pool)
 
     # launches: B1-B3 from the fused f32 solve, B4 from the unfused one,
     # B5-B9 from the polish solve, B10-B12 from the free-attitude solve (the
-    # pendulum's read the same, solve_so3)
+    # pendulum's read the same, solve_so3); "launches_in" names every phase
+    # of the reference-exact, anchored and refiner paths that launched the
+    # kernel, with its count
     runs = {k: ("fused B=8192", per_fused) for k in ("B1", "B2", "B3")}
     runs["B4"] = ("unfused B=256", per_unfused)
     runs.update({k: (f"polish B={POLISH_BATCH}", per_polish) for k in DM.KERNELS})
@@ -1192,6 +1745,7 @@ def main():
         {"name": f"{k} {KERNELS[k][0]}", "route": "cuda",
          "source": f"{PKG}/{KERNELS[k][1]}", "replaces": KERNELS[k][2],
          "launches": runs[k][1][k], "run": runs[k][0],
+         "launches_in": {ph: n[k] for ph, n in exact_runs.items() if n[k]},
          **{key: per_kernel[k][key] for key in keys}}
         for k in KERNELS]})
     print(card, flush=True)

@@ -524,3 +524,77 @@ def test_mpc_kernel_matches_plain(cuda, constrained):
     assert (res[0].qs - res[1].qs).abs().max().item() <= 1e-9
     if constrained:
         assert res[0].us.abs().max().item() == 5.0
+
+
+# -- the full-precision refiner and the anchored tier (kernel path against the
+# plain path on the same card inputs) --------------------------------------------
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_pipeline_warm_start_f64_kernel_matches_plain(cuda, fused):
+    """`PipelineSolver.solve_lane`'s warm start in fp64 (the refiner's
+    phase: B1, B2, B3 or B4 in fp64) from an f32 handoff: the kernel path
+    against the plain one, controls at 1e-9; and the refiner's launches."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.df_pipeline import (
+        DFPipelineSolver,
+    )
+
+    dyn, cost, q0s, xi0s, us0 = _problem(torch.float64, cuda, False)
+    handoff = DFPipelineSolver(H, 0.01, f32_iterations=4)._solve_f32(dyn, cost, q0s, xi0s, us0)
+    init = tuple(x.double() for x in handoff)
+    outs = [P.PipelineSolver(H, 3, 0.01, fused=fused, plain=plain).solve_lane(
+        dyn, cost, None, None, None, init=init) for plain in (False, True)]
+    assert outs[0]["us"].dtype == torch.float64
+    assert (outs[0]["us"] - outs[1]["us"]).abs().max().item() <= 1e-9
+    assert (outs[0]["J"] - outs[1]["J"]).abs().max().item() <= 1e-9 * outs[1]["J"].abs().max()
+    for w in P.KERNELS.values():
+        w.launches = 0
+    DFPipelineSolver(H, 0.01, f32_iterations=4, df_iterations=3, fused=fused).solve(
+        dyn, cost, q0s, xi0s, us0)
+    launches = {k: w.launches for k, w in P.KERNELS.items()}
+    want = (dict(B1=2, B2=8, B3=7, B4=0) if fused else dict(B1=5, B2=8, B3=4, B4=3))
+    assert launches == want, launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b13_anchored_inputs(cuda, dtype):
+    """B13 at (12, 6) on a real anchored iterate (near-identity poses)
+    against its plain version, at the fast tier's gates."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
+        anchored_inputs,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.anchored import (
+        AnchoredFastSolver,
+        build_anchored,
+    )
+
+    dyn, cost, q0s, xi0s, us0 = _problem(torch.float64, "cpu", False)
+    Q = torch.block_diag(cost.Q1, cost.Q2)
+    P_ = torch.block_diag(cost.P1, cost.P2)
+    prob = build_anchored(dyn.J, dyn.dt, Q, cost.R, P_, cost.q_ref, cost.xi_ref, dtype=dtype,
+                          device=cuda)
+    q0_locs = torch.linalg.inv(cost.q_ref[0])[None] @ q0s
+    s = anchored_inputs(AnchoredFastSolver(prob, H, 2), q0_locs.to(cuda), xi0s.to(cuda),
+                        us0.to(cuda))
+    err = fast_compare(s)["B13"]
+    assert err["max_rel"] <= GATES["fast"][dtype]["B13"], err
+
+
+@pytest.mark.parametrize("ls", [False, True], ids=["full-step", "line-search"])
+def test_lie_ilqr_b14_rollout_matches_loop(cuda, ls):
+    """`LieILQR` with its MS rollout on B14 (f64) against the same solver's
+    loop over stages on the card: the same iterations, controls at 1e-9."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.lie_ilqr import (
+        LieILQR,
+        SolverConfig,
+    )
+
+    model, params, q0, xi0 = screw200_model(torch.float64, cuda, horizon=H)
+    q0s, xi0s = screw_batch(q0, xi0, AL_B, seed=1)
+    us0 = torch.zeros((AL_B, H, 6), dtype=torch.float64, device=cuda)
+    # with the line search, to 1e-5: below, its accept test stalls on roundoff
+    cfg = SolverConfig(N=H, tol_grad_norm=1e-5 if ls else 1e-8, max_iterations=30,
+                       line_search=ls)
+    loop = LieILQR(model, cfg).solve(params, (q0s, xi0s), us0)
+    kern = LieILQR(model, cfg, pallas_rollout_dt=0.01).solve(params, (q0s, xi0s), us0)
+    assert kern.iteration.tolist() == loop.iteration.tolist()
+    assert (kern.us - loop.us).abs().max().item() <= 1e-9

@@ -29,7 +29,10 @@ def test_port_has_the_slice_modules():
               "solvers.df_mixed", "solvers.pipeline_so3", "tasks.so3_bench",
               "kernel_check", "convert", "_build", "models.base", "ops.riccati",
               "ops.rollout", "solvers.batched", "models.constraints",
-              "solvers.al_pipeline", "solvers.al_fast", "solvers.mpc"):
+              "solvers.al_pipeline", "solvers.al_fast", "solvers.mpc",
+              "solvers.riccati", "solvers.lie_ilqr", "solvers.al_ilqr",
+              "solvers.anchored", "solvers.polish", "models.autodiff",
+              "solvers.ilqr", "tasks.cartpole"):
         assert f"{port.__name__}.{m}" in mods, m
 
 

@@ -224,3 +224,87 @@ def window_by_hand(cp, t, H):
     cut = lambda a: a[t:t + H + 1]
     return dataclasses.replace(cp, q_ref=cut(cp.q_ref), q_ref_inv=cut(cp.q_ref_inv),
                                Ad_ref=cut(cp.Ad_ref), xi_ref=cut(cp.xi_ref))
+
+
+# -- the reference-exact tier (`LieILQR`): both packages' models ----------------
+
+def lie_se3_case(H):
+    """Both packages' SE(3) tracking (model, params) of `problem` (H
+    stages, f64) and a batch of three perturbed starts: (jax model, jax
+    params, port model, port params, q0s, xi0s, us0)."""
+    from trajectory_optimization_matrix_lie_groups_tpu.models import costs as jc
+    from trajectory_optimization_matrix_lie_groups_tpu.models.base import make_model as jmm
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import costs as tc
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import dynamics as td
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import make_model
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SE3 as TSE3
+
+    dp, cp, tdp, tcp, q0, xi0, nu = problem(H)
+    jm, jp = jmm(dynamics.se3_dynamics(), jc.tracking_cost(SE3, 6), dp, cp)
+    tm, tp = make_model(td.se3_dynamics(), tc.tracking_cost(TSE3, 6), tdp, tcp)
+    q0s, xi0s, us0 = initial_batch(q0, xi0, 3, H, nu, seed=0, dtype=jnp.float64)
+    return jm, jp, tm, tp, q0s, xi0s, us0
+
+
+def so3_case(name, horizon):
+    """Both packages' (model, params) of an SO(3) problem of
+    `tasks/so3_bench.py` cut to ``horizon``, from the port's f64 build, and
+    its start (q0, xi0)."""
+    from trajectory_optimization_matrix_lie_groups_tpu.models import costs as jc
+    from trajectory_optimization_matrix_lie_groups_tpu.models.base import make_model as jmm
+    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SO3 as JSO3
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import costs as tc
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import dynamics as td
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import make_model
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SO3
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import so3_bench
+
+    jd = dynamics
+    pendulum, dt = so3_bench.PROBLEMS[name][:2]
+    build = (so3_bench.build_pendulum_swingup80 if pendulum
+             else so3_bench.build_so3_track249)
+    tdyn, tcost, q0, xi0 = build(torch.float64, "cpu", horizon)
+    J = jnp.asarray(tdyn.J.numpy())
+    dp = jd.pendulum3d_params(J, 1.0, 0.5, dt) if pendulum else jd.so3_params(J, dt)
+    cp = jc.tracking_cost_params(JSO3, *(jnp.asarray(x.numpy()) for x in (
+        torch.block_diag(tcost.Q1, tcost.Q2), tcost.R, torch.block_diag(tcost.P1, tcost.P2),
+        tcost.q_ref, tcost.xi_ref)))
+    dyn = jd.pendulum3d_dynamics() if pendulum else jd.so3_dynamics()
+    jm, jp = jmm(dyn, jc.tracking_cost(JSO3, 3, ref_so3_terminal_quirk=True), dp, cp)
+    tdyn_def = td.pendulum3d_dynamics() if pendulum else td.so3_dynamics()
+    tm, tp = make_model(tdyn_def, tc.tracking_cost(SO3, 3, ref_so3_terminal_quirk=True),
+                        tdyn, tcost)
+    return jm, jp, tm, tp, q0.numpy(), xi0.numpy()
+
+
+def fit_both(jm, jp, tm, tp, q0, xi0, us0, cfg):
+    """(JAX fit, port fit) of one problem under the same config."""
+    from trajectory_optimization_matrix_lie_groups_tpu.solvers import lie_ilqr as JL
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.lie_ilqr import (
+        LieILQR,
+        SolverConfig,
+    )
+
+    jout = JL.LieILQR(jm, JL.SolverConfig(**cfg)).fit(
+        jp, (jnp.asarray(q0), jnp.asarray(xi0)), jnp.asarray(us0))
+    tout = LieILQR(tm, SolverConfig(**cfg)).fit(
+        tp, (torch.as_tensor(q0)[None], torch.as_tensor(xi0)[None]),
+        torch.as_tensor(us0)[None])
+    return jout, tout
+
+
+def check_fits(jout, tout, rtol, grad_atol, us_atol):
+    """The same iteration count and flags; J, grad-norm and defect
+    histories at ``rtol`` (the last two also at ``grad_atol``); the
+    controls and the poses at ``us_atol``; mu at 1e-12."""
+    assert len(tout[2]) == len(jout[2])
+    for j_h, t_h, atol in ((jout[2], tout[2], 0.0), (jout[3], tout[3], grad_atol),
+                           (jout[4], tout[4], grad_atol)):
+        np.testing.assert_allclose(np.asarray(t_h)[:, 0], np.asarray(j_h), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(tout[1][0].numpy(), np.asarray(jout[1]), rtol=0, atol=us_atol)
+    np.testing.assert_allclose(tout[0][0][0].numpy(), np.asarray(jout[0][0]), rtol=0,
+                               atol=us_atol)
+    js, ts = jout[5], tout[5]
+    for f in ("converged", "failed", "accepted"):
+        assert bool(getattr(ts, f)[0]) == bool(getattr(js, f)), f
+    np.testing.assert_allclose(ts.mu[0].item(), float(js.mu), rtol=1e-12)

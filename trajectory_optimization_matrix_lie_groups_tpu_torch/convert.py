@@ -5,7 +5,8 @@ The JAX package's parameter NamedTuples travel as dicts of numpy arrays,
 needs no JAX; the port's containers come back on the given device and dtype.
 The tests use this to feed both packages the same problem, and to carry
 the augmented-Lagrangian state (`ALParams`, the multipliers of an
-`ALPipelineResult`) across, so that the two engines start from the same
+`ALPipelineResult` or an `ALResult`), a `LieILQR` solver state or an
+anchored problem across, so that the two engines start from the same
 state.
 """
 
@@ -96,3 +97,64 @@ def al_pipeline_result_from_numpy(fields, device=None):
     return ALPipelineResult(**{
         k: (_tensor(v, device) if k in arrays and v is not None else v)
         for k, v in fields.items()})
+
+
+def _batched(x, device, dims):
+    """``x`` as a tensor with a leading problem axis: added when ``x`` has
+    ``dims`` dimensions (a single problem's leaf)."""
+    t = _tensor(x, device)
+    return t[None] if t.dim() == dims else t
+
+
+def lie_state_from_numpy(fields, device=None):
+    """The port's `LieILQR` `SolverState` from the fields of a JAX one
+    (``state._asdict()``, arrays as numpy), a single problem's (given a
+    leading axis of 1) or a vmapped batch's; every dtype kept."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.lie_ilqr import (
+        SolverState,
+    )
+
+    dims = dict(qs=3, xis=2, us=2, k=2, K=3)
+    return SolverState(**{k: _batched(v, device, dims.get(k, 0))
+                          for k, v in fields.items()})
+
+
+def anchored_from_numpy(fields, device=None):
+    """The port's `AnchoredProblem` from the fields of a JAX one
+    (``prob._asdict()`` with ``dyn`` as the dict of its `SE3Params`
+    fields), every dtype kept."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.anchored import (
+        AnchoredProblem,
+    )
+
+    dt = torch.as_tensor(np.array(fields["T"])).dtype
+    return AnchoredProblem(
+        dyn=dyn_from_numpy(fields["dyn"], device=device, dtype=dt),
+        **{k: _tensor(v, device) for k, v in fields.items() if k != "dyn"})
+
+
+def al_result_from_numpy(fields, device=None):
+    """The port's `ALResult` from the fields of a JAX one (``res._asdict()``,
+    ``al_params`` as the dict `al_params_from_numpy` takes), a single
+    problem's arrays given a leading axis of 1."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.al_ilqr import (
+        ALResult,
+    )
+
+    dims = dict(qs=3, xis=2, us=2, constr_eval=2)
+    return ALResult(**{
+        k: (al_params_from_numpy(v, device) if k == "al_params" else
+            _batched(v, device, dims[k]) if k in dims else v)
+        for k, v in fields.items()})
+
+
+def cartpole_from_numpy(N, dt, x_goal=None, hessians=False, device=None,
+                        dtype=torch.float64):
+    """The port's cartpole `ILQR` (`tasks/cartpole.build`) with the JAX
+    task's parameters: horizon N, step dt and the goal state ``x_goal``
+    (numpy, default the reference's [10, 0, pi, 0]), on ``device``."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import cartpole
+
+    goal = None if x_goal is None else torch.as_tensor(np.array(x_goal))
+    return cartpole.build(N=N, dt=dt, x_goal=goal, hessians=hessians, dtype=dtype,
+                          device=torch.device("cpu") if device is None else device)

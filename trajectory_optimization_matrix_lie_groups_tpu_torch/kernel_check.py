@@ -6,7 +6,8 @@ f32 and f64) on a real pipeline iterate (`kernel_inputs`, `calls`,
 pipeline, in f32 and f64) on a real SO(3) iterate (`so3_inputs`,
 `so3_calls`, `so3_compare`); B13 and B14 (the generic fast tier, in f32 and
 f64) on a real `FastBatchSolver` iterate (`fast_inputs`, `fast_calls`,
-`fast_compare`).
+`fast_compare`), B13 also on a real anchored iterate (`anchored_inputs`:
+near-identity poses, `solvers/anchored.py`).
 
 The error of one output tensor is max |kernel - plain| / max(1, max |plain|).
 
@@ -307,6 +308,20 @@ def fast_inputs(solver, params, q0s, xi0s, us0):
                  edp=tl(exp_d[:, :, :3, 3]), fiR=tl(fq_inv[:, :, :3, :3]),
                  fip=tl(fq_inv[:, :, :3, 3]), J=dp.J.contiguous(),
                  Jinv=dp.Jinv.contiguous(), dt=solver.pallas_rollout_dt)
+    return s
+
+
+def anchored_inputs(solver, q0_locs, xi0s, us0):
+    """A real iterate of ``solver`` (an `AnchoredFastSolver`) in lane
+    layout: the linearization of its trajectory after ``solver.iterations``
+    iterations and the gains of its backward pass (plain version), every
+    input B13 takes (`fast_calls` runs B13 on it)."""
+    qs, xis, us, _, _ = solver.solve(q0_locs, xi0s, us0)
+    lin = solver._linearize(qs, xis, us)
+    tl = lambda x: x.movedim(0, -1).contiguous()   # (B, N, ...) -> (N, ..., B)
+    s = {n: tl(lin[n]) for n in READS["B13"]}
+    s["us"] = tl(us)
+    s["k"], s["K"], _, _ = RC.backward_plain(*(s[n] for n in READS["B13"]))
     return s
 
 

@@ -1,14 +1,16 @@
-"""The parts of the JAX `solvers/df_pipeline.py` that the mixed-precision
-polish (`solvers/df_mixed.py`) builds on: the `DFState` result, the f32
-phase, the polish phase's constants, and Fu.
+"""The f32 pipeline followed by a full-precision refiner (counterpart of the
+JAX `solvers/df_pipeline.py`): `DFPipelineSolver`, and the parts that the
+mixed-precision polish (`solvers/df_mixed.py`) builds on: the `DFState`
+result, the f32 phase, the polish phase's constants, and Fu.
 
-The JAX package carries the polish's residual path in double-f32 hi/lo
-pairs (`ops/dfx.py`) only because the TPU has no f64; it splits the f64
-problem on the host (`split_pytree`) to get it onto the device.  The port
-runs that path in native fp64 on the fp64 `SE3Params` / `TrackingCostParams`
-that `convert.py` makes, so neither `ops/dfx.py` nor `split_pytree` is
-ported, and the full double-f32 solver `DFPipelineSolver._solve_df` (a plain
-XLA path with no TPU kernel) is left for a later fp64 refiner (ROADMAP).
+The JAX package carries the refinement in double-f32 hi/lo pairs
+(`ops/dfx.py`) only because the TPU has no f64; it splits the f64 problem
+on the host (`split_pytree`) to get it onto the device, and runs its
+`_solve_df` phase as plain XLA on those pairs.  The H100 has native fp64:
+the port's refinement is the fp64 `PipelineSolver`, kernels B1, B2 and B3
+in fp64, warm-started from the f32 phase's lane-layout handoff
+(`PipelineSolver.solve_lane`'s ``init``).  Neither `ops/dfx.py` nor
+`split_pytree` is ported.
 """
 
 import dataclasses
@@ -22,7 +24,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.pipeline import
     solve_device,
 )
 
-__all__ = ["DFState", "DFPipelineBase", "join_us"]
+__all__ = ["DFState", "DFPipelineBase", "DFPipelineSolver", "join_us"]
 
 
 class DFState(NamedTuple):
@@ -135,3 +137,62 @@ class DFPipelineBase:
         consts32["mg"] = (float(dyn.m.float() * dyn.g.float()) if self.gravity
                           else 0.0)
         return consts, refs, consts32
+
+
+class DFPipelineSolver(DFPipelineBase):
+    """f32 pipeline + full-fp64 refinement (the JAX `DFPipelineSolver`).
+
+    ``f32_iterations`` iterations of the f32 `PipelineSolver` (fused
+    layout), then ``df_iterations`` iterations of the fp64 `PipelineSolver`
+    from its handoff (kernels B1, B2, B3 in fp64; B1, B2, B4 with
+    ``fused=False``), then one more fp64 backward pass for the cost and
+    gradient norm at the final iterate, as the JAX `_solve_df` reports
+    them.  gravity, exact_gravity_jacobian, plain: as `DFPipelineBase`."""
+
+    def __init__(self, N: int, dt: float, f32_iterations: int = 12,
+                 df_iterations: int = 3, gravity: bool = False,
+                 exact_gravity_jacobian: bool = False, fused: bool = True,
+                 plain: bool = False):
+        super().__init__(N, dt, f32_iterations, df_iterations, gravity,
+                         exact_gravity_jacobian, plain)
+        self.refiner = PipelineSolver(N, df_iterations, dt, gravity=gravity,
+                                      exact_gravity_jacobian=exact_gravity_jacobian,
+                                      fused=fused, plain=plain)
+
+    def refine(self, dyn, cost, qR, qp, xi, us):
+        """The fp64 phase from a lane-layout handoff qR (N+1, 3, 3, B),
+        qp (N+1, 3, B), xi (N+1, 6, B), us (N, nu, B) in any float dtype
+        (promoted to fp64), on its device.  ``dyn``, ``cost``: the fp64
+        parameters.  Returns a `DFState`."""
+        dev = us.device
+        f64 = lambda p: cast_params(p, dev, torch.float64)
+        dyn, cost = f64(dyn), f64(cost)
+        ref = self.refiner
+        s = ref.solve_lane(dyn, cost, None, None, None,
+                           init=tuple(x.to(torch.float64) for x in (qR, qp, xi, us)))
+        qR, qp, xi, us, lin = s["qR"], s["qp"], s["xi"], s["us"], s["lin"]
+        if lin is None:
+            lin = ref._linearize(qR, qp, xi, us, s["refs"], s["consts"], dt=ref.dt,
+                                 gravity=ref.gravity, exact_grav=ref.exact_grav)
+        _, _, J, g = ref._backward_metrics(qR, qp, xi, us, lin, s["refs"], s["consts"], None)
+        N, B = self.N, us.shape[-1]
+        bk = lambda x: x.movedim(-1, 0)
+        qs = torch.zeros((B, N + 1, 4, 4), dtype=torch.float64, device=dev)
+        qs[:, :, :3, :3] = bk(qR)
+        qs[:, :, :3, 3] = bk(qp)
+        qs[:, :, 3, 3] = 1.0
+        us_hi, us_lo = split_us(bk(us))
+        return DFState(qs=qs, xis=bk(xi), us_hi=us_hi, us_lo=us_lo, J_opt=J,
+                       grad_norm=g)
+
+    def solve(self, dyn, cost, q0s, xi0s, us0, al=None):
+        """``dyn``, ``cost``: fp64 `SE3Params` (or `RigidBodyParams` with
+        ``gravity``) and `TrackingCostParams`; solver-layout q0s (B, 4, 4),
+        xi0s (B, 6), us0 (B, N, nu), on the device the solve runs on (the
+        card when they are not tensors).  The f32 phase runs on their f32
+        rounding, the refinement on its handoff.  Returns a `DFState`."""
+        if al is not None:
+            raise NotImplementedError(
+                "AL terms in the refinement are implemented by "
+                "MixedDFPipelineSolver; the full-precision driver takes none")
+        return self.refine(dyn, cost, *self._solve_f32(dyn, cost, q0s, xi0s, us0))

@@ -1,5 +1,12 @@
-"""Batched receding-horizon MPC over the lane-layout pipeline (counterpart
-of the batch drivers of the JAX `solvers/mpc.py`).
+"""Receding-horizon MPC (counterpart of the JAX `solvers/mpc.py`): the
+closed loop over the reference-exact `LieILQR` (`make_closed_loop`) and the
+batch drivers over the lane-layout pipeline.
+
+`make_closed_loop` solves each window to convergence with `LieILQR`, from
+the shifted previous solution, for B plants at once (B = 1 is the JAX
+single-plant driver): a plant whose window has converged is frozen while
+the others iterate, so each plant's trajectory is that of its own B = 1
+loop.  Its steps read the solver's flags back (`LieILQR.solve`).
 
 B plant instances track the same reference path in lockstep: at each plant
 step the driver slices an H-step window of the reference, warm-starts from
@@ -29,6 +36,13 @@ def _window(cp: costs.TrackingCostParams, t, H):
                                Ad_ref=sl(cp.Ad_ref), xi_ref=sl(cp.xi_ref))
 
 
+class MPCResult(NamedTuple):
+    qs: torch.Tensor      # (B, T+1, m, m) closed-loop plant trajectories
+    xis: torch.Tensor     # (B, T+1, d)
+    us: torch.Tensor      # (B, T, nu) applied controls
+    J_pred: torch.Tensor  # (B, T) predicted cost per solve
+
+
 class BatchMPCResult(NamedTuple):
     qs: torch.Tensor      # (B, T+1, 4, 4) closed-loop plant trajectories
     xis: torch.Tensor     # (B, T+1, 6)
@@ -47,6 +61,44 @@ def _result(q0s, xi0s, qs_t, xis_t, us_t, J_t):
 def _shift(us):
     """Warm start for the next window: shift one step, repeat the tail."""
     return torch.cat([us[:, 1:], us[:, -1:]], dim=1)
+
+
+def make_closed_loop(solver, T: int):
+    """Closed-loop simulator over a `LieILQR` (the JAX `make_closed_loop`).
+
+    Args:
+      solver: a `LieILQR` with N = the window H; each plant step writes its
+        (H+1)-entry reference window into ``params['cost']``.
+      T: plant steps; the full reference needs at least T + H + 1 entries.
+
+    Returns:
+      run(params_full, q0s (B, m, m), xi0s (B, d)): ``params_full``'s cost
+      holds the FULL reference path; returns an `MPCResult`.  At each step
+      the window is solved to convergence (``solver.cfg``) from the shifted
+      previous solution (zeros at t = 0), and its first control is applied
+      to each plant.
+    """
+    H = solver.cfg.N
+    model = solver.model
+
+    def run(params_full, q0s, xi0s):
+        cp_full = params_full["cost"]
+        us_warm = torch.zeros((q0s.shape[0], H, model.nu), dtype=xi0s.dtype,
+                              device=xi0s.device)
+        qs, xis = q0s, xi0s
+        out_t = ([], [], [], [])
+        for t in range(T):
+            cp_t = _window(cp_full, t, H)
+            params_t = {**params_full, "cost": cp_t}
+            state = solver.solve(params_t, (qs, xis), us_warm, cp_t.q_ref, cp_t.xi_ref)
+            u0 = state.us[:, 0]
+            qs, xis = model.step(params_t, qs, xis, u0, 0)
+            us_warm = _shift(state.us)
+            for lst, x in zip(out_t, (qs, xis, u0, state.J_opt)):
+                lst.append(x)
+        return MPCResult(*_result(q0s, xi0s, *out_t))
+
+    return run
 
 
 def make_closed_loop_batch(pipe, model, T: int):

@@ -475,10 +475,11 @@ class PipelineSolver:
             self._rollout, self._rollout_linearize = (rollout_lane,
                                                       rollout_linearize_lane)
 
-    def _prepare(self, dyn, cost, q0s, xi0s, us0):
+    def _prepare(self, dyn, cost, q0s, xi0s, us0, init=None):
         """Lane-layout setup: constants, per-stage references and the initial
-        (qR, qp, xi, us) state, x0 followed by the reference tail."""
-        B, N = q0s.shape[0], self.N
+        (qR, qp, xi, us) state: x0 followed by the reference tail, or the
+        warm start ``init`` in us0's dtype and device."""
+        B, N = us0.shape[0], self.N
         dev, dtp = us0.device, us0.dtype
         cast = lambda x: torch.as_tensor(x).to(device=dev, dtype=dtp).contiguous()
         Pu = getattr(dyn, "Pu", None)
@@ -493,6 +494,8 @@ class PipelineSolver:
                       Luu=(2.0 * R).contiguous(), R=R, mg=mg)
         refs = lane_refs(cast(cost.q_ref_inv), cast(cost.Ad_ref),
                          cast(cost.xi_ref))
+        if init is not None:
+            return (*(cast(x) for x in init), refs, consts)
         q_ref, xi_ref = cast(cost.q_ref), cast(cost.xi_ref)
         q0s, xi0s = cast(q0s), cast(xi0s)
         first = lambda x: x.movedim(0, -1)[None]
@@ -530,15 +533,23 @@ class PipelineSolver:
              + torch.einsum("ni...,ij,nj...->...", us, R, us) + lN + J_al)
         return k, K, J, g
 
-    def solve_lane(self, dyn, cost, q0s, xi0s, us0, al=None):
+    def solve_lane(self, dyn, cost, q0s, xi0s, us0, al=None, init=None):
         """The solve in lane layout.  Returns dict(qR, qp, xi, us, J, g, refs,
         consts, lin): the final trajectory, the cost and mean gradient norm
         of the last backward pass, and (fused layout) the linearization of
-        the final trajectory."""
+        the final trajectory.
+
+        ``init``: a warm start, the lane-layout trajectory (qR (N+1, 3, 3, B),
+        qp (N+1, 3, B), xi (N+1, 6, B), us (N, nu, B)) to iterate from in
+        place of x0 followed by the reference tail with us0; q0s, xi0s and
+        us0 are then unused (None) and the solve takes init's dtype and
+        device (those of its us)."""
+        if init is not None:
+            us0 = init[3].movedim(-1, 0)
         us0 = torch.as_tensor(us0, device=solve_device(us0))
         B = us0.shape[0]
         dev, dtp = us0.device, us0.dtype
-        qR, qp, xi, us, refs, consts = self._prepare(dyn, cost, q0s, xi0s, us0)
+        qR, qp, xi, us, refs, consts = self._prepare(dyn, cost, q0s, xi0s, us0, init)
         if al is not None:
             cast = lambda x: torch.as_tensor(x).to(device=dev, dtype=dtp)
             lb, ub, lmbd, imu = al

@@ -13,7 +13,8 @@ byte-for-byte copy of the JAX package's (`load_al1400_golden`).
 `build_screw200` is the port's main-path problem: the first 200 stages with
 R = 1e-3 I (the pipeline's Cholesky needs Quu > 0) and no box.  Its f64
 golden (`golden/screw200_us.npy`, `golden/screw200_meta.json`) comes from
-the JAX package's f64 engine (`scripts/gen_torch_port_golden.py`).
+the JAX package's f64 engine (`scripts/gen_torch_port_golden.py`); the
+JAX anchored tier's accuracy on it is in `golden/screw200_anchored_meta.json`.
 """
 
 import json
@@ -27,7 +28,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import make
 from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SE3
 
 __all__ = ["build_al1400", "build_screw200", "screw200_model", "screw_batch",
-           "load_screw200_golden", "load_al1400_golden"]
+           "load_screw200_golden", "load_screw200_anchored_meta", "load_al1400_golden"]
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
@@ -110,6 +111,16 @@ def load_screw200_golden():
     us = np.load(os.path.join(GOLDEN_DIR, "screw200_us.npy"))
     with open(os.path.join(GOLDEN_DIR, "screw200_meta.json")) as f:
         return us, json.load(f)
+
+
+def load_screw200_anchored_meta():
+    """The JAX anchored tier's own accuracy on screw-200
+    (`golden/screw200_anchored_meta.json`, from
+    `scripts/gen_torch_port_golden_anchored.py`): its f32 lane-0 control
+    error against `screw200_us.npy`, which the port's anchored solve is
+    gated against."""
+    with open(os.path.join(GOLDEN_DIR, "screw200_anchored_meta.json")) as f:
+        return json.load(f)
 
 
 def load_al1400_golden():
