@@ -17,7 +17,7 @@ N = 249, and the 3-D pendulum swing-up, N = 80), B = 8192, 30 f32
 iterations.  The generic fast tier is `solvers/batched.FastBatchSolver` on
 any `LieModel`: the screw-200 free body on kernels B1, B13 and B14, the
 drone (nu = 4) on screw-200 and the free attitude (so3_track249) on B13,
-B = 8192, 12 (30) f32 iterations.  The constrained path is the reference's
+B = 8192, 12 (the drone 6, the free attitude 30) f32 iterations.  The constrained path is the reference's
 N=1400 input-box AL problem (`tasks/al_bench.build_al1400`: R = 0, box
 +-10) on `solvers/al_pipeline.ALPipelineSolver` and its polishes, the AL
 fast tier (`solvers/al_fast.ALFastSolver`) and batched closed-loop MPC
@@ -28,6 +28,12 @@ with `solvers/al_ilqr.ALILQR` and `solvers/mpc.make_closed_loop` on it; the
 anchored tier is `solvers/anchored.AnchoredFastSolver` (f32, B13 at
 (12, 6)); the full-precision refiners are `solvers/df_pipeline.
 DFPipelineSolver` (B1-B3 in fp64) and `solvers/polish.HighPrecisionSolver`.
+B13's runtime-shape instance takes any (nx, nu) up to (12, 12) that no
+tuned instance has.  The error-state tier is `solvers/errorstate_ilqr.
+ErrorStateILQR` on the three error-state CLI problems (`tasks/
+errstate_bench.py`, N = 400, f64); the one-device sweeps are `parallel/
+sweep.run_sweep` (`BatchSolver` over `LieILQR`, its rollout on B14) and
+`run_rollout_sweep`.
 Phases, each printed as one JSON line:
 
   device        the card (nvidia-smi), torch/CUDA versions, the kernels'
@@ -75,14 +81,16 @@ Phases, each printed as one JSON line:
                 computes that rollout's trajectory and B10's linearization
                 of it);
   kernels_fast  B13 at (nx, nu) = (12, 6), (12, 4), (6, 3) and B14 against
-                their plain versions on a real iterate of each fast path,
+                their plain versions on a real iterate of each fast path
+                (after one iteration),
                 B=256, in f32 and f64;
   solve_fast    counters reset before each solve: the free body at B=8192
                 (B1 = B13 = B14 = 12, every other kernel 0), lane 0 against
                 the screw-200 golden, lanes 0..255 against the port's
                 PipelineSolver, lanes 0..15 against the plain solve on the
-                host; the drone (B13 = 12) against the plain solve of lanes
-                0..15 on the host; the free attitude (B13 = 30) against its
+                host; the drone (6 iterations, B13 = 6) against the plain
+                solve of lanes 0..15 on the host; the free attitude
+                (B13 = 30) against its
                 golden; one f64 line-search solve at B=1024 (poses
                 perturbed by Exp(0.4 n); B1 = B13 = B14 = 6, B14 rolling
                 out every lane's 13 candidates at once) against the plain
@@ -140,7 +148,7 @@ Phases, each printed as one JSON line:
                 (12 f32 + 2 f64 polish iterations) at B = 1024, lane 0
                 within 1e-4;
   solve_mpc_exact  `make_closed_loop` on screw-200 (4 plants, H = 40,
-                T = 100, each window to the default 1e-6 within 4
+                T = 50, each window to the default 1e-6 within 4
                 iterations): plant 0 equals a host loop of
                 B = 1 `LieILQR.solve` per step to 1e-9, the tracking error
                 falls;
@@ -153,23 +161,45 @@ Phases, each printed as one JSON line:
                 cost (the sequential backward against 'sequential_fixed').
                 The B = 1 reference solves (these and the MPC host loop)
                 run on the host in the worker processes while the card
-                works, so these two lines come last.
+                works, so these two lines come after the other lines of
+                these tiers.
+  kernels_b13_any  B13's runtime-shape instance at (6, 2), (9, 3), (12, 3)
+                and (12, 12) against its plain version (f32 B = 8192, f64
+                B = 1024, N = 200), each with its time and bound; one
+                `FastBatchSolver` solve (f32, B = 1024, 4 iterations;
+                B13any = 4) of a (12, 3) `LieModel` (the rigid body driven
+                by three torques) against use_pallas=False (J to 1e-4);
+  solve_errstate  each of the three CLI problems (errstate_tracking,
+                errstate_generate, errstate_generate_linear) against its
+                JAX f64 golden (`golden/errstate_*`): the same iterations
+                and final flags, J history rel 1e-8, controls 1e-6; ms an
+                iteration, and its linearize, backward and rollout (every
+                step size) per iteration, each synchronized and timed in
+                the fit;
+  sweep         `run_sweep` on screw-200 (four ranges, 160 solves, 10
+                iterations each; B14 = 40), one lane of each range against
+                a B = 1 solve on the host (1e-9), solves/s;
+  rollout_sweep `run_rollout_sweep` (four ranges, 112 rollouts of 1400
+                steps), the middle lane of each against a step loop of
+                those four lanes alone (1e-12), rollouts/s.
 
 Every host-side reference solve (the plain versions' solves of lanes 0..15
-in solve_f32, solve_so3 and solve_fast, and the reference-exact tier's
-B = 1 solves) runs in one of 6 worker processes (one torch thread each),
+in solve_f32, solve_so3 and solve_fast, the reference-exact tier's and the
+sweep's B = 1 solves) runs in one of 6 worker processes (one torch thread each),
 its inputs rebuilt there from the same seeds, while the card works.
 
 A kernel's bound is the least time the card could take for its work: the
 larger of the bytes it must move (each array it reads once, each output
 written once) over 3.35 TB/s and its operations over 67 TFLOP/s (f32) or
 34 TFLOP/s (fp64), counted on this run's inputs (`kernel_check.work`).
-Then the kernels summary line, one entry for each of B1-B14 (B2's times
-at B=8192; launches of B1-B3 from the fused f32 run,
-of B4 from the unfused run, of B5-B9 from the polish run, of B10-B12 from
-the free-attitude run, of B13 and B14 from the free-body fast run, each
-named in "run"; "launches_in": the launches in each phase of the
-reference-exact, anchored and refiner paths),
+Then the kernels summary line, one entry for each of B1-B14 and B13's
+runtime-shape instance (B13any) (B2's times at B=8192; launches of B1-B3
+from the fused f32 run, of B4 from the unfused run, of B5-B9 from the
+polish run, of B10-B12 from the free-attitude run, of B13 and B14 from the
+free-body fast run, of B13any from the (12, 3) solve, each named in "run";
+B13any's times at (12, 3), f32, B = 8192; "launches_in": the launches in
+each phase of the reference-exact, anchored and refiner paths and of the
+sweep),
 the card's name and power limit as nvidia-smi prints them, and the result
 line.  The f32 path is timed before any polish or SO(3) work, after the
 same phases as when it was the script's only path, so that its time
@@ -217,6 +247,12 @@ SO3_PROBLEMS = ("so3_track249", "pendulum_swingup80")
 # the generic fast tier: its three paths, and the line search (f64, from
 # poses perturbed by Exp(0.4 n), so that short steps get chosen)
 FAST_KINDS = ("free_body", "drone", "so3_track249")
+# the drone's solve and its host plain solve: 6 iterations (12 before the
+# error-state and sweep phases came; a host-bound loop, ~1.4 s an iteration)
+DRONE_ITERS = 6
+# the fast tier's kernels are checked and timed on its iterate after one
+# iteration (two before the error-state and sweep phases came)
+FAST_CHECK_ITERS = 1
 LS_BATCH, LS_ITERS, LS_SCALE = 1024, 6, 0.4
 # the constrained path: the reference's N=1400 AL problem (R = 0, box +-10)
 # at B = 1024, its f32 AL loop (16 iterations an outer, at most 12 outers)
@@ -244,10 +280,11 @@ EXACT_BATCH, EXACT_LANES, EXACT_MAX_ITERS, EXACT_GATE = 1024, 4, 100, 1e-6
 # ALILQR on the AL problem's first 200 stages (box +-10, R = 0), B = 256,
 # the inner to `SolverConfig`'s default tolerance (1e-6)
 EXACT_AL_N, EXACT_AL_BATCH, EXACT_AL_OUTERS, EXACT_AL_INNERS = 200, 256, 20, 100
-# make_closed_loop on screw-200: 4 plants, H = 40, T = 100, each window to
+# make_closed_loop on screw-200: 4 plants, H = 40, T = 50 (100 before the
+# error-state and sweep phases came), each window to
 # the default tolerance within the batch drivers' 4 iterations a step, plant
 # 0 against a host loop
-EXACT_MPC_B, EXACT_MPC_H, EXACT_MPC_T, EXACT_MPC_ITERS = 4, 40, 100, 4
+EXACT_MPC_B, EXACT_MPC_H, EXACT_MPC_T, EXACT_MPC_ITERS = 4, 40, 50, 4
 # the anchored tier (f32, B13 at (12, 6)) and the full-precision refiners
 ANCHORED_BATCH, ANCHORED_ITERS = 8192, 14
 REFINE_BATCH, REFINE_F32_ITERS, REFINE_DF_ITERS, REFINE_REPS = 16384, 10, 3, 3
@@ -257,6 +294,20 @@ HIGHPREC_BATCH, HIGHPREC_F32_ITERS, HIGHPREC_POLISH_ITERS = 1024, 12, 2
 # processes beside the card's work; each result is waited for at most
 # HOST_WAIT_S
 HOST_WORKERS, HOST_WAIT_S = 6, 600
+
+# B13's runtime-shape instance at shapes no tuned instance has, f32 at
+# B = 8192 and f64 at B = 1024, N = 200, against its plain version; one
+# FastBatchSolver solve of a (12, 3) LieModel (a rigid body driven by three
+# torques, no gravity) against use_pallas=False
+ANY_SHAPES = ((6, 2), (9, 3), (12, 3), (12, 12))
+ANY_BATCH = {torch.float32: 8192, torch.float64: 1024}
+ANY_SOLVE_BATCH, ANY_SOLVE_ITERS = 1024, 4
+# the error-state tier: the three CLI problems at N = 400 in f64 against
+# their JAX goldens (the same iterations and flags, us to 1e-6, J to 1e-8)
+ES_US_GATE, ES_J_GATE = 1e-6, 1e-8
+# the one-device sweeps: one lane of each range against a B = 1 solve on
+# the host (1e-9) or a serial step loop on the card (1e-12)
+SWEEP_GATE, ROLLOUT_GATE = 1e-9, 1e-12
 
 KERNELS = {
     "B1": ("linearize", "csrc/linearize.cu",
@@ -285,6 +336,8 @@ KERNELS = {
             "trajectory_optimization_matrix_lie_groups_tpu/solvers/pipeline_so3.py:211"),
     "B13": ("generic riccati backward", "csrc/fast.cu",
             "trajectory_optimization_matrix_lie_groups_tpu/ops/pallas_riccati.py:104"),
+    "B13any": ("generic riccati backward, runtime shape", "csrc/fast.cu",
+               "trajectory_optimization_matrix_lie_groups_tpu/ops/pallas_riccati.py:104"),
     "B14": ("gap-closing rollout", "csrc/fast.cu",
             "trajectory_optimization_matrix_lie_groups_tpu/ops/pallas_rollout.py:42"),
 }
@@ -641,7 +694,7 @@ def host_task(task):
     from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline_so3 as S
     from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench, so3_bench
 
-    if task[0] in ("single", "mpc"):
+    if task[0] in ("single", "mpc", "sweep"):
         return host_exact(task)
     torch.set_num_threads(1)
     cpu, f32 = torch.device("cpu"), torch.float32
@@ -683,7 +736,7 @@ HOST_PLAIN = {
     "so3_track249": ("so3", "so3_track249"),
     "pendulum_swingup80": ("so3", "pendulum_swingup80"),
     "fast free_body": ("fast", "free_body", ITERS, "float32", BATCH, 0.05, {}),
-    "fast drone": ("fast", "drone", ITERS, "float32", BATCH, 0.05, {}),
+    "fast drone": ("fast", "drone", DRONE_ITERS, "float32", BATCH, 0.05, {}),
     "fast line_search": ("fast", "free_body", LS_ITERS, "float64", LS_BATCH, LS_SCALE,
                          {"line_search": True}),
 }
@@ -760,12 +813,22 @@ def exact_mpc_setup(dev):
 def host_exact(task):
     """A B = 1 reference solve on the host CPU, in a worker process:
     ("single", problem, lane) -> (us (N, nu), iterations) of that lane's
-    `LieILQR.solve`; ("mpc",) -> (qs (T+1, 4, 4), us (T, 6)) of plant 0's
-    closed loop as a host loop of B = 1 `LieILQR.solve` per step."""
+    `LieILQR.solve`; ("sweep", parameter, lane) -> the same of one point of
+    the perturbation sweep (`BatchSolver.solve_batch` at B = 1); ("mpc",) ->
+    (qs (T+1, 4, 4), us (T, 6)) of plant 0's closed loop as a host loop of
+    B = 1 `LieILQR.solve` per step."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.parallel import sweep
     from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import mpc as MPC
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import errstate_bench as EB
 
     torch.set_num_threads(1)
     cpu = torch.device("cpu")
+    if task[0] == "sweep":
+        _, name, b = task
+        bs, params, q0, xi0 = EB.build_sweep(torch.float64, cpu)
+        q0s, xi0s = sweep.build_x0_batch(name, EB.SWEEP_RANGES[name][b:b + 1], q0, xi0)
+        one = bs.solve_batch(params, q0s, xi0s, torch.zeros((1, N, 6), dtype=torch.float64))
+        return one.us[0].numpy(), int(one.iteration[0])
     if task[0] == "single":
         _, name, b = task
         model, params, q0s, xi0s, us0, us_g, meta, kdt = exact_problem(name, cpu)
@@ -1108,6 +1171,204 @@ def exact_phases(dev, card, counted, expect, rates, pool):
               "host_result_wait_s": wait_s})
         require(dev_b <= 1e-9 and its_1 == its_b,
                 f"{name} batch vs B = 1 solves: {dev_b}, {its_1} vs {its_b}")
+    return runs
+
+
+def b13_any_phase(dev, card, counted, expect):
+    """`kernels_b13_any`: B13's runtime-shape instance against its plain
+    version at ANY_SHAPES (f32 B = 8192, f64 B = 1024, N = 200) with times
+    (the kernel by CUDA events, mean of 3; the plain version, host-bound,
+    on the host clock around the one call that the check compares) and
+    bounds, and one FastBatchSolver solve of a (12, 3) LieModel against
+    use_pallas=False.  Returns (the solve's launches, the kernel's entry of
+    the kernels line: its numbers at (12, 3), f32)."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import kernel_check
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import costs, dynamics
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import make_model
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import riccati as RC
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SE3
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import batched as F
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench
+
+    rows = {}
+    for dtype, B in ANY_BATCH.items():
+        gate = kernel_check.GATES["fast"][dtype]["B13"]
+        for nx, nu in ANY_SHAPES:
+            s = kernel_check.riccati_inputs(nx, nu, B, N, dtype, dev, seed=SEED)
+            args = tuple(s[n] for n in kernel_check.READS["B13"])
+            kern = RC.backward_lane_any(*args)
+            plain, plain_s = timed(lambda: RC.backward_plain(*args))
+            e = kernel_check._compare({"B13": (lambda: kern, lambda: plain)},
+                                      kernel_check.FAST_OUTPUTS)["B13"]
+            ms = event_ms(lambda: RC.backward_lane_any(*args), 3)
+            row = {"max_err": e["max_rel"], "max_abs_err": e["max_abs"], "gate": gate,
+                   "ms": ms, "plain_ms": plain_s * 1e3, **bound("B13", s, kern),
+                   "library_ms": None}
+            rows[f"{nx}x{nu} {str(dtype).replace('torch.', '')} B={B}"] = {
+                **row, "bound_share": row["bound_ms"] / ms}
+            require(e["max_rel"] <= gate, f"B13any ({nx}, {nu}) {dtype}: {e['max_rel']} > {gate}")
+            del s, args, kern, plain
+    # a user's own LieModel at (12, 3): the rigid body, three torques, no gravity
+    f32 = torch.float32
+    dyn, cost, q0, xi0 = al_bench.build_screw200(f32, dev, horizon=N)
+    Pu = torch.zeros((6, 3), dtype=f32, device=dev)
+    Pu[0, 0] = Pu[1, 1] = Pu[2, 2] = 1.0
+    cost.R = 1e-2 * torch.eye(3, dtype=f32, device=dev)
+    model, params = make_model(dynamics.rigid_body_dynamics()._replace(nu=3),
+                               costs.tracking_cost(SE3, 3),
+                               dynamics.rigid_body_params(dyn.J, dyn.dt, g=0.0, Pu=Pu), cost)
+    q0s, xi0s = al_bench.screw_batch(q0, xi0, ANY_SOLVE_BATCH, SEED)
+    args = (params, q0s, xi0s, torch.zeros((ANY_SOLVE_BATCH, N, 3), dtype=f32, device=dev),
+            cost.q_ref, cost.xi_ref)
+    out, sec, launches = counted(lambda: F.FastBatchSolver(model, N, ANY_SOLVE_ITERS).solve(*args))
+    ref, ref_s, ref_launches = counted(lambda: F.FastBatchSolver(
+        model, N, ANY_SOLVE_ITERS, use_pallas=False).solve(*args))
+    J_rel = ((out.J_opt - ref.J_opt).abs() / ref.J_opt.abs()).max().item()
+    us_abs = (out.us - ref.us).abs().max().item()
+    fin = bool(torch.isfinite(out.us).all().item() and torch.isfinite(out.J_opt).all().item())
+    emit({"phase": "kernels_b13_any", "card": card, "N": N, "metric":
+          "max_rel = max|kernel - plain| / max(1, max|plain|) over outputs",
+          "shapes": rows,
+          "solve_12x3": {"model": "rigid body, Pu = [I3; 0] (three torques), g = 0, "
+                                  "screw-200 tracking, R = 1e-2 I3", "dtype": "float32",
+                         "B": ANY_SOLVE_BATCH, "iterations": ANY_SOLVE_ITERS,
+                         "launches": launches, "use_pallas_false_launches": ref_launches,
+                         "all_finite": fin, "J_rel_vs_use_pallas_false": J_rel,
+                         "us_max_abs_vs_use_pallas_false": us_abs, "J_gate": 1e-4,
+                         "solve_s": sec, "use_pallas_false_s": ref_s}})
+    require(launches == expect(B13any=ANY_SOLVE_ITERS), f"(12, 3) solve launches {launches}")
+    require(ref_launches == expect(), f"(12, 3) use_pallas=False launches {ref_launches}")
+    require(fin, "non-finite lanes in the (12, 3) solve")
+    require(J_rel <= 1e-4, f"(12, 3) kernel vs use_pallas=False J rel err {J_rel}")
+    return launches, rows[f"12x3 float32 B={ANY_BATCH[f32]}"]
+
+
+def split_timer(solver):
+    """Time an `ErrorStateILQR`'s pieces in every iteration of its next
+    fit: its linearization, backward pass and rollouts (every step size at
+    once) are wrapped on the instance, each call synchronized and timed on
+    the host clock.  Returns {piece: seconds so far}."""
+    acc = {"linearize": 0.0, "backward": 0.0, "rollout_all_alphas": 0.0}
+    for attr, key in (("_linearize", "linearize"), ("_backward", "backward"),
+                      ("_rollout_nonlinear", "rollout_all_alphas"),
+                      ("_rollout_linear", "rollout_all_alphas")):
+        def wrapped(*args, fn=getattr(solver, attr), key=key):
+            out, sec = timed(lambda: fn(*args))
+            acc[key] += sec
+            return out
+        setattr(solver, attr, wrapped)
+    return acc
+
+
+def errstate_sweep_phases(dev, card, counted, expect, pool):
+    """`solve_errstate`, `sweep` and `rollout_sweep` (module docstring).  The
+    sweep's B = 1 reference solves run on the host in the worker processes
+    of ``pool`` while the card works.  Returns {phase: launches}."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.parallel import sweep
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import errstate_bench as EB
+
+    f64 = torch.float64
+    runs = {}
+    lanes = {name: len(v) * 3 // 4 for name, v in EB.SWEEP_RANGES.items()}
+    host = {name: pool.apply_async(host_task, (("sweep", name, b),))
+            for name, b in lanes.items()}
+
+    # -- solve_errstate: the three CLI problems against their JAX goldens -------
+    for name in EB.ERRSTATE_TASKS:
+        us_g, meta = EB.load_errstate_golden(name)
+        prob = EB.PROBLEMS[name](f64, dev)
+        solver = prob.solver
+        split = split_timer(solver)
+        (st, J_hist, grad_hist, cp), sec, runs[f"solve_errstate {name}"] = counted(
+            lambda: solver.fit(prob.cost_params, prob.params, prob.us0, x0=prob.x0))
+        its = len(J_hist)
+        use_nl = solver.cfg.mode == "generation_nonlinear" or (
+            solver.cfg.mode == "tracking" and solver.cfg.rollout == "nonlinear")
+        J_rel = (max(abs(a - b) / abs(b) for a, b in zip(J_hist, meta["J_hist"]))
+                 if its == meta["iterations"] else float("inf"))
+        us_err = float(np.abs(st.us.cpu().numpy() - us_g).max())
+        flags = {"converged": bool(st.converged), "failed": bool(st.failed)}
+        emit({"phase": "solve_errstate", "problem": name, "card": card, "N": solver.cfg.N,
+              "mode": solver.cfg.mode, "rollout": solver.cfg.rollout if use_nl else "linear",
+              "n_alphas": solver.cfg.n_alphas, "launches": runs[f"solve_errstate {name}"],
+              "iterations": its, "golden_iterations": meta["iterations"], **flags,
+              "golden_flags": {"converged": meta["converged"], "failed": meta["failed"]},
+              "J_final": J_hist[-1], "golden_J_final": meta["J_final"],
+              "J_hist_max_rel_err": J_rel, "J_gate": ES_J_GATE,
+              "us_max_abs_err": us_err, "us_gate": ES_US_GATE,
+              "final_error": EB.final_error(prob, st),
+              "golden_final_error": meta.get("final_goal_err_norm", meta.get("final_err_norm")),
+              "fit_s": sec, "ms_per_iteration": sec * 1e3 / its,
+              "split_ms_per_iteration": {k: v * 1e3 / its for k, v in split.items()}})
+        require(runs[f"solve_errstate {name}"] == expect(), f"{name} launched a kernel")
+        require(its == meta["iterations"] and flags == {"converged": meta["converged"],
+                                                        "failed": meta["failed"]},
+                f"{name}: {its} iterations {flags} against the golden's {meta['iterations']} "
+                f"{meta['converged']}/{meta['failed']}")
+        require(J_rel <= ES_J_GATE, f"{name} J_hist rel err {J_rel} > {ES_J_GATE}")
+        require(us_err <= ES_US_GATE, f"{name} us err {us_err} > {ES_US_GATE}")
+        del st, prob
+
+    # -- sweep: run_sweep on screw-200, four ranges, the rollout on B14 --------
+    bs, params, q0, xi0 = EB.build_sweep(f64, dev)
+    iters = bs.solver.cfg.max_iterations
+    out, sec, runs["sweep"] = counted(
+        lambda: sweep.run_sweep(bs, params, EB.SWEEP_RANGES, q0, xi0))
+    n = sum(len(v) for v in EB.SWEEP_RANGES.values())
+    t_wait = time.perf_counter()
+    singles = {name: h.get(timeout=HOST_WAIT_S) for name, h in host.items()}
+    wait_s = time.perf_counter() - t_wait
+    dev_b = {name: float(np.abs(out[name].us[b] - singles[name][0]).max())
+             for name, b in lanes.items()}
+    fin = all(np.isfinite(r.us).all() and np.isfinite(r.J_opt).all() for r in out.values())
+    emit({"phase": "sweep", "card": card, "N": N, "solves": n,
+          "ranges": {k: len(v) for k, v in EB.SWEEP_RANGES.items()},
+          "config": "LieILQR MS, backward sequential_fixed, rollout nonlinear (B14), "
+                    f"{iters} iterations, no convergence test",
+          "launches": runs["sweep"], "all_finite": fin,
+          "J_range": {k: [float(r.J_opt.min()), float(r.J_opt.max())] for k, r in out.items()},
+          "host_B1_lanes": lanes, "host_B1_iterations": {k: v[1] for k, v in singles.items()},
+          "batch_vs_host_B1_us_max_abs": dev_b, "gate": SWEEP_GATE,
+          "sweep_s": sec, "solves_per_s": n / sec, "host_result_wait_s": wait_s})
+    require(runs["sweep"] == expect(B14=iters * len(EB.SWEEP_RANGES)),
+            f"sweep launch counts {runs['sweep']}")
+    require(fin, "non-finite lanes in the sweep")
+    require(all(v[1] == iters for v in singles.values()), "a host B = 1 sweep solve stopped early")
+    require(max(dev_b.values()) <= SWEEP_GATE, f"sweep vs host B = 1 solves {dev_b}")
+    del out
+
+    # -- rollout_sweep: four ranges at Nsim = 1400 -------------------------------
+    dyn, dp, bq0, bxi0, nsim = EB.build_rollout_sweep(f64, dev)
+    out, sec, runs["rollout_sweep"] = counted(
+        lambda: sweep.run_rollout_sweep(dyn, dp, EB.ROLLOUT_RANGES, bq0, bxi0, N=nsim))
+    n = sum(len(v) for v in EB.ROLLOUT_RANGES.values())
+    # the middle lane of each range, the four rolled out together in a step
+    # loop of their own (apart from the batches they were swept in)
+    mid = {name: len(values) // 2 for name, values in EB.ROLLOUT_RANGES.items()}
+    starts = [sweep.build_x0_batch(name, EB.ROLLOUT_RANGES[name][b:b + 1], bq0, bxi0)
+              for name, b in mid.items()]
+    q, xi = (torch.cat(x) for x in zip(*starts))
+    zero = torch.zeros((len(mid), 6), dtype=f64, device=dev)
+    qs, xis = [q], [xi]
+    for i in range(nsim):
+        q, xi = dyn.step(dp, q, xi, zero, i)
+        qs.append(q)
+        xis.append(xi)
+    qs, xis = torch.stack(qs, dim=1).cpu().numpy(), torch.stack(xis, dim=1).cpu().numpy()
+    errs = {name: max(float(np.abs(out[name].qs[b] - qs[j]).max()),
+                      float(np.abs(out[name].xis[b] - xis[j]).max()))
+            for j, (name, b) in enumerate(mid.items())}
+    fin = all(np.isfinite(r.qs).all() and np.isfinite(r.xis).all() for r in out.values())
+    emit({"phase": "rollout_sweep", "card": card, "steps": nsim, "rollouts": n,
+          "ranges": {k: len(v) for k, v in EB.ROLLOUT_RANGES.items()},
+          "launches": runs["rollout_sweep"], "all_finite": fin,
+          "final_pos_spread": {k: float(np.ptp(r.qs[:, -1, :3, 3], axis=0).max())
+                               for k, r in out.items()},
+          "sweep_vs_own_loop_max_abs_middle_lane": errs, "gate": ROLLOUT_GATE,
+          "rollout_sweep_s": sec, "rollouts_per_s": n / sec})
+    require(runs["rollout_sweep"] == expect(), "the rollout sweep launched a kernel")
+    require(fin, "non-finite rollouts")
+    require(max(errs.values()) <= ROLLOUT_GATE, f"rollout sweep vs its lanes' own loop {errs}")
     return runs
 
 
@@ -1574,7 +1835,7 @@ def run(pool):
     ferr = {}
     for kind in FAST_KINDS:
         for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
-            s = kernel_check.fast_inputs(fast_solver(kind, 2, dtype),
+            s = kernel_check.fast_inputs(fast_solver(kind, FAST_CHECK_ITERS, dtype),
                                          *fast_args(kind, dtype, CHECK_BATCH, SEED)[:4])
             e = kernel_check.fast_compare(s)
             torch.cuda.synchronize()
@@ -1631,16 +1892,19 @@ def run(pool):
 
     # the drone (nu = 4) on B13
     dargs = fast_args("drone", torch.float32, BATCH, SEED)
-    out, drone_s, per_fast["drone"] = counted(lambda: fast_solver("drone", ITERS).solve(*dargs))
+    out, drone_s, per_fast["drone"] = counted(
+        lambda: fast_solver("drone", DRONE_ITERS).solve(*dargs))
     out_p, plain_s = host_plain(host, "fast drone")
     Jp_rel = j_rel(out.J_opt[:HOST_LANES], out_p.J_opt)
     fin = finite(out)
-    emit({"phase": "solve_fast", "path": "drone", "B": BATCH, "N": N, "iterations": ITERS,
+    emit({"phase": "solve_fast", "path": "drone", "B": BATCH, "N": N,
+          "iterations": DRONE_ITERS,
           "launches": per_fast["drone"], "all_finite": fin, "lane0_J": out.J_opt[0].item(),
           "grad_norm_p50": out.grad_norm.median().item(),
           f"plain_vs_kernel_J_rel_err_lanes0_{HOST_LANES - 1}": Jp_rel,
           f"host_plain_solve_lanes0_{HOST_LANES - 1}_s": plain_s, "solve_s_first_call": drone_s})
-    require(per_fast["drone"] == expect(B13=ITERS), f"drone launch counts {per_fast['drone']}")
+    require(per_fast["drone"] == expect(B13=DRONE_ITERS),
+            f"drone launch counts {per_fast['drone']}")
     require(fin, "non-finite lanes in the drone fast solve")
     require(Jp_rel <= 1e-4, f"drone kernel vs plain J rel err {Jp_rel}")
     del out, out_p
@@ -1696,7 +1960,7 @@ def run(pool):
     med_f = statistics.median(reps)
     fast_kernel = {}
     for kind in FAST_KINDS:
-        s = kernel_check.fast_inputs(fast_solver(kind, 2),
+        s = kernel_check.fast_inputs(fast_solver(kind, FAST_CHECK_ITERS),
                                      *fast_args(kind, torch.float32, BATCH, 720)[:4])
         errs = kernel_check.fast_compare(s)
         for k, (kern, plain) in kernel_check.fast_calls(s).items():
@@ -1713,7 +1977,7 @@ def run(pool):
           # the drone and the free attitude: their solve_fast runs (host-bound
           # loops of 18-40 s; a second run of each read the same to 2-90%)
           "drone_s": drone_s, "drone_solves_per_s": BATCH / drone_s,
-          "drone_ms_per_iteration": drone_s * 1e3 / ITERS,
+          "drone_ms_per_iteration": drone_s * 1e3 / DRONE_ITERS,
           "so3_track249_s": so3f_s, "so3_track249_solves_per_s": BATCH / so3f_s,
           "so3_track249_ms_per_iteration": so3f_s * 1e3 / SO3_ITERS,
           "per_kernel": {"B1": {**per_kernel["B1"], "launches": per_fast["free_body"]["B1"],
@@ -1727,6 +1991,8 @@ def run(pool):
     constrained_phases(dev, card, counted, expect)
     exact_runs = exact_phases(dev, card, counted, expect, {
         "fast_free_body": BATCH / med_f, "mixed_polish": POLISH_BATCH / med_p}, pool)
+    per_any, per_kernel["B13any"] = b13_any_phase(dev, card, counted, expect)
+    exact_runs.update(errstate_sweep_phases(dev, card, counted, expect, pool))
 
     # launches: B1-B3 from the fused f32 solve, B4 from the unfused one,
     # B5-B9 from the polish solve, B10-B12 from the free-attitude solve (the
@@ -1740,6 +2006,7 @@ def run(pool):
                  for k in S.KERNELS})
     runs.update({k: (f"free_body fast B={BATCH}", per_fast["free_body"])
                  for k in ("B13", "B14")})
+    runs["B13any"] = (f"(12, 3) rigid body fast B={ANY_SOLVE_BATCH}", per_any)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
         {"name": f"{k} {KERNELS[k][0]}", "route": "cuda",

@@ -12,13 +12,17 @@ import pytest
 import torch
 
 from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
+    FAST_OUTPUTS,
     GATES,
+    READS,
     compare,
     fast_compare,
     fast_inputs,
     kernel_inputs,
     polish_compare,
     polish_inputs,
+    rel_err,
+    riccati_inputs,
     so3_compare,
     so3_inputs,
 )
@@ -384,19 +388,38 @@ def test_ahead_b13_b14_edges(cuda, dtype, name, kind, B_):
 
 
 def test_b13_refuses_a_shape_it_has_no_kernel_for(cuda):
-    """A CUDA tensor at (nx, nu) = (6, 2) raises from backward_lane: no
-    kernel, and no fallback to the plain version."""
+    """A CUDA tensor at (nx, nu) = (13, 3), past the kernel's bound of 12,
+    raises from backward_lane: no kernel, and no fallback to the plain
+    version."""
     from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import riccati as RC
 
-    N_, B_, nx, nu = 2, 3, 6, 2
+    N_, B_, nx, nu = 2, 3, 13, 3
     g = torch.Generator().manual_seed(0)
     r = lambda *shape: torch.randn(shape, generator=g, dtype=torch.float32).to(cuda)
-    launches = RC.backward_lane.launches
-    with pytest.raises(ValueError, match=r"\(nx, nu\) = \(6, 2\)"):
+    launches = (RC.backward_lane.launches, RC.backward_lane_any.launches)
+    with pytest.raises(ValueError, match=r"\(nx, nu\) = \(13, 3\).*at most 12"):
         RC.backward_lane(r(N_, nx, nx, B_), r(N_, nx, nu, B_), r(N_, nx, B_),
                          r(N_ + 1, nx, B_), r(N_, nu, B_), r(N_ + 1, nx, nx, B_),
                          r(N_, nu, nx, B_), r(N_, nu, nu, B_))
-    assert RC.backward_lane.launches == launches
+    assert (RC.backward_lane.launches, RC.backward_lane_any.launches) == launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b13_launches_at_a_shape_no_tuned_instance_has(cuda, dtype):
+    """(nx, nu) = (6, 2) through backward_lane launches B13's runtime-shape
+    instance and agrees with the plain version within the kernel's gate."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import riccati as RC
+
+    s = riccati_inputs(6, 2, 33, 20, dtype, cuda)
+    args = tuple(s[n] for n in READS["B13"])
+    launches = (RC.backward_lane.launches, RC.backward_lane_any.launches)
+    kern = RC.backward_lane(*args)
+    assert (RC.backward_lane.launches, RC.backward_lane_any.launches) == (
+        launches[0], launches[1] + 1)
+    plain = RC.backward_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(FAST_OUTPUTS["B13"], kern, plain, strict=True):
+        assert rel_err(a, b) <= GATES["fast"][dtype]["B13"], name
 
 
 # B3 (rollout phase, then B1's kernel on the new trajectory) and B4 at their

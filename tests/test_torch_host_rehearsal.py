@@ -4,8 +4,9 @@ thread of a block an OS thread, real barriers, the block's shared memory a
 buffer) on CPU tensors, against their plain versions: the group Riccati
 kernels B2 and B5 (csrc/riccati_group.cuh); B13 and B14 (csrc/fast.cu: at
 nx = 12 B13 is the same group design on a dense step, at (6, 3) a thread
-per problem copying stage t - 1's inputs ahead, and B14 a thread per
-problem copying stage t + 1's inputs ahead); the rollouts B4 and B3
+per problem copying stage t - 1's inputs ahead, at any other shape a thread
+per problem reading global memory, and B14 a thread per problem copying
+stage t + 1's inputs ahead); the rollouts B4 and B3
 (csrc/pipeline.cu: a thread per problem copying stage t + 1's inputs
 ahead, then, for B3, B1's kernel on the new trajectory) and the SO(3)
 kernels B11 and B12 (csrc/so3.cu: a thread per problem copying the next
@@ -34,6 +35,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
     kernel_inputs,
     polish_inputs,
     rel_err,
+    riccati_inputs,
     so3_inputs,
 )
 from trajectory_optimization_matrix_lie_groups_tpu_torch.models.dynamics import (
@@ -188,6 +190,40 @@ def test_b13_host_rehearsal_matches_plain(libs, dtype, kind, B, N):
     gate = GATES["fast"][dtype]["B13"] if dtype == torch.float32 else 1e-12
     for name, a, b in zip(FAST_OUTPUTS["B13"], kern, plain, strict=True):
         assert rel_err(a, b) <= gate, (name, rel_err(a, b))
+
+
+# B13 at shapes no tuned instance has (the runtime-shape instance, one
+# thread per problem on blocks of 128): a ragged block (9), a ragged second
+# block (129).
+ANY_SHAPES = [pytest.param(nx, nu, id=f"{nx}x{nu}") for nx, nu in ((6, 2), (9, 3), (12, 3), (12, 12))]
+
+
+@pytest.mark.parametrize("B", [9, 129], ids=["B9", "B129"])
+@pytest.mark.parametrize("nx,nu", ANY_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b13_any_shape_host_rehearsal_matches_plain(libs, dtype, nx, nu, B):
+    """B13's runtime-shape instance at (6, 2), (9, 3), (12, 3) and (12, 12)
+    on a random problem (`kernel_check.riccati_inputs`, N = 3) within its
+    card gate of the plain version (f32); f64 to 1e-12."""
+    s = riccati_inputs(nx, nu, B, 3, dtype, seed=nx + nu)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    fn = HR.function(libs[f"fast_{tag}"], f"fast_riccati_any_{tag}", RC._ARGS)
+    args = tuple(s[n] for n in READS["B13"])
+    kern, plain = RC._backward_kernel(fn, None, *args), RC.backward_plain(*args)
+    gate = GATES["fast"][dtype]["B13"] if dtype == torch.float32 else 1e-12
+    for name, a, b in zip(FAST_OUTPUTS["B13"], kern, plain, strict=True):
+        assert rel_err(a, b) <= gate, (name, rel_err(a, b))
+
+
+def test_b13_any_shape_launcher_refuses_past_its_bound(libs):
+    """(nx, nu) = (13, 3) and (6, 13) reach the runtime-shape instance's
+    launcher (the call's shape checks pass), which returns an error that
+    the kernel call raises."""
+    fn = HR.function(libs["fast_f64"], "fast_riccati_any_f64", RC._ARGS)
+    for nx, nu in ((13, 3), (6, 13)):
+        s = riccati_inputs(nx, nu, 3, 2)
+        with pytest.raises(RuntimeError, match="fast_riccati"):
+            RC._backward_kernel(fn, None, *(s[n] for n in READS["B13"]))
 
 
 @pytest.mark.parametrize("B", [1, 9, 33], ids=["B1", "B9", "B33"])

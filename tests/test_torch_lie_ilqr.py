@@ -91,7 +91,7 @@ def test_solve_matches_jax_solve(se3_case):
 
 
 def test_sharded_backward_is_not_ported(se3_case):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.7"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A.5 \(multi-GPU\)"):
         LieILQR(se3_case[2], SolverConfig(N=H, backward="associative_sharded"))
 
 

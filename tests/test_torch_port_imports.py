@@ -32,7 +32,9 @@ def test_port_has_the_slice_modules():
               "solvers.al_pipeline", "solvers.al_fast", "solvers.mpc",
               "solvers.riccati", "solvers.lie_ilqr", "solvers.al_ilqr",
               "solvers.anchored", "solvers.polish", "models.autodiff",
-              "solvers.ilqr", "tasks.cartpole"):
+              "solvers.ilqr", "tasks.cartpole", "models.errorstate",
+              "solvers.errorstate_ilqr", "parallel", "parallel.batch", "parallel.sweep",
+              "tasks.errstate_bench"):
         assert f"{port.__name__}.{m}" in mods, m
 
 

@@ -158,3 +158,46 @@ def cartpole_from_numpy(N, dt, x_goal=None, hessians=False, device=None,
     goal = None if x_goal is None else torch.as_tensor(np.array(x_goal))
     return cartpole.build(N=N, dt=dt, x_goal=goal, hessians=hessians, dtype=dtype,
                           device=torch.device("cpu") if device is None else device)
+
+
+def errorstate_params_from_numpy(fields, device=None):
+    """The port's `ErrorStateParams` from the fields of a JAX one
+    (``p._asdict()``, arrays as numpy), every dtype kept."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models.errorstate import (
+        ErrorStateParams,
+    )
+
+    return ErrorStateParams(**{k: _tensor(v, device) for k, v in fields.items()})
+
+
+def es_tracking_cost_from_numpy(fields, device=None):
+    """The port's `ErrorStateTrackingCostParams` from the fields of a JAX
+    one, every dtype kept."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models.errorstate import (
+        ErrorStateTrackingCostParams,
+    )
+
+    return ErrorStateTrackingCostParams(**{k: _tensor(v, device) for k, v in fields.items()})
+
+
+def es_goal_cost_from_numpy(fields, device=None):
+    """The port's `ErrorStateGoalCostParams` from the fields of a JAX one,
+    every dtype kept."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models.errorstate import (
+        ErrorStateGoalCostParams,
+    )
+
+    return ErrorStateGoalCostParams(**{k: _tensor(v, device) for k, v in fields.items()})
+
+
+def es_state_from_numpy(fields, device=None):
+    """The port's `ESState` from the fields of a JAX one (``state._asdict()``
+    with ``params`` as the dict of its `ErrorStateParams` fields, arrays as
+    numpy), every dtype kept: the state `ErrorStateILQR._iteration` steps."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.errorstate_ilqr import (
+        ESState,
+    )
+
+    return ESState(**{
+        k: (errorstate_params_from_numpy(v, device) if k == "params" else _tensor(v, device))
+        for k, v in fields.items()})

@@ -10,7 +10,8 @@
 // batch-last: B13 at nx = 12 runs one problem per group of 16 threads
 // (group.cuh); B13 at (6, 3) and B14 one problem per thread on blocks of one
 // warp with the carry in registers and each stage's inputs copied a stage
-// ahead into shared memory (ahead.cuh).
+// ahead into shared memory (ahead.cuh); B13 at any other shape up to
+// (12, 12) one problem per thread, reading global memory.
 #include "ahead.cuh"
 #include "common.cuh"
 #include "group.cuh"
@@ -43,6 +44,7 @@ struct FastRiccatiArgs {
   const T *Fx, *Fu, *d, *Lx, *Lu, *Lxx, *Lux, *Luu;  // Lx, Lxx: N+1 stages
   T *k, *K, *Vx1, *Vxx1;
   int N, B;
+  int nx, nu;  // read by the any-shape kernel only
 };
 
 // One group's scratch.
@@ -679,6 +681,202 @@ int launch_fast_riccati_thread(const FastRiccatiArgs<T>& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// B13 at any other (nx, nu) with nx, nu <= kAnyMax (the JAX kernel takes
+// the shapes from its arguments): one thread per problem on blocks of
+// kThreads, the shape a runtime argument, the stage's inputs read from
+// global memory as the step needs them (batch-last, so a warp's read of an
+// entry is 32 neighbouring problems) and the carry and the step's products
+// in arrays sized for kAnyMax, which live in local memory.  The same step,
+// sum order and Cholesky as the thread kernel above; no copy-ahead and no
+// group design: it serves shapes no model family of the package has.
+constexpr int kAnyMax = 12;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) fast_riccati_any_kernel(FastRiccatiArgs<T> a) {
+  constexpr int M = kAnyMax;
+  const int B = a.B, N = a.N, nx = a.nx, nu = a.nu, b = blockIdx.x * kThreads + threadIdx.x;
+  if (b >= B) return;
+  const int nxx = nx * nx, nxu = nx * nu, nuu = nu * nu, nc = nx + 1;
+  const auto at = [&](const T* base, int ne, int t) {
+    return Lane<const T>{base + ((long long)t * ne) * B + b, B};
+  };
+  const auto out = [&](T* base, int ne, int t) {
+    return Lane<T>{base + ((long long)t * ne) * B + b, B};
+  };
+  T Vx[M], V[M * M];
+  {
+    const Lane<const T> lx = at(a.Lx, nx, N), lxx = at(a.Lxx, nxx, N);
+    for (int i = 0; i < nx; ++i) Vx[i] = lx[i];
+    for (int e = 0; e < nxx; ++e) V[e] = lxx[e];
+  }
+  for (int t = N - 1; t >= 0; --t) {
+    const Lane<const T> F = at(a.Fx, nxx, t), Fu = at(a.Fu, nxu, t);
+    {
+      const Lane<T> vo = out(a.Vx1, nx, t), vvo = out(a.Vxx1, nxx, t);
+      for (int i = 0; i < nx; ++i) vo[i] = Vx[i];
+      for (int e = 0; e < nxx; ++e) vvo[e] = V[e];
+    }
+    // Vmod = V_x + V_xx d
+    T Vmod[M];
+    {
+      const Lane<const T> dd = at(a.d, nx, t);
+      for (int i = 0; i < nx; ++i) {
+        T s = V[i * nx] * dd[0];
+        for (int j = 1; j < nx; ++j) s += V[i * nx + j] * dd[j];
+        Vmod[i] = Vx[i] + s;
+      }
+    }
+    // Q_uu = L_uu + Fu^T (V_xx Fu)
+    T Quu[M * M];
+    {
+      T VFu[M * M];
+      for (int i = 0; i < nx; ++i)
+        for (int c = 0; c < nu; ++c) {
+          T s = V[i * nx] * Fu[c];
+          for (int k = 1; k < nx; ++k) s += V[i * nx + k] * Fu[k * nu + c];
+          VFu[i * nu + c] = s;
+        }
+      const Lane<const T> luu = at(a.Luu, nuu, t);
+      for (int r = 0; r < nu; ++r)
+        for (int c = 0; c < nu; ++c) {
+          T s = Fu[r] * VFu[c];
+          for (int k = 1; k < nx; ++k) s += Fu[k * nu + r] * VFu[k * nu + c];
+          Quu[r * nu + c] = luu[r * nu + c] + s;
+        }
+    }
+    // Q_x = L_x + F^T Vmod, Q_u = L_u + Fu^T Vmod
+    T Qx[M], Qu[M];
+    {
+      const Lane<const T> lx = at(a.Lx, nx, t), lu = at(a.Lu, nu, t);
+      for (int i = 0; i < nx; ++i) {
+        T s = F[i] * Vmod[0];
+        for (int k = 1; k < nx; ++k) s += F[k * nx + i] * Vmod[k];
+        Qx[i] = lx[i] + s;
+      }
+      for (int r = 0; r < nu; ++r) {
+        T s = Fu[r] * Vmod[0];
+        for (int k = 1; k < nx; ++k) s += Fu[k * nu + r] * Vmod[k];
+        Qu[r] = lu[r] + s;
+      }
+    }
+    // V <- V_xx F, row by row
+    for (int i = 0; i < nx; ++i) {
+      T row[M];
+      for (int j = 0; j < nx; ++j) {
+        T s = V[i * nx] * F[j];
+        for (int k = 1; k < nx; ++k) s += V[i * nx + k] * F[k * nx + j];
+        row[j] = s;
+      }
+      for (int j = 0; j < nx; ++j) V[i * nx + j] = row[j];
+    }
+    // Q_ux = L_ux + Fu^T (V_xx F)
+    T Qux[M * M];
+    {
+      const Lane<const T> lux = at(a.Lux, nxu, t);
+      for (int r = 0; r < nu; ++r)
+        for (int j = 0; j < nx; ++j) {
+          T s = Fu[r] * V[j];
+          for (int k = 1; k < nx; ++k) s += Fu[k * nu + r] * V[k * nx + j];
+          Qux[r * nx + j] = lux[r * nx + j] + s;
+        }
+    }
+    // V <- Q_xx = L_xx + F^T (V_xx F), column by column
+    {
+      const Lane<const T> lxx = at(a.Lxx, nxx, t);
+      for (int j = 0; j < nx; ++j) {
+        T qcol[M];
+        for (int i = 0; i < nx; ++i) {
+          T s = F[i] * V[j];
+          for (int k = 1; k < nx; ++k) s += F[k * nx + i] * V[k * nx + j];
+          qcol[i] = s;
+        }
+        for (int i = 0; i < nx; ++i) V[i * nx + j] = lxx[i * nx + j] + qcol[i];
+      }
+    }
+    // Cholesky Q_uu = L L^T
+    T L[M * M];
+    for (int j = 0; j < nu; ++j) {
+      T s = Quu[j * nu + j];
+      for (int kk = 0; kk < j; ++kk) s = s - L[j * nu + kk] * L[j * nu + kk];
+      L[j * nu + j] = xsqrt(s);
+      const T inv = T(1) / L[j * nu + j];
+      for (int i = j + 1; i < nu; ++i) {
+        T s2 = Quu[i * nu + j];
+        for (int kk = 0; kk < j; ++kk) s2 = s2 - L[i * nu + kk] * L[j * nu + kk];
+        L[i * nu + j] = s2 * inv;
+      }
+    }
+    // [K | k] = -Q_uu^-1 [Q_ux | Q_u]
+    T Kc[M * (M + 1)];
+    for (int c = 0; c < nc; ++c) {
+      T Y[M], X[M];
+      for (int i = 0; i < nu; ++i) {
+        T s = c < nx ? Qux[i * nx + c] : Qu[i];
+        for (int kk = 0; kk < i; ++kk) s = s - L[i * nu + kk] * Y[kk];
+        Y[i] = s / L[i * nu + i];
+      }
+      for (int i = nu - 1; i >= 0; --i) {
+        T s = Y[i];
+        for (int kk = i + 1; kk < nu; ++kk) s = s - L[kk * nu + i] * X[kk];
+        X[i] = s / L[i * nu + i];
+      }
+      for (int i = 0; i < nu; ++i) Kc[i * nc + c] = -X[i];
+    }
+    {
+      const Lane<T> Ko = out(a.K, nxu, t), ko = out(a.k, nu, t);
+      for (int r = 0; r < nu; ++r) {
+        for (int j = 0; j < nx; ++j) Ko[r * nx + j] = Kc[r * nc + j];
+        ko[r] = Kc[r * nc + nx];
+      }
+    }
+    // KTQuu = K^T Q_uu (nx x nu)
+    T KTQuu[M * M];
+    for (int i = 0; i < nx; ++i)
+      for (int c = 0; c < nu; ++c) {
+        T s = Kc[i] * Quu[c];
+        for (int r = 1; r < nu; ++r) s += Kc[r * nc + i] * Quu[r * nu + c];
+        KTQuu[i * nu + c] = s;
+      }
+    // V_x = Q_x + K^T Q_uu k + K^T Q_u + Q_ux^T k
+    for (int i = 0; i < nx; ++i) {
+      T s1 = KTQuu[i * nu] * Kc[nx], s2 = Kc[i] * Qu[0], s3 = Qux[i] * Kc[nx];
+      for (int r = 1; r < nu; ++r) {
+        s1 += KTQuu[i * nu + r] * Kc[r * nc + nx];
+        s2 += Kc[r * nc + i] * Qu[r];
+        s3 += Qux[r * nx + i] * Kc[r * nc + nx];
+      }
+      Vx[i] = ((Qx[i] + s1) + s2) + s3;
+    }
+    // V_xx = sym(Q_xx + K^T Q_uu K + K^T Q_ux + Q_ux^T K), in place
+    for (int i = 0; i < nx; ++i)
+      for (int j = i; j < nx; ++j) {
+        T aij = KTQuu[i * nu] * Kc[j], aji = KTQuu[j * nu] * Kc[i];
+        T bij = Kc[i] * Qux[j], bji = Kc[j] * Qux[i];
+        T cij = Qux[i] * Kc[j], cji = Qux[j] * Kc[i];
+        for (int r = 1; r < nu; ++r) {
+          aij += KTQuu[i * nu + r] * Kc[r * nc + j];
+          aji += KTQuu[j * nu + r] * Kc[r * nc + i];
+          bij += Kc[r * nc + i] * Qux[r * nx + j];
+          bji += Kc[r * nc + j] * Qux[r * nx + i];
+          cij += Qux[r * nx + i] * Kc[r * nc + j];
+          cji += Qux[r * nx + j] * Kc[r * nc + i];
+        }
+        const T xij = ((V[i * nx + j] + aij) + bij) + cij;
+        const T xji = ((V[j * nx + i] + aji) + bji) + cji;
+        const T h = T(0.5) * (xij + xji);
+        V[i * nx + j] = h;
+        V[j * nx + i] = h;
+      }
+  }
+}
+
+template <typename T>
+int launch_fast_riccati_any(const FastRiccatiArgs<T>& a, cudaStream_t s) {
+  if (a.nx < 1 || a.nu < 1 || a.nx > kAnyMax || a.nu > kAnyMax) return (int)cudaErrorInvalidValue;
+  fast_riccati_any_kernel<T><<<batch_grid(a.B), kThreads, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // ---- B14 ------------------------------------------------------------------
 // Replaces ops/pallas_rollout.py::_rollout_kernel (pallas_rollout): B4's
 // gap-closing step for the free body, with Exp(d_q) and f(x_i)^-1 read
@@ -844,7 +1042,7 @@ extern "C" int TRAOPT_FN(fast_riccati)(
   a.Lx = (const T*)Lx; a.Lu = (const T*)Lu; a.Lxx = (const T*)Lxx;
   a.Lux = (const T*)Lux; a.Luu = (const T*)Luu;
   a.k = (T*)k; a.K = (T*)K; a.Vx1 = (T*)Vx1; a.Vxx1 = (T*)Vxx1;
-  a.N = N; a.B = B;
+  a.N = N; a.B = B; a.nx = nx; a.nu = nu;
   if (N <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   if (cudaError_t e = cudaSetDevice(device)) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
@@ -852,6 +1050,26 @@ extern "C" int TRAOPT_FN(fast_riccati)(
   if (nx == 12 && nu == 4) return traopt::launch_fast_riccati<T, 12, 4>(a, s);
   if (nx == 6 && nu == 3) return traopt::launch_fast_riccati_thread<T, 6, 3>(a, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// B13's runtime-shape instance at any (nx, nu) with nx, nu <= 12, tuned
+// shape or not (ops/riccati.py calls it for the shapes fast_riccati has no
+// instance for).
+extern "C" int TRAOPT_FN(fast_riccati_any)(
+    const void* Fx, const void* Fu, const void* d, const void* Lx,
+    const void* Lu, const void* Lxx, const void* Lux, const void* Luu, void* k,
+    void* K, void* Vx1, void* Vxx1, int N, int nx, int nu, int B, int device,
+    void* stream) {
+  using T = Scalar;
+  traopt::FastRiccatiArgs<T> a;
+  a.Fx = (const T*)Fx; a.Fu = (const T*)Fu; a.d = (const T*)d;
+  a.Lx = (const T*)Lx; a.Lu = (const T*)Lu; a.Lxx = (const T*)Lxx;
+  a.Lux = (const T*)Lux; a.Luu = (const T*)Luu;
+  a.k = (T*)k; a.K = (T*)K; a.Vx1 = (T*)Vx1; a.Vxx1 = (T*)Vxx1;
+  a.N = N; a.B = B; a.nx = nx; a.nu = nu;
+  if (N <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
+  if (cudaError_t e = cudaSetDevice(device)) return (int)e;
+  return traopt::launch_fast_riccati_any<T>(a, (cudaStream_t)stream);
 }
 
 extern "C" int TRAOPT_FN(fast_rollout)(

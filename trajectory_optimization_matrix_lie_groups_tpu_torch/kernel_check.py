@@ -325,6 +325,27 @@ def anchored_inputs(solver, q0_locs, xi0s, us0):
     return s
 
 
+def riccati_inputs(nx, nu, B, N, dtype=torch.float64, device="cpu", seed=0):
+    """A random dense Riccati problem in lane layout, every input B13 takes
+    at any (nx, nu), drawn on ``device`` by a torch generator seeded with
+    ``seed`` (`fast_calls` runs B13 on it): Fx = 0.8 I plus noise of norm
+    ~0.2 (a contraction, so the value function stays bounded over long
+    horizons), small Fu and d, positive definite Lxx and Luu, and ``us``
+    (zeros) for the shape.  Drawn in f64 and rounded to ``dtype``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = lambda *shape: torch.randn(shape + (B,), generator=g, dtype=torch.float64,
+                                   device=device)
+    lanes = lambda W: torch.einsum("...ikb,...jkb->...ijb", W, W)
+    eye = lambda m: torch.eye(m, dtype=torch.float64, device=device)[..., None]
+    arrays = dict(
+        Fx=0.8 * eye(nx) + 0.1 / nx ** 0.5 * n(N, nx, nx), Fu=0.1 * n(N, nx, nu),
+        d=0.01 * n(N, nx), Lx=n(N + 1, nx), Lu=n(N, nu),
+        Lxx=0.1 * lanes(n(N + 1, nx, nx)) + eye(nx), Lux=0.1 * n(N, nu, nx),
+        Luu=0.1 * lanes(n(N, nu, nu)) + eye(nu),
+        us=torch.zeros((N, nu, B), dtype=torch.float64, device=device))
+    return {k: v.to(dtype).contiguous() for k, v in arrays.items()}
+
+
 # B14's positional arguments, entries of the inputs of `fast_inputs`
 FAST_ROLLOUT_ARGS = ("qR", "qp", "xi", "us", "k", "K", "d", "fxi", "edR", "edp", "fiR", "fip",
                      "J", "Jinv")

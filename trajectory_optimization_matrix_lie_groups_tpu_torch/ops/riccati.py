@@ -2,9 +2,12 @@
 `ops/pallas_riccati.py`), with kernel B13.
 
 A dense defect-aware Riccati step on per-stage Fx, Fu, Lux and Luu, fixed
-mu = 0 (so Q_uu must be positive definite), for any of the state/input
-sizes the JAX package's users pass: (nx, nu) = (12, 6) (SE(3) free body,
-rigid body), (12, 4) (drone) and (6, 3) (SO(3) families).
+mu = 0 (so Q_uu must be positive definite), for any state/input sizes with
+nx, nu <= `MAX_DIM` (the JAX kernel takes the sizes from its arguments).
+The kernel has tuned instances at `SHAPES`, the sizes of the package's
+model families: (nx, nu) = (12, 6) (SE(3) free body, rigid body), (12, 4)
+(drone) and (6, 3) (SO(3) families); any other size takes its runtime-shape
+instance.
 
 Lane layout (batch last): Fx (N, nx, nx, B), Fu (N, nx, nu, B), d (N, nx, B),
 Lx (N+1, nx, B), Lu (N, nu, B), Lxx (N+1, nx, nx, B), Lux (N, nu, nx, B),
@@ -14,8 +17,9 @@ with Vx1[i], Vxx1[i] the value function of stage i+1 (the carry before stage
 i's update).
 
 `backward_plain` is the plain version (a Python loop over stages on lane
-tensors), `backward_lane` kernel B13's wrapper, `fast_backward` the
-solver-layout wrapper (counterpart of `pallas_backward`).
+tensors), `backward_lane` kernel B13's wrapper (its runtime-shape instance
+through `backward_lane_any`), `fast_backward` the solver-layout wrapper
+(counterpart of `pallas_backward`).
 """
 
 import torch
@@ -27,8 +31,10 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.utils.linalg import (
     chol_solve,
 )
 
-# the (nx, nu) instantiations of the kernel
+# the (nx, nu) of the kernel's tuned instances; any other (nx, nu) with
+# nx, nu <= MAX_DIM takes the runtime-shape instance
 SHAPES = ((12, 6), (12, 4), (6, 3))
+MAX_DIM = 12
 
 
 def riccati_step(fx, fu, dd, lx, lu, lxx, lux, luu, Vx, Vxx):
@@ -97,21 +103,21 @@ def backward_lane(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu):
     returns (k, K, Vx1, Vxx1).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32 or float64, (nx, nu) one of `SHAPES`), or raise.  On an H100,
-    at nx = 12 a group of 16 threads runs one problem's stage recursion,
-    lane r holding row r of V_xx in registers, the group exchanging the
-    stage's products through shared memory, and the block copies each
-    stage's inputs into shared memory a stage ahead; at (6, 3) one thread
-    runs one problem with its carry in registers, on blocks of one warp,
-    copying each stage's 132 inputs into shared memory a stage ahead
+    (float32 or float64), its tuned instance at the (nx, nu) of `SHAPES`
+    and `backward_lane_any`'s at any other shape, or raise.  On an H100, at
+    nx = 12 a group of 16 threads runs one problem's stage recursion, lane
+    r holding row r of V_xx in registers, the group exchanging the stage's
+    products through shared memory, and the block copies each stage's
+    inputs into shared memory a stage ahead; at (6, 3) one thread runs one
+    problem with its carry in registers, on blocks of one warp, copying
+    each stage's 132 inputs into shared memory a stage ahead
     (`csrc/fast.cu`)."""
     if d.device.type == "cpu":
         return backward_plain(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu)
     if d.device.type != "cuda":
         raise ValueError(f"backward_lane: no kernel for device {d.device}")
-    nx, nu = d.shape[1], Lu.shape[1]
-    if (nx, nu) not in SHAPES:
-        raise ValueError(f"backward_lane: no kernel for (nx, nu) = ({nx}, {nu})")
+    if (d.shape[1], Lu.shape[1]) not in SHAPES:
+        return backward_lane_any(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu)
     fn = _build.function("fast", "fast_riccati", _build.suffix(d.dtype), _ARGS)
     out = _backward_kernel(fn, torch.cuda.current_stream(d.device).cuda_stream,
                            Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu)
@@ -120,6 +126,34 @@ def backward_lane(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu):
 
 
 backward_lane.launches = 0
+
+
+def backward_lane_any(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu):
+    """Kernel B13's runtime-shape instance, at any (nx, nu) with nx and nu
+    at most `MAX_DIM` (`backward_lane` sends it the shapes its tuned
+    instances do not take).  Same arguments and outputs as `backward_lane`.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, or
+    raise (beyond the bound, or on another device).  On an H100 one thread
+    runs one problem's stage recursion, on blocks of 128, reading each
+    stage's inputs from global memory, its carry and the step's products in
+    local memory (`csrc/fast.cu`)."""
+    if d.device.type == "cpu":
+        return backward_plain(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu)
+    if d.device.type != "cuda":
+        raise ValueError(f"backward_lane_any: no kernel for device {d.device}")
+    nx, nu = d.shape[1], Lu.shape[1]
+    if not (1 <= nx <= MAX_DIM and 1 <= nu <= MAX_DIM):
+        raise ValueError(f"backward_lane: no kernel for (nx, nu) = ({nx}, {nu}): "
+                         f"nx and nu must be at most {MAX_DIM}")
+    fn = _build.function("fast", "fast_riccati_any", _build.suffix(d.dtype), _ARGS)
+    out = _backward_kernel(fn, torch.cuda.current_stream(d.device).cuda_stream,
+                           Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu)
+    backward_lane_any.launches += 1
+    return out
+
+
+backward_lane_any.launches = 0
 
 
 def fast_backward(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu, plain=False):

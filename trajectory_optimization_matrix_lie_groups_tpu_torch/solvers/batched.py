@@ -36,6 +36,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.linearize import (
 )
 from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.riccati import (
     backward_lane,
+    backward_lane_any,
     fast_backward,
 )
 from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.rollout import (
@@ -49,7 +50,8 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.utils.linalg import (
     chol_solve_psd,
 )
 
-KERNELS = {"B1": linearize_lane, "B13": backward_lane, "B14": rollout_lane}
+KERNELS = {"B1": linearize_lane, "B13": backward_lane, "B13any": backward_lane_any,
+           "B14": rollout_lane}
 
 
 def _bmv(M, v):

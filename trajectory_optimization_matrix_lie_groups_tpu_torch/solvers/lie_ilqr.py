@@ -162,7 +162,8 @@ class LieILQR:
         if config.backward == "associative_sharded":
             raise NotImplementedError(
                 "backward='associative_sharded' (the time-axis-sharded scan of the "
-                "JAX parallel/riccati_sharded.py) is not ported yet: ROADMAP.md A.7")
+                "JAX parallel/riccati_sharded.py) is not ported yet: ROADMAP.md A.5 "
+                "(multi-GPU)")
         if config.backward not in BACKWARDS:
             raise ValueError(f"backward must be one of {BACKWARDS}, got {config.backward!r}")
         if config.rollout not in ("linear", "nonlinear"):
