@@ -2,6 +2,11 @@
 """Drive the PyTorch port's paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cli [task ...]
+
+With ``--cli`` only the `cli` phase runs (below; the named tasks of
+`CLI_TASKS`, all without names), with its gates and launch checks, after
+the kernels' build; then the card's name and power limit.
 
 The first two run on the screw-200 problem (the N=200 prefix of the
 reference's screw-tracking problem, R = 1e-3 I, no box) for a batch of
@@ -182,6 +187,20 @@ Phases, each printed as one JSON line:
   rollout_sweep `run_rollout_sweep` (four ranges, 112 rollouts of 1400
                 steps), the middle lane of each against a step loop of
                 those four lanes alone (1e-12), rollouts/s.
+  cli           the task CLI (`tasks/run.main`, in this process, on the
+                card) on the stand-in benchmark pickles
+                (`tasks/golden/standin/`), one line per task with its JSON
+                line, wall time and launches: se3_tracking_ms, drone_ms,
+                pendulum3d_ms and so3_tracking_ms with --x64 (converged,
+                controls within 1e-4 of the pickle's JAX solution;
+                se3_tracking_ms's rollout on B14), mpc_batch and
+                mpc_batch_constrained (B, H, T = 1024, 40, 100, f32; B1-B3;
+                mpc_batch's final mean tracking error equal to a direct
+                `make_closed_loop_batch` call on the same draws to 1e-6),
+                al_batch (`ALPipelineSolver`, B1-B3; every lane below
+                violation 1e-2), cartpole (converged), dynamics_sim
+                (tests/test_task_cli.py's gates) and cost_landscape (its
+                grids on the card equal to the CPU's to 1e-12).
 
 Every host-side reference solve (the plain versions' solves of lanes 0..15
 in solve_f32, solve_so3 and solve_fast, the reference-exact tier's and the
@@ -198,8 +217,8 @@ from the fused f32 run, of B4 from the unfused run, of B5-B9 from the
 polish run, of B10-B12 from the free-attitude run, of B13 and B14 from the
 free-body fast run, of B13any from the (12, 3) solve, each named in "run";
 B13any's times at (12, 3), f32, B = 8192; "launches_in": the launches in
-each phase of the reference-exact, anchored and refiner paths and of the
-sweep),
+each phase of the reference-exact, anchored and refiner paths, of the
+sweep and of the task CLI ("cli", all its tasks)),
 the card's name and power limit as nvidia-smi prints them, and the result
 line.  The f32 path is timed before any polish or SO(3) work, after the
 same phases as when it was the script's only path, so that its time
@@ -211,6 +230,7 @@ doing anything.
 
 import json
 import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -308,6 +328,19 @@ ES_US_GATE, ES_J_GATE = 1e-6, 1e-8
 # the one-device sweeps: one lane of each range against a B = 1 solve on
 # the host (1e-9) or a serial step loop on the card (1e-12)
 SWEEP_GATE, ROLLOUT_GATE = 1e-9, 1e-12
+# the task CLI on the stand-in pickles: each task with its flags (the exact
+# tasks in f64, the batch tasks at the card's sizes in f32), its controls
+# against the pickle's JAX solution (tests/test_task_cli.py's gate), the
+# batch MPC against a direct `make_closed_loop_batch` call on the same draws
+CLI_TASKS = (("se3_tracking_ms", ("--x64",)), ("drone_ms", ("--x64",)),
+             ("pendulum3d_ms", ("--x64",)), ("so3_tracking_ms", ("--x64",)),
+             ("mpc_batch", ()), ("mpc_batch_constrained", ()), ("al_batch", ()),
+             ("cartpole", ("--x64",)), ("dynamics_sim", ("--x64",)),
+             ("cost_landscape", ("--x64",)))
+CLI_US_GATE, CLI_MPC_GATE, CLI_GRID_GATE = 1e-4, 1e-6, 1e-12
+# the kernels each CLI task launches on the card (every other kernel 0)
+CLI_KERNELS = {"se3_tracking_ms": {"B14"}, "mpc_batch": {"B1", "B2", "B3"},
+               "mpc_batch_constrained": {"B1", "B2", "B3"}, "al_batch": {"B1", "B2", "B3"}}
 
 KERNELS = {
     "B1": ("linearize", "csrc/linearize.cu",
@@ -1372,11 +1405,150 @@ def errstate_sweep_phases(dev, card, counted, expect, pool):
     return runs
 
 
+def launch_counters():
+    """(counted, expect) over every kernel's launch counter: ``counted(fn)``
+    sets each counter to 0, runs ``fn`` (synchronized, timed) and returns
+    (its result, seconds, {kernel: launches}); ``expect(**launches)`` is
+    every kernel's count, those named and every other kernel 0."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import batched as F
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline_so3 as S
+
+    counters = {**P.KERNELS, **DM.KERNELS, **S.KERNELS, **F.KERNELS}
+
+    def counted(fn):
+        for w in counters.values():
+            w.launches = 0
+        out, sec = timed(fn)
+        return out, sec, {k: w.launches for k, w in counters.items()}
+
+    def expect(**launches):
+        return {k: launches.get(k, 0) for k in counters}
+
+    return counted, expect
+
+
+def check_cli_launches(cli_runs):
+    """Each CLI task launched the kernels of `CLI_KERNELS` and no other."""
+    for task, n in cli_runs.items():
+        want = CLI_KERNELS.get(task, set())
+        require({k for k, v in n.items() if v} == want,
+                f"cli {task} launches {n}, expected {want}")
+
+
+def _finite(x):
+    """Every number in a JSON value is finite."""
+    if isinstance(x, dict):
+        return all(_finite(v) for v in x.values())
+    if isinstance(x, list):
+        return all(_finite(v) for v in x)
+    return not isinstance(x, float) or bool(np.isfinite(x))
+
+
+def cli_phase(dev, card, counted, tasks=CLI_TASKS):
+    """`cli` (module docstring): each task of ``tasks`` through
+    `tasks/run.main` on ``dev``, its stdout captured, the counters reset
+    just before it and read just after (``counted``); the gates on its
+    line.  Returns {task: its launches}; the caller holds them to
+    `CLI_KERNELS`.  On the CPU (the host rehearsal) the CLI takes its CPU
+    sizes and engines."""
+    import contextlib
+    import io
+
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.mpc import (
+        make_closed_loop_batch,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import parity
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import run as R
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.utils import records
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.viz.cost_landscape import (
+        pose_error_grid,
+    )
+
+    parity.RESULTS_DIR = parity.STANDIN_DIR
+    # the card's MPC tasks append their performance records: into the
+    # build directory, never into the checkout's tracked tree
+    records.DEFAULT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                        "records_torch.jsonl")
+    runs = {}
+    for task, flags in tasks:
+        buf = io.StringIO()
+
+        def go():
+            with contextlib.redirect_stdout(buf):
+                R.main([task, *flags, *(["--cpu"] if dev.type == "cpu" else [])])
+
+        _, sec, n = counted(go)
+        runs[task] = n
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        row = {"phase": "cli", "task": task, "flags": list(flags), "card": card,
+               "wall_s": sec, "launches": {k: v for k, v in n.items() if v}, "line": line}
+        require(_finite(line), f"cli {task}: a number is not finite: {line}")
+        if task.endswith("_ms"):
+            require(line["converged"] and line["us_vs_reference_max_err"] <= CLI_US_GATE,
+                    f"cli {task}: {line}")
+        if task == "al_batch":
+            require(line["max_violation"] < AL_TOL and line["constr_converged"],
+                    f"cli al_batch: {line}")
+        if task == "mpc_batch":
+            # the task's reported run is its last, on start batch 3
+            model, dp, cp, B, H, T, pipe = R._batch_mpc_setup(
+                types.SimpleNamespace(device=dev, dtype=torch.float32))
+            res = make_closed_loop_batch(pipe, model, T)(
+                dp, cp, R.mpc_batch_starts(cp, B, 3, dev),
+                cp.xi_ref[0].expand(B, 6).contiguous())
+            direct = float(torch.mean(R._err_to(cp.q_ref[T], res.qs[:, -1])))
+            row["direct_tracking_err_mean_final"] = direct
+            require(abs(direct - line["tracking_err_mean_final"]) <= CLI_MPC_GATE,
+                    f"cli mpc_batch {line['tracking_err_mean_final']} vs direct {direct}")
+        if task == "cartpole":
+            require(line["converged"], f"cli cartpole: {line}")
+        if task == "dynamics_sim":
+            require(line["vel_divergence_max"] < 1e-10 and line["pose_divergence_max"] < 0.05
+                    and line["pendulum_swings"], f"cli dynamics_sim: {line}")
+        if task == "cost_landscape":
+            _, _, params, _, _, _ = parity.build_benchmark("se3_tracking", True, device=dev)
+            cp = params["cost"]
+            th = np.linspace(-180.0, 180.0, 73)
+            errs = {}
+            for left, name in ((True, "left"), (False, "right")):
+                Z = pose_error_grid(cp.q_ref[0], th, th, cp.Q1, left=left)[0]
+                Zc = pose_error_grid(cp.q_ref[0].cpu(), th, th, cp.Q1.cpu(), left=left)[0]
+                errs[name] = max(float(np.abs(Z - Zc).max()),
+                                 abs(line["grids"][name]["min"] - float(Zc.min())),
+                                 abs(line["grids"][name]["max"] - float(Zc.max())))
+            row["grid_vs_cpu_max_abs"] = errs
+            require(max(errs.values()) <= CLI_GRID_GATE, f"cli cost_landscape vs CPU {errs}")
+        emit(row)
+    return runs
+
+
+def cli_only(names):
+    """``--cli [task ...]`` (module docstring)."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    build_s = _build.build()
+    card = nvidia_smi()
+    counted, expect = launch_counters()
+    runs = cli_phase(torch.device("cuda", 0), card, counted,
+                     [t for t in CLI_TASKS if not names or t[0] in names])
+    check_cli_launches(runs)
+    emit({"cli_launches": {k: sum(n[k] for n in runs.values()) for k in expect()},
+          "build_s": build_s, "total_s": time.perf_counter() - t0})
+    print(card, flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         sys.exit(2)
+    if sys.argv[1:2] == ["--cli"]:
+        return cli_only(sys.argv[2:])
     pool = multiprocessing.get_context("spawn").Pool(HOST_WORKERS)
     try:
         run(pool)
@@ -1456,17 +1628,7 @@ def run(pool):
     # The counters are reset just before each run and read just after it: the
     # fused solve at B=8192 (the main path: B1, B2, B3) and the solver's
     # unfused layout at B=256 (B1, B2, B4).
-    counters = {**P.KERNELS, **DM.KERNELS, **S.KERNELS, **F.KERNELS}
-
-    def counted(fn):
-        for w in counters.values():
-            w.launches = 0
-        out, sec = timed(fn)
-        return out, sec, {k: w.launches for k, w in counters.items()}
-
-    def expect(**launches):
-        """Every kernel's launch count: those named, every other kernel 0."""
-        return {k: launches.get(k, 0) for k in counters}
+    counted, expect = launch_counters()
 
     args = batch(torch.float32, BATCH, SEED)
     dyn = args[0]
@@ -1993,6 +2155,9 @@ def run(pool):
         "fast_free_body": BATCH / med_f, "mixed_polish": POLISH_BATCH / med_p}, pool)
     per_any, per_kernel["B13any"] = b13_any_phase(dev, card, counted, expect)
     exact_runs.update(errstate_sweep_phases(dev, card, counted, expect, pool))
+    cli_runs = cli_phase(dev, card, counted)
+    check_cli_launches(cli_runs)
+    exact_runs["cli"] = {k: sum(n[k] for n in cli_runs.values()) for k in expect()}
 
     # launches: B1-B3 from the fused f32 solve, B4 from the unfused one,
     # B5-B9 from the polish solve, B10-B12 from the free-attitude solve (the

@@ -13,7 +13,14 @@ fast tier on the augmented-Lagrangian cost (the first 200 stages of the
 N=1400 AL problem, box +-10, its initial multipliers; B13 and B14, the
 linearization batch-first; B=8192, 3 iterations).
 
-    python3 scripts/profile_torch_pipeline.py [--path f32|polish|fast|al_fast|so3_track249|pendulum_swingup80]
+``--path cartpole``, ``drone_ms``, ``pendulum3d_ms``, ``so3_tracking_ms`` or
+``se3_tracking_ms``: a host-bound task of the task CLI (`tasks/run.py`) by
+piece: the cartpole's Euclidean `ILQR` (N = 400) or the `LieILQR` benchmark
+solve in f64 on the stand-in pickles (`tasks/parity.STANDIN_DIR`), one fit
+with each solver method of an iteration wrapped on the instance, each call
+synchronized and timed on the host clock: ms an iteration by piece.
+
+    python3 scripts/profile_torch_pipeline.py [--path f32|polish|fast|al_fast|so3_track249|pendulum_swingup80|cartpole|drone_ms|...]
         [--batch B] [--iterations I] [--trace PATH]
 
 Prints one JSON line; ``--trace`` also writes the Chrome trace.  Needs a
@@ -59,9 +66,56 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (
 )
 
 
+PIECES = {"ILQR": ("_linearize", "_backward", "_grad_norm", "_control", "_traj_cost"),
+          "LieILQR": ("_linearize", "_backward", "_grad_norm_ms", "_grad_norm_ss", "_rollout",
+                      "_traj_cost", "_defect_norm")}
+CLI_TASKS = {"cartpole": None, "drone_ms": "drone_racing", "pendulum3d_ms": "pendulum_swingup",
+             "so3_tracking_ms": "so3_tracking", "se3_tracking_ms": "se3_tracking"}
+
+
+def cli_split(task, dev, card):
+    """One JSON line: the CLI task's fit, its iterations, wall time and ms
+    an iteration by solver method (module docstring)."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import cartpole, parity
+
+    _build.build()
+    torch.set_num_threads(1)
+    f64 = torch.float64
+    if task == "cartpole":
+        solver = cartpole.build(dtype=f64, device=dev)
+        x0 = torch.tensor([[9.0, 0.0, 0.0, 0.0]], dtype=f64, device=dev)
+        fit = lambda: solver.fit(x0, torch.zeros((1, 400, 1), dtype=f64, device=dev),
+                                 n_iterations=200)
+    else:
+        parity.RESULTS_DIR = parity.STANDIN_DIR
+        _, solver, params, x0, us0, _ = parity.build_benchmark(CLI_TASKS[task], True,
+                                                               device=dev)
+        fit = lambda: solver.fit(params, x0, us0)
+    acc = {}
+    for attr in PIECES[type(solver).__name__]:
+        def wrapped(*a, fn=getattr(solver, attr), key=attr, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(solver, attr, wrapped)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    its = len(fit()[2])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(json.dumps({"card": card, "path": task, "iterations": its, "wall_s": wall,
+                      "ms_per_iteration": wall * 1e3 / its,
+                      "split_ms_per_iteration": {k: v * 1e3 / its for k, v in acc.items()}}))
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("f32", "polish", "fast", "al_fast", *so3_bench.PROBLEMS),
+    ap.add_argument("--path", choices=("f32", "polish", "fast", "al_fast", *so3_bench.PROBLEMS,
+                                       *CLI_TASKS),
                     default="f32")
     ap.add_argument("--batch", type=int, default=None,
                     help="default 8192 (f32), 16384 (polish)")
@@ -73,6 +127,11 @@ def main():
         sys.exit("profile_torch_pipeline: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    if args.path in CLI_TASKS:
+        return cli_split(args.path, dev, card)
     polish = args.path == "polish"
     so3 = args.path in so3_bench.PROBLEMS
     B = args.batch or (16384 if polish else 8192)
@@ -144,9 +203,6 @@ def main():
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[2])
     busy_ms = sum(r[2] for r in rows)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
     print(json.dumps({
         "card": card, "path": args.path, "batch": B, "f32_iterations": iters,
         "wall_ms": wall * 1e3, **phases, "device_busy_ms": busy_ms,

@@ -621,3 +621,91 @@ def test_lie_ilqr_b14_rollout_matches_loop(cuda, ls):
     kern = LieILQR(model, cfg, pallas_rollout_dt=0.01).solve(params, (q0s, xi0s), us0)
     assert kern.iteration.tolist() == loop.iteration.tolist()
     assert (kern.us - loop.us).abs().max().item() <= 1e-9
+
+
+def test_lie_ilqr_graphed_rollout_matches_eager(cuda):
+    """`LieILQR`'s nonlinear rollout replayed from its CUDA graph
+    (`solvers/graph.GraphCache`) against the same loop run eagerly, on the
+    drone (no kernel) in f64, twice with different inputs (the replay reads
+    the new ones), every candidate of the alpha ladder at once."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.lie_ilqr import (
+        LieILQR,
+        SolverConfig,
+        alpha_ladder,
+    )
+
+    model, params, q0, xi0 = screw200_model(torch.float64, cuda, horizon=H, drone=True)
+    solver = LieILQR(model, SolverConfig(N=H, multiple_shooting=True))
+    alphas = alpha_ladder(5, device=cuda)
+    for seed in (1, 2):
+        q0s, xi0s = screw_batch(q0, xi0, AL_B, seed=seed)
+        st = solver.init_state(params, (q0s, xi0s),
+                               torch.zeros((AL_B, H, 4), dtype=torch.float64, device=cuda))
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        st = st._replace(k=1e-2 * torch.randn(st.k.shape, generator=gen, device=cuda,
+                                              dtype=torch.float64),
+                         K=1e-2 * torch.randn(st.K.shape, generator=gen, device=cuda,
+                                              dtype=torch.float64))
+        lin = solver._linearize(params, st.qs, st.xis, st.us)
+        graphed = solver._rollout_nonlinear(params, lin, st, alphas)
+        eager = solver._rollout_loop(params, lin["d"], lin["fq"], lin["fxi"], st.qs, st.xis,
+                                     st.us, st.k, st.K, alphas)
+        for a, b in zip(graphed, eager):
+            assert (a - b).abs().max().item() <= 1e-12
+    assert len(solver._graphs._entries) == 1
+
+
+def test_ilqr_graphed_loops_match_eager(cuda):
+    """The Euclidean `ILQR`'s linearization, backward pass, gradient norm
+    and candidate rollout replayed from their CUDA graphs against the same
+    functions run eagerly (the cartpole, N = 40, f64), on two iterates."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import cartpole
+
+    solver = cartpole.build(N=40, dtype=torch.float64, device=cuda)
+    x0 = torch.tensor([[9.0, 0.0, 0.0, 0.0]] * 3, dtype=torch.float64, device=cuda)
+    st = solver.init_state(x0, 0.1 * torch.ones((3, 40, 1), dtype=torch.float64, device=cuda))
+    alphas = torch.tensor([1.0, 0.5, 0.25], dtype=torch.float64, device=cuda)
+    for _ in range(2):
+        lin = solver._linearize(st.xs, st.us)
+        eager_lin = solver._linearize_ops(st.xs, st.us)
+        pairs = [(tuple(lin[k] for k in sorted(lin)), tuple(eager_lin[k] for k in sorted(lin))),
+                 (solver._backward(lin, st.mu), solver._backward_loop(lin, st.mu)),
+                 ((solver._grad_norm(lin),), (solver._grad_norm_loop(lin),))]
+        k, K = pairs[1][0]
+        pairs.append((solver._control(st.xs, st.us, k, K, alphas),
+                      solver._control_loop(st.xs, st.us, k, K, alphas)))
+        for graphed, eager in pairs:
+            for a, b in zip(graphed, eager):
+                assert (a - b).abs().max().item() <= 1e-12
+        st = solver._step(st, torch.ones(3, dtype=torch.bool, device=cuda))
+    # linearize, backward, grad_norm, and control with these 3 alphas and
+    # with the 10 of fit
+    assert len(solver._graphs._entries) == 5
+
+
+def test_graph_cache_follows_closure_tensors(cuda):
+    """A graph reads a closure tensor where it lay at capture: changed in
+    place, the replay sees the new values; replaced, the function is
+    captured anew.  The cache keeps its `MAX_ENTRIES` newest graphs."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.graph import (
+        MAX_ENTRIES,
+        GraphCache,
+    )
+
+    class Holder:
+        def __init__(self):
+            self.w = torch.ones(3, dtype=torch.float64, device=cuda)
+
+        def f(self, x):
+            return x * self.w
+
+    h, cache = Holder(), GraphCache()
+    x = torch.arange(3, dtype=torch.float64, device=cuda)
+    assert torch.equal(cache("f", h.f, x), x)
+    h.w.mul_(2.0)
+    assert torch.equal(cache("f", h.f, x), 2.0 * x) and len(cache._entries) == 1
+    h.w = torch.full((3,), 5.0, dtype=torch.float64, device=cuda)
+    assert torch.equal(cache("f", h.f, x), 5.0 * x) and len(cache._entries) == 2
+    for n in range(MAX_ENTRIES + 2):
+        assert torch.equal(cache(f"f{n}", h.f, x + n), 5.0 * (x + n))
+    assert len(cache._entries) == MAX_ENTRIES

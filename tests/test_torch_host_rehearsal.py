@@ -386,3 +386,34 @@ def test_so3_launchers_refuse_what_they_do_not_take(libs):
         S._rollout_so3_kernel(fn, None, r(N + 1, 3, 3, B), r(N + 1, 3, B), r(N, 3, B),
                               r(N, 3, B), r(N, 3, 6, B), lin, refs, consts, dt=0.01,
                               pendulum=False)
+
+
+def test_chip_smoke_cli_phase_on_the_cpu(monkeypatch):
+    """`chip_smoke.py`'s `cli` phase rehearsed on the CPU at the CLI's CPU
+    sizes and engines (the plain versions; no kernel launches, so the
+    launch counts, which `chip_smoke.check_cli_launches` holds on the card,
+    are not checked here): the task lines and every gate of the phase on
+    the tasks below (the f64 exact tasks, the three batch tasks with
+    mpc_batch against a direct `make_closed_loop_batch` call on the same draws,
+    dynamics_sim, and cost_landscape's grids against the CPU's)."""
+    import chip_smoke as CS
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import parity
+
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.utils import records
+
+    monkeypatch.setattr(parity, "RESULTS_DIR", parity.RESULTS_DIR)
+    monkeypatch.setattr(records, "DEFAULT_PATH", records.DEFAULT_PATH)
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+
+    def counted(fn):
+        return fn(), 0.0, {}
+
+    names = ("se3_tracking_ms", "pendulum3d_ms", "mpc_batch", "mpc_batch_constrained",
+             "al_batch", "dynamics_sim", "cost_landscape")
+    tasks = [t for t in CS.CLI_TASKS if t[0] in names]
+    try:
+        runs = CS.cli_phase(torch.device("cpu"), "cpu", counted, tasks)
+    finally:
+        torch.set_num_threads(prev)
+    assert sorted(runs) == sorted(names)

@@ -1,7 +1,9 @@
 """The PyTorch port stands without JAX: importing every module of the port
 (and `chip_smoke.py`) in a fresh interpreter loads neither `jax` nor the
 JAX package, and `chip_smoke.py` without a CUDA device exits non-zero
-without printing a result."""
+without printing a result.  The native runtime's loader and C++ sources
+are the port's own: nothing under the port names the JAX package's
+`native/`."""
 
 import os
 import pkgutil
@@ -34,7 +36,10 @@ def test_port_has_the_slice_modules():
               "solvers.anchored", "solvers.polish", "models.autodiff",
               "solvers.ilqr", "tasks.cartpole", "models.errorstate",
               "solvers.errorstate_ilqr", "parallel", "parallel.batch", "parallel.sweep",
-              "tasks.errstate_bench"):
+              "tasks.errstate_bench", "tasks.parity", "tasks.run", "utils.rotations",
+              "utils.metrics", "utils.checkpoint", "utils.profiling", "utils.records",
+              "baselines", "baselines.embedded", "viz", "viz.plots", "viz.cost_landscape",
+              "native", "solvers.graph"):
         assert f"{port.__name__}.{m}" in mods, m
 
 
@@ -70,3 +75,10 @@ def test_chip_smoke_without_cuda_fails_without_a_result(where, tmp_path):
                        timeout=120, cwd=cwd)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_native_runtime_is_the_port_own_copy():
+    root = os.path.join(ROOT, "trajectory_optimization_matrix_lie_groups_tpu_torch", "native")
+    assert sorted(os.listdir(os.path.join(root, "src"))) == ["ilqr.cpp", "lie.hpp"]
+    loader = open(os.path.join(root, "__init__.py")).read()
+    assert JAX_PKG + "." not in loader and JAX_PKG + "/" not in loader

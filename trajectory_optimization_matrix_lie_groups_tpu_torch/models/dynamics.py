@@ -30,6 +30,15 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.utils.linalg import set
 _DOWN = (0.0, 0.0, -1.0)
 
 
+def _down(like):
+    """`_DOWN` in ``like``'s dtype, made on its device without a copy from
+    the host (a step may run inside a CUDA graph capture, which refuses
+    host-to-device copies: `solvers/graph.py`)."""
+    down = torch.zeros(3, dtype=like.dtype, device=like.device)
+    down[2:].fill_(_DOWN[2])
+    return down
+
+
 def _bmv(M, v):
     return torch.einsum("...ij,...j->...i", M, v)
 
@@ -102,7 +111,7 @@ def pendulum3d_params(J, m, length, dt, g=9.8):
 
 
 def _pend_rho(p):
-    down = torch.tensor(_DOWN, dtype=p.J.dtype, device=p.J.device)
+    down = _down(p.J)
     return p.l / 2.0 * down, down
 
 
@@ -203,7 +212,7 @@ def _se3_step(p: SE3Params, q, xi, u, i=None):
 
 
 def _gravity_wrench(p, q):
-    down = torch.tensor(_DOWN, dtype=q.dtype, device=q.device)
+    down = _down(q)
     g_lin = p.m * p.g * _bmv(q[..., :3, :3].transpose(-1, -2), down)
     return torch.cat([torch.zeros_like(g_lin), g_lin], dim=-1)
 
@@ -263,7 +272,7 @@ def _rigid_body_jac(p: RigidBodyParams, q, xi, u, i=None):
     del u, i
     J_q_q, J_q_xi = _se3_pose_blocks(p, xi)
     H = p.Jinv @ (_coad_for_jac(p, xi) @ p.J + _se3_G(p, xi))
-    down = torch.tensor(_DOWN, dtype=q.dtype, device=q.device)
+    down = _down(q)
     J_v_R = so3.hat(_bmv(q[..., :3, :3].transpose(-1, -2), down))
     if p.exact_gravity_jacobian:
         J_v_R = p.m * p.g * J_v_R

@@ -9,8 +9,11 @@ as `solvers/lie_ilqr.LieILQR`: every tensor has a leading problem axis B,
 mu, delta and the flags are per problem, a converged or failed problem is
 frozen while the others iterate, and every candidate of the line search is
 rolled out at once.  The model's per-sample functions are mapped over
-problems and stages with `torch.func.vmap`.  Entry points run on the device
-of ``us_init`` when it is a tensor, else on the card.
+problems and stages with `torch.func.vmap`; on the card the linearization
+and the loops over stages (backward pass, gradient norm, candidate
+rollout) are replayed from CUDA graphs (`solvers/graph.py`).  Entry
+points run on the device of ``us_init`` when it is a tensor, else on the
+card.
 """
 
 import dataclasses
@@ -22,6 +25,7 @@ from torch.func import vmap
 from trajectory_optimization_matrix_lie_groups_tpu_torch.models.autodiff import (
     EuclideanModel,
 )
+from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.graph import GraphCache
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.lie_ilqr import (
     _bmv,
     _gains,
@@ -73,6 +77,14 @@ class ILQR:
     def __init__(self, model: EuclideanModel, config: ILQRConfig):
         self.model = model
         self.cfg = config
+        self._graphs = GraphCache()
+
+    def _loop(self, name, fn, cuda, *args):
+        """``fn(*args)``, a loop over stages: on the card (``cuda``) replayed
+        from a CUDA graph (`solvers/graph.GraphCache`; eagerly each op costs
+        ~10 µs of launch overhead under `torch.func.vmap`), on the CPU run
+        as it is."""
+        return self._graphs(name, fn, *args) if cuda else fn(*args)
 
     def _map(self, fn, *args, i):
         """``fn`` mapped over the leading axis of every tensor in ``args``
@@ -116,6 +128,9 @@ class ILQR:
         return torch.stack(xs, dim=1)
 
     def _linearize(self, xs, us):
+        return self._loop("linearize", self._linearize_ops, xs.is_cuda, xs, us)
+
+    def _linearize_ops(self, xs, us):
         cfg, m = self.cfg, self.model
         Fx, Fu = self._stagewise(m.jac, xs[:, :-1], us)
         L, Lx, Lu, Lxx, Lux, Luu = self._stagewise(m.stage_quad, xs[:, :-1], us)
@@ -130,6 +145,9 @@ class ILQR:
     def _backward(self, lin, mu):
         """Fixed-mu backward pass (ref `_backward_pass:358-432`), mu per
         problem."""
+        return self._loop("backward", self._backward_loop, mu.is_cuda, lin, mu)
+
+    def _backward_loop(self, lin, mu):
         nx, N = self.model.nx, self.cfg.N
         eye = torch.eye(nx, dtype=lin["Fx"].dtype, device=lin["Fx"].device)
         use_h = self.cfg.use_hessians and self.model.has_hessians
@@ -156,6 +174,9 @@ class ILQR:
         return torch.stack(ks, dim=1), torch.stack(Ks, dim=1)
 
     def _grad_norm(self, lin):
+        return self._loop("grad_norm", self._grad_norm_loop, lin["Lx"].is_cuda, lin)
+
+    def _grad_norm_loop(self, lin):
         p = lin["Lx"][:, -1]
         gs = [None] * self.cfg.N
         for t in reversed(range(self.cfg.N)):
@@ -168,6 +189,9 @@ class ILQR:
         alpha (A,) at once, the candidates folded into the problems
         (candidate a of problem b is row a * B + b).  Returns xs
         (A * B, N+1, nx), us (A * B, N, nu)."""
+        return self._loop("control", self._control_loop, xs.is_cuda, xs, us, k, K, alpha)
+
+    def _control_loop(self, xs, us, k, K, alpha):
         A = alpha.shape[0]
         fold = lambda t: t.repeat((A,) + (1,) * (t.dim() - 1))
         xs, us, K = fold(xs), fold(us), fold(K)

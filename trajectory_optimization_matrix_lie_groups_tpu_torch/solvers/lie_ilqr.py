@@ -30,7 +30,9 @@ observability contract); `solve` runs to convergence or
 ``max_iterations``.  Both read one flag a iteration ("is any problem still
 iterating").  On the card every step is a handful of small batched
 PyTorch ops, so the loop is host-bound (no kernel of this tier is a TPU
-kernel's port: the JAX module is XLA).  Entry points run on the device of
+kernel's port: the JAX module is XLA); the nonlinear rollout's loop over
+stages is replayed there from a CUDA graph (`solvers/graph.py`), the
+backward pass's is not (its per-stage PD check reads the device).  Entry points run on the device of
 ``us_init`` when it is a tensor, else on the card.
 """
 
@@ -43,6 +45,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import LieM
 from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import se3
 from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.rollout import fast_rollout
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import riccati
+from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.graph import GraphCache
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.riccati import _solve
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.pipeline import (
     solve_device,
@@ -171,6 +174,7 @@ class LieILQR:
         self.model = model
         self.cfg = config
         self.pallas_rollout_dt = pallas_rollout_dt
+        self._graphs = GraphCache()
 
     # -- state initialisation ------------------------------------------------
 
@@ -408,31 +412,39 @@ class LieILQR:
         """Gap-closing nonlinear rollout (a loop over stages).
 
         MS: q+ = q_next o Exp(a d_q) o f(x)^-1 o f(x_new)  (ref :2697-2718)
-        SS: x+ = f(x_new, u_new)                            (ref :751-758)"""
+        SS: x+ = f(x_new, u_new)                            (ref :751-758)
+
+        On the card the loop (some 100-500 small ops a stage) is replayed
+        from a CUDA graph (`solvers/graph.GraphCache`)."""
         if self.pallas_rollout_dt is not None and self.cfg.multiple_shooting:
             return self._rollout_kernel(params, lin, state, alpha)
+        args = (params, lin["d"], lin["fq"], lin["fxi"], state.qs, state.xis, state.us,
+                state.k, state.K, alpha)
+        if state.us.is_cuda:
+            return self._graphs("rollout_nonlinear", self._rollout_loop, *args)
+        return self._rollout_loop(*args)
+
+    def _rollout_loop(self, params, d, fq, fxi, qs, xis, us, k, K, alpha):
         g = self.model.group
         ms = self.cfg.multiple_shooting
         dim = g.dim
-        A, B = alpha.shape[0], state.us.shape[0]
+        A = alpha.shape[0]
         a2 = alpha.reshape(A, 1, 1)
-        d = lin["d"]
         exp_ad = g.exp(a2[..., None] * d[None, ..., :dim])   # (A, B, N, m, m)
-        fq_inv = g.inverse(lin["fq"])
-        qs, xis = state.qs, state.xis
+        fq_inv = g.inverse(fq)
         q_new = qs[:, 0].expand((A,) + qs[:, 0].shape)
         xi_new = xis[:, 0].expand((A,) + xis[:, 0].shape)
         out = {n: [] for n in ("q", "xi", "u", "xe", "ue")}
         for i in range(self.cfg.N):
             xs_err = torch.cat([g.rminus(q_new, qs[:, i]), xi_new - xis[:, i]], dim=-1)
-            us_err = a2 * state.k[:, i] + _bmv(state.K[:, i], xs_err)
-            u_new = state.us[:, i] + us_err
+            us_err = a2 * k[:, i] + _bmv(K[:, i], xs_err)
+            u_new = us[:, i] + us_err
             fq_new, fxi_new = self.model.step(params, q_new, xi_new, u_new, i)
             if ms:
                 # normalize mirrors the reference's manif round-trips in this
                 # composition chain (traopt_controller.py:2713-2715)
                 q_new = g.normalize(qs[:, i + 1] @ exp_ad[:, :, i] @ fq_inv[:, i] @ fq_new)
-                xi_new = xis[:, i + 1] + fxi_new - lin["fxi"][:, i] + a2 * d[:, i, dim:]
+                xi_new = xis[:, i + 1] + fxi_new - fxi[:, i] + a2 * d[:, i, dim:]
             else:
                 q_new, xi_new = fq_new, fxi_new
             for n, v in zip(out, (q_new, xi_new, u_new, xs_err, us_err)):
