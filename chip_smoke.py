@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cli [task ...]
+    python3 chip_smoke.py --sharded
 
 With ``--cli`` only the `cli` phase runs (below; the named tasks of
 `CLI_TASKS`, all without names), with its gates and launch checks, after
-the kernels' build; then the card's name and power limit.
+the kernels' build; then the card's name and power limit.  With
+``--sharded`` only the `sharded` phase runs, so.
 
 The first two run on the screw-200 problem (the N=200 prefix of the
 reference's screw-tracking problem, R = 1e-3 I, no box) for a batch of
@@ -200,7 +202,27 @@ Phases, each printed as one JSON line:
                 al_batch (`ALPipelineSolver`, B1-B3; every lane below
                 violation 1e-2), cartpole (converged), dynamics_sim
                 (tests/test_task_cli.py's gates) and cost_landscape (its
-                grids on the card equal to the CPU's to 1e-12).
+                grids on the card equal to the CPU's to 1e-12);
+  sharded       the multi-device layer (`parallel/`) in one-rank NCCL
+                groups.  First `make_batch_mesh()` in a process with no
+                group (a one-process group in memory): `BatchSolver(mesh)`
+                on the v_x range of the sweep task's problem and
+                `run_rollout_sweep(mesh=...)` (200 steps) against their
+                one-device runs (1e-9; B14 = 10), then the CLI's `sweep`
+                task, whose group is left at its end, its J range per
+                parameter against the one-device sweep (relative 1e-9; B14
+                = 40).  Then `initialize_multihost` on 127.0.0.1: the
+                batch-sharded pipeline (`make_sharded_pipeline`, f32,
+                B=8192, 12 iterations; B1 = 1, B2 = B3 = 12) against
+                `PipelineSolver` on the same inputs (1e-6), lane 0 against
+                the golden (the f32 gate), each half of the batch solved
+                alone against the full solve's rows (1e-6), both timed in
+                turns; the time-sharded Riccati sweep (fp64, N = 1400,
+                (12, 6), B = 16) in 2 and 8 blocks on the card and through
+                the group against `riccati.parallel_backward` (1e-8); and
+                `LieILQR(backward="associative_sharded")` with its rollout
+                on B14 (screw-200, f64, B = 64, 6 iterations) against
+                ``backward="associative"`` (the same iterations, 1e-9).
 
 Every host-side reference solve (the plain versions' solves of lanes 0..15
 in solve_f32, solve_so3 and solve_fast, the reference-exact tier's and the
@@ -218,7 +240,8 @@ polish run, of B10-B12 from the free-attitude run, of B13 and B14 from the
 free-body fast run, of B13any from the (12, 3) solve, each named in "run";
 B13any's times at (12, 3), f32, B = 8192; "launches_in": the launches in
 each phase of the reference-exact, anchored and refiner paths, of the
-sweep and of the task CLI ("cli", all its tasks)),
+sweep, of the task CLI ("cli", all its tasks) and of the multi-device
+layer ("sharded")),
 the card's name and power limit as nvidia-smi prints them, and the result
 line.  The f32 path is timed before any polish or SO(3) work, after the
 same phases as when it was the script's only path, so that its time
@@ -341,6 +364,26 @@ CLI_US_GATE, CLI_MPC_GATE, CLI_GRID_GATE = 1e-4, 1e-6, 1e-12
 # the kernels each CLI task launches on the card (every other kernel 0)
 CLI_KERNELS = {"se3_tracking_ms": {"B14"}, "mpc_batch": {"B1", "B2", "B3"},
                "mpc_batch_constrained": {"B1", "B2", "B3"}, "al_batch": {"B1", "B2", "B3"}}
+
+# the multi-device layer on one card, in a one-rank NCCL group: the
+# batch-sharded pipeline at the f32 path's shapes against PipelineSolver
+# (SHARD_GATE; and each half of the batch solved alone against the full
+# solve's rows, the lane independence a split relies on), the two-level
+# time-sharded Riccati sweep at the AL horizon (N, nx, nu, B) in SHARD_BLOCKS
+# blocks on the card and through the group against the one-device sweep
+# (SHARD_SCAN_GATE), and LieILQR's time-sharded backward (f64, the rollout on
+# B14) against its one-device backward (SHARD_LIE_GATE); the sharded and
+# one-device pipeline solves timed in turns, SHARD_REPS each
+SHARD_SCAN = (1400, 12, 6, 16)
+SHARD_BLOCKS = (2, 8)
+SHARD_LIE_BATCH, SHARD_LIE_ITERS = 64, 6
+SHARD_GATE, SHARD_SCAN_GATE, SHARD_LIE_GATE = 1e-6, 1e-8, 1e-9
+SHARD_REPS = 3
+# first, make_batch_mesh() in a process with no group (a one-process NCCL
+# group): BatchSolver(mesh) on one range of the sweep task's problem and the
+# rollout sweep (SHARD_ROLLOUT_STEPS steps) through it, and the CLI's `sweep`
+# task (its J range per parameter), each against its one-device run
+SHARD_SWEEP_RANGE, SHARD_ROLLOUT_STEPS, SHARD_SWEEP_GATE = "v_x", 200, 1e-9
 
 KERNELS = {
     "B1": ("linearize", "csrc/linearize.cu",
@@ -1405,6 +1448,204 @@ def errstate_sweep_phases(dev, card, counted, expect, pool):
     return runs
 
 
+def _free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def sharded_phase(dev, card, counted, expect):
+    """`sharded` (module docstring): the multi-device layer in one-rank
+    NCCL groups on the card, each made by this phase in a process that had
+    none and destroyed by it.  Returns {run: launches} of the batch mesh's
+    sweep, the CLI's sweep, the sharded pipeline and the time-sharded
+    LieILQR."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import kernel_check
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import parallel
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.parallel import riccati_sharded as RS
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.parallel import sweep
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import riccati
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.lie_ilqr import (
+        LieILQR,
+        SolverConfig,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.pipeline import (
+        PipelineSolver,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench, parity
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import errstate_bench as EB
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import run as R
+
+    t0 = time.perf_counter()
+    runs = {}
+    # every group of this phase is its own: it starts in a process with none
+    require(not dist.is_initialized(), "a process group exists before the sharded phase")
+
+    # -- a plain process: make_batch_mesh() joins a one-process NCCL group -----
+    # the sweep task's problem (f64) and the rollout sweep, on one device first
+    parity.RESULTS_DIR = parity.STANDIN_DIR
+    sw_solver, sw_params, sw_q0, sw_xi0 = R.sweep_problem(
+        types.SimpleNamespace(device=dev, dtype=torch.float64))
+    one_sw = sweep.run_sweep(parallel.BatchSolver(sw_solver), sw_params, EB.SWEEP_RANGES, sw_q0,
+                             sw_xi0)
+    rdyn, rdp, rq0, rxi0, _ = EB.build_rollout_sweep(device=dev)
+    one_ro = sweep.run_rollout_sweep(rdyn, rdp, EB.ROLLOUT_RANGES, rq0, rxi0,
+                                     N=SHARD_ROLLOUT_STEPS)
+    pmesh = parallel.make_batch_mesh()
+    try:
+        plain_group = f"{dist.get_backend()}, world size {dist.get_world_size()}"
+        require(plain_group == "nccl, world size 1" and pmesh.device_type == "cuda",
+                f"make_batch_mesh() in a plain process: {plain_group}, {pmesh.device_type}")
+        one_range = {SHARD_SWEEP_RANGE: EB.SWEEP_RANGES[SHARD_SWEEP_RANGE]}
+        msw, msw_s, runs["batch mesh sweep"] = counted(lambda: sweep.run_sweep(
+            parallel.BatchSolver(sw_solver, mesh=pmesh), sw_params, one_range, sw_q0, sw_xi0))
+        mro, mro_s, _ = counted(lambda: sweep.run_rollout_sweep(
+            rdyn, rdp, EB.ROLLOUT_RANGES, rq0, rxi0, N=SHARD_ROLLOUT_STEPS, mesh=pmesh))
+    finally:
+        dist.destroy_process_group()
+    d_msw = float(np.abs(msw[SHARD_SWEEP_RANGE].us - one_sw[SHARD_SWEEP_RANGE].us).max())
+    d_mro = max(max(float(np.abs(mro[k].qs - one_ro[k].qs).max()),
+                    float(np.abs(mro[k].xis - one_ro[k].xis).max())) for k in one_ro)
+    # the CLI's sweep task: its own one-process group, left at its end
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, cli_s, runs["cli sweep"] = counted(lambda: R.main(["sweep", "--x64"]))
+    cli_line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    cli_left = not dist.is_initialized()
+    d_cli = max(abs(cli_line["params"][k][f"J_{m}"] - float(getattr(one_sw[k].J_opt, m)()))
+                / abs(float(getattr(one_sw[k].J_opt, m)())) for k in one_sw
+                for m in ("min", "max"))
+    require(cli_left, "the CLI's sweep left its process group behind")
+    del one_sw, one_ro, msw, mro
+
+    parallel.initialize_multihost(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        bmesh, tmesh = parallel.global_batch_mesh(), RS.default_time_mesh()
+        group = f"{dist.get_backend()}, world size {dist.get_world_size()}"
+        require(group == "nccl, world size 1" and (bmesh.size(), tmesh.size()) == (1, 1),
+                f"the group: {group}, meshes {bmesh.size()} {tmesh.size()}")
+
+        # -- the batch-sharded pipeline: f32, B = 8192, N = 200 ----------------
+        us_gold, meta = al_bench.load_screw200_golden()
+        dyn, cost, q0, xi0 = al_bench.build_screw200(torch.float32, dev, horizon=N)
+        q0s, xi0s = al_bench.screw_batch(q0, xi0, BATCH, SEED)
+        us0 = torch.zeros((BATCH, N, 6), dtype=torch.float32, device=dev)
+        sp = parallel.make_sharded_pipeline(N, ITERS, float(dyn.dt), mesh=bmesh)
+        one = PipelineSolver(N, ITERS, float(dyn.dt))
+        out, first_s, runs["sharded pipeline"] = counted(
+            lambda: sp.solve(dyn, cost, q0s, xi0s, us0))
+        full = parallel.gather_to_all(out)
+        ref = one.solve(dyn, cost, q0s, xi0s, us0)
+        d_us = float(np.abs(full.us - ref.us.cpu().numpy()).max())
+        d_J = float(np.abs(full.J_opt - ref.J_opt.cpu().numpy()).max())
+        us0_err = float(np.abs(full.us[0].astype(np.float64) - us_gold).max())
+        us_gate = 10 * meta["jax_f32_pipeline"]["lane0_us_max_abs_err"]
+        h = BATCH // 2
+        halves = [one.solve(dyn, cost, q0s[sl], xi0s[sl], us0[sl])
+                  for sl in (slice(0, h), slice(h, BATCH))]
+        d_half = max((x.us - ref.us[sl]).abs().max().item()
+                     for x, sl in zip(halves, (slice(0, h), slice(h, BATCH))))
+        del halves, full, out
+        t_sh, t_one = [], []
+        for r in range(SHARD_REPS):
+            a = al_bench.screw_batch(q0, xi0, BATCH, 200 + r)
+            for fn, acc in (((sp, t_sh), (one, t_one)) if r % 2 == 0 else
+                            ((one, t_one), (sp, t_sh))):
+                acc.append(timed(lambda: fn.solve(dyn, cost, *a, us0))[1])
+
+        # -- the two-level time-sharded sweep at the AL horizon, f64 -------------
+        Ns, nx, nu, Bs = SHARD_SCAN
+        lane = kernel_check.riccati_inputs(nx, nu, Bs, Ns, torch.float64, dev, seed=SEED)
+        prob = tuple(lane[k].movedim(-1, 0).contiguous()
+                     for k in ("Fx", "Fu", "d", "Lx", "Lu", "Lxx", "Lux", "Luu"))
+        want, one_s = timed(lambda: riccati.parallel_backward(*prob))
+        rel = lambda got: max(((g - w).abs().max() / w.abs().max().clamp(min=1)).item()
+                              for g, w in zip(got, want, strict=True))
+        scan = {}
+        for nb in SHARD_BLOCKS:
+            got, sec = timed(lambda: RS.blocked_parallel_backward(*prob, n_blocks=nb))
+            scan[f"blocked_{nb}"] = {"max_rel_err": rel(got), "s": sec}
+        got, sec = timed(lambda: RS.sharded_parallel_backward(*prob, mesh=tmesh))
+        scan["nccl_group_1"] = {"max_rel_err": rel(got), "s": sec}
+        del got, want, prob, lane
+
+        # -- LieILQR with the time-sharded backward: screw-200, f64 -----------------
+        model, params, q0, xi0 = al_bench.screw200_model(torch.float64, dev)
+        q0s, xi0s = al_bench.screw_batch(q0, xi0, SHARD_LIE_BATCH, SEED)
+        us0 = torch.zeros((SHARD_LIE_BATCH, N, 6), dtype=torch.float64, device=dev)
+        lie = {}
+        for bw in ("associative_sharded", "associative"):
+            solver = LieILQR(model, SolverConfig(N=N, backward=bw,
+                                                 max_iterations=SHARD_LIE_ITERS),
+                             pallas_rollout_dt=float(params["dyn"].dt))
+            if bw == "associative_sharded":
+                solver.backward_mesh = tmesh
+            lie[bw] = counted(lambda: solver.solve(params, (q0s, xi0s), us0))
+        (st, lie_s, runs["sharded LieILQR"]), (st1, lie1_s, per1) = (
+            lie["associative_sharded"], lie["associative"])
+        d_lie = (st.us - st1.us).abs().max().item()
+        its, its1 = st.iteration.tolist(), st1.iteration.tolist()
+    finally:
+        dist.destroy_process_group()
+    med = lambda x: statistics.median(x)
+    emit({"phase": "sharded", "card": card, "group": group,
+          "plain_process": {"group": plain_group, "sweep_range": SHARD_SWEEP_RANGE,
+                            "sweep_launches": runs["batch mesh sweep"],
+                            "mesh_vs_one_device_sweep_us_max_abs": d_msw,
+                            "rollout_steps": SHARD_ROLLOUT_STEPS,
+                            "mesh_vs_one_device_rollout_max_abs": d_mro,
+                            "gate": SHARD_SWEEP_GATE, "sweep_s": msw_s,
+                            "rollout_sweep_s": mro_s},
+          "cli_sweep": {"launches": runs["cli sweep"], "line": cli_line,
+                        "J_vs_one_device_max_rel": d_cli, "gate": SHARD_SWEEP_GATE,
+                        "group_left": cli_left, "wall_s": cli_s},
+          "pipeline": {"B": BATCH, "N": N, "iterations": ITERS, "dtype": "float32",
+                       "launches": runs["sharded pipeline"],
+                       "sharded_vs_one_device_us_max_abs": d_us,
+                       "sharded_vs_one_device_J_max_abs": d_J, "gate": SHARD_GATE,
+                       "lane0_us_max_abs_err": us0_err, "lane0_us_gate": us_gate,
+                       "halves_vs_full_us_max_abs": d_half, "first_call_s": first_s,
+                       "sharded_rep_s": t_sh, "one_device_rep_s": t_one,
+                       "sharded_solves_per_s": BATCH / med(t_sh),
+                       "one_device_solves_per_s": BATCH / med(t_one),
+                       "sharded_over_one_device_time": med(t_sh) / med(t_one)},
+          "time_sharded_sweep": {"N": Ns, "nx": nx, "nu": nu, "B": Bs, "dtype": "float64",
+                                 "one_device_s": one_s, "gate": SHARD_SCAN_GATE, **scan},
+          "lie_ilqr": {"B": SHARD_LIE_BATCH, "N": N, "dtype": "float64",
+                       "max_iterations": SHARD_LIE_ITERS,
+                       "launches": runs["sharded LieILQR"], "iterations": its[:4],
+                       "sharded_vs_associative_us_max_abs": d_lie, "gate": SHARD_LIE_GATE,
+                       "sharded_s": lie_s, "associative_s": lie1_s},
+          "phase_s": time.perf_counter() - t0})
+    sw_iters = sw_solver.cfg.max_iterations
+    require(runs["batch mesh sweep"] == expect(B14=sw_iters)
+            and runs["cli sweep"] == expect(B14=sw_iters * len(EB.SWEEP_RANGES)),
+            f"sweep launch counts: mesh {runs['batch mesh sweep']}, cli {runs['cli sweep']}")
+    require(d_msw <= SHARD_SWEEP_GATE and d_mro <= SHARD_SWEEP_GATE
+            and d_cli <= SHARD_SWEEP_GATE,
+            f"the batch mesh's sweeps vs one device: us {d_msw}, rollouts {d_mro}, cli J {d_cli}")
+    require(runs["sharded pipeline"] == expect(B1=1, B2=ITERS, B3=ITERS),
+            f"sharded pipeline launch counts {runs['sharded pipeline']}")
+    require(d_us <= SHARD_GATE and d_J <= SHARD_GATE,
+            f"sharded vs one-device pipeline us {d_us}, J {d_J}")
+    require(us0_err <= us_gate, f"sharded pipeline lane-0 us err {us0_err} > {us_gate}")
+    require(d_half <= SHARD_GATE, f"each half alone vs the full solve's rows {d_half}")
+    for k, v in scan.items():
+        require(v["max_rel_err"] <= SHARD_SCAN_GATE, f"time-sharded sweep {k}: {v}")
+    require(its == its1 and max(its) == SHARD_LIE_ITERS, f"LieILQR iterations {its} vs {its1}")
+    require(runs["sharded LieILQR"] == expect(B14=max(its)) and per1 == expect(B14=max(its1)),
+            f"LieILQR launch counts {runs['sharded LieILQR']} {per1}")
+    require(d_lie <= SHARD_LIE_GATE, f"time-sharded vs associative LieILQR us {d_lie}")
+    return runs
+
+
 def launch_counters():
     """(counted, expect) over every kernel's launch counter: ``counted(fn)``
     sets each counter to 0, runs ``fn`` (synchronized, timed) and returns
@@ -1542,6 +1783,22 @@ def cli_only(names):
     print(card, flush=True)
 
 
+def sharded_only():
+    """``--sharded`` (module docstring)."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    build_s = _build.build()
+    card = nvidia_smi()
+    counted, expect = launch_counters()
+    runs = sharded_phase(torch.device("cuda", 0), card, counted, expect)
+    emit({"sharded_launches": {k: sum(n[k] for n in runs.values()) for k in expect()},
+          "build_s": build_s, "total_s": time.perf_counter() - t0})
+    print(card, flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1549,6 +1806,8 @@ def main():
         sys.exit(2)
     if sys.argv[1:2] == ["--cli"]:
         return cli_only(sys.argv[2:])
+    if sys.argv[1:] == ["--sharded"]:
+        return sharded_only()
     pool = multiprocessing.get_context("spawn").Pool(HOST_WORKERS)
     try:
         run(pool)
@@ -2158,6 +2417,8 @@ def run(pool):
     cli_runs = cli_phase(dev, card, counted)
     check_cli_launches(cli_runs)
     exact_runs["cli"] = {k: sum(n[k] for n in cli_runs.values()) for k in expect()}
+    shard_runs = sharded_phase(dev, card, counted, expect)
+    exact_runs["sharded"] = {k: sum(n[k] for n in shard_runs.values()) for k in expect()}
 
     # launches: B1-B3 from the fused f32 solve, B4 from the unfused one,
     # B5-B9 from the polish solve, B10-B12 from the free-attitude solve (the

@@ -90,11 +90,6 @@ def test_solve_matches_jax_solve(se3_case):
     np.testing.assert_allclose(ts.grad_norm[0].item(), float(js.grad_norm), rtol=1e-8)
 
 
-def test_sharded_backward_is_not_ported(se3_case):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A.5 \(multi-GPU\)"):
-        LieILQR(se3_case[2], SolverConfig(N=H, backward="associative_sharded"))
-
-
 @pytest.mark.parametrize("ls", [False, True], ids=["full-step", "line-search"])
 def test_kernel_rollout_route_equals_the_loop(se3_case, ls):
     """``pallas_rollout_dt`` (the MS nonlinear rollout, every candidate at

@@ -39,7 +39,9 @@ def test_port_has_the_slice_modules():
               "tasks.errstate_bench", "tasks.parity", "tasks.run", "utils.rotations",
               "utils.metrics", "utils.checkpoint", "utils.profiling", "utils.records",
               "baselines", "baselines.embedded", "viz", "viz.plots", "viz.cost_landscape",
-              "native", "solvers.graph"):
+              "native", "solvers.graph", "parallel.multihost", "parallel.riccati_sharded",
+              "parallel.pipeline_sharded", "viz.replay", "viz.interactive",
+              "baselines.numpy_serial", "tasks.toy"):
         assert f"{port.__name__}.{m}" in mods, m
 
 

@@ -8,7 +8,8 @@ against the JAX `BatchSolver(mesh=None)` on screw-200 cut to H = 20 (the
 sweep task's solver: MS, 10 iterations at mu = 0; its rollout on B14's
 plain version here), 2 ranges of 4 values, at `torch_port_cases.check_fits`'
 tolerances for `LieILQR` (J rtol 1e-8, grad norm rtol 1e-8 / atol 1e-13,
-controls atol 1e-8); a device mesh refused, naming ROADMAP.md A.5.
+controls atol 1e-8).  The device meshes: test_torch_riccati_sharded.py (one
+rank) and test_torch_multidevice.py (two ranks).
 """
 
 import dataclasses
@@ -30,7 +31,6 @@ from trajectory_optimization_matrix_lie_groups_tpu.parallel.batch import (
 from trajectory_optimization_matrix_lie_groups_tpu.parallel import sweep as jsweep
 from trajectory_optimization_matrix_lie_groups_tpu.solvers import lie_ilqr as JL
 from trajectory_optimization_matrix_lie_groups_tpu_torch.parallel import BatchSolver
-from trajectory_optimization_matrix_lie_groups_tpu_torch.parallel import batch as PB
 from trajectory_optimization_matrix_lie_groups_tpu_torch.parallel import sweep as tsweep
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import errstate_bench as EB
 
@@ -151,17 +151,6 @@ def test_run_sweep_matches_jax(sweep_case):
         np.testing.assert_allclose(r.grad_norm, jr.grad_norm, rtol=1e-8, atol=1e-13)
         np.testing.assert_array_equal(r.converged, jr.converged)
         np.testing.assert_allclose(r.us, jr.us, rtol=0, atol=1e-8)
-
-
-def test_a_mesh_is_refused(sweep_case):
-    bs = sweep_case[0]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A.5 \(multi-GPU\)"):
-        BatchSolver(bs.solver, mesh=object())
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A.5 \(multi-GPU\)"):
-        PB.make_batch_mesh()
-    dyn, dp, q0, xi0, _ = EB.build_rollout_sweep(device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A.5 \(multi-GPU\)"):
-        tsweep.run_rollout_sweep(dyn, dp, {"w_z": np.ones(2)}, q0, xi0, N=3, mesh=object())
 
 
 def test_entry_points_default_to_the_card():

@@ -5,9 +5,10 @@ The JAX package's parameter NamedTuples travel as dicts of numpy arrays,
 needs no JAX; the port's containers come back on the given device and dtype.
 The tests use this to feed both packages the same problem, and to carry
 the augmented-Lagrangian state (`ALParams`, the multipliers of an
-`ALPipelineResult` or an `ALResult`), a `LieILQR` solver state or an
-anchored problem across, so that the two engines start from the same
-state.
+`ALPipelineResult` or an `ALResult`), a `LieILQR` solver state, an
+anchored problem or an SE(3) tracking problem (the toy problem of
+`tasks/toy.py` among them) across, so that the two engines start from the
+same state.
 """
 
 import numpy as np
@@ -201,3 +202,27 @@ def es_state_from_numpy(fields, device=None):
     return ESState(**{
         k: (errorstate_params_from_numpy(v, device) if k == "params" else _tensor(v, device))
         for k, v in fields.items()})
+
+
+def se3_tracking_from_numpy(dyn_fields, cost_fields, device=None, dtype=torch.float64):
+    """The port's SE(3) free-body tracking ``(model, params)`` (`make_model`
+    of `se3_dynamics` and `tracking_cost(SE3, 6)`) from the fields of the
+    JAX problem's `SE3Params` and `TrackingCostParams` (q_ref and xi_ref
+    among them)."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import costs, dynamics
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import make_model
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SE3
+
+    return make_model(dynamics.se3_dynamics(), costs.tracking_cost(SE3, 6),
+                      dyn_from_numpy(dyn_fields, device, dtype),
+                      cost_from_numpy(cost_fields, device, dtype))
+
+
+def toy_from_numpy(dyn_fields, cost_fields, q0, xi0, device=None, dtype=torch.float64):
+    """The tuple of `tasks/toy.toy_problem` (model, params, q0, xi0, q_ref,
+    xi_path, N) from the JAX package's build of the toy problem: its params'
+    fields and its start."""
+    model, params = se3_tracking_from_numpy(dyn_fields, cost_fields, device, dtype)
+    cp = params["cost"]
+    t = lambda x: torch.as_tensor(np.array(x), dtype=dtype, device=device)
+    return model, params, t(q0), t(xi0), cp.q_ref, cp.xi_ref, cp.q_ref.shape[0] - 1

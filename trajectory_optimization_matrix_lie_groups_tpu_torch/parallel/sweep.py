@@ -1,5 +1,5 @@
-"""Initial-condition perturbation sweeps on one device (counterpart of the
-JAX `parallel/sweep.py`).
+"""Initial-condition perturbation sweeps (counterpart of the JAX
+`parallel/sweep.py`).
 
 Replaces `visualization/perturb_all_compute.py`: the reference fans out one
 OS process per (parameter, value) pair with `joblib.Parallel`
@@ -11,8 +11,9 @@ model's batched step.
 Parameter semantics mirror the reference (`perturb_all_compute.py:44-110`):
 each sweep point perturbs exactly one component of the initial state:
 Euler angles of the initial attitude (th_z/th_y/th_x, degrees), angular
-velocity (w_*), position (p_*), or linear velocity (v_*).  A device mesh
-waits for ROADMAP.md A.5 (multi-GPU).
+velocity (w_*), position (p_*), or linear velocity (v_*).  On a device mesh
+(`batch.make_batch_mesh`) each rank takes its rows of every range and the
+results are gathered to every rank.
 """
 
 from typing import Dict, NamedTuple
@@ -21,10 +22,8 @@ import numpy as np
 import torch
 
 from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import se3, so3
-from trajectory_optimization_matrix_lie_groups_tpu_torch.parallel.batch import (
-    _NO_MESH,
-    BatchSolver,
-)
+from trajectory_optimization_matrix_lie_groups_tpu_torch.parallel import multihost
+from trajectory_optimization_matrix_lie_groups_tpu_torch.parallel.batch import BatchSolver
 
 PARAM_NAMES = ("th_z", "th_y", "th_x", "w_x", "w_y", "w_z",
                "p_x", "p_y", "p_z", "v_x", "v_y", "v_z")
@@ -82,18 +81,18 @@ def build_x0_batch(param: str, values, base_q0, base_xi0):
 
 def run_sweep(batch_solver: BatchSolver, params, parameter_ranges: Dict,
               base_q0, base_xi0, nu=6):
-    """Run all parameter sweeps; each range is one batched solve."""
+    """Run all parameter sweeps; each range is one batched solve (split
+    over the solver's mesh, where it has one)."""
     N = batch_solver.solver.cfg.N
     out = {}
     for name, values in parameter_ranges.items():
         q0s, xi0s = build_x0_batch(name, values, base_q0, base_xi0)
         us0 = torch.zeros((q0s.shape[0], N, nu), dtype=xi0s.dtype, device=xi0s.device)
         st = batch_solver.solve_batch(params, q0s, xi0s, us0)
-        out[name] = SweepResult(
-            param=name, values=np.asarray(values),
-            J_opt=st.J_opt.cpu().numpy(), grad_norm=st.grad_norm.cpu().numpy(),
-            converged=st.converged.cpu().numpy(), us=st.us.cpu().numpy(),
-        )
+        J_opt, grad_norm, converged, us = multihost.gather_to_all(
+            (st.J_opt, st.grad_norm, st.converged, st.us))
+        out[name] = SweepResult(param=name, values=np.asarray(values), J_opt=J_opt,
+                                grad_norm=grad_norm, converged=converged, us=us)
     return out
 
 
@@ -111,20 +110,23 @@ def run_rollout_sweep(dyn, dp, parameter_ranges: Dict, base_q0, base_xi0,
     perturbed initial state.  The reference forks one joblib process per
     point (`rollout_all_compute.py:224`, serial Python time loops inside);
     here each parameter's whole batch is one loop over steps of the model's
-    batched step (the JAX package's `lax.scan` with a batched carry)."""
-    if mesh is not None:
-        raise NotImplementedError(f"run_rollout_sweep(mesh=...): {_NO_MESH}")
+    batched step (the JAX package's `lax.scan` with a batched carry).  On a
+    ``mesh`` (axis "batch"), each rank rolls out its rows of each range
+    (whose size must divide by the mesh size) and every rank gets all."""
     out = {}
     for name, values in parameter_ranges.items():
         q, xi = build_x0_batch(name, values, base_q0, base_xi0)
+        if mesh is not None:
+            q, xi = (multihost.shard_rows(x, mesh) for x in (q, xi))
         zeros_u = torch.zeros((q.shape[0], nu), dtype=xi.dtype, device=xi.device)
         qs, xis = [q], [xi]
         for i in range(N):
             q, xi = dyn.step(dp, q, xi, zeros_u, i)
             qs.append(q)
             xis.append(xi)
-        out[name] = RolloutSweepResult(
-            param=name, values=np.asarray(values),
-            qs=torch.stack(qs, dim=1).cpu().numpy(), xis=torch.stack(xis, dim=1).cpu().numpy(),
-        )
+        qs, xis = torch.stack(qs, dim=1), torch.stack(xis, dim=1)
+        if mesh is not None:
+            qs, xis = multihost.sharded(qs, mesh), multihost.sharded(xis, mesh)
+        qs, xis = multihost.gather_to_all((qs, xis))
+        out[name] = RolloutSweepResult(param=name, values=np.asarray(values), qs=qs, xis=xis)
     return out

@@ -21,7 +21,9 @@ the reference's per-stage adaptive Levenberg-Marquardt retry, a loop over
 stages that reads one flag back a stage, "any problem's Quu not positive
 definite", and loops at that stage until each problem's Quu is;
 'sequential_fixed': the same recursion at mu = 0; 'associative': the
-doubling-scan Riccati of `solvers/riccati.py` with its whole-sweep retry);
+doubling-scan Riccati of `solvers/riccati.py` with its whole-sweep retry;
+'associative_sharded': that sweep split over the ranks of a time mesh,
+`parallel/riccati_sharded.py`);
 the gap-closing rollout ('linear': a doubling scan over the affine error
 maps; 'nonlinear': a loop over stages on the group).
 
@@ -51,7 +53,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.pipeline import
     solve_device,
 )
 
-BACKWARDS = ("sequential", "sequential_fixed", "associative")
+BACKWARDS = ("sequential", "sequential_fixed", "associative", "associative_sharded")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +76,7 @@ class SolverConfig:
     defect_gamma: float = 0.05
     defect_mu_min: float = 10.0
     defect_kappa: float = 1e-12
-    # 'sequential' | 'sequential_fixed' | 'associative'
+    # 'sequential' | 'sequential_fixed' | 'associative' | 'associative_sharded'
     backward: str = "sequential"
     tol_J: float = 1e-6
     tol_grad_norm: float = 1e-6
@@ -162,11 +164,6 @@ class LieILQR:
 
     def __init__(self, model: LieModel, config: SolverConfig,
                  pallas_rollout_dt: Optional[float] = None):
-        if config.backward == "associative_sharded":
-            raise NotImplementedError(
-                "backward='associative_sharded' (the time-axis-sharded scan of the "
-                "JAX parallel/riccati_sharded.py) is not ported yet: ROADMAP.md A.5 "
-                "(multi-GPU)")
         if config.backward not in BACKWARDS:
             raise ValueError(f"backward must be one of {BACKWARDS}, got {config.backward!r}")
         if config.rollout not in ("linear", "nonlinear"):
@@ -174,6 +171,9 @@ class LieILQR:
         self.model = model
         self.cfg = config
         self.pallas_rollout_dt = pallas_rollout_dt
+        # the time mesh of backward='associative_sharded' (set it after
+        # construction; else every rank of the process group, at first use)
+        self.backward_mesh = None
         self._graphs = GraphCache()
 
     # -- state initialisation ------------------------------------------------
@@ -262,6 +262,21 @@ class LieILQR:
                 lin["Fx"], lin["Fu"], self._defects(lin), lin["Lx"], lin["Lu"],
                 lin["Lxx"], lin["Lux"], lin["Luu"], mu, delta, mu_min=cfg.mu_min,
                 mu_max=cfg.mu_max, delta_0=cfg.delta_0, active=active)
+        if cfg.backward == "associative_sharded":
+            # the same sweep with its element scan split over the time mesh's
+            # ranks (`parallel/riccati_sharded.py`); its collectives run here,
+            # outside every captured graph
+            from trajectory_optimization_matrix_lie_groups_tpu_torch.parallel import (
+                riccati_sharded,
+            )
+
+            if self.backward_mesh is None:
+                self.backward_mesh = riccati_sharded.default_time_mesh(
+                    device=lin["Fx"].device)
+            return riccati_sharded.sharded_backward_adaptive(
+                lin["Fx"], lin["Fu"], self._defects(lin), lin["Lx"], lin["Lu"],
+                lin["Lxx"], lin["Lux"], lin["Luu"], mu, delta, mesh=self.backward_mesh,
+                mu_min=cfg.mu_min, mu_max=cfg.mu_max, delta_0=cfg.delta_0, active=active)
         return self._backward_sequential(lin, mu, delta, active)
 
     @staticmethod

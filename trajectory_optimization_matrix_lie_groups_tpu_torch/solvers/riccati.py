@@ -122,6 +122,13 @@ def parallel_backward(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu, mu=0.0):
     elems = build_elements(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu, mu)
     _, _, _, eta_s, J_s = doubling_scan(combine, elems, reverse=True)
     Vx_next, Vxx_next = -eta_s[:, 1:], J_s[:, 1:]
+    k, K = stage_gains(Fx, Fu, d, Lu, Lux, Luu, Vx_next, Vxx_next, mu)
+    return k, K, Vx_next, Vxx_next
+
+
+def stage_gains(Fx, Fu, d, Lu, Lux, Luu, Vx_next, Vxx_next, mu):
+    """Every stage's gains (k, K) from the value function of the stage after
+    it, stage-batched: k = -Quu^-1 Qu, K = -Quu^-1 Qux."""
     n = Fx.shape[-1]
     FuT = _T(Fu)
     eye = torch.eye(n, dtype=Fx.dtype, device=Fx.device)
@@ -131,7 +138,7 @@ def parallel_backward(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu, mu=0.0):
     Qux = Lux + FuT @ Vreg @ Fx
     Quu = Luu + FuT @ Vreg @ Fu
     X = _solve(Quu, torch.cat([Qu[..., None], Qux], dim=-1))
-    return -X[..., 0], -X[..., 1:], Vx_next, Vxx_next
+    return -X[..., 0], -X[..., 1:]
 
 
 def _all_quu_pd(Fx, Fu, Luu, Vxx_next, mu):
@@ -151,13 +158,16 @@ def _finite(x):
 
 def parallel_backward_adaptive(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu, mu, delta,
                                mu_min=1e-6, mu_max=1e10, delta_0=2.0,
-                               active=None):
+                               active=None, sweep=parallel_backward):
     """PD-safe parallel-prefix backward with the whole-sweep LM retry, per
     problem: a problem whose sweep has a non-PD Quu or a non-finite output
     is swept again at mu escalated by the reference's delta-doubling
     schedule until it passes or mu reaches mu_max; on success its mu
     de-escalates for the next iteration.  ``active`` (B,) bool: problems
     whose result is wanted (a frozen problem never triggers a retry).
+    ``sweep``: the all-stage backward that each attempt runs
+    (`parallel_backward`; the time-sharded one of
+    `parallel/riccati_sharded.py` there).
 
     Returns (k, K, Vx_next, Vxx_next, mu_out, delta_out, exceeded), mu_out,
     delta_out and exceeded per problem (B,)."""
@@ -168,7 +178,7 @@ def parallel_backward_adaptive(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu, mu, delta,
     mu_q, dlt = full(mu), full(delta)
 
     def attempt(m):
-        out = parallel_backward(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu, mu=m)
+        out = sweep(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu, mu=m)
         ok = _all_quu_pd(Fx, Fu, Luu, out[3], m)
         for x in out:
             ok = ok & _finite(x)

@@ -245,27 +245,45 @@ def run_errstate_linear(args):
     _errstate_task("errstate_generate_linear", "final_goal_err_norm", args)
 
 
-def run_sweep_task(args):
-    from trajectory_optimization_matrix_lie_groups_tpu_torch.parallel import BatchSolver
-    from trajectory_optimization_matrix_lie_groups_tpu_torch.parallel.sweep import run_sweep
+def sweep_problem(args):
+    """The `sweep` task's solver and problem: (LieILQR, params, base_q0,
+    base_xi0), the SE3 benchmark cut to N = 200, 10 iterations at mu = 0."""
     from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.lie_ilqr import LieILQR
-    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.errstate_bench import (
-        SWEEP_RANGES,
-    )
 
     data, solver, params, x0, us0, _ = _benchmark("se3_tracking", True, args)
     cfg = dataclasses.replace(solver.cfg, N=200, max_iterations=10, tol_grad_norm=0.0,
                               tol_d_norm=0.0, backward="sequential_fixed")
     solver = LieILQR(solver.model, cfg, pallas_rollout_dt=solver.pallas_rollout_dt)
     cp = _cut(params["cost"], 200)
-    params = {**params, "cost": cp}
-    # one device: the JAX CLI's batch mesh spans the local devices
-    # (multi-GPU is not ported, ROADMAP.md A.5)
-    bs = BatchSolver(solver)
-    _sync(args)
-    t0 = time.perf_counter()
-    out = run_sweep(bs, params, SWEEP_RANGES, cp.q_ref[0], cp.xi_ref[0], nu=6)
-    wall = time.perf_counter() - t0
+    return solver, {**params, "cost": cp}, cp.q_ref[0], cp.xi_ref[0]
+
+
+def run_sweep_task(args):
+    import torch.distributed as dist
+
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.parallel import (
+        BatchSolver,
+        make_batch_mesh,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.parallel.sweep import run_sweep
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.errstate_bench import (
+        SWEEP_RANGES,
+    )
+
+    solver, params, q0, xi0 = sweep_problem(args)
+    # the batch mesh over the job's ranks (one device a rank; a plain process
+    # joins a one-process group on its device, left again at the end), as
+    # the JAX CLI's
+    joined = not dist.is_initialized()
+    bs = BatchSolver(solver, mesh=make_batch_mesh(device=args.device))
+    try:
+        _sync(args)
+        t0 = time.perf_counter()
+        out = run_sweep(bs, params, SWEEP_RANGES, q0, xi0, nu=6)
+        wall = time.perf_counter() - t0
+    finally:
+        if joined:
+            dist.destroy_process_group()
     total = sum(len(v.values) for v in out.values())
     print(json.dumps(dict(task="sweep", n_solves=total, wall_s=round(wall, 2),
                           solves_per_s=round(total / wall, 1),

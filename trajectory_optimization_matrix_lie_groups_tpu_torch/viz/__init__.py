@@ -1,1 +1,2 @@
-"""Visualization: convergence/trajectory plots and cost landscapes."""
+"""Visualization: convergence/trajectory plots, cost landscapes, trajectory
+and URDF replay (`replay.py`) and the sweep viewers (`interactive.py`)."""
