@@ -4,11 +4,13 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --cli [task ...]
     python3 chip_smoke.py --sharded
+    python3 chip_smoke.py --b13-any
 
 With ``--cli`` only the `cli` phase runs (below; the named tasks of
 `CLI_TASKS`, all without names), with its gates and launch checks, after
 the kernels' build; then the card's name and power limit.  With
-``--sharded`` only the `sharded` phase runs, so.
+``--sharded`` only the `sharded` phase runs, so, and with ``--b13-any``
+only `kernels_b13_any`.
 
 The first two run on the screw-200 problem (the N=200 prefix of the
 reference's screw-tracking problem, R = 1e-3 I, no box) for a batch of
@@ -172,7 +174,10 @@ Phases, each printed as one JSON line:
                 these tiers.
   kernels_b13_any  B13's runtime-shape instance at (6, 2), (9, 3), (12, 3)
                 and (12, 12) against its plain version (f32 B = 8192, f64
-                B = 1024, N = 200), each with its time and bound; one
+                B = 1024, N = 200), each with its time and bound and the
+                parent kernel's time (`ANY_PARENT_MS`); its instances'
+                registers, stack and spills (ptxas; no f32 instance may
+                spill or keep a stack frame); one
                 `FastBatchSolver` solve (f32, B = 1024, 4 iterations;
                 B13any = 4) of a (12, 3) `LieModel` (the rigid body driven
                 by three torques) against use_pallas=False (J to 1e-4);
@@ -345,6 +350,19 @@ HOST_WORKERS, HOST_WAIT_S = 6, 600
 ANY_SHAPES = ((6, 2), (9, 3), (12, 3), (12, 12))
 ANY_BATCH = {torch.float32: 8192, torch.float64: 1024}
 ANY_SOLVE_BATCH, ANY_SOLVE_ITERS = 1024, 4
+# the same rows' ms on the kernel these rows replaced (one thread per
+# problem reading global memory, its carry in local memory), measured by
+# `python3 scripts/rates.py --b13-any` on that tree before the redesign
+# (NVIDIA H100 80GB HBM3, 700.00 W; the first of two runs in one call);
+# its (12, 3) solve took 6.1247 s there
+ANY_PARENT_MS = {"6x2 float32 B=8192": 13.206645965576172,
+                 "9x3 float32 B=8192": 28.901407877604168,
+                 "12x3 float32 B=8192": 56.6419932047526,
+                 "12x12 float32 B=8192": 160.92205810546875,
+                 "6x2 float64 B=1024": 17.813674926757812,
+                 "9x3 float64 B=1024": 46.83412170410156,
+                 "12x3 float64 B=1024": 103.24589029947917,
+                 "12x12 float64 B=1024": 284.1482340494792}
 # the error-state tier: the three CLI problems at N = 400 in f64 against
 # their JAX goldens (the same iterations and flags, us to 1e-6, J to 1e-8)
 ES_US_GATE, ES_J_GATE = 1e-6, 1e-8
@@ -1255,9 +1273,11 @@ def b13_any_phase(dev, card, counted, expect):
     version at ANY_SHAPES (f32 B = 8192, f64 B = 1024, N = 200) with times
     (the kernel by CUDA events, mean of 3; the plain version, host-bound,
     on the host clock around the one call that the check compares) and
-    bounds, and one FastBatchSolver solve of a (12, 3) LieModel against
+    bounds and the parent kernel's time, the instances' ptxas report, and
+    one FastBatchSolver solve of a (12, 3) LieModel against
     use_pallas=False.  Returns (the solve's launches, the kernel's entry of
     the kernels line: its numbers at (12, 3), f32)."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
     from trajectory_optimization_matrix_lie_groups_tpu_torch import kernel_check
     from trajectory_optimization_matrix_lie_groups_tpu_torch.models import costs, dynamics
     from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import make_model
@@ -1280,8 +1300,10 @@ def b13_any_phase(dev, card, counted, expect):
             row = {"max_err": e["max_rel"], "max_abs_err": e["max_abs"], "gate": gate,
                    "ms": ms, "plain_ms": plain_s * 1e3, **bound("B13", s, kern),
                    "library_ms": None}
-            rows[f"{nx}x{nu} {str(dtype).replace('torch.', '')} B={B}"] = {
-                **row, "bound_share": row["bound_ms"] / ms}
+            key = f"{nx}x{nu} {str(dtype).replace('torch.', '')} B={B}"
+            rows[key] = {**row, "bound_share": row["bound_ms"] / ms,
+                         "parent_ms": ANY_PARENT_MS[key],
+                         "speedup_vs_parent": ANY_PARENT_MS[key] / ms}
             require(e["max_rel"] <= gate, f"B13any ({nx}, {nu}) {dtype}: {e['max_rel']} > {gate}")
             del s, args, kern, plain
     # a user's own LieModel at (12, 3): the rigid body, three torques, no gravity
@@ -1302,9 +1324,11 @@ def b13_any_phase(dev, card, counted, expect):
     J_rel = ((out.J_opt - ref.J_opt).abs() / ref.J_opt.abs()).max().item()
     us_abs = (out.us - ref.us).abs().max().item()
     fin = bool(torch.isfinite(out.us).all().item() and torch.isfinite(out.J_opt).all().item())
+    ptxas = {k: v for k, v in _build.ptxas_report().items()
+             if "traopt::fast_riccati_any_kernel<" in k}
     emit({"phase": "kernels_b13_any", "card": card, "N": N, "metric":
           "max_rel = max|kernel - plain| / max(1, max|plain|) over outputs",
-          "shapes": rows,
+          "ptxas": ptxas, "shapes": rows,
           "solve_12x3": {"model": "rigid body, Pu = [I3; 0] (three torques), g = 0, "
                                   "screw-200 tracking, R = 1e-2 I3", "dtype": "float32",
                          "B": ANY_SOLVE_BATCH, "iterations": ANY_SOLVE_ITERS,
@@ -1316,6 +1340,11 @@ def b13_any_phase(dev, card, counted, expect):
     require(ref_launches == expect(), f"(12, 3) use_pallas=False launches {ref_launches}")
     require(fin, "non-finite lanes in the (12, 3) solve")
     require(J_rel <= 1e-4, f"(12, 3) kernel vs use_pallas=False J rel err {J_rel}")
+    f32_ptxas = [v for k, v in ptxas.items() if "<float," in k]
+    require(len(ptxas) == 6 and len(f32_ptxas) == 3
+            and all(v.get("stack_frame") == 0 and v.get("spill_stores") == 0
+                    and v.get("spill_loads") == 0 for v in f32_ptxas),
+            f"B13any f32 instances keep a stack frame or spill: {ptxas}")
     return launches, rows[f"12x3 float32 B={ANY_BATCH[f32]}"]
 
 
@@ -1799,6 +1828,22 @@ def sharded_only():
     print(card, flush=True)
 
 
+def b13_any_only():
+    """``--b13-any`` (module docstring)."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    build_s = _build.build()
+    card = nvidia_smi()
+    counted, expect = launch_counters()
+    launches, row = b13_any_phase(torch.device("cuda", 0), card, counted, expect)
+    emit({"b13_any_launches": launches, "B13any": row, "build_s": build_s,
+          "total_s": time.perf_counter() - t0})
+    print(card, flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1808,6 +1853,8 @@ def main():
         return cli_only(sys.argv[2:])
     if sys.argv[1:] == ["--sharded"]:
         return sharded_only()
+    if sys.argv[1:] == ["--b13-any"]:
+        return b13_any_only()
     pool = multiprocessing.get_context("spawn").Pool(HOST_WORKERS)
     try:
         run(pool)

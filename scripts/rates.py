@@ -34,6 +34,15 @@ moves B2's time by up to 2%):
                 PyTorch ops); B13 at each path's (nx, nu), (12, 6), (12, 4)
                 and (6, 3), and B14 on the free body, on a real iterate at
                 B=8192.
+
+    python3 scripts/rates.py [--root DIR] --b13-any
+
+measures B13's runtime-shape instance alone (`ops/riccati.backward_lane_any`,
+the kernel `chip_smoke.py --b13-any` checks): its ms (CUDA events, mean of
+3 launches after one) on `kernel_check.riccati_inputs` at (6, 2), (9, 3),
+(12, 3) and (12, 12), N = 200, f32 at B = 8192 and f64 at B = 1024, and
+the (12, 3) rigid body's `FastBatchSolver` solve (f32, B = 1024, 4
+iterations; median of 3 after a warm-up), ~1 minute a tree with the build.
 """
 
 import argparse
@@ -48,11 +57,18 @@ import numpy as np
 import torch
 
 N, B_F32, B_POLISH, ITERS, SO3_ITERS = 200, 8192, 16384, 12, 30
+# B13's runtime-shape instance (--b13-any): the shapes, the batch of each
+# scalar type, the (12, 3) solve's batch and iterations
+ANY_SHAPES = ((6, 2), (9, 3), (12, 3), (12, 12))
+ANY_BATCH = {torch.float32: 8192, torch.float64: 1024}
+ANY_SOLVE_BATCH, ANY_SOLVE_ITERS = 1024, 4
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+    ap.add_argument("--b13-any", action="store_true",
+                    help="measure B13's runtime-shape instance alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("rates: needs a CUDA device")
@@ -98,6 +114,11 @@ def main():
             a = batch(seed + 1 + r)
             secs.append(timed(lambda: solve(*a))[1])
         return B / statistics.median(secs)
+
+    if args.b13_any:
+        out.update(b13_any_rates(dev, event_ms, timed))
+        print(json.dumps(out), flush=True)
+        return
 
     problems = {dt: al_bench.build_screw200(dt, dev, horizon=N)
                 for dt in (torch.float32, torch.float64)}
@@ -197,6 +218,45 @@ def main():
             out[f"B14_B{B_F32}_ms"] = event_ms(calls["B14"][0])
         del s, calls
     print(json.dumps(out), flush=True)
+
+
+def b13_any_rates(dev, event_ms, timed):
+    """``--b13-any`` (module docstring): {row: ms} of B13's runtime-shape
+    instance and the (12, 3) solve's seconds."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import kernel_check
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import costs, dynamics
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import make_model
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import riccati as RC
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SE3
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import batched as F
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench
+
+    out = {}
+    for dtype, B in ANY_BATCH.items():
+        for nx, nu in ANY_SHAPES:
+            s = kernel_check.riccati_inputs(nx, nu, B, N, dtype, dev, seed=0)
+            args = tuple(s[n] for n in kernel_check.READS["B13"])
+            name = f"B13any_{nx}x{nu}_{str(dtype).replace('torch.', '')}_B{B}_ms"
+            out[name] = event_ms(lambda: RC.backward_lane_any(*args), 3)
+            del s, args
+    # the rigid body driven by three torques, no gravity (chip_smoke.py's
+    # kernels_b13_any solve)
+    f32 = torch.float32
+    dyn, cost, q0, xi0 = al_bench.build_screw200(f32, dev, horizon=N)
+    Pu = torch.zeros((6, 3), dtype=f32, device=dev)
+    Pu[0, 0] = Pu[1, 1] = Pu[2, 2] = 1.0
+    cost.R = 1e-2 * torch.eye(3, dtype=f32, device=dev)
+    model, params = make_model(dynamics.rigid_body_dynamics()._replace(nu=3),
+                               costs.tracking_cost(SE3, 3),
+                               dynamics.rigid_body_params(dyn.J, dyn.dt, g=0.0, Pu=Pu), cost)
+    q0s, xi0s = al_bench.screw_batch(q0, xi0, ANY_SOLVE_BATCH, 0)
+    args = (params, q0s, xi0s, torch.zeros((ANY_SOLVE_BATCH, N, 3), dtype=f32, device=dev),
+            cost.q_ref, cost.xi_ref)
+    solver = F.FastBatchSolver(model, N, ANY_SOLVE_ITERS)
+    solver.solve(*args)
+    out[f"solve_12x3_B{ANY_SOLVE_BATCH}_s"] = statistics.median(
+        timed(lambda: solver.solve(*args))[1] for _ in range(3))
+    return out
 
 
 if __name__ == "__main__":

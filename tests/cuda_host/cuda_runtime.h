@@ -30,6 +30,8 @@ struct dim3 {
 };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) double2 { double x, y; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+inline double2 make_double2(double x, double y) { return {x, y}; }
 
 inline thread_local dim3 threadIdx, blockIdx, blockDim;
 

@@ -404,18 +404,44 @@ def test_b13_refuses_a_shape_it_has_no_kernel_for(cuda):
     assert (RC.backward_lane.launches, RC.backward_lane_any.launches) == launches
 
 
+# B13's runtime-shape instance through backward_lane: a small shape on its
+# (12, 6) instance, the (12, 3) solve's batch (128 blocks), more Q_uu rows
+# than V_xx rows on its (12, 12) instance
+@pytest.mark.parametrize("nx,nu,B_", [(6, 2, 33), (12, 3, 1024), (3, 12, 33)],
+                         ids=["6x2-B33", "12x3-B1024", "3x12-B33"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-def test_b13_launches_at_a_shape_no_tuned_instance_has(cuda, dtype):
-    """(nx, nu) = (6, 2) through backward_lane launches B13's runtime-shape
-    instance and agrees with the plain version within the kernel's gate."""
+def test_b13_launches_at_a_shape_no_tuned_instance_has(cuda, dtype, nx, nu, B_):
+    """(nx, nu) = (6, 2), (12, 3) and (3, 12) through backward_lane launch
+    B13's runtime-shape instance and agree with the plain version within
+    the kernel's gate."""
     from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import riccati as RC
 
-    s = riccati_inputs(6, 2, 33, 20, dtype, cuda)
+    s = riccati_inputs(nx, nu, B_, 20, dtype, cuda)
     args = tuple(s[n] for n in READS["B13"])
     launches = (RC.backward_lane.launches, RC.backward_lane_any.launches)
     kern = RC.backward_lane(*args)
     assert (RC.backward_lane.launches, RC.backward_lane_any.launches) == (
         launches[0], launches[1] + 1)
+    plain = RC.backward_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(FAST_OUTPUTS["B13"], kern, plain, strict=True):
+        assert rel_err(a, b) <= GATES["fast"][dtype]["B13"], name
+
+
+@pytest.mark.parametrize("nx,nu", [(12, 6), (12, 4), (6, 3)], ids=["12x6", "12x4", "6x3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b13_tuned_shapes_launch_their_instances(cuda, dtype, nx, nu):
+    """At the tuned shapes backward_lane launches its tuned instance, never
+    the runtime-shape one, and agrees with the plain version."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import riccati as RC
+
+    assert (nx, nu) in RC.SHAPES
+    s = riccati_inputs(nx, nu, 33, 20, dtype, cuda)
+    args = tuple(s[n] for n in READS["B13"])
+    launches = (RC.backward_lane.launches, RC.backward_lane_any.launches)
+    kern = RC.backward_lane(*args)
+    assert (RC.backward_lane.launches, RC.backward_lane_any.launches) == (
+        launches[0] + 1, launches[1])
     plain = RC.backward_plain(*args)
     torch.cuda.synchronize()
     for name, a, b in zip(FAST_OUTPUTS["B13"], kern, plain, strict=True):

@@ -6,7 +6,8 @@ stated, on the same numpy inputs:
   `models/costs.tracking_cost` for SE(3) and SO(3);
 - `utils/linalg.chol_solve_psd`, the f64 loop backward's solve;
 - kernel B13's plain version (`ops/riccati`) against the JAX
-  `pallas_backward` (interpret mode) at every (nx, nu) it is built for;
+  `pallas_backward` (interpret mode) at the tuned instances' (nx, nu) and
+  at runtime shapes (6, 2), (9, 3), (12, 3), (12, 12) and (3, 12);
 - kernel B14's plain version (`ops/rollout`) against the JAX
   `pallas_rollout` (interpret mode, f32) and the JAX `FastBatchSolver`'s scan
   rollout (f64).
@@ -194,8 +195,13 @@ def test_chol_solve_psd_matches_jax(rhs):
                                B if rhs else B[..., None], atol=1e-11)
 
 
+# the tuned instances' shapes, and shapes that only the runtime-shape
+# instance takes (nu > nx in (3, 12))
+BACKWARD_SHAPES = tuple(SHAPES) + ((6, 2), (9, 3), (12, 3), (12, 12), (3, 12))
+
+
 @pytest.mark.parametrize("dtype", [jnp.float64, jnp.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("nx,nu", SHAPES, ids=[f"{a}x{b}" for a, b in SHAPES])
+@pytest.mark.parametrize("nx,nu", BACKWARD_SHAPES, ids=[f"{a}x{b}" for a, b in BACKWARD_SHAPES])
 def test_backward_plain_matches_pallas_backward(nx, nu, dtype):
     """B13's plain version against JAX `pallas_backward(interpret=True)`,
     B = 4, N = 9: f64 at `tests/test_pallas_riccati.py`'s atol (1e-10 on k

@@ -4,9 +4,9 @@ thread of a block an OS thread, real barriers, the block's shared memory a
 buffer) on CPU tensors, against their plain versions: the group Riccati
 kernels B2 and B5 (csrc/riccati_group.cuh); B13 and B14 (csrc/fast.cu: at
 nx = 12 B13 is the same group design on a dense step, at (6, 3) a thread
-per problem copying stage t - 1's inputs ahead, at any other shape a thread
-per problem reading global memory, and B14 a thread per problem copying
-stage t + 1's inputs ahead); the rollouts B4 and B3
+per problem copying stage t - 1's inputs ahead, at any other shape the
+group design with the shape a runtime argument, and B14 a thread per
+problem copying stage t + 1's inputs ahead); the rollouts B4 and B3
 (csrc/pipeline.cu: a thread per problem copying stage t + 1's inputs
 ahead, then, for B3, B1's kernel on the new trajectory) and the SO(3)
 kernels B11 and B12 (csrc/so3.cu: a thread per problem copying the next
@@ -192,19 +192,23 @@ def test_b13_host_rehearsal_matches_plain(libs, dtype, kind, B, N):
         assert rel_err(a, b) <= gate, (name, rel_err(a, b))
 
 
-# B13 at shapes no tuned instance has (the runtime-shape instance, one
-# thread per problem on blocks of 128): a ragged block (9), a ragged second
-# block (129).
-ANY_SHAPES = [pytest.param(nx, nu, id=f"{nx}x{nu}") for nx, nu in ((6, 2), (9, 3), (12, 3), (12, 12))]
+# B13 at shapes no tuned instance has (the runtime-shape instance, a group
+# per problem, its (12, 6) instance for nu <= 6 and its (12, 12) one past
+# it): the one-lane group and 1 x 1 Cholesky (1, 1), more Q_uu rows than
+# V_xx rows (3, 12), nu just past the smaller instance (12, 7), the largest
+# (12, 12); a ragged block (9), a ragged seventeenth block (129).
+ANY_SHAPES = [pytest.param(nx, nu, id=f"{nx}x{nu}")
+              for nx, nu in ((1, 1), (3, 12), (6, 2), (9, 3), (12, 3), (12, 7), (12, 12))]
 
 
 @pytest.mark.parametrize("B", [9, 129], ids=["B9", "B129"])
 @pytest.mark.parametrize("nx,nu", ANY_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_b13_any_shape_host_rehearsal_matches_plain(libs, dtype, nx, nu, B):
-    """B13's runtime-shape instance at (6, 2), (9, 3), (12, 3) and (12, 12)
-    on a random problem (`kernel_check.riccati_inputs`, N = 3) within its
-    card gate of the plain version (f32); f64 to 1e-12."""
+    """B13's runtime-shape instance at (1, 1), (3, 12), (6, 2), (9, 3),
+    (12, 3), (12, 7) and (12, 12) on a random problem
+    (`kernel_check.riccati_inputs`, N = 3) within its card gate of the
+    plain version (f32); f64 to 1e-12."""
     s = riccati_inputs(nx, nu, B, 3, dtype, seed=nx + nu)
     tag = "f32" if dtype == torch.float32 else "f64"
     fn = HR.function(libs[f"fast_{tag}"], f"fast_riccati_any_{tag}", RC._ARGS)

@@ -8,10 +8,10 @@
 // loop inside the block (the TPU kernels carried the recursion across a
 // sequential grid axis with the carry in VMEM scratch), every per-stage array
 // batch-last: B13 at nx = 12 runs one problem per group of 16 threads
-// (group.cuh); B13 at (6, 3) and B14 one problem per thread on blocks of one
-// warp with the carry in registers and each stage's inputs copied a stage
-// ahead into shared memory (ahead.cuh); B13 at any other shape up to
-// (12, 12) one problem per thread, reading global memory.
+// (group.cuh), and so does B13 at any other shape up to (12, 12), the shape
+// a runtime argument; B13 at (6, 3) and B14 one problem per thread on blocks
+// of one warp with the carry in registers and each stage's inputs copied a
+// stage ahead into shared memory (ahead.cuh).
 #include "ahead.cuh"
 #include "common.cuh"
 #include "group.cuh"
@@ -681,200 +681,531 @@ int launch_fast_riccati_thread(const FastRiccatiArgs<T>& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// B13 at any other (nx, nu) with nx, nu <= kAnyMax (the JAX kernel takes
-// the shapes from its arguments): one thread per problem on blocks of
-// kThreads, the shape a runtime argument, the stage's inputs read from
-// global memory as the step needs them (batch-last, so a warp's read of an
-// entry is 32 neighbouring problems) and the carry and the step's products
-// in arrays sized for kAnyMax, which live in local memory.  The same step,
-// sum order and Cholesky as the thread kernel above; no copy-ahead and no
-// group design: it serves shapes no model family of the package has.
+// B13 at any other (nx, nu) with nx, nu <= kAnyMax.  Replaces
+// ops/pallas_riccati.py::_riccati_kernel (pallas_backward), which takes the
+// shape from its arguments.  What bounds it on an H100: its bytes, as at the
+// tuned shapes (591 values per problem and stage at (12, 3): 1.16 ms at
+// B = 8192, N = 200).  The design is the tuned group kernel's with the
+// shape a runtime argument: a group of kGroup = 16 threads per problem,
+// kProblems = 8 problems per block (B / 8 blocks: 128 at B = 1024); lane
+// r < nx keeps row r of V_xx and V_x[r] in registers, lane nx forms Q_u
+// and k, lanes a < nu row a of Q_uu (with nu > nx, lanes past nx); the
+// group exchanges its products through its scratch; the block copies stage
+// t - 1's inputs into shared memory with cp.async while it computes stage t
+// and stages its outputs to store them coalesced, one block barrier a
+// stage.  The shared memory is laid out at launch from the runtime shape
+// (FastAnyLayout: runtime row pitches, nx or nu rows a region), so a small
+// shape takes little of it and more blocks fit on an SM.  Three instances,
+// each with its per-lane arrays sized for maxima (MX, MU): (6, 6) for
+// nx, nu <= 6, (12, 6) for nu <= 6, (12, 12) past it.  A loop over a
+// matrix's rows runs to nx or nu at run time, reading the rows from shared
+// memory; a loop over a row's entries is unrolled to the maximum under a
+// guard (j < nx, c < nu) into register accumulators indexed by constants.
+// Two things keep the registers down: every register array is written
+// whole before any guarded update (a value defined only under a guard stays
+// live back to its previous definition), and every address of the stage
+// loop is derived anew each stage (opaque_zero), not held one per region
+// and row across the loop.  The NU x NU Cholesky is the
+// group's: lane a computes row a of L, one column a warp barrier, the rows
+// exchanged through the scratch (every lane holding all of L, as the tuned
+// kernel does, would take nu^2 registers); then lane c <= nx solves one
+// right-hand side in row c of K^T.  Lane r's column of Q_xx waits for phase
+// D in its problem's L_xx column (only lane r reads it), X's column in the
+// scratch.  Every entry keeps the one-thread step's sum order and Cholesky
+// (the k-loop outermost where an entry sums over k), so the result agrees
+// with backward_plain to rounding.
 constexpr int kAnyMax = 12;
 
+// One problem's share of a stage buffer's region for an input of ne
+// entries: whole 16-byte vectors, an odd number of 4-bank groups, so that
+// the 8 problems of a block start in 8 different groups of banks (a warp's
+// copy of 4 entries of 8 problems writes 32 different banks in f32).
 template <typename T>
-__global__ void __launch_bounds__(kThreads) fast_riccati_any_kernel(FastRiccatiArgs<T> a) {
-  constexpr int M = kAnyMax;
-  const int B = a.B, N = a.N, nx = a.nx, nu = a.nu, b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= B) return;
-  const int nxx = nx * nx, nxu = nx * nu, nuu = nu * nu, nc = nx + 1;
-  const auto at = [&](const T* base, int ne, int t) {
-    return Lane<const T>{base + ((long long)t * ne) * B + b, B};
+constexpr int spread_pitch(int ne) {
+  constexpr int w = sizeof(T) / 4;
+  int p = ne;
+  while ((p * w) % 8 != 4) ++p;
+  return p;
+}
+
+// The block's shared memory for a runtime (nx, nu), in elements of T, each
+// region a whole number of 16-byte vectors.
+struct FastAnyLayout {
+  int nx, nu, px, pu;  // the shape; the row pitches of nx- and nu-wide rows
+  RowCopy in[8];       // F, Fu, d, lx, lu, lxx, lux, luu in a stage buffer
+  int stage;           // one stage buffer
+  int ek, eVx, eVxx, out;  // an output buffer: entries of k, Vx1, Vxx1 (K at 0); its size
+  // a group's scratch: V_x + V_xx d, Q_u, (V_xx F)^T then X^T (rows of px),
+  // V_xx Fu, K^T (row nx: k), K^T Q_uu, Q_ux^T, Q_uu, L (rows of pu); its stride
+  int Vm, Qu, VS, VFu, KT, KQ, QuxT, Quu, L, group;
+  int oout, ogroup;    // the block: two stage buffers at 0, two output buffers, the scratch
+  size_t bytes;
+};
+
+template <typename T>
+FastAnyLayout fast_any_layout(int nx, int nu) {
+  FastAnyLayout l{};
+  l.nx = nx;
+  l.nu = nu;
+  const int px = l.px = vpad<T>(nx), pu = l.pu = vpad<T>(nu);
+  int off = 0;
+  const auto place = [&](int k, int rows, int cols, int rp) {
+    const int pt = spread_pitch<T>(rows * rp);
+    l.in[k] = row_copy(off, pt, rows, cols, rp);
+    off += kProblems * pt;
   };
-  const auto out = [&](T* base, int ne, int t) {
-    return Lane<T>{base + ((long long)t * ne) * B + b, B};
-  };
-  T Vx[M], V[M * M];
-  {
-    const Lane<const T> lx = at(a.Lx, nx, N), lxx = at(a.Lxx, nxx, N);
-    for (int i = 0; i < nx; ++i) Vx[i] = lx[i];
-    for (int e = 0; e < nxx; ++e) V[e] = lxx[e];
+  place(0, nx, nx, px);
+  place(1, nx, nu, pu);
+  place(2, 1, nx, nx);
+  place(3, 1, nx, nx);
+  place(4, 1, nu, nu);
+  place(5, nx, nx, px);
+  place(6, nu, nx, px);
+  place(7, nu, nu, pu);
+  l.stage = off;
+  l.ek = nu * nx;
+  l.eVx = l.ek + nu;
+  l.eVxx = l.eVx + nx;
+  l.out = vpad<T>((l.eVxx + nx * nx) * kOutStride);
+  l.Vm = 0;
+  l.Qu = px;
+  l.VS = l.Qu + pu;
+  l.VFu = l.VS + nx * px;
+  l.KT = l.VFu + nx * pu;
+  l.KQ = l.KT + (nx + 1) * pu;
+  l.QuxT = l.KQ + nx * pu;
+  l.Quu = l.QuxT + nx * pu;
+  l.L = l.Quu + nu * pu;
+  l.group = (int)(group_stride((l.L + nu * pu) * sizeof(T)) / sizeof(T));
+  l.oout = 2 * l.stage;
+  l.ogroup = l.oout + 2 * l.out;
+  l.bytes = (size_t)(l.ogroup + kProblems * l.group) * sizeof(T);
+  return l;
+}
+
+template <typename T>
+struct FastAnyArgs {
+  FastRiccatiArgs<T> a;
+  FastAnyLayout l;
+};
+
+// One problem's view of a stage buffer; lxx is also where lane r keeps
+// column r of Q_xx from phase B to phase D.
+template <typename T>
+struct FastAnyIn {
+  const T *F, *Fu, *d, *lx, *lu;
+  T* lxx;
+  const T *lux, *luu;
+};
+
+// Entries 0 .. n - 1 (n <= M) of a 16-byte-aligned row of shared memory, in
+// 16-byte loads; a partial last vector also fills the entries from n to the
+// vector's end with the row's padding, which no sum reads, and the entries
+// past it are 0.  Every entry is written, so that no register holds a value
+// defined only under a guard (the compiler would keep such a register live
+// back to wherever it was last defined).
+template <typename T, int M>
+__device__ __forceinline__ void ldsn(T (&dst)[M], const T* src, int n) {
+  constexpr int v = 16 / sizeof(T);
+  static_assert(M % v == 0, "a whole number of vectors");
+#pragma unroll
+  for (int i = 0; i < M / v; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i * v < n) x = reinterpret_cast<const float4*>(src)[i];
+      dst[4 * i] = x.x;
+      dst[4 * i + 1] = x.y;
+      dst[4 * i + 2] = x.z;
+      dst[4 * i + 3] = x.w;
+    } else {
+      double2 x = make_double2(0.0, 0.0);
+      if (i * v < n) x = reinterpret_cast<const double2*>(src)[i];
+      dst[2 * i] = x.x;
+      dst[2 * i + 1] = x.y;
+    }
   }
+}
+
+// fast_group_step with (nx, nu) = (l.nx, l.nu) at run time: the same phases
+// A-E (C: the group's Cholesky, then the solves), the same sums in the same
+// order.  A loop over a matrix's rows runs to nx or nu at run time and keeps
+// to shared memory (the row of V_xx it multiplies from the staging buffer,
+// the solves' unknowns in K^T's row), so that no register array is indexed
+// by it; a loop over a row's entries is unrolled to the maximum (MX or MU)
+// under a guard and accumulates in registers.  Every lane of the warp calls
+// it.
+template <typename T, int MX, int MU>
+__device__ __forceinline__ void fast_any_step(int r, T (&V)[vpad<T>(MX)], T& Vx,
+                                              const FastAnyLayout& l, const FastAnyIn<T>& in,
+                                              T* gs, const FastOut<T>& out) {
+  constexpr int PX = vpad<T>(MX), PU = vpad<T>(MU);  // the arrays' sizes
+  const int nx = l.nx, nu = l.nu, px = l.px, pu = l.pu;
+  const bool own = r < nx;
+  T *Vm = gs + l.Vm, *Qu = gs + l.Qu, *VS = gs + l.VS, *VFu = gs + l.VFu, *KT = gs + l.KT,
+    *KQ = gs + l.KQ, *QuxT = gs + l.QuxT, *Quu = gs + l.Quu, *Ls = gs + l.L;
+
+  // ---- A ----
+  if (own) {
+    T* Vo = out.Vxx + r * nx * kOutStride;  // row r of V_xx, staged
+    out.Vx[r * kOutStride] = Vx;
+#pragma unroll
+    for (int j = 0; j < MX; ++j)
+      if (j < nx) Vo[j * kOutStride] = V[j];
+    {
+      T dd[PX];
+      ldsn(dd, in.d, nx);
+      T s = V[0] * dd[0];
+#pragma unroll
+      for (int j = 1; j < MX; ++j)
+        if (j < nx) s += V[j] * dd[j];
+      Vm[r] = Vx + s;
+    }
+    T vf[PX] = {}, vfu[PU] = {};
+    {
+      T f[PX], fu[PU];
+      ldsn(f, in.F, nx);
+      ldsn(fu, in.Fu, nu);
+#pragma unroll
+      for (int j = 0; j < MX; ++j)
+        if (j < nx) vf[j] = V[0] * f[j];
+#pragma unroll
+      for (int c = 0; c < MU; ++c)
+        if (c < nu) vfu[c] = V[0] * fu[c];
+    }
+#pragma unroll 1
+    for (int k = 1; k < nx; ++k) {
+      T f[PX], fu[PU];
+      ldsn(f, in.F + k * px, nx);
+      ldsn(fu, in.Fu + k * pu, nu);
+      const T vk = Vo[k * kOutStride];
+#pragma unroll
+      for (int j = 0; j < MX; ++j)
+        if (j < nx) vf[j] = vf[j] + vk * f[j];
+#pragma unroll
+      for (int c = 0; c < MU; ++c)
+        if (c < nu) vfu[c] = vfu[c] + vk * fu[c];
+    }
+#pragma unroll
+    for (int j = 0; j < MX; ++j)
+      if (j < nx) VS[j * px + r] = vf[j];
+#pragma unroll
+    for (int c = 0; c < MU; ++c)
+      if (c < nu) VFu[r * pu + c] = vfu[c];
+  }
+  __syncwarp();
+
+  // ---- B ----
+  T qx = T(0);
+  if (own) {  // column r of Q_xx (into L_xx's), of Q_ux (row r of QuxT), Q_x[r]
+    const T* vfc = VS + r * px;  // column r of V_xx F
+    T qxx[PX] = {}, qs[PU] = {};
+    {
+      T f[PX], fu[PU];
+      ldsn(f, in.F, nx);
+      ldsn(fu, in.Fu, nu);
+      const T v0 = vfc[0];
+#pragma unroll
+      for (int i = 0; i < MX; ++i)
+        if (i < nx) qxx[i] = f[i] * v0;
+#pragma unroll
+      for (int a = 0; a < MU; ++a)
+        if (a < nu) qs[a] = fu[a] * v0;
+    }
+#pragma unroll 1
+    for (int k = 1; k < nx; ++k) {
+      T f[PX], fu[PU];
+      ldsn(f, in.F + k * px, nx);
+      ldsn(fu, in.Fu + k * pu, nu);
+      const T vk = vfc[k];
+#pragma unroll
+      for (int i = 0; i < MX; ++i)
+        if (i < nx) qxx[i] = qxx[i] + f[i] * vk;
+#pragma unroll
+      for (int a = 0; a < MU; ++a)
+        if (a < nu) qs[a] = qs[a] + fu[a] * vk;
+    }
+#pragma unroll
+    for (int i = 0; i < MX; ++i)
+      if (i < nx) in.lxx[i * px + r] = in.lxx[i * px + r] + qxx[i];
+#pragma unroll
+    for (int a = 0; a < MU; ++a)
+      if (a < nu) QuxT[r * pu + a] = in.lux[a * px + r] + qs[a];
+    T s = in.F[r] * Vm[0];
+#pragma unroll 1
+    for (int k = 1; k < nx; ++k) s += in.F[k * px + r] * Vm[k];
+    qx = in.lx[r] + s;
+  } else if (r == nx) {  // Q_u
+    T qs[PU] = {};
+    {
+      T fu[PU];
+      ldsn(fu, in.Fu, nu);
+      const T v0 = Vm[0];
+#pragma unroll
+      for (int a = 0; a < MU; ++a)
+        if (a < nu) qs[a] = fu[a] * v0;
+    }
+#pragma unroll 1
+    for (int k = 1; k < nx; ++k) {
+      T fu[PU];
+      ldsn(fu, in.Fu + k * pu, nu);
+      const T vk = Vm[k];
+#pragma unroll
+      for (int a = 0; a < MU; ++a)
+        if (a < nu) qs[a] = qs[a] + fu[a] * vk;
+    }
+#pragma unroll
+    for (int a = 0; a < MU; ++a)
+      if (a < nu) Qu[a] = in.lu[a] + qs[a];
+  }
+  if (r < nu) {  // row r of Q_uu
+    T q[PU] = {};
+    {
+      T vfu[PU];
+      ldsn(vfu, VFu, nu);
+      const T f0 = in.Fu[r];
+#pragma unroll
+      for (int c = 0; c < MU; ++c)
+        if (c < nu) q[c] = f0 * vfu[c];
+    }
+#pragma unroll 1
+    for (int k = 1; k < nx; ++k) {
+      T vfu[PU];
+      ldsn(vfu, VFu + k * pu, nu);
+      const T fk = in.Fu[k * pu + r];
+#pragma unroll
+      for (int c = 0; c < MU; ++c)
+        if (c < nu) q[c] = q[c] + fk * vfu[c];
+    }
+    T lr[PU];
+    ldsn(lr, in.luu + r * pu, nu);
+#pragma unroll
+    for (int c = 0; c < MU; ++c)
+      if (c < nu) Quu[r * pu + c] = lr[c] + q[c];
+  }
+  __syncwarp();
+
+  // ---- C ----
+  // the Cholesky factor of Q_uu, column by column: lanes a >= j each form
+  // L[j][j] from row j (its entries before j are in Ls), lanes a > j then
+  // L[a][j] from their own row; lane a stores L[a][j]
+#pragma unroll 1
+  for (int j = 0; j < nu; ++j) {
+    if (r >= j && r < nu) {
+      T s = Quu[j * pu + j];
+      for (int kk = 0; kk < j; ++kk) {
+        const T ljk = Ls[j * pu + kk];
+        s = s - ljk * ljk;
+      }
+      T lrj = xsqrt(s);
+      if (r > j) {
+        const T inv = T(1) / lrj;
+        T s2 = Quu[r * pu + j];
+        for (int kk = 0; kk < j; ++kk) s2 = s2 - Ls[r * pu + kk] * Ls[j * pu + kk];
+        lrj = s2 * inv;
+      }
+      Ls[r * pu + j] = lrj;
+    }
+    __syncwarp();
+  }
+  // lane r <= nx: -Q_uu^-1 of column r of Q_ux (r < nx) or of Q_u (r = nx),
+  // L y = q then L^T x = y in place, in row r of K^T: column r of K, or k
+  T kc[PU] = {}, kq[PU] = {};  // row r of K^T and of K^T Q_uu (r < nx)
+  if (r <= nx) {
+    T* y = KT + r * pu;
+    const T* q = own ? QuxT + r * pu : Qu;
+#pragma unroll 1
+    for (int i = 0; i < nu; ++i) {
+      T s = q[i];
+      for (int kk = 0; kk < i; ++kk) s = s - Ls[i * pu + kk] * y[kk];
+      y[i] = s / Ls[i * pu + i];
+    }
+#pragma unroll 1
+    for (int i = nu - 1; i >= 0; --i) {
+      T s = y[i];
+      for (int kk = i + 1; kk < nu; ++kk) s = s - Ls[kk * pu + i] * y[kk];
+      y[i] = s / Ls[i * pu + i];
+    }
+    ldsn(kc, y, nu);
+#pragma unroll
+    for (int a = 0; a < MU; ++a)
+      if (a < nu) {
+        kc[a] = -kc[a];
+        y[a] = kc[a];
+      }
+  }
+  if (own) {
+    {
+      T qr[PU];
+      ldsn(qr, Quu, nu);
+#pragma unroll
+      for (int a = 0; a < MU; ++a)
+        if (a < nu) kq[a] = kc[0] * qr[a];
+    }
+#pragma unroll 1
+    for (int c = 1; c < nu; ++c) {
+      T qr[PU];
+      ldsn(qr, Quu + c * pu, nu);
+      const T kcc = KT[r * pu + c];
+#pragma unroll
+      for (int a = 0; a < MU; ++a)
+        if (a < nu) kq[a] = kq[a] + kcc * qr[a];
+    }
+#pragma unroll
+    for (int a = 0; a < MU; ++a)
+      if (a < nu) {
+        KQ[r * pu + a] = kq[a];
+        out.K[(a * nx + r) * kOutStride] = kc[a];
+      }
+  } else if (r == nx) {
+#pragma unroll
+    for (int a = 0; a < MU; ++a)
+      if (a < nu) out.k[a * kOutStride] = kc[a];
+  }
+  __syncwarp();
+
+  // ---- D ----
+  // V_x[r], and column r of X = Q_xx + K^T Q_uu K + K^T Q_ux + Q_ux^T K into
+  // the scratch (VS, transposed)
+  if (own) {
+    T kk[PU], quv[PU], qc[PU];
+    ldsn(kk, KT + nx * pu, nu);
+    ldsn(quv, Qu, nu);
+    ldsn(qc, QuxT + r * pu, nu);
+    T s1 = kq[0] * kk[0], s2 = kc[0] * quv[0], s3 = qc[0] * kk[0];
+#pragma unroll
+    for (int a = 1; a < MU; ++a)
+      if (a < nu) {
+        s1 += kq[a] * kk[a];
+        s2 += kc[a] * quv[a];
+        s3 += qc[a] * kk[a];
+      }
+    Vx = ((qx + s1) + s2) + s3;
+#pragma unroll 1
+    for (int i = 0; i < nx; ++i) {
+      T kqi[PU], kti[PU], qti[PU];
+      ldsn(kqi, KQ + i * pu, nu);
+      ldsn(kti, KT + i * pu, nu);
+      ldsn(qti, QuxT + i * pu, nu);
+      T av = kqi[0] * kc[0], bv = kti[0] * qc[0], cv = qti[0] * kc[0];
+#pragma unroll
+      for (int a = 1; a < MU; ++a)
+        if (a < nu) {
+          av += kqi[a] * kc[a];
+          bv += kti[a] * qc[a];
+          cv += qti[a] * kc[a];
+        }
+      VS[i * px + r] = ((in.lxx[i * px + r] + av) + bv) + cv;
+    }
+  }
+  __syncwarp();
+
+  // ---- E ----
+  // row r of V_xx = (X + X^T) / 2
+  if (own) {
+    T xrow[PX];
+    ldsn(xrow, VS + r * px, nx);
+#pragma unroll
+    for (int j = 0; j < MX; ++j)
+      if (j < nx) V[j] = T(0.5) * (xrow[j] + VS[j * px + r]);
+  }
+}
+
+// The block's copy of stage t's inputs into a stage buffer, and its store of
+// stage t's outputs from an output buffer.
+template <typename T>
+__device__ __forceinline__ void fast_any_copy(T* buf, const FastAnyArgs<T>& x, int t, int b0,
+                                              int tid) {
+  const FastRiccatiArgs<T>& a = x.a;
+  const T* src[8] = {a.Fx, a.Fu, a.d, a.Lx, a.Lu, a.Lxx, a.Lux, a.Luu};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) copy_stage_rows(buf, x.l.in[k], src[k], t, b0, a.B, tid);
+}
+
+template <typename T>
+__device__ __forceinline__ void fast_any_store(const FastAnyArgs<T>& x, const T* buf, int t,
+                                               int b0, int tid) {
+  const FastRiccatiArgs<T>& a = x.a;
+  const FastAnyLayout& l = x.l;
+  store_stage_rows(a.K, buf, l.nu * l.nx, t, b0, a.B, tid);
+  store_stage_rows(a.k, buf + l.ek * kOutStride, l.nu, t, b0, a.B, tid);
+  store_stage_rows(a.Vx1, buf + l.eVx * kOutStride, l.nx, t, b0, a.B, tid);
+  store_stage_rows(a.Vxx1, buf + l.eVxx * kOutStride, l.nx * l.nx, t, b0, a.B, tid);
+}
+
+// 0, from an instruction the compiler cannot see through.  Every address
+// of the stage loop adds it, so that each stage derives its addresses from
+// the runtime layout anew instead of holding one per region, row and copy
+// in registers across the loop.
+__device__ __forceinline__ int opaque_zero() {
+#ifdef __CUDA_ARCH__
+  int z;
+  asm volatile("mov.u32 %0, 0;" : "=r"(z));
+  return z;
+#else
+  return 0;
+#endif
+}
+
+// The stage loop: fast_riccati_kernel's, on the runtime layout.
+template <typename T, int MX, int MU>
+__global__ void __launch_bounds__(kGroupThreads) fast_riccati_any_kernel(FastAnyArgs<T> x) {
+  const FastAnyLayout& l = x.l;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, g = tid / kGroup, r = tid % kGroup;
+  const int B = x.a.B, N = x.a.N, nx = l.nx, b0 = blockIdx.x * kProblems;
+  T V[vpad<T>(MX)], Vx = T(0);
+#pragma unroll
+  for (int j = 0; j < vpad<T>(MX); ++j) V[j] = T(0);
+  if (r < nx) {
+    const int bc = min(b0 + g, B - 1);
+    const T* lxx = x.a.Lxx + ((long long)N * nx * nx + r * nx) * B + bc;
+#pragma unroll
+    for (int j = 0; j < MX; ++j)
+      if (j < nx) V[j] = lxx[(long long)j * B];
+    Vx = x.a.Lx[((long long)N * nx + r) * B + bc];
+  }
+  fast_any_copy(reinterpret_cast<T*>(smem), x, N - 1, b0, tid);
+  cp_async_commit();
   for (int t = N - 1; t >= 0; --t) {
-    const Lane<const T> F = at(a.Fx, nxx, t), Fu = at(a.Fu, nxu, t);
-    {
-      const Lane<T> vo = out(a.Vx1, nx, t), vvo = out(a.Vxx1, nxx, t);
-      for (int i = 0; i < nx; ++i) vo[i] = Vx[i];
-      for (int e = 0; e < nxx; ++e) vvo[e] = V[e];
+    const int z = opaque_zero(), cur = (N - 1 - t) & 1;
+    T* sm = reinterpret_cast<T*>(smem) + z;
+    cp_async_wait_all();
+    __syncthreads();
+    if (t > 0) {
+      fast_any_copy(sm + (cur ^ 1) * l.stage, x, t - 1 + z, b0, tid + z);
+      cp_async_commit();
     }
-    // Vmod = V_x + V_xx d
-    T Vmod[M];
-    {
-      const Lane<const T> dd = at(a.d, nx, t);
-      for (int i = 0; i < nx; ++i) {
-        T s = V[i * nx] * dd[0];
-        for (int j = 1; j < nx; ++j) s += V[i * nx + j] * dd[j];
-        Vmod[i] = Vx[i] + s;
-      }
-    }
-    // Q_uu = L_uu + Fu^T (V_xx Fu)
-    T Quu[M * M];
-    {
-      T VFu[M * M];
-      for (int i = 0; i < nx; ++i)
-        for (int c = 0; c < nu; ++c) {
-          T s = V[i * nx] * Fu[c];
-          for (int k = 1; k < nx; ++k) s += V[i * nx + k] * Fu[k * nu + c];
-          VFu[i * nu + c] = s;
-        }
-      const Lane<const T> luu = at(a.Luu, nuu, t);
-      for (int r = 0; r < nu; ++r)
-        for (int c = 0; c < nu; ++c) {
-          T s = Fu[r] * VFu[c];
-          for (int k = 1; k < nx; ++k) s += Fu[k * nu + r] * VFu[k * nu + c];
-          Quu[r * nu + c] = luu[r * nu + c] + s;
-        }
-    }
-    // Q_x = L_x + F^T Vmod, Q_u = L_u + Fu^T Vmod
-    T Qx[M], Qu[M];
-    {
-      const Lane<const T> lx = at(a.Lx, nx, t), lu = at(a.Lu, nu, t);
-      for (int i = 0; i < nx; ++i) {
-        T s = F[i] * Vmod[0];
-        for (int k = 1; k < nx; ++k) s += F[k * nx + i] * Vmod[k];
-        Qx[i] = lx[i] + s;
-      }
-      for (int r = 0; r < nu; ++r) {
-        T s = Fu[r] * Vmod[0];
-        for (int k = 1; k < nx; ++k) s += Fu[k * nu + r] * Vmod[k];
-        Qu[r] = lu[r] + s;
-      }
-    }
-    // V <- V_xx F, row by row
-    for (int i = 0; i < nx; ++i) {
-      T row[M];
-      for (int j = 0; j < nx; ++j) {
-        T s = V[i * nx] * F[j];
-        for (int k = 1; k < nx; ++k) s += V[i * nx + k] * F[k * nx + j];
-        row[j] = s;
-      }
-      for (int j = 0; j < nx; ++j) V[i * nx + j] = row[j];
-    }
-    // Q_ux = L_ux + Fu^T (V_xx F)
-    T Qux[M * M];
-    {
-      const Lane<const T> lux = at(a.Lux, nxu, t);
-      for (int r = 0; r < nu; ++r)
-        for (int j = 0; j < nx; ++j) {
-          T s = Fu[r] * V[j];
-          for (int k = 1; k < nx; ++k) s += Fu[k * nu + r] * V[k * nx + j];
-          Qux[r * nx + j] = lux[r * nx + j] + s;
-        }
-    }
-    // V <- Q_xx = L_xx + F^T (V_xx F), column by column
-    {
-      const Lane<const T> lxx = at(a.Lxx, nxx, t);
-      for (int j = 0; j < nx; ++j) {
-        T qcol[M];
-        for (int i = 0; i < nx; ++i) {
-          T s = F[i] * V[j];
-          for (int k = 1; k < nx; ++k) s += F[k * nx + i] * V[k * nx + j];
-          qcol[i] = s;
-        }
-        for (int i = 0; i < nx; ++i) V[i * nx + j] = lxx[i * nx + j] + qcol[i];
-      }
-    }
-    // Cholesky Q_uu = L L^T
-    T L[M * M];
-    for (int j = 0; j < nu; ++j) {
-      T s = Quu[j * nu + j];
-      for (int kk = 0; kk < j; ++kk) s = s - L[j * nu + kk] * L[j * nu + kk];
-      L[j * nu + j] = xsqrt(s);
-      const T inv = T(1) / L[j * nu + j];
-      for (int i = j + 1; i < nu; ++i) {
-        T s2 = Quu[i * nu + j];
-        for (int kk = 0; kk < j; ++kk) s2 = s2 - L[i * nu + kk] * L[j * nu + kk];
-        L[i * nu + j] = s2 * inv;
-      }
-    }
-    // [K | k] = -Q_uu^-1 [Q_ux | Q_u]
-    T Kc[M * (M + 1)];
-    for (int c = 0; c < nc; ++c) {
-      T Y[M], X[M];
-      for (int i = 0; i < nu; ++i) {
-        T s = c < nx ? Qux[i * nx + c] : Qu[i];
-        for (int kk = 0; kk < i; ++kk) s = s - L[i * nu + kk] * Y[kk];
-        Y[i] = s / L[i * nu + i];
-      }
-      for (int i = nu - 1; i >= 0; --i) {
-        T s = Y[i];
-        for (int kk = i + 1; kk < nu; ++kk) s = s - L[kk * nu + i] * X[kk];
-        X[i] = s / L[i * nu + i];
-      }
-      for (int i = 0; i < nu; ++i) Kc[i * nc + c] = -X[i];
-    }
-    {
-      const Lane<T> Ko = out(a.K, nxu, t), ko = out(a.k, nu, t);
-      for (int r = 0; r < nu; ++r) {
-        for (int j = 0; j < nx; ++j) Ko[r * nx + j] = Kc[r * nc + j];
-        ko[r] = Kc[r * nc + nx];
-      }
-    }
-    // KTQuu = K^T Q_uu (nx x nu)
-    T KTQuu[M * M];
-    for (int i = 0; i < nx; ++i)
-      for (int c = 0; c < nu; ++c) {
-        T s = Kc[i] * Quu[c];
-        for (int r = 1; r < nu; ++r) s += Kc[r * nc + i] * Quu[r * nu + c];
-        KTQuu[i * nu + c] = s;
-      }
-    // V_x = Q_x + K^T Q_uu k + K^T Q_u + Q_ux^T k
-    for (int i = 0; i < nx; ++i) {
-      T s1 = KTQuu[i * nu] * Kc[nx], s2 = Kc[i] * Qu[0], s3 = Qux[i] * Kc[nx];
-      for (int r = 1; r < nu; ++r) {
-        s1 += KTQuu[i * nu + r] * Kc[r * nc + nx];
-        s2 += Kc[r * nc + i] * Qu[r];
-        s3 += Qux[r * nx + i] * Kc[r * nc + nx];
-      }
-      Vx[i] = ((Qx[i] + s1) + s2) + s3;
-    }
-    // V_xx = sym(Q_xx + K^T Q_uu K + K^T Q_ux + Q_ux^T K), in place
-    for (int i = 0; i < nx; ++i)
-      for (int j = i; j < nx; ++j) {
-        T aij = KTQuu[i * nu] * Kc[j], aji = KTQuu[j * nu] * Kc[i];
-        T bij = Kc[i] * Qux[j], bji = Kc[j] * Qux[i];
-        T cij = Qux[i] * Kc[j], cji = Qux[j] * Kc[i];
-        for (int r = 1; r < nu; ++r) {
-          aij += KTQuu[i * nu + r] * Kc[r * nc + j];
-          aji += KTQuu[j * nu + r] * Kc[r * nc + i];
-          bij += Kc[r * nc + i] * Qux[r * nx + j];
-          bji += Kc[r * nc + j] * Qux[r * nx + i];
-          cij += Qux[r * nx + i] * Kc[r * nc + j];
-          cji += Qux[r * nx + j] * Kc[r * nc + i];
-        }
-        const T xij = ((V[i * nx + j] + aij) + bij) + cij;
-        const T xji = ((V[j * nx + i] + aji) + bji) + cji;
-        const T h = T(0.5) * (xij + xji);
-        V[i * nx + j] = h;
-        V[j * nx + i] = h;
-      }
+    if (t < N - 1)
+      fast_any_store(x, sm + l.oout + ((t + 1) & 1) * l.out, t + 1 + z, b0, tid + z);
+    T* buf = sm + cur * l.stage;
+    const auto at = [&](int k) { return buf + l.in[k].off + g * l.in[k].pt; };
+    T* o = sm + l.oout + (t & 1) * l.out + g;
+    fast_any_step<T, MX, MU>(
+        r, V, Vx, l, FastAnyIn<T>{at(0), at(1), at(2), at(3), at(4), at(5), at(6), at(7)},
+        sm + l.ogroup + g * l.group,
+        FastOut<T>{o, o + l.ek * kOutStride, o + l.eVx * kOutStride, o + l.eVxx * kOutStride});
   }
+  __syncthreads();
+  fast_any_store(x, reinterpret_cast<T*>(smem) + l.oout, 0, b0, tid);
+}
+
+template <typename T, int MX, int MU>
+int launch_fast_riccati_any_instance(const FastRiccatiArgs<T>& a, cudaStream_t s) {
+  const FastAnyArgs<T> x{a, fast_any_layout<T>(a.nx, a.nu)};
+  const int bytes = (int)x.l.bytes;
+  if (cudaError_t e = cudaFuncSetAttribute(fast_riccati_any_kernel<T, MX, MU>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes))
+    return (int)e;
+  fast_riccati_any_kernel<T, MX, MU><<<group_grid(a.B), kGroupThreads, bytes, s>>>(x);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_fast_riccati_any(const FastRiccatiArgs<T>& a, cudaStream_t s) {
   if (a.nx < 1 || a.nu < 1 || a.nx > kAnyMax || a.nu > kAnyMax) return (int)cudaErrorInvalidValue;
-  fast_riccati_any_kernel<T><<<batch_grid(a.B), kThreads, 0, s>>>(a);
-  return (int)cudaGetLastError();
+  if (a.nu > 6) return launch_fast_riccati_any_instance<T, kAnyMax, kAnyMax>(a, s);
+  if (a.nx > 6) return launch_fast_riccati_any_instance<T, kAnyMax, 6>(a, s);
+  return launch_fast_riccati_any_instance<T, 6, 6>(a, s);
 }
 
 // ---- B14 ------------------------------------------------------------------

@@ -1,8 +1,8 @@
-// The machinery of the group kernels (B2, B5): a group of kGroup threads
-// per problem and kProblems problems per block; each stage's inputs for the
-// block's problems copied one stage ahead into shared memory with cp.async;
-// the outputs staged in shared memory and stored coalesced over the block's
-// problems.
+// The machinery of the group kernels (B2, B5, B13 at nx = 12 and at any
+// runtime shape): a group of kGroup threads per problem and kProblems
+// problems per block; each stage's inputs for the block's problems copied
+// one stage ahead into shared memory with cp.async; the outputs staged in
+// shared memory and stored coalesced over the block's problems.
 //
 // Batch-last arrays (N, ne, B) hold entry e of stage t for the block's
 // problems b0 .. b0 + kProblems - 1 in one contiguous run, so a warp's copy
@@ -134,6 +134,57 @@ __device__ __forceinline__ void store_stage(T* dst, const T* buf, int t, int b0,
       if (b0 + p < B) dst[((long long)t * ne + e) * B + b0 + p] = buf[e * kOutStride + p];
     }
   }
+}
+
+// The runtime-shape counterparts of copy_stage and store_stage (B13's
+// runtime-shape instance, fast.cu), the entry counts runtime arguments.
+// One input's place in a stage buffer: problem p's entry (i, j) of a
+// rows x cols matrix (a vector: one row) at off + p * pt + i * rp + j, rp >=
+// cols padding each row to whole 16-byte vectors so that a row reads in
+// vector loads.  Thread tid copies entries e = tid / kProblems + 16 s (s =
+// 0, 1, ...) of problem tid % kProblems, so (i, j) advance by (di, dj) =
+// (16 / cols, 16 % cols) a step, and i starts at (e * m) >> 16 with m =
+// ceil(2^16 / cols), exact for e < 16: no division in the device code.
+struct RowCopy {
+  int off, pt, rp, cols, ne, di, dj, m;
+};
+
+inline RowCopy row_copy(int off, int pt, int rows, int cols, int rp) {
+  constexpr int de = kGroupThreads / kProblems;
+  return {off, pt, rp, cols, rows * cols, de / cols, de % cols, ((1 << 16) + cols - 1) / cols};
+}
+
+// Copy stage t of the batch-last array src (N, c.ne, B) for the block's
+// problems into the stage buffer buf at c's place.
+template <typename T>
+__device__ __forceinline__ void copy_stage_rows(T* buf, const RowCopy& c, const T* src, int t,
+                                                int b0, int B, int tid) {
+  constexpr int de = kGroupThreads / kProblems;
+  const int p = tid % kProblems;
+  int e = tid / kProblems, i = (e * c.m) >> 16, j = e - i * c.cols;
+  T* dst = buf + c.off + p * c.pt;
+  const T* s = src + (long long)t * c.ne * B + min(b0 + p, B - 1);
+  for (; e < c.ne; e += de) {
+    cp_async<sizeof(T)>(dst + i * c.rp + j, s + (long long)e * B);
+    i += c.di;
+    j += c.dj;
+    if (j >= c.cols) {
+      j -= c.cols;
+      ++i;
+    }
+  }
+}
+
+// Store stage t of the batch-last array dst (N, ne, B) for the block's
+// problems from the staged buf (entry e of problem p at e * kOutStride + p).
+template <typename T>
+__device__ __forceinline__ void store_stage_rows(T* dst, const T* buf, int ne, int t, int b0,
+                                                 int B, int tid) {
+  const int p = tid % kProblems;
+  if (b0 + p >= B) return;
+  T* d = dst + (long long)t * ne * B + b0 + p;
+  for (int e = tid / kProblems; e < ne; e += kGroupThreads / kProblems)
+    d[(long long)e * B] = buf[e * kOutStride + p];
 }
 
 // The byte stride of a group's scratch: its size in whole 16-byte vectors,

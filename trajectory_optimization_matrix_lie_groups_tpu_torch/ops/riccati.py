@@ -7,7 +7,8 @@ nx, nu <= `MAX_DIM` (the JAX kernel takes the sizes from its arguments).
 The kernel has tuned instances at `SHAPES`, the sizes of the package's
 model families: (nx, nu) = (12, 6) (SE(3) free body, rigid body), (12, 4)
 (drone) and (6, 3) (SO(3) families); any other size takes its runtime-shape
-instance.
+instance, the nx = 12 instances' group design with (nx, nu) a runtime
+argument (compiled for nu <= 6 and for nu <= 12).
 
 Lane layout (batch last): Fx (N, nx, nx, B), Fu (N, nx, nu, B), d (N, nx, B),
 Lx (N+1, nx, B), Lu (N, nu, B), Lxx (N+1, nx, nx, B), Lux (N, nu, nx, B),
@@ -105,13 +106,13 @@ def backward_lane(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu):
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (float32 or float64), its tuned instance at the (nx, nu) of `SHAPES`
     and `backward_lane_any`'s at any other shape, or raise.  On an H100, at
-    nx = 12 a group of 16 threads runs one problem's stage recursion, lane
-    r holding row r of V_xx in registers, the group exchanging the stage's
-    products through shared memory, and the block copies each stage's
-    inputs into shared memory a stage ahead; at (6, 3) one thread runs one
-    problem with its carry in registers, on blocks of one warp, copying
-    each stage's 132 inputs into shared memory a stage ahead
-    (`csrc/fast.cu`)."""
+    nx = 12 (and at the runtime shapes) a group of 16 threads runs one
+    problem's stage recursion, lane r holding row r of V_xx in registers,
+    the group exchanging the stage's products through shared memory, and
+    the block copies each stage's inputs into shared memory a stage ahead;
+    at (6, 3) one thread runs one problem with its carry in registers, on
+    blocks of one warp, copying each stage's 132 inputs into shared memory
+    a stage ahead (`csrc/fast.cu`)."""
     if d.device.type == "cpu":
         return backward_plain(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu)
     if d.device.type != "cuda":
@@ -134,10 +135,15 @@ def backward_lane_any(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu):
     instances do not take).  Same arguments and outputs as `backward_lane`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, or
-    raise (beyond the bound, or on another device).  On an H100 one thread
-    runs one problem's stage recursion, on blocks of 128, reading each
-    stage's inputs from global memory, its carry and the step's products in
-    local memory (`csrc/fast.cu`)."""
+    raise (beyond the bound, or on another device).  On an H100 it is the
+    tuned nx = 12 kernel's group design with the shape a runtime argument:
+    a group of 16 threads runs one problem's stage recursion (8 problems a
+    block), lane r < nx holding row r of V_xx in registers (every per-lane
+    array sized for the instance's maximum, nu <= 6 or nu <= 12, and
+    indexed by constants), the group factoring Q_uu together and exchanging
+    the stage's products through shared memory laid out for the runtime
+    shape, the block copying each stage's inputs into shared memory a stage
+    ahead (`csrc/fast.cu`)."""
     if d.device.type == "cpu":
         return backward_plain(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu)
     if d.device.type != "cuda":
