@@ -5,12 +5,13 @@
     python3 chip_smoke.py --cli [task ...]
     python3 chip_smoke.py --sharded
     python3 chip_smoke.py --b13-any
+    python3 chip_smoke.py --refine
 
 With ``--cli`` only the `cli` phase runs (below; the named tasks of
 `CLI_TASKS`, all without names), with its gates and launch checks, after
 the kernels' build; then the card's name and power limit.  With
-``--sharded`` only the `sharded` phase runs, so, and with ``--b13-any``
-only `kernels_b13_any`.
+``--sharded`` only the `sharded` phase runs, so, with ``--b13-any`` only
+`kernels_b13_any`, and with ``--refine`` only `kernels_refine`.
 
 The first two run on the screw-200 problem (the N=200 prefix of the
 reference's screw-tracking problem, R = 1e-3 I, no box) for a batch of
@@ -48,7 +49,8 @@ Phases, each printed as one JSON line:
   device        the card (nvidia-smi), torch/CUDA versions, the kernels'
                 build time and ptxas registers/spills (B2 f32, B5, B11 f32,
                 B13 f32 and B14 f32 must not spill: their carry lives in
-                registers);
+                registers; B2 and the rollout in fp64 must neither spill
+                nor keep a stack frame);
   kernels       B1-B4 against their plain versions on the same real
                 iterate, at N=200, B=256 in f32 and f64, gated per output;
                 B2 also with an AL diagonal on Quu (B2_al);
@@ -150,10 +152,12 @@ Phases, each printed as one JSON line:
                 anchored iterate against its plain version (gate 1e-3),
                 solves/s beside the fast free body's;
   solve_refine  `DFPipelineSolver` (10 f32 + 3 fp64 iterations) at
-                B = 16384: launches (B1 = 2, B2 = 14, B3 = 13), lane 0
-                within 1e-4 of the golden, solves/s (median of 3) beside the
-                mixed polish's; fp64 B1-B3 against their plain versions at
-                its shapes with times and bounds; `HighPrecisionSolver`
+                B = 16384: the launches of its f32 phase (B1 = 1, B2 = B3 =
+                10) and of its fp64 phase, `refine` (B1 = 1, B2 = 4, B3 =
+                3), each counted alone, lane 0 within 1e-4 of the golden,
+                solves/s (median of 3) beside the mixed polish's; fp64
+                B1-B4 against their plain versions at its shapes with times
+                and bounds; `HighPrecisionSolver`
                 (12 f32 + 2 f64 polish iterations) at B = 1024, lane 0
                 within 1e-4;
   solve_mpc_exact  `make_closed_loop` on screw-200 (4 plants, H = 40,
@@ -181,6 +185,18 @@ Phases, each printed as one JSON line:
                 `FastBatchSolver` solve (f32, B = 1024, 4 iterations;
                 B13any = 4) of a (12, 3) `LieModel` (the rigid body driven
                 by three torques) against use_pallas=False (J to 1e-4);
+  kernels_refine  (``--refine`` only) the refiner's fp64 kernels: B1-B4 in
+                fp64 against their plain versions at its shapes (B = 16384,
+                N = 200) on the free body (nu = 6) and the drone (nu = 4,
+                gravity), each with its time, bound and share, and the
+                kernels' time before their fp64 redesign
+                (`REFINE_PARENT_MS`); the blocks an SM holds of B2's and
+                the rollout's fp64 kernels and the waves B = 16384 takes;
+                the ptxas lines of B2's and the rollout's f32, mixed (B5,
+                B6) and fp64 instances (the fp64 ones neither spill nor keep
+                a stack frame); one `DFPipelineSolver` solve, its f32 and
+                fp64 phases counted apart, lane 0 within 1e-4 of the
+                golden, and the solve's median time (3 reps);
   solve_errstate  each of the three CLI problems (errstate_tracking,
                 errstate_generate, errstate_generate_linear) against its
                 JAX f64 golden (`golden/errstate_*`): the same iterations
@@ -257,6 +273,7 @@ doing anything.
 """
 
 import json
+import math
 import multiprocessing
 import os
 import statistics
@@ -363,6 +380,23 @@ ANY_PARENT_MS = {"6x2 float32 B=8192": 13.206645965576172,
                  "9x3 float64 B=1024": 46.83412170410156,
                  "12x3 float64 B=1024": 103.24589029947917,
                  "12x12 float64 B=1024": 284.1482340494792}
+# the refiner's fp64 kernels (--refine): B1-B4 in fp64 at the refiner's
+# batch on the free body and on the drone (nu = 4, gravity, R = 1e-2 I4)
+REFINE_MODELS = ("free_body", "drone")
+# the same rows' ms, and the refined solve's median s, on the kernels the
+# fp64 redesign replaced (the f32 designs compiled in double), measured by
+# `python3 scripts/rates.py --refine` on that tree (NVIDIA H100 80GB HBM3,
+# 700.00 W; the first of two runs in one call)
+REFINE_PARENT_MS = {"B1 nu=6": 4.6328575134277346, "B2 nu=6": 12.597087860107422,
+                    "B3 nu=6": 8.296979522705078, "B4 nu=6": 3.663616180419922,
+                    "B1 nu=4": 4.562432098388672, "B2 nu=4": 8.639756774902343,
+                    "B3 nu=4": 7.393312072753906, "B4 nu=4": 2.8488128662109373,
+                    "solve_s": 0.19500604299997804}
+# the fp64 kernels of B2 (its terminal quadratization and its stage loop at
+# nu = 6 and 4) and of the rollout (nu = 6 and 4), which must neither spill
+# nor keep a stack frame
+F64_FRAMELESS = ("traopt::terminal_kernel<double>", "traopt::riccati_f64_kernel<",
+                 "traopt::rollout_f64_kernel<")
 # the error-state tier: the three CLI problems at N = 400 in f64 against
 # their JAX goldens (the same iterations and flags, us to 1e-6, J to 1e-8)
 ES_US_GATE, ES_J_GATE = 1e-6, 1e-8
@@ -1164,8 +1198,11 @@ def exact_phases(dev, card, counted, expect, rates, pool):
     rq0s, rxi0s = al_bench.screw_batch(q0, xi0, REFINE_BATCH, SEED)
     rus0 = torch.zeros((REFINE_BATCH, N, 6), dtype=f64, device=dev)
     dfp = DFPipelineSolver(N, float(dyn64.dt), REFINE_F32_ITERS, REFINE_DF_ITERS)
-    rout, ref_s, runs["solve_refine"] = counted(
-        lambda: dfp.solve(dyn64, cost64, rq0s, rxi0s, rus0))
+    # the f32 phase and the fp64 phase (`refine`), each counted alone
+    handoff, f32_s, runs["solve_refine f32"] = counted(
+        lambda: dfp._solve_f32(dyn64, cost64, rq0s, rxi0s, rus0))
+    rout, df_s, runs["solve_refine"] = counted(lambda: dfp.refine(dyn64, cost64, *handoff))
+    del handoff
     r_us = join_us(rout)
     r_err = lane_err(r_us[0], us_gold)
     g_r = rout.grad_norm.double()
@@ -1176,13 +1213,13 @@ def exact_phases(dev, card, counted, expect, rates, pool):
         a = al_bench.screw_batch(q0, xi0, REFINE_BATCH, 900 + r)
         reps.append(timed(lambda: dfp.solve(dyn64, cost64, *a, rus0))[1])
     med_r = statistics.median(reps)
-    # fp64 B1, B2 and B3 against their plain versions at the refiner's shapes
+    # fp64 B1-B4 against their plain versions at the refiner's shapes
     s = kernel_check.kernel_inputs(P.PipelineSolver(N, 2, float(dyn64.dt)), dyn64, cost64,
                                    rq0s, rxi0s, rus0, kernel_gains=True)
     errs = kernel_check.compare(s, dt=float(dyn64.dt))
     k64 = {}
     for k, (kern, plain) in kernel_check.calls(s, dt=float(dyn64.dt)).items():
-        if k not in ("B1", "B2", "B3"):
+        if k not in ("B1", "B2", "B3", "B4"):
             continue
         k64[k] = {"ms": event_ms(kern, 5), "plain_ms": event_ms(plain, 1),
                   "max_err": errs[k]["max_rel"], "max_abs_err": errs[k]["max_abs"],
@@ -1202,10 +1239,11 @@ def exact_phases(dev, card, counted, expect, rates, pool):
     del hout
     emit({"phase": "solve_refine", "card": card, "B": REFINE_BATCH, "N": N,
           "f32_iterations": REFINE_F32_ITERS, "df_iterations": REFINE_DF_ITERS,
-          "launches": runs["solve_refine"], "all_finite": fin,
-          "lane0_us_max_abs_err": r_err, "gate": POLISH_GATE,
+          "launches": runs["solve_refine"], "launches_f32_phase": runs["solve_refine f32"],
+          "all_finite": fin, "lane0_us_max_abs_err": r_err, "gate": POLISH_GATE,
           "grad_norm_p50": g_r.median().item(), "grad_norm_max": g_r.max().item(),
-          "solve_s_first_call": ref_s, "rep_s": reps, "median_s": med_r,
+          "f32_phase_s_first_call": f32_s, "fp64_phase_s_first_call": df_s,
+          "rep_s": reps, "median_s": med_r,
           "solves_per_s": REFINE_BATCH / med_r,
           "mixed_polish_gate_passing_solves_per_s": rates["mixed_polish"],
           "fp64_kernels": k64,
@@ -1215,8 +1253,10 @@ def exact_phases(dev, card, counted, expect, rates, pool):
                        "lane0_us_max_abs_err": h_err, "gate": POLISH_GATE,
                        "solve_s": hp_s, "solves_per_s": HIGHPREC_BATCH / hp_s}})
     n_f, n_d = REFINE_F32_ITERS, REFINE_DF_ITERS
-    require(runs["solve_refine"] == expect(B1=2, B2=n_f + n_d + 1, B3=n_f + n_d),
-            f"refiner launch counts {runs['solve_refine']}")
+    require(runs["solve_refine f32"] == expect(B1=1, B2=n_f, B3=n_f),
+            f"refiner f32 phase launch counts {runs['solve_refine f32']}")
+    require(runs["solve_refine"] == expect(B1=1, B2=n_d + 1, B3=n_d),
+            f"refiner fp64 phase launch counts {runs['solve_refine']}")
     require(fin, "non-finite lanes in the refiner")
     require(r_err <= POLISH_GATE, f"refiner lane-0 us err {r_err} > {POLISH_GATE}")
     for k, v in k64.items():
@@ -1346,6 +1386,112 @@ def b13_any_phase(dev, card, counted, expect):
                     and v.get("spill_loads") == 0 for v in f32_ptxas),
             f"B13any f32 instances keep a stack frame or spill: {ptxas}")
     return launches, rows[f"12x3 float32 B={ANY_BATCH[f32]}"]
+
+
+def require_frameless_f64(ptxas):
+    """B2's and the rollout's fp64 kernels keep no stack frame and spill
+    nothing; returns their ptxas lines."""
+    f64 = {k: v for k, v in ptxas.items() if any(n in k for n in F64_FRAMELESS)}
+    require(len(f64) == 5 and all(v.get("stack_frame") == 0 and v.get("spill_stores") == 0
+                                  and v.get("spill_loads") == 0 for v in f64.values()),
+            f"fp64 B2 / rollout keep a stack frame or spill: {f64}")
+    return f64
+
+
+def refine_phase(dev, card, counted, expect):
+    """`kernels_refine` (module docstring): the refiner's fp64 kernels
+    against their plain versions at its shapes, with times, bounds and the
+    parent kernels' times, their occupancy and ptxas lines, and one
+    `DFPipelineSolver` solve.  Returns (the fp64 phase's launches, the
+    rows)."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build, kernel_check
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import dynamics
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.df_pipeline import (
+        DFPipelineSolver,
+        join_us,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench
+
+    f64, B = torch.float64, REFINE_BATCH
+    rows = {}
+    for kind in REFINE_MODELS:
+        drone = kind == "drone"
+        dyn, cost, q0, xi0 = al_bench.build_screw200(f64, dev, horizon=N)
+        if drone:
+            dyn = dynamics.drone_params(dyn.J, dyn.dt)
+            cost.R = 1e-2 * torch.eye(4, dtype=f64, device=dev)
+        nu = cost.R.shape[0]
+        q0s, xi0s = al_bench.screw_batch(q0, xi0, B, SEED)
+        solver = P.PipelineSolver(N, 2, float(dyn.dt), gravity=drone,
+                                  exact_gravity_jacobian=drone)
+        s = kernel_check.kernel_inputs(solver, dyn, cost, q0s, xi0s,
+                                       torch.zeros((B, N, nu), dtype=f64, device=dev),
+                                       kernel_gains=True)
+        kw = dict(dt=solver.dt, gravity=drone, exact_grav=drone)
+        errs = kernel_check.compare(s, **kw)
+        for k, (kern, plain) in kernel_check.calls(s, **kw).items():
+            key = f"{k} nu={nu}"
+            ms = event_ms(kern, 5)
+            parent = REFINE_PARENT_MS.get(key)
+            rows[key] = {"ms": ms, "plain_ms": event_ms(plain, 1),
+                         "max_err": errs[k]["max_rel"], "max_abs_err": errs[k]["max_abs"],
+                         "gate": kernel_check.GATES[f64][k], **bound(k, s, kern()),
+                         "library_ms": None, "parent_ms": parent,
+                         "speedup_vs_parent": parent / ms if parent else None}
+            rows[key]["share_of_bound"] = rows[key]["bound_ms"] / ms
+        del s
+    # the blocks an SM holds of B2's (8 problems a block) and the rollout's
+    # (32) fp64 kernels, and the waves of blocks B = REFINE_BATCH takes
+    occ = _build.function("pipeline", "occupancy", "f64", [_build.INT] * 3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = {}
+    for i, (name, per) in enumerate((("B2", 8), ("rollout", 32))):
+        for nu in (6, 4):
+            n = occ(i, nu, 0)
+            resident[f"{name} nu={nu}"] = {
+                "blocks_per_sm": n, "problems_per_sm": n * per,
+                "waves": math.ceil(math.ceil(B / per) / (n * sms)) if n > 0 else None}
+    ptxas = {k: v for k, v in _build.ptxas_report().items()
+             if any(n in k for n in ("traopt::riccati_kernel<", "traopt::riccati_mx_kernel<",
+                                     "traopt::rollout_kernel<", "traopt::rollout_mx_kernel<",
+                                     *F64_FRAMELESS))}
+    # the refined solve: its f32 phase and its fp64 phase each counted alone
+    us_gold, _ = al_bench.load_screw200_golden()
+    dyn, cost, q0, xi0 = al_bench.build_screw200(f64, dev, horizon=N)
+    dfp = DFPipelineSolver(N, float(dyn.dt), REFINE_F32_ITERS, REFINE_DF_ITERS)
+    us0 = torch.zeros((B, N, 6), dtype=f64, device=dev)
+    q0s, xi0s = al_bench.screw_batch(q0, xi0, B, SEED)
+    handoff, f32_s, run_f32 = counted(lambda: dfp._solve_f32(dyn, cost, q0s, xi0s, us0))
+    rout, df_s, run_df = counted(lambda: dfp.refine(dyn, cost, *handoff))
+    us = join_us(rout)
+    err = float(np.abs(us[0].cpu().numpy() - us_gold).max())
+    fin = bool(torch.isfinite(us).all().item())
+    del handoff, rout, us
+    reps = []
+    for r in range(REFINE_REPS):
+        a = al_bench.screw_batch(q0, xi0, B, 900 + r)
+        reps.append(timed(lambda: dfp.solve(dyn, cost, *a, us0))[1])
+    med = statistics.median(reps)
+    parent_s = REFINE_PARENT_MS.get("solve_s")
+    emit({"phase": "kernels_refine", "card": card, "B": B, "N": N, "metric":
+          "max_rel = max|kernel - plain| / max(1, max|plain|) over outputs",
+          "rows": rows, "resident": resident, "ptxas": ptxas,
+          "solve": {"f32_iterations": REFINE_F32_ITERS, "df_iterations": REFINE_DF_ITERS,
+                    "launches_f32_phase": run_f32, "launches_fp64_phase": run_df,
+                    "all_finite": fin, "lane0_us_max_abs_err": err, "gate": POLISH_GATE,
+                    "f32_phase_s_first_call": f32_s, "fp64_phase_s_first_call": df_s,
+                    "rep_s": reps, "median_s": med, "solves_per_s": B / med,
+                    "parent_median_s": parent_s}})
+    for k, v in rows.items():
+        require(v["max_err"] <= v["gate"], f"fp64 {k} at B={B}: {v['max_err']} > {v['gate']}")
+    n_f, n_d = REFINE_F32_ITERS, REFINE_DF_ITERS
+    require(run_f32 == expect(B1=1, B2=n_f, B3=n_f), f"refiner f32 phase launches {run_f32}")
+    require(run_df == expect(B1=1, B2=n_d + 1, B3=n_d), f"refiner fp64 phase launches {run_df}")
+    require(fin, "non-finite lanes in the refiner")
+    require(err <= POLISH_GATE, f"refiner lane-0 us err {err} > {POLISH_GATE}")
+    require_frameless_f64(ptxas)
+    return run_df, rows
 
 
 def split_timer(solver):
@@ -1844,6 +1990,22 @@ def b13_any_only():
     print(card, flush=True)
 
 
+def refine_only():
+    """``--refine`` (module docstring)."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    build_s = _build.build()
+    card = nvidia_smi()
+    counted, expect = launch_counters()
+    launches, rows = refine_phase(torch.device("cuda", 0), card, counted, expect)
+    emit({"refine_fp64_launches": launches, "build_s": build_s,
+          "total_s": time.perf_counter() - t0})
+    print(card, flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1855,6 +2017,8 @@ def main():
         return sharded_only()
     if sys.argv[1:] == ["--b13-any"]:
         return b13_any_only()
+    if sys.argv[1:] == ["--refine"]:
+        return refine_only()
     pool = multiprocessing.get_context("spawn").Pool(HOST_WORKERS)
     try:
         run(pool)
@@ -1903,6 +2067,7 @@ def run(pool):
     require(len(carry) == 9 and all(v.get("spill_stores") == 0 and v.get("spill_loads") == 0
                                     for v in carry.values()),
             f"B2 f32 / B5 / B11 f32 / B13 f32 / B14 f32 spill: {carry}")
+    require_frameless_f64(ptxas)
 
     us_gold, meta = al_bench.load_screw200_golden()
     problems = {dt: al_bench.build_screw200(dt, dev, horizon=N)

@@ -43,6 +43,15 @@ the kernel `chip_smoke.py --b13-any` checks): its ms (CUDA events, mean of
 (12, 3) and (12, 12), N = 200, f32 at B = 8192 and f64 at B = 1024, and
 the (12, 3) rigid body's `FastBatchSolver` solve (f32, B = 1024, 4
 iterations; median of 3 after a warm-up), ~1 minute a tree with the build.
+
+    python3 scripts/rates.py [--root DIR] --refine
+
+measures the refiner's fp64 phase alone (the kernels `chip_smoke.py
+--refine` checks): B1-B4 in fp64 (CUDA events, mean of 5 launches after
+one) on a real fp64 iterate at B = 16384, N = 200 of the screw-200 free
+body (nu = 6) and of the drone (nu = 4, gravity), and the refined solve
+(`DFPipelineSolver`, 10 f32 + 3 fp64 iterations, B = 16384; median of 3
+after a warm-up, a new batch each), ~1.5 minutes a tree with the build.
 """
 
 import argparse
@@ -62,6 +71,10 @@ N, B_F32, B_POLISH, ITERS, SO3_ITERS = 200, 8192, 16384, 12, 30
 ANY_SHAPES = ((6, 2), (9, 3), (12, 3), (12, 12))
 ANY_BATCH = {torch.float32: 8192, torch.float64: 1024}
 ANY_SOLVE_BATCH, ANY_SOLVE_ITERS = 1024, 4
+# the refiner (--refine): its batch, f32 and fp64 iterations, repetitions;
+# its fp64 kernels on the free body (nu = 6) and the drone (nu = 4)
+REFINE_BATCH, REFINE_F32_ITERS, REFINE_DF_ITERS, REFINE_REPS = 16384, 10, 3, 3
+REFINE_MODELS = ("free_body", "drone")
 
 
 def main():
@@ -69,6 +82,8 @@ def main():
     ap.add_argument("--root", default=os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
     ap.add_argument("--b13-any", action="store_true",
                     help="measure B13's runtime-shape instance alone")
+    ap.add_argument("--refine", action="store_true",
+                    help="measure the refiner's fp64 phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("rates: needs a CUDA device")
@@ -117,6 +132,10 @@ def main():
 
     if args.b13_any:
         out.update(b13_any_rates(dev, event_ms, timed))
+        print(json.dumps(out), flush=True)
+        return
+    if args.refine:
+        out.update(refine_rates(dev, event_ms, timed))
         print(json.dumps(out), flush=True)
         return
 
@@ -256,6 +275,50 @@ def b13_any_rates(dev, event_ms, timed):
     solver.solve(*args)
     out[f"solve_12x3_B{ANY_SOLVE_BATCH}_s"] = statistics.median(
         timed(lambda: solver.solve(*args))[1] for _ in range(3))
+    return out
+
+
+def refine_rates(dev, event_ms, timed):
+    """``--refine`` (module docstring): {row: ms} of B1-B4 in fp64 on each
+    model and the refined solve's median seconds and rate."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import kernel_check
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import dynamics
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.df_pipeline import (
+        DFPipelineSolver,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench
+
+    f64, B, out = torch.float64, REFINE_BATCH, {}
+    for kind in REFINE_MODELS:
+        drone = kind == "drone"
+        dyn, cost, q0, xi0 = al_bench.build_screw200(f64, dev, horizon=N)
+        if drone:
+            dyn = dynamics.drone_params(dyn.J, dyn.dt)
+            cost.R = 1e-2 * torch.eye(4, dtype=f64, device=dev)
+        nu = cost.R.shape[0]
+        q0s, xi0s = al_bench.screw_batch(q0, xi0, B, 200)
+        solver = P.PipelineSolver(N, 2, float(dyn.dt), gravity=drone,
+                                  exact_gravity_jacobian=drone)
+        s = kernel_check.kernel_inputs(solver, dyn, cost, q0s, xi0s,
+                                       torch.zeros((B, N, nu), dtype=f64, device=dev),
+                                       kernel_gains=True)
+        calls = kernel_check.calls(s, dt=solver.dt, gravity=drone, exact_grav=drone)
+        for k in ("B1", "B2", "B3", "B4"):
+            out[f"{k}_f64_nu{nu}_B{B}_ms"] = event_ms(calls[k][0])
+        del s, calls
+    dyn, cost, q0, xi0 = al_bench.build_screw200(f64, dev, horizon=N)
+    dfp = DFPipelineSolver(N, float(dyn.dt), REFINE_F32_ITERS, REFINE_DF_ITERS)
+    us0 = torch.zeros((B, N, 6), dtype=f64, device=dev)
+
+    def solve(seed):
+        q0s, xi0s = al_bench.screw_batch(q0, xi0, B, seed)
+        return timed(lambda: dfp.solve(dyn, cost, q0s, xi0s, us0))[1]
+
+    solve(900)  # warm-up
+    med = statistics.median(solve(901 + r) for r in range(REFINE_REPS))
+    out[f"refine_B{B}_median_s"] = med
+    out["refine_solves_per_s"] = B / med
     return out
 
 

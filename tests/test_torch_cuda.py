@@ -141,9 +141,12 @@ def test_polish_kernels_match_plain(cuda, drone):
 # B), one and three stages, nu = 6 (free body) and 4 (the drone, with the
 # gravity block of Fx), each with and without the AL diagonal on Q_uu.
 _EDGES = [pytest.param(B_, N_, id=f"B{B_}-N{N_}") for B_ in (1, 7, 257) for N_ in (1, 3)]
+# B2 also at B = 33 and 129: a ragged last block whichever of 8, 4 or 32
+# problems a block its f32 and fp64 designs take
+_B2_EDGES = _EDGES + [pytest.param(B_, 3, id=f"B{B_}-N3") for B_ in (33, 129)]
 
 
-@pytest.mark.parametrize("B_,N_", _EDGES)
+@pytest.mark.parametrize("B_,N_", _B2_EDGES)
 @pytest.mark.parametrize("drone", [False, True], ids=["nu6", "nu4_drone"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_group_riccati_b2_edges(cuda, dtype, drone, B_, N_):
@@ -449,10 +452,10 @@ def test_b13_tuned_shapes_launch_their_instances(cuda, dtype, nx, nu):
 
 
 # B3 (rollout phase, then B1's kernel on the new trajectory) and B4 at their
-# edges: one problem, a ragged block of one warp (7), a ragged last block
-# (257), nu = 6 and 4, gravity off and on (nu = 6 with gravity: the rigid
-# body).
-@pytest.mark.parametrize("B_", [1, 7, 257])
+# edges: one problem, a ragged block of one warp (7), a ragged second block
+# (33), a ragged fifth block (129), a ragged last block (257), nu = 6 and 4,
+# gravity off and on (nu = 6 with gravity: the rigid body).
+@pytest.mark.parametrize("B_", [1, 7, 33, 129, 257])
 @pytest.mark.parametrize("gravity", [False, True], ids=["no_gravity", "gravity"])
 @pytest.mark.parametrize("nu", [6, 4], ids=["nu6", "nu4_drone"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])

@@ -19,6 +19,10 @@ host's libm it agrees with the card to rounding: within the card's gates
 (kernel_check.GATES).  Skips where no host C++20 compiler is found.
 """
 
+import ctypes
+import subprocess
+
+import numpy as np
 import pytest
 import torch
 
@@ -62,6 +66,9 @@ UNITS = {"f32": ("pipeline", "f32", "float"), "f64": ("pipeline", "f64", "double
 # one problem in a block of 8; a ragged last block with rows not 16-byte
 # aligned (odd B)
 SHAPES = [pytest.param(1, 1, id="B1-N1"), pytest.param(9, 3, id="B9-N3")]
+# B2 also at B = 33 and 129: a ragged last block whichever of 8, 4 or 32
+# problems a block the group kernels take
+B2_SHAPES = SHAPES + [pytest.param(33, 3, id="B33-N3"), pytest.param(129, 3, id="B129-N3")]
 MODELS = [pytest.param(False, id="nu6"), pytest.param(True, id="nu4_drone")]
 
 
@@ -89,7 +96,7 @@ def _problem(dtype, drone, B, N):
     return dyn, cost, q0s, xi0s, torch.zeros((B, N, nu), dtype=dtype)
 
 
-@pytest.mark.parametrize("B,N", SHAPES)
+@pytest.mark.parametrize("B,N", B2_SHAPES)
 @pytest.mark.parametrize("drone", MODELS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_b2_host_rehearsal_matches_plain(libs, dtype, drone, B, N):
@@ -249,8 +256,9 @@ def test_b14_host_rehearsal_matches_plain(libs, dtype, N, B):
 
 
 # B3/B4: one problem in a block of 32 threads, a ragged one (9), a ragged
-# second block (33)
-ROLL_SHAPES = [pytest.param(B_, N_, id=f"B{B_}-N{N_}") for B_, N_ in ((1, 1), (9, 3), (33, 3))]
+# second block (33), a ragged third block (65)
+ROLL_SHAPES = [pytest.param(B_, N_, id=f"B{B_}-N{N_}")
+               for B_, N_ in ((1, 1), (9, 3), (33, 3), (65, 3))]
 
 
 @pytest.mark.parametrize("B,N", ROLL_SHAPES)
@@ -390,6 +398,36 @@ def test_so3_launchers_refuse_what_they_do_not_take(libs):
         S._rollout_so3_kernel(fn, None, r(N + 1, 3, 3, B), r(N + 1, 3, B), r(N, 3, B),
                               r(N, 3, B), r(N, 3, 6, B), lin, refs, consts, dt=0.01,
                               pendulum=False)
+
+
+def test_f64_trig_within_an_ulp_of_libm(tmp_path):
+    """lie.cuh's sin and cos in double (TRAOPT_F64_TRIG, the fp64 kernels of
+    pipeline.cu) on the host: within 1 ulp of numpy's over |x| <= 1e4, tiny
+    and signed-zero arguments, multiples of pi / 4 and a few large ones;
+    NaN for NaN and infinity."""
+    if HR.compiler() is None:
+        pytest.skip("no host C++ compiler")
+    src = tmp_path / "trig.cpp"
+    src.write_text('#define TRAOPT_F64_TRIG\n#include "lie.cuh"\n'
+                   'extern "C" void sincos_f64(const double* x, double* s, double* c, int n) {\n'
+                   '  for (int i = 0; i < n; ++i) traopt::xsincos(x[i], s[i], c[i]);\n}\n')
+    lib = tmp_path / "trig.so"
+    subprocess.run([HR.compiler(), "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
+                    str(HR.CSRC), "-o", str(lib), str(src)], check=True)
+    fn = ctypes.CDLL(str(lib)).sincos_f64
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.uniform(-4.0, 4.0, 100_000), rng.uniform(-1e4, 1e4, 100_000),
+                        rng.uniform(-1e-4, 1e-4, 10_000), np.pi / 4 * np.arange(-40, 41),
+                        [0.0, -0.0, 1e-300, -5e-324, 1e5, -3e5, 1e6]])
+    s, c = np.empty_like(x), np.empty_like(x)
+    ptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+    fn(ptr(x), ptr(s), ptr(c), len(x))
+    for got, want in ((s, np.sin(x)), (c, np.cos(x))):
+        assert (np.abs(got - want) <= np.spacing(np.abs(want))).all()
+    bad = np.array([np.nan, np.inf, -np.inf])
+    s, c = np.empty_like(bad), np.empty_like(bad)
+    fn(ptr(bad), ptr(s), ptr(c), len(bad))
+    assert np.isnan(s).all() and np.isnan(c).all()
 
 
 def test_chip_smoke_cli_phase_on_the_cpu(monkeypatch):

@@ -1132,20 +1132,6 @@ __device__ __forceinline__ void fast_any_store(const FastAnyArgs<T>& x, const T*
   store_stage_rows(a.Vxx1, buf + l.eVxx * kOutStride, l.nx * l.nx, t, b0, a.B, tid);
 }
 
-// 0, from an instruction the compiler cannot see through.  Every address
-// of the stage loop adds it, so that each stage derives its addresses from
-// the runtime layout anew instead of holding one per region, row and copy
-// in registers across the loop.
-__device__ __forceinline__ int opaque_zero() {
-#ifdef __CUDA_ARCH__
-  int z;
-  asm volatile("mov.u32 %0, 0;" : "=r"(z));
-  return z;
-#else
-  return 0;
-#endif
-}
-
 // The stage loop: fast_riccati_kernel's, on the runtime layout.
 template <typename T, int MX, int MU>
 __global__ void __launch_bounds__(kGroupThreads) fast_riccati_any_kernel(FastAnyArgs<T> x) {

@@ -101,12 +101,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Copy stage t of the batch-last array src (N, ne, B) for the block's
-// problems into dst: problem p's entry e at dst[p * pitch<T>(ne) + e], or,
-// with TRANSPOSE (ne = 144), entry (i, j) of the 12 x 12 matrix at j * 12 + i.
-template <int ne, bool TRANSPOSE, typename T>
+// problems into dst: problem p's entry e at dst[p * pt + e] (pt = PT, or
+// pitch<T>(ne) by default), or, with TRANSPOSE (ne = 144), entry (i, j) of
+// the 12 x 12 matrix at j * 12 + i.
+template <int ne, bool TRANSPOSE, int PT = -1, typename T>
 __device__ __forceinline__ void copy_stage(T* dst, const T* src, int t, int b0, int B,
                                            int tid) {
-  constexpr int n = ne * kProblems, pt = pitch<T>(ne);
+  constexpr int n = ne * kProblems, pt = PT < 0 ? pitch<T>(ne) : PT;
   static_assert(!TRANSPOSE || ne == 144, "the transposed copy is of a 12 x 12 matrix");
 #pragma unroll
   for (int q0 = 0; q0 < n; q0 += kGroupThreads) {
@@ -185,6 +186,20 @@ __device__ __forceinline__ void store_stage_rows(T* dst, const T* buf, int ne, i
   T* d = dst + (long long)t * ne * B + b0 + p;
   for (int e = tid / kProblems; e < ne; e += kGroupThreads / kProblems)
     d[(long long)e * B] = buf[e * kOutStride + p];
+}
+
+// 0, from an instruction the compiler cannot see through.  Every address
+// of a stage loop adds it (B13's runtime-shape instance, B2 and the rollout
+// in fp64), so that each stage derives its addresses anew instead of
+// holding one per region, row and copy in registers across the loop.
+__device__ __forceinline__ int opaque_zero() {
+#ifdef __CUDA_ARCH__
+  int z;
+  asm volatile("mov.u32 %0, 0;" : "=r"(z));
+  return z;
+#else
+  return 0;
+#endif
 }
 
 // The byte stride of a group's scratch: its size in whole 16-byte vectors,

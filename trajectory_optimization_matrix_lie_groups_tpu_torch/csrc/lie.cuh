@@ -24,9 +24,64 @@ namespace traopt {
 TRAOPT_HD float xsqrt(float x) { return sqrtf(x); }
 TRAOPT_HD double xsqrt(double x) { return sqrt(x); }
 TRAOPT_HD float xsin(float x) { return sinf(x); }
-TRAOPT_HD double xsin(double x) { return sin(x); }
 TRAOPT_HD float xcos(float x) { return cosf(x); }
+#ifdef TRAOPT_F64_TRIG
+// sin and cos in double without the CUDA library's slow path for huge
+// arguments, whose local array gives every kernel that calls them a stack
+// frame (pipeline.cu's fp64 kernels take these): x less the nearest
+// multiple q of pi/2 (a three-part Cody-Waite reduction with fused
+// multiply-adds), Taylor polynomials on [-pi/4, pi/4] (truncated below
+// 1e-19), and the quadrant q mod 4.  Within 1 ulp of the host libm's sin
+// and cos over |x| <= 1e4 (tests/test_torch_host_rehearsal.py); the
+// kernels' angles are rotation angles, far below where the reduction
+// loses digits (|x| ~ 2^30).
+TRAOPT_HD void xsincos(double x, double& s, double& c) {
+  const double q = rint(x * 0.6366197723675814);
+  double r = fma(-q, 1.5707963267948966, x);
+  r = fma(-q, 6.123233995736766e-17, r);
+  r = fma(-q, -1.4973849048591698e-33, r);
+  const double r2 = r * r;
+  // sin r = r - r^3 (1/3! - r^2/5! + ... + r^16/19!)
+  double ps = 8.22063524662433e-18;
+  ps = fma(ps, r2, -2.8114572543455206e-15);
+  ps = fma(ps, r2, 7.647163731819816e-13);
+  ps = fma(ps, r2, -1.6059043836821613e-10);
+  ps = fma(ps, r2, 2.505210838544172e-08);
+  ps = fma(ps, r2, -2.7557319223985893e-06);
+  ps = fma(ps, r2, 0.0001984126984126984);
+  ps = fma(ps, r2, -0.008333333333333333);
+  ps = fma(ps, r2, 0.16666666666666666);
+  const double sr = fma(-(r * r2), ps, r);
+  // cos r = 1 + r^2 (-1/2! + r^2/4! - ... + r^18/20!)
+  double pc = 4.110317623312165e-19;
+  pc = fma(pc, r2, -1.5619206968586225e-16);
+  pc = fma(pc, r2, 4.779477332387385e-14);
+  pc = fma(pc, r2, -1.1470745597729725e-11);
+  pc = fma(pc, r2, 2.08767569878681e-09);
+  pc = fma(pc, r2, -2.755731922398589e-07);
+  pc = fma(pc, r2, 2.48015873015873e-05);
+  pc = fma(pc, r2, -0.001388888888888889);
+  pc = fma(pc, r2, 0.041666666666666664);
+  pc = fma(pc, r2, -0.5);
+  const double cr = fma(pc, r2, 1.0);
+  const int n = static_cast<int>(static_cast<long long>(q) & 3);
+  s = n == 0 ? sr : n == 1 ? cr : n == 2 ? -sr : -cr;
+  c = n == 0 ? cr : n == 1 ? -sr : n == 2 ? -cr : sr;
+}
+TRAOPT_HD double xsin(double x) {
+  double s, c;
+  xsincos(x, s, c);
+  return s;
+}
+TRAOPT_HD double xcos(double x) {
+  double s, c;
+  xsincos(x, s, c);
+  return c;
+}
+#else
+TRAOPT_HD double xsin(double x) { return sin(x); }
 TRAOPT_HD double xcos(double x) { return cos(x); }
+#endif
 TRAOPT_HD float xatan2(float y, float x) { return atan2f(y, x); }
 TRAOPT_HD double xatan2(double y, double x) { return atan2(y, x); }
 

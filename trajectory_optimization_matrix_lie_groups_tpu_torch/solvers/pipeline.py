@@ -224,7 +224,10 @@ def backward_lane(lin, lu, qR, qp, xi, refs, consts, *, glow, luu_al=None):
     On an H100 a group of 16 threads runs one problem's recursion: lane r
     keeps row r of V_xx in registers, the group exchanges V_xx F, K and the
     new V_xx's halves through shared memory, and each stage's inputs are
-    copied there one stage ahead."""
+    copied there one stage ahead.  In fp64 the terminal quadratization runs
+    first, a thread a problem, and each lane of the group computes a 3 x 3
+    block of every 12 x 12 product, V_xx between stages in shared memory:
+    two kernels on the caller's stream, counted as one launch."""
     kw = dict(glow=glow, luu_al=luu_al)
     if lu.device.type == "cpu":
         return backward_plain(lin, lu, qR, qp, xi, refs, consts, **kw)
@@ -381,7 +384,9 @@ def rollout_lane(qR, qp, xi, us, k, K, lin, consts, *, dt, gravity=False):
 
     On an H100: one thread per problem walks the stages with the carry
     (R, p, xi) in registers, on blocks of one warp, and copies the next
-    stage's ~150 inputs into shared memory while it computes a stage."""
+    stage's ~150 inputs into shared memory while it computes a stage (in
+    fp64 each input once: the nominal states in a ring of three, K in the
+    slot the feedback has just read)."""
     kw = dict(dt=dt, gravity=gravity)
     if us.device.type == "cpu":
         return rollout_plain(qR, qp, xi, us, k, K, lin, consts, **kw)
