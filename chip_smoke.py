@@ -6,12 +6,14 @@
     python3 chip_smoke.py --sharded
     python3 chip_smoke.py --b13-any
     python3 chip_smoke.py --refine
+    python3 chip_smoke.py --nu
 
 With ``--cli`` only the `cli` phase runs (below; the named tasks of
 `CLI_TASKS`, all without names), with its gates and launch checks, after
 the kernels' build; then the card's name and power limit.  With
 ``--sharded`` only the `sharded` phase runs, so, with ``--b13-any`` only
-`kernels_b13_any`, and with ``--refine`` only `kernels_refine`.
+`kernels_b13_any`, with ``--refine`` only `kernels_refine`, and with
+``--nu`` only `kernels_nu`.
 
 The first two run on the screw-200 problem (the N=200 prefix of the
 reference's screw-tracking problem, R = 1e-3 I, no box) for a batch of
@@ -197,6 +199,33 @@ Phases, each printed as one JSON line:
                 a stack frame); one `DFPipelineSolver` solve, its f32 and
                 fp64 phases counted apart, lane 0 within 1e-4 of the
                 golden, and the solve's median time (3 reps);
+  kernels_nu    the instances of B1-B6 at any input dimension nu = 1..12
+                (`csrc/pipeline_nu.cu`, `polish_nu.cu`): (a) B1-B4 (f32 and
+                fp64) and B5-B6 against their plain versions at nu = 1, 3,
+                5, 8, 12 (N = 200, B = 1024, on a real iterate of the rigid
+                body driven through `al_bench.nu_pu(nu)`, g = 0: B1-B4
+                after two f32 iterations, B5-B6 at the polish's second
+                iteration, after 12 f32 iterations and one polish
+                iteration), each with its time, plain time, bound and
+                share, the tuned instances' times at nu = 6 on the same
+                shapes beside them, B5's runtime-nu instance equal to the
+                tuned one at nu = 4 and 6 on a rough iterate (2 f32
+                iterations on the first 4 or 6 thrusters of
+                `al_bench.rcs12_pu`), the blocks an SM holds of B2's and
+                the rollout's instances and their ptxas lines; (b) the two
+                problems of `al_bench.NU_PROBLEMS` (screw200_torques3, nu =
+                3; screw200_rcs12, nu = 12) through the f32 path (B = 8192,
+                12 iterations; unfused at B = 256, as solve_f32's B4), the
+                polish (B = 16384) and the fp64 refiner
+                (B = 16384), each with its golden's schedule, counted (only
+                the runtime-nu instances launch), lane 0 within 10 x the
+                JAX f32 pipeline's error, 1e-4 and 1e-6 of the golden,
+                every lane finite, then timed on a new batch; (c) every nu
+                from 1 to 12 (B = 64, N = 40, 2 f32 iterations) through
+                `PipelineSolver` fused and unfused in f32 and f64,
+                `MixedDFPipelineSolver` and `DFPipelineSolver`, counted
+                (nu = 6 and 4 on the tuned instances, every other nu on the
+                runtime-nu ones), fused against unfused J, all finite;
   solve_errstate  each of the three CLI problems (errstate_tracking,
                 errstate_generate, errstate_generate_linear) against its
                 JAX f64 golden (`golden/errstate_*`): the same iterations
@@ -254,8 +283,10 @@ A kernel's bound is the least time the card could take for its work: the
 larger of the bytes it must move (each array it reads once, each output
 written once) over 3.35 TB/s and its operations over 67 TFLOP/s (f32) or
 34 TFLOP/s (fp64), counted on this run's inputs (`kernel_check.work`).
-Then the kernels summary line, one entry for each of B1-B14 and B13's
-runtime-shape instance (B13any) (B2's times at B=8192; launches of B1-B3
+Then the kernels summary line, one entry for each of B1-B14, B13's
+runtime-shape instance (B13any) and the runtime-nu instances of B1-B6
+(B1nu-B6nu: their times at nu = 3, f32 for B1-B4, B = 1024; launches from
+kernels_nu's part (b)) (B2's times at B=8192; launches of B1-B3
 from the fused f32 run, of B4 from the unfused run, of B5-B9 from the
 polish run, of B10-B12 from the free-attitude run, of B13 and B14 from the
 free-body fast run, of B13any from the (12, 3) solve, each named in "run";
@@ -380,6 +411,19 @@ ANY_PARENT_MS = {"6x2 float32 B=8192": 13.206645965576172,
                  "9x3 float64 B=1024": 46.83412170410156,
                  "12x3 float64 B=1024": 103.24589029947917,
                  "12x12 float64 B=1024": 284.1482340494792}
+# the instances of B1-B6 at any input dimension (kernels_nu, --nu): each
+# against its plain version at NU_CHECK on a real iterate (N = 200,
+# B = NU_CHECK_BATCH); the two problems of `al_bench.NU_PROBLEMS` on the f32
+# path (NU_F32_BATCH, ITERS iterations), the polish and the fp64 refiner
+# (NU_POLISH_BATCH, each golden's schedule), lane 0 within 10 x the JAX f32
+# pipeline's error, POLISH_GATE and NU_REFINE_GATE of the golden; every nu
+# from 1 to 12 through the four solvers at NU_SWEEP = (B, N, f32 iterations)
+NU_CHECK, NU_CHECK_BATCH = (1, 3, 5, 8, 12), 1024
+NU_F32_BATCH, NU_POLISH_BATCH, NU_REFINE_GATE = 8192, 16384, 1e-6
+NU_SWEEP = (64, 40, 2)
+# B5's runtime-nu instance against the tuned one, both at nu = 4 and 6 on
+# the same iterate: identical (max_rel, every output)
+NU_TWIN_GATE = 1e-12
 # the refiner's fp64 kernels (--refine): B1-B4 in fp64 at the refiner's
 # batch on the free body and on the drone (nu = 4, gravity, R = 1e-2 I4)
 REFINE_MODELS = ("free_body", "drone")
@@ -468,6 +512,18 @@ KERNELS = {
                "trajectory_optimization_matrix_lie_groups_tpu/ops/pallas_riccati.py:104"),
     "B14": ("gap-closing rollout", "csrc/fast.cu",
             "trajectory_optimization_matrix_lie_groups_tpu/ops/pallas_rollout.py:42"),
+    "B1nu": ("linearize, runtime nu", "csrc/pipeline_nu.cu",
+             "trajectory_optimization_matrix_lie_groups_tpu/ops/pallas_linearize.py:123"),
+    "B2nu": ("riccati backward, runtime nu", "csrc/pipeline_nu.cu",
+             "trajectory_optimization_matrix_lie_groups_tpu/solvers/pipeline.py:189"),
+    "B3nu": ("rollout + linearize, runtime nu", "csrc/pipeline_nu.cu",
+             "trajectory_optimization_matrix_lie_groups_tpu/solvers/pipeline.py:304"),
+    "B4nu": ("rollout, runtime nu", "csrc/pipeline_nu.cu",
+             "trajectory_optimization_matrix_lie_groups_tpu/solvers/pipeline.py:274"),
+    "B5nu": ("mixed riccati backward, runtime nu", "csrc/polish_nu.cu",
+             "trajectory_optimization_matrix_lie_groups_tpu/solvers/df_mixed.py:285"),
+    "B6nu": ("mixed rollout, runtime nu", "csrc/polish_nu.cu",
+             "trajectory_optimization_matrix_lie_groups_tpu/solvers/df_mixed.py:391"),
 }
 PKG = "trajectory_optimization_matrix_lie_groups_tpu_torch"
 
@@ -668,7 +724,7 @@ def constrained_phases(dev, card, counted, expect):
             f"f32 AL loop launch counts {per_loop}")
     n = AL_POLISH_OUTERS
     require(per_pol == expect(B1=n, B2=n * AL_ITERS, B3=n * AL_ITERS,
-                              **{k: n * AL_POLISH_ITERS for k in DM.KERNELS}),
+                              **{k: n * AL_POLISH_ITERS for k in ("B5", "B6", "B7", "B8", "B9")}),
             f"polish launch counts {per_pol}")
     require(dev_err <= AL_GATE, f"al_polish_device lane-0 us err {dev_err} > {AL_GATE}")
     require(host_err <= AL_GATE, f"al_polish lane-0 us err {host_err} > {AL_GATE}")
@@ -1494,6 +1550,252 @@ def refine_phase(dev, card, counted, expect):
     return run_df, rows
 
 
+def nu_phase(dev, card, counted, expect):
+    """`kernels_nu` (module docstring): (a) the runtime-nu instances of B1-B6
+    against their plain versions at NU_CHECK (N = 200, B = NU_CHECK_BATCH)
+    with times, bounds, occupancy and ptxas lines, and B5's against the
+    tuned B5 at nu = 4 and 6 on a rough iterate; (b) the two full-width
+    problems of `al_bench.NU_PROBLEMS` on the f32 path, the polish and the
+    fp64 refiner, counted, lane 0 against each golden; (c) every nu from 1
+    to 12 through the four solvers at NU_SWEEP's size, counted.  Returns
+    ({kernel: launches in (b)}, {kernel: its entry of the kernels line, at
+    nu = 3: f32 where it has an f32 instance})."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build, kernel_check
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.df_pipeline import (
+        DFPipelineSolver,
+        join_us,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench
+
+    grav = dict(gravity=True, exact_gravity_jacobian=True)
+    nu_keys = {"B1": "B1nu", "B2": "B2nu", "B2_al": "B2nu", "B3": "B3nu", "B4": "B4nu",
+               "B5": "B5nu", "B5_al": "B5nu", "B6": "B6nu"}
+    nu_pipe = ("B1", "B2", "B2_al", "B3", "B4")
+    failed = []  # the checks that failed, required after the phase's line
+
+    def check(cond, what):
+        if not cond:
+            failed.append(what)
+
+    def row(name, kern, plain, s, outputs, gate):
+        """One kernel against its plain version: errors per output, the
+        kernel's time by CUDA events (mean of 3, after the checked call), the
+        plain version's on the host clock around the one call compared, the
+        bound and its share."""
+        named = lambda o: (dict(zip(outputs, kernel_check._flat(o))) if name in nu_pipe
+                           else kernel_check._named(o, outputs))
+        kout = kern()
+        pout, plain_s = timed(plain)
+        a, b = named(kout), named(pout)
+        per = {o: kernel_check.rel_err(a[o], b[o]) for o in outputs}
+        gates = gate if isinstance(gate, dict) else {o: gate for o in outputs}
+        ms = event_ms(kern, 3)
+        r = {"max_err": max(per.values()),
+             "max_abs_err": max((a[o].double() - b[o].double()).abs().max().item()
+                                for o in outputs),
+             "per_output": per, "gate": gate, "ms": ms, "plain_ms": plain_s * 1e3,
+             **bound(name, s, kout), "library_ms": None}
+        r["bound_share"] = r["bound_ms"] / ms
+        failed.extend(f"{nu_keys[name]} {name} {o}: {per[o]} > {gates[o]}"
+                      for o in outputs if not per[o] <= gates[o])
+        return r
+
+    # (a) each instance against its plain version on real iterates
+    rows = {}
+    for nu in NU_CHECK:
+        for dtype in (torch.float32, torch.float64):
+            dyn, cost, q0, xi0 = al_bench.build_screw200_nu(al_bench.nu_pu(nu), dtype, dev)
+            q0s, xi0s = al_bench.screw_batch(q0, xi0, NU_CHECK_BATCH, SEED)
+            us0 = torch.zeros((NU_CHECK_BATCH, N, nu), dtype=dtype, device=dev)
+            solver = P.PipelineSolver(N, 2, float(dyn.dt), **grav)
+            s = kernel_check.kernel_inputs(solver, dyn, cost, q0s, xi0s, us0,
+                                           kernel_gains=True)
+            kw = dict(dt=solver.dt, gravity=True, exact_grav=True)
+            tag = str(dtype).replace("torch.", "")
+            for k, (kern, plain) in kernel_check.calls(s, **kw).items():
+                rows[f"{k} nu={nu} {tag}"] = row(k, kern, plain, s, kernel_check.OUTPUTS[k],
+                                                 kernel_check.GATES[dtype][k])
+            del s
+            if dtype == torch.float64:
+                # the iterate of the polish's second iteration (the f32
+                # phase at bench.py's full budget, ITERS, then one polish
+                # iteration): B5's gvec gate holds where the residuals that
+                # multiply its f32 roundings are small
+                mx = DM.MixedDFPipelineSolver(N, float(dyn.dt), ITERS, 1, **grav)
+                s = kernel_check.polish_inputs(mx, dyn, cost, q0s, xi0s, us0,
+                                               kernel_gains=True, polished=True)
+                for k, (kern, plain) in kernel_check.polish_calls(s, mx).items():
+                    if k != "tail":
+                        rows[f"{k} nu={nu} mixed"] = row(
+                            k, kern, plain, s, kernel_check.POLISH_OUTPUTS[k],
+                            kernel_check.GATES["mixed"][k])
+                del s
+    # the tuned instances' times at nu = 6 on the same shapes, beside the rows
+    tuned = {}
+    for dtype in (torch.float32, torch.float64):
+        dyn, cost, q0, xi0 = al_bench.build_screw200_nu(al_bench.nu_pu(6), dtype, dev)
+        q0s, xi0s = al_bench.screw_batch(q0, xi0, NU_CHECK_BATCH, SEED)
+        us0 = torch.zeros((NU_CHECK_BATCH, N, 6), dtype=dtype, device=dev)
+        tag = str(dtype).replace("torch.", "")
+        solver = P.PipelineSolver(N, 2, float(dyn.dt), **grav)
+        s = kernel_check.kernel_inputs(solver, dyn, cost, q0s, xi0s, us0, kernel_gains=True)
+        for k, (kern, _) in kernel_check.calls(s, dt=solver.dt, gravity=True,
+                                               exact_grav=True).items():
+            tuned[f"{k} nu=6 {tag}"] = event_ms(kern, 3)
+        del s
+        if dtype == torch.float64:
+            mx = DM.MixedDFPipelineSolver(N, float(dyn.dt), ITERS, 1, **grav)
+            s = kernel_check.polish_inputs(mx, dyn, cost, q0s, xi0s, us0, kernel_gains=True,
+                                           polished=True)
+            for k, (kern, _) in kernel_check.polish_calls(s, mx).items():
+                if k != "tail":
+                    tuned[f"{k} nu=6 mixed"] = event_ms(kern, 3)
+            del s
+    # B5's runtime-nu instance against the tuned one at nu = 4 and 6, which
+    # both take, on the same rough iterate (2 f32 iterations on the first nu
+    # thrusters of rcs12_pu: under-actuated), where both miss the gvec gate
+    # against plain alike (scripts/nu_instances.py): they agree bit for bit
+    twins = {}
+    nu_b5 = _build.function("polish_nu", "riccati_nu", "mx", DM._RICCATI_ARGS)
+    for nu in _build.TUNED_NU:
+        dyn, cost, q0, xi0 = al_bench.build_screw200_nu(al_bench.rcs12_pu()[:, :nu],
+                                                        torch.float64, dev)
+        q0s, xi0s = al_bench.screw_batch(q0, xi0, NU_CHECK_BATCH, SEED)
+        mx = DM.MixedDFPipelineSolver(N, float(dyn.dt), 2, 1, **grav)
+        s = kernel_check.polish_inputs(
+            mx, dyn, cost, q0s, xi0s,
+            torch.zeros((NU_CHECK_BATCH, N, nu), dtype=torch.float64, device=dev))
+        bargs = (s["lin"], s["lu"], s["VxN"], s["VxxN"], s["consts"], s["consts32"])
+        a = DM.backward_mx_lane(*bargs, glow=True)
+        b = DM._backward_mx_kernel(nu_b5, torch.cuda.current_stream(dev).cuda_stream,
+                                   *bargs, glow=True, luu_al=None)
+        plain = DM.backward_mx_plain(*bargs, glow=True)
+        twins[f"B5 nu={nu}"] = r = {
+            **{f"{o}_tuned_vs_nu": kernel_check.rel_err(x, y)
+               for o, x, y in zip(("k", "K", "gvec"), a, b)},
+            "gvec_tuned_vs_plain": kernel_check.rel_err(a[2], plain[2]),
+            "gvec_nu_vs_plain": kernel_check.rel_err(b[2], plain[2])}
+        failed.extend(f"B5nu twin nu={nu} {o}: {r[o]} > {NU_TWIN_GATE}"
+                      for o in r if o.endswith("_vs_nu") and not r[o] <= NU_TWIN_GATE)
+        del s, bargs, a, b, plain
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = {}
+    for tag in ("f32", "f64"):
+        occ = _build.function("pipeline_nu", "occupancy_nu", tag, [_build.INT] * 3)
+        for i, (name, per) in enumerate((("B2nu", 8), ("rollout nu", 32))):
+            for nu in (3, 12):
+                n = occ(i, nu, 0)
+                resident[f"{name} {tag} MU={6 if nu <= 6 else 12}"] = {
+                    "blocks_per_sm": n, "problems_per_sm": n * per,
+                    "waves_B16384": (math.ceil(math.ceil(16384 / per) / (n * sms))
+                                     if n > 0 else None)}
+    ptxas = {k: v for k, v in _build.ptxas_report().items() if "_nu_kernel<" in k}
+
+    # (b) the two full-width problems on the f32 path, the polish and the
+    # refiner: each counted, then timed on a new batch
+    solves, launches_b = {}, {k: 0 for k in expect()}
+    for name, pu in al_bench.NU_PROBLEMS.items():
+        us_gold, meta = al_bench.load_nu_golden(name)
+        nu = us_gold.shape[1]
+        pol, ref = meta["polish_schedule"], meta["refine_schedule"]
+        f32_gate = 10 * meta["jax_f32_pipeline"]["lane0_us_max_abs_err"]
+
+        def inputs(dtype, B, seed):
+            dyn, cost, q0, xi0 = al_bench.build_screw200_nu(pu(), dtype, dev)
+            q0s, xi0s = al_bench.screw_batch(q0, xi0, B, seed)
+            return dyn, cost, q0s, xi0s, torch.zeros((B, N, nu), dtype=dtype, device=dev)
+
+        def run(solver, dtype, B, us_of, gate, what, **launches):
+            a = inputs(dtype, B, SEED)
+            st, sec, n = counted(lambda: solver.solve(*a))
+            check(n == expect(**launches), f"{name} {what} launches {n}")
+            for k, v in n.items():
+                launches_b[k] += v
+            us = us_of(st)
+            err = float(np.abs(us[0].double().cpu().numpy() - us_gold).max())
+            fin = bool(torch.isfinite(us).all().item())
+            check(fin, f"{name} {what}: non-finite lanes")
+            check(err <= gate, f"{name} {what}: lane-0 us err {err} > {gate}")
+            del st, us, a
+            a = inputs(dtype, B, SEED + 1)
+            _, rep = timed(lambda: solver.solve(*a))
+            return {"B": B, "launches": n, "lane0_us_max_abs_err": err, "gate": gate,
+                    "all_finite": fin, "s_first_call": sec, "s": rep, "solves_per_s": B / rep}
+
+        dt = float(inputs(torch.float64, 1, SEED)[0].dt)
+        nf, npol = pol["f32_iterations"], pol["inner_iterations"]
+        nr, ndf = ref["f32_iterations"], ref["inner_iterations"]
+        solves[name] = {
+            "f32": {"iterations": ITERS, **run(
+                P.PipelineSolver(N, ITERS, dt, **grav), torch.float32, NU_F32_BATCH,
+                lambda st: st.us, f32_gate, "f32", B1nu=1, B2nu=ITERS, B3nu=ITERS)},
+            "f32_unfused": {"iterations": ITERS, **run(
+                P.PipelineSolver(N, ITERS, dt, fused=False, **grav), torch.float32,
+                CHECK_BATCH, lambda st: st.us, f32_gate, "f32 unfused", B1nu=ITERS,
+                B2nu=ITERS, B4nu=ITERS)},
+            "polish": {"f32_iterations": nf, "polish_iterations": npol, **run(
+                DM.MixedDFPipelineSolver(N, dt, nf, npol, **grav), torch.float64,
+                NU_POLISH_BATCH, join_us, POLISH_GATE, "polish", B1nu=1, B2nu=nf, B3nu=nf,
+                B5nu=npol, B6nu=npol, B7=npol, B8=npol, B9=npol)},
+            "refine": {"f32_iterations": nr, "fp64_iterations": ndf, **run(
+                DFPipelineSolver(N, dt, nr, ndf, **grav), torch.float64, NU_POLISH_BATCH,
+                join_us, NU_REFINE_GATE, "refiner", B1nu=2, B2nu=nr + ndf + 1,
+                B3nu=nr + ndf)}}
+
+    # (c) every nu through the four solvers: launch counts, finite values
+    sweep = {}
+    B_, N_, it = NU_SWEEP
+    for nu in range(1, _build.MAX_NU + 1):
+        pu = al_bench.nu_pu(nu)
+        k_ = lambda k: k if nu in _build.TUNED_NU else k + "nu"
+        res = {"instances": "tuned" if nu in _build.TUNED_NU else "nu"}
+        for dtype in (torch.float32, torch.float64):
+            dyn, cost, q0, xi0 = al_bench.build_screw200_nu(pu, dtype, dev, horizon=N_)
+            q0s, xi0s = al_bench.screw_batch(q0, xi0, B_, SEED)
+            a = (dyn, cost, q0s, xi0s, torch.zeros((B_, N_, nu), dtype=dtype, device=dev))
+            dt, tag = float(dyn.dt), str(dtype).replace("torch.", "")
+            fu, t1, n1 = counted(lambda: P.PipelineSolver(N_, it, dt, **grav).solve(*a))
+            un, t2, n2 = counted(lambda: P.PipelineSolver(N_, it, dt, fused=False,
+                                                          **grav).solve(*a))
+            check(n1 == expect(**{k_("B1"): 1, k_("B2"): it, k_("B3"): it}),
+                    f"nu={nu} {tag} fused launches {n1}")
+            check(n2 == expect(**{k_("B1"): it, k_("B2"): it, k_("B4"): it}),
+                    f"nu={nu} {tag} unfused launches {n2}")
+            J_rel = ((fu.J_opt - un.J_opt).abs() / un.J_opt.abs()).max().item()
+            fin = all(bool(torch.isfinite(x.us).all().item()) for x in (fu, un))
+            check(fin and J_rel <= (1e-4 if dtype == torch.float32 else 1e-9),
+                    f"nu={nu} {tag}: finite {fin}, fused vs unfused J {J_rel}")
+            res[tag] = {"fused_vs_unfused_J_rel": J_rel, "s": t1 + t2}
+        # a is the f64 problem
+        mx, t3, n3 = counted(lambda: DM.MixedDFPipelineSolver(N_, dt, it, 1, **grav).solve(*a))
+        check(n3 == expect(**{k_("B1"): 1, k_("B2"): it, k_("B3"): it, k_("B5"): 1,
+                                k_("B6"): 1}, B7=1, B8=1, B9=1), f"nu={nu} polish {n3}")
+        dfp, t4, n4 = counted(lambda: DFPipelineSolver(N_, dt, it, 1, **grav).solve(*a))
+        check(n4 == expect(**{k_("B1"): 2, k_("B2"): it + 2, k_("B3"): it + 1}),
+                f"nu={nu} refiner {n4}")
+        fin = all(bool(torch.isfinite(join_us(x)).all().item()) for x in (mx, dfp))
+        check(fin, f"nu={nu}: non-finite polish / refiner lanes")
+        res.update(polish_s=t3, refine_s=t4)
+        sweep[nu] = res
+
+    emit({"phase": "kernels_nu", "card": card, "N": N, "B": NU_CHECK_BATCH, "metric":
+          "max_rel = max|kernel - plain| / max(1, max|plain|) over outputs",
+          "rows": rows, "tuned_nu6_ms": tuned, "b5_twins": twins, "resident": resident,
+          "ptxas": ptxas,
+          "solves": solves,
+          "launches_b": launches_b,
+          "sweep": {"B": B_, "N": N_, "iterations": it, "by_nu": sweep}})
+    require(not failed, f"kernels_nu checks failed: {failed}")
+    line = {}
+    for key in ("B1", "B2", "B3", "B4"):
+        line[nu_keys[key]] = rows[f"{key} nu=3 float32"]
+    for key in ("B5", "B6"):
+        line[nu_keys[key]] = rows[f"{key} nu=3 mixed"]
+    return launches_b, line
+
+
 def split_timer(solver):
     """Time an `ErrorStateILQR`'s pieces in every iteration of its next
     fit: its linearization, backward pass and rollouts (every step size at
@@ -1990,6 +2292,22 @@ def b13_any_only():
     print(card, flush=True)
 
 
+def nu_only():
+    """``--nu`` (module docstring)."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    build_s = _build.build()
+    card = nvidia_smi()
+    counted, expect = launch_counters()
+    launches, line = nu_phase(torch.device("cuda", 0), card, counted, expect)
+    emit({"nu_launches": {k: v for k, v in launches.items() if v}, "kernels_nu": line,
+          "build_s": build_s, "total_s": time.perf_counter() - t0})
+    print(card, flush=True)
+
+
 def refine_only():
     """``--refine`` (module docstring)."""
     from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
@@ -2019,6 +2337,8 @@ def main():
         return b13_any_only()
     if sys.argv[1:] == ["--refine"]:
         return refine_only()
+    if sys.argv[1:] == ["--nu"]:
+        return nu_only()
     pool = multiprocessing.get_context("spawn").Pool(HOST_WORKERS)
     try:
         run(pool)
@@ -2625,6 +2945,8 @@ def run(pool):
     exact_runs = exact_phases(dev, card, counted, expect, {
         "fast_free_body": BATCH / med_f, "mixed_polish": POLISH_BATCH / med_p}, pool)
     per_any, per_kernel["B13any"] = b13_any_phase(dev, card, counted, expect)
+    per_nu, nu_line = nu_phase(dev, card, counted, expect)
+    per_kernel.update(nu_line)
     exact_runs.update(errstate_sweep_phases(dev, card, counted, expect, pool))
     cli_runs = cli_phase(dev, card, counted)
     check_cli_launches(cli_runs)
@@ -2645,6 +2967,8 @@ def run(pool):
     runs.update({k: (f"free_body fast B={BATCH}", per_fast["free_body"])
                  for k in ("B13", "B14")})
     runs["B13any"] = (f"(12, 3) rigid body fast B={ANY_SOLVE_BATCH}", per_any)
+    runs.update({k: ("kernels_nu (b): both problems, f32 path, polish and refiner", per_nu)
+                 for k in nu_line})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
         {"name": f"{k} {KERNELS[k][0]}", "route": "cuda",

@@ -1,0 +1,166 @@
+#!/usr/bin/env python3
+"""B1-B6's runtime-nu instances (`csrc/nu.cuh`) against their tuned twins
+(nu = 6 and 4), on one card.  Prints one JSON line.
+
+    python3 scripts/nu_instances.py [--root DIR]
+
+``--root``: the checkout whose package is measured (default: the one this
+script lies in).  Two measurements, ~3 minutes with the build:
+
+gvec   B5's Q_u (gvec) from the tuned instance and from the runtime-nu one
+       (called through its C entry, which takes nu = 4 and 6 too), each
+       against the plain version, and the two against each other, on the
+       same fp64 iterates: the handoff of `MixedDFPipelineSolver`'s f32
+       phase after 2 and after 7 iterations, N = 200, B = 1024, on the
+       rigid body driven through the first 4 or 6 thrusters of
+       `al_bench.rcs12_pu` (under-actuated) or the first 4 or 6 columns of
+       I6; the runtime-nu instance alone on the first 1, 5 and 8
+       thrusters.  Error: max|a - b| / max(1, max|b|) (`kernel_check.rel_err`).
+pad    screw200_torques3 (nu = 3) on the runtime-nu instances against the
+       same problem padded to nu = 6 (Pu = [I3 0; 0 0], R = 1e-2 I6: the
+       three added inputs act on nothing, cost only, and stay exactly 0)
+       on the tuned instances: the f32 path (`PipelineSolver`, B = 8192,
+       12 iterations, median of 5 after a warm-up), the polish
+       (`MixedDFPipelineSolver`, B = 16384, the golden's schedule, median
+       of 3) and the refiner (`DFPipelineSolver`, B = 16384, the golden's
+       schedule, median of 3), a new batch each rep, in turns native,
+       padded, padded, native; lane 0 of each against the golden, and the
+       padded inputs' largest |u|.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+N, B_GVEC, B_F32, B_POLISH, ITERS, SEED = 200, 1024, 8192, 16384, 12, 0
+GVEC_ITERS = (2, 7)
+F32_REPS, POLISH_REPS = 5, 3
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("nu_instances: needs a CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
+
+    dev = torch.device("cuda", 0)
+    out = {"card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(), "build_s": _build.build()}
+    out["gvec"] = gvec_rows(dev)
+    out["pad"] = pad_rates(dev)
+    print(json.dumps(out), flush=True)
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def gvec_rows(dev):
+    """{case: {iterations: errors}} of the ``gvec`` measurement."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
+        polish_inputs,
+        rel_err,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench
+
+    eye, rcs = np.eye(6), al_bench.rcs12_pu()
+    cases = {"rcs4": rcs[:, :4], "rcs6": rcs[:, :6], "id4": eye[:, :4], "id6": eye,
+             "rcs1": rcs[:, :1], "rcs5": rcs[:, :5], "rcs8": rcs[:, :8]}
+    tuned = _build.function("polish", "riccati", "mx", DM._RICCATI_ARGS)
+    nu_fn = _build.function("polish_nu", "riccati_nu", "mx", DM._RICCATI_ARGS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = {}
+    for name, pu in cases.items():
+        nu = pu.shape[1]
+        dyn, cost, q0, xi0 = al_bench.build_screw200_nu(pu, torch.float64, dev)
+        q0s, xi0s = al_bench.screw_batch(q0, xi0, B_GVEC, SEED)
+        us0 = torch.zeros((B_GVEC, N, nu), dtype=torch.float64, device=dev)
+        rows[name] = {}
+        for its in GVEC_ITERS:
+            mx = DM.MixedDFPipelineSolver(N, float(dyn.dt), its, 1, gravity=True,
+                                          exact_gravity_jacobian=True)
+            s = polish_inputs(mx, dyn, cost, q0s, xi0s, us0)
+            bargs = (s["lin"], s["lu"], s["VxN"], s["VxxN"], s["consts"], s["consts32"])
+            plain = DM.backward_mx_plain(*bargs, glow=True)[2]
+            g_nu = DM._backward_mx_kernel(nu_fn, stream, *bargs, glow=True, luu_al=None)[2]
+            r = {"nu_vs_plain": rel_err(g_nu, plain), "max_abs_gvec": plain.abs().max().item()}
+            if nu in _build.TUNED_NU:
+                g_t = DM._backward_mx_kernel(tuned, stream, *bargs, glow=True, luu_al=None)[2]
+                r.update(tuned_vs_plain=rel_err(g_t, plain), tuned_vs_nu=rel_err(g_t, g_nu))
+            rows[name][its] = r
+            del s, bargs, plain
+    return rows
+
+
+def pad_rates(dev):
+    """{run: rates} of the ``pad`` measurement, in the order run."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.df_pipeline import (
+        DFPipelineSolver,
+        join_us,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench
+
+    us_gold, meta = al_bench.load_nu_golden("screw200_torques3")
+    pol, ref = meta["polish_schedule"], meta["refine_schedule"]
+    pu3 = al_bench.torques3_pu()
+    variants = {"native": pu3, "padded": np.hstack([pu3, np.zeros((6, 3))])}
+    grav = dict(gravity=True, exact_gravity_jacobian=True)
+
+    def batch(pu, dtype, B, seed):
+        dyn, cost, q0, xi0 = al_bench.build_screw200_nu(pu, dtype, dev)
+        q0s, xi0s = al_bench.screw_batch(q0, xi0, B, seed)
+        return dyn, cost, q0s, xi0s, torch.zeros((B, N, pu.shape[1]), dtype=dtype, device=dev)
+
+    def rate(solver, pu, dtype, B, reps, us_of):
+        a = batch(pu, dtype, B, SEED)
+        us = us_of(solver.solve(*a))  # warm-up, and lane 0 checked
+        lane0 = us[0].double().cpu().numpy()
+        r = {"lane0_us_max_abs_err": float(np.abs(lane0[:, :3] - us_gold).max()),
+             "max_abs_u_padded": float(np.abs(lane0[:, 3:]).max()) if lane0.shape[1] > 3 else None,
+             "all_finite": bool(torch.isfinite(us).all().item())}
+        del a, us
+        secs = []
+        for rep in range(reps):
+            a = batch(pu, dtype, B, SEED + 1 + rep)
+            secs.append(timed(lambda: solver.solve(*a))[1])
+            del a
+        return {**r, "rep_s": secs, "solves_per_s": B / statistics.median(secs)}
+
+    dt = float(batch(pu3, torch.float64, 1, SEED)[0].dt)
+    runs = []
+    for name in ("native", "padded", "padded", "native"):
+        pu = variants[name]
+        runs.append({"variant": name, "nu": pu.shape[1],
+                     "f32": rate(P.PipelineSolver(N, ITERS, dt, **grav), pu, torch.float32,
+                                 B_F32, F32_REPS, lambda st: st.us),
+                     "polish": rate(DM.MixedDFPipelineSolver(
+                         N, dt, pol["f32_iterations"], pol["inner_iterations"], **grav),
+                         pu, torch.float64, B_POLISH, POLISH_REPS, join_us),
+                     "refine": rate(DFPipelineSolver(
+                         N, dt, ref["f32_iterations"], ref["inner_iterations"], **grav),
+                         pu, torch.float64, B_POLISH, POLISH_REPS, join_us)})
+    return runs
+
+
+if __name__ == "__main__":
+    main()

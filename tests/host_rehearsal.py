@@ -4,7 +4,7 @@ thread of a block is an OS thread and ``__syncthreads``/``__syncwarp`` are
 real barriers, so a kernel that exchanges through shared memory between
 barriers (B2, B5) runs its own code on CPU tensors.
 
-Two rewrites make a unit host code: ``kernel<<<grid, block, bytes,
+Two rewrites make a unit and the headers it includes host code: ``kernel<<<grid, block, bytes,
 stream>>>(args)`` becomes ``traopt_emu::launch(kernel, grid, block, bytes,
 args)`` and ``extern __shared__ ... smem[]`` the block's buffer.  No FMA
 contraction on the host and the host's libm: the results agree with the
@@ -59,14 +59,22 @@ def host_source(src):
 def build(unit, suffix, scalar, out_dir):
     """Start compiling ``unit`` (with -DTRAOPT_SUFFIX / -DTRAOPT_SCALAR as
     `_build.LIBS` names them) into ``out_dir``; returns (library path,
-    process)."""
+    process).  The headers of `csrc` are rewritten too (kernels and launches
+    live in some of them), once per ``out_dir``, into its ``include``."""
     out_dir = Path(out_dir)
+    inc = out_dir / "include"
+    inc.mkdir(exist_ok=True)
+    for h in CSRC.glob("*.cuh"):
+        if not (inc / h.name).is_file():
+            tmp = inc / f"{h.name}.tmp"
+            tmp.write_text(host_source(h.read_text()))
+            tmp.replace(inc / h.name)
     cpp = out_dir / f"{unit}_{suffix}.cpp"
     cpp.write_text(host_source((CSRC / f"{unit}.cu").read_text()))
     lib = out_dir / f"{unit}_{suffix}.so"
     defs = [f"-DTRAOPT_SUFFIX={suffix}"] + ([f"-DTRAOPT_SCALAR={scalar}"] if scalar else [])
     cmd = [compiler(), "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
-           "-I", str(STUB), "-I", str(CSRC), *defs, "-o", str(lib), str(cpp)]
+           "-I", str(STUB), "-I", str(inc), *defs, "-o", str(lib), str(cpp)]
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                  text=True)
 

@@ -175,10 +175,13 @@ def test_group_riccati_b5_edges(cuda, drone, B_, N_):
 
 
 def test_riccati_wrappers_raise_when_the_launch_fails(cuda):
-    """nu = 5 passes the wrappers' shape checks and reaches the launchers,
-    which take nu = 6 or 4 and return an error: B2's and B5's wrappers raise,
-    count no launch and do not fall back to their plain versions."""
-    N_, B_, nu = 2, 3, 5
+    """nu = 13 passes the wrappers' shape checks: B2's and B5's wrappers
+    raise ValueError before any launch, count none and do not fall back to
+    their plain versions; called directly, the launchers of the tuned and
+    the runtime-nu instances return an error that the kernel calls raise."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
+
+    N_, B_, nu = 2, 3, 13
     g = torch.Generator().manual_seed(0)
     r = lambda *shape, dtype=torch.float64: torch.randn(
         shape, generator=g, dtype=torch.float64).to(dtype=dtype, device=cuda)
@@ -187,19 +190,30 @@ def test_riccati_wrappers_raise_when_the_launch_fails(cuda):
     refs = dict(RbiR=r(N_ + 1, 3, 3), Rbip=r(N_ + 1, 3), Adb=r(N_ + 1, 6, 6),
                 xib=r(N_ + 1, 6))
     consts = dict(W1N=r(6, 6), W2N=r(6, 6), fu2=r(6, nu), Luu=r(nu, nu))
-    launches = P.backward_lane.launches
-    with pytest.raises(RuntimeError, match="riccati"):
-        P.backward_lane(lin, r(N_, nu, B_), r(N_ + 1, 3, 3, B_), r(N_ + 1, 3, B_),
-                        r(N_ + 1, 6, B_), refs, consts, glow=False)
-    assert P.backward_lane.launches == launches
+    bargs = (lin, r(N_, nu, B_), r(N_ + 1, 3, 3, B_), r(N_ + 1, 3, B_), r(N_ + 1, 6, B_),
+             refs, consts)
+    launches = {k: w.launches for k, w in P.KERNELS.items()}
+    with pytest.raises(ValueError, match="1..12"):
+        P.backward_lane(*bargs, glow=False)
+    assert {k: w.launches for k, w in P.KERNELS.items()} == launches
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for unit, name, argtypes, hand in (("pipeline", "riccati", P._RICCATI_ARGS, False),
+                                       ("pipeline_nu", "riccati_nu", P._RICCATI_NU_ARGS, True)):
+        fn = _build.function(unit, name, "f64", argtypes)
+        with pytest.raises(RuntimeError, match="riccati"):
+            P._backward_kernel(fn, stream, *bargs, glow=False, luu_al=None, hand=hand)
     f32 = torch.float32
     lin_mx = dict(Fx=lin["Fx"], d=lin["d"], lx=lin["lx"], lxx32=lin["lxx"].to(f32))
     consts32 = dict(fu2=consts["fu2"].to(f32), Luu=consts["Luu"].to(f32))
-    launches = DM.backward_mx_lane.launches
-    with pytest.raises(RuntimeError, match="riccati_mx"):
-        DM.backward_mx_lane(lin_mx, r(N_, nu, B_), r(12, B_), r(12, 12, B_, dtype=f32),
-                            consts, consts32, glow=False)
-    assert DM.backward_mx_lane.launches == launches
+    margs = (lin_mx, r(N_, nu, B_), r(12, B_), r(12, 12, B_, dtype=f32), consts, consts32)
+    launches = {k: w.launches for k, w in DM.KERNELS.items()}
+    with pytest.raises(ValueError, match="1..12"):
+        DM.backward_mx_lane(*margs, glow=False)
+    assert {k: w.launches for k, w in DM.KERNELS.items()} == launches
+    for unit, name in (("polish", "riccati"), ("polish_nu", "riccati_nu")):
+        fn = _build.function(unit, name, "mx", DM._RICCATI_ARGS)
+        with pytest.raises(RuntimeError, match="riccati_mx"):
+            DM._backward_mx_kernel(fn, stream, *margs, glow=False, luu_al=None)
 
 
 @pytest.mark.parametrize("fx_mode", ["df", "hybrid"])
@@ -473,7 +487,7 @@ def test_rollout_b3_b4_edges(cuda, dtype, nu, gravity, B_):
 
 
 def test_fast_and_rollout_launchers_refuse_what_they_do_not_take(cuda):
-    """(nx, nu) = (12, 5) reaches B13's launcher and nu = 5 the rollout's
+    """(nx, nu) = (12, 5) reaches B13's launcher and nu = 13 the rollout's
     (the kernel calls' shape checks pass), which return an error that the
     kernel calls raise, with no fallback to the plain versions."""
     from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
@@ -488,14 +502,16 @@ def test_fast_and_rollout_launchers_refuse_what_they_do_not_take(cuda):
         RC._backward_kernel(fn, stream, r(N_, nx, nx, B_), r(N_, nx, nu, B_), r(N_, nx, B_),
                             r(N_ + 1, nx, B_), r(N_, nu, B_), r(N_ + 1, nx, nx, B_),
                             r(N_, nu, nx, B_), r(N_, nu, nu, B_))
+    nu = 13
     lin = dict(d=r(N_, 12, B_), fqR=r(N_, 3, 3, B_), fqp=r(N_, 3, B_), fxi=r(N_, 6, B_))
     consts = dict(J=r(6, 6), Jinv=r(6, 6), Pu=r(6, nu), mg=0.0)
-    fn = _build.function("pipeline", "rollout", "f64", P._ROLLOUT_ARGS)
-    with pytest.raises(RuntimeError, match="rollout"):
-        P._rollout_kernel(fn, stream, r(N_ + 1, 3, 3, B_), r(N_ + 1, 3, B_),
-                          r(N_ + 1, 6, B_), r(N_, nu, B_), r(N_, nu, B_), r(N_, nu, 12, B_),
-                          lin, None, consts, dt=0.01, gravity=False, exact_grav=False,
-                          fused=False)
+    for unit, name in (("pipeline", "rollout"), ("pipeline_nu", "rollout_nu")):
+        fn = _build.function(unit, name, "f64", P._ROLLOUT_ARGS)
+        with pytest.raises(RuntimeError, match="rollout"):
+            P._rollout_kernel(fn, stream, r(N_ + 1, 3, 3, B_), r(N_ + 1, 3, B_),
+                              r(N_ + 1, 6, B_), r(N_, nu, B_), r(N_, nu, B_),
+                              r(N_, nu, 12, B_), lin, None, consts, dt=0.01, gravity=False,
+                              exact_grav=False, fused=False)
 
 
 # -- the constrained path and the MPC drivers: kernel path against plain path
@@ -604,7 +620,7 @@ def test_pipeline_warm_start_f64_kernel_matches_plain(cuda, fused):
         dyn, cost, q0s, xi0s, us0)
     launches = {k: w.launches for k, w in P.KERNELS.items()}
     want = (dict(B1=2, B2=8, B3=7, B4=0) if fused else dict(B1=5, B2=8, B3=4, B4=3))
-    assert launches == want, launches
+    assert launches == {**{k: 0 for k in P.KERNELS}, **want}, launches
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
@@ -738,3 +754,133 @@ def test_graph_cache_follows_closure_tensors(cuda):
     for n in range(MAX_ENTRIES + 2):
         assert torch.equal(cache(f"f{n}", h.f, x + n), 5.0 * (x + n))
     assert len(cache._entries) == MAX_ENTRIES
+
+
+# The runtime-nu instances of B1-B6 (csrc/nu.cuh) at every nu from 1 to 12
+# (nu = 6 and 4 on the tuned instances), on the rigid body driven through
+# `al_bench.nu_pu(nu)` (g = 0, the rigid-body family), against their plain
+# versions; the launches go to the runtime-nu instances, never to a plain
+# version.
+NUS = [pytest.param(nu, id=f"nu{nu}") for nu in range(1, 13)]
+
+
+def _nu_problem(dtype, device, nu, B_=B, H_=H):
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench
+
+    dyn, cost, q0, xi0 = al_bench.build_screw200_nu(al_bench.nu_pu(nu), dtype, device,
+                                                    horizon=H_)
+    q0s, xi0s = screw_batch(q0, xi0, B_, seed=1)
+    return dyn, cost, q0s, xi0s, torch.zeros((B_, H_, nu), dtype=dtype, device=device)
+
+
+def _counts():
+    return {k: w.launches for k, w in {**P.KERNELS, **DM.KERNELS}.items()}
+
+
+def _launched(before, keys, nu):
+    """The kernels of ``keys`` launched since ``before``: the runtime-nu
+    instances' at nu other than 6 and 4, the tuned ones' at 6 and 4, and
+    no other of B1-B6."""
+    tuned = nu in (4, 6)
+    now = _counts()
+    moved = {k for k in now if now[k] != before[k]}
+    want = {k if tuned else k + "nu" for k in keys}
+    assert want <= moved and not (moved - want) & set(
+        [k for k in now if k.endswith("nu")] + ["B1", "B2", "B3", "B4", "B5", "B6"]), moved
+
+
+@pytest.mark.parametrize("nu", NUS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_nu_kernels_match_plain(cuda, dtype, nu):
+    """B1-B4 (B2 also with the AL diagonal) at nu on a real iterate, each
+    within its gate of the plain version (kernel_check.GATES)."""
+    dyn, cost, q0s, xi0s, us0 = _nu_problem(dtype, cuda, nu)
+    solver = P.PipelineSolver(H, 2, float(dyn.dt), gravity=True, exact_gravity_jacobian=True)
+    s = kernel_inputs(solver, dyn, cost, q0s, xi0s, us0, luu_al=True)
+    before = _counts()
+    errs = compare(s, dt=solver.dt, gravity=True, exact_grav=True)
+    torch.cuda.synchronize()
+    _launched(before, ("B1", "B2", "B3", "B4"), nu)
+    for name, e in errs.items():
+        assert e["max_rel"] <= GATES[dtype][name], (name, e["per_output"])
+
+
+@pytest.mark.parametrize("B_", [1, 257], ids=["B1", "B257"])
+@pytest.mark.parametrize("nu", [1, 5, 12], ids=["nu1", "nu5", "nu12"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_nu_kernels_edges(cuda, dtype, nu, B_):
+    """B1-B4 at nu with one problem and with a ragged last block of every
+    block size (257), one stage, against their plain versions."""
+    dyn, cost, q0s, xi0s, us0 = _nu_problem(dtype, cuda, nu, B_, 1)
+    solver = P.PipelineSolver(1, 2, float(dyn.dt), gravity=True, exact_gravity_jacobian=True)
+    s = kernel_inputs(solver, dyn, cost, q0s, xi0s, us0, luu_al=True)
+    errs = compare(s, dt=solver.dt, gravity=True, exact_grav=True)
+    torch.cuda.synchronize()
+    for name, e in errs.items():
+        assert e["max_rel"] <= GATES[dtype][name], (name, e["per_output"])
+
+
+@pytest.mark.parametrize("nu", NUS)
+def test_nu_polish_kernels_match_plain(cuda, nu):
+    """B5 (and its AL branch), B6 and B7-B9 at nu on a real polish iterate,
+    each output within its gate (kernel_check.GATES["mixed"])."""
+    dyn, cost, q0s, xi0s, us0 = _nu_problem(torch.float64, cuda, nu)
+    solver = DM.MixedDFPipelineSolver(H, float(dyn.dt), 7, 1, gravity=True,
+                                      exact_gravity_jacobian=True)
+    s = polish_inputs(solver, dyn, cost, q0s, xi0s, us0, luu_al=True)
+    before = _counts()
+    errs = polish_compare(s, solver)
+    torch.cuda.synchronize()
+    _launched(before, ("B5", "B6"), nu)
+    for name, e in errs.items():
+        for out, err in e["per_output"].items():
+            assert err <= GATES["mixed"][name][out], (name, out, err)
+
+
+@pytest.mark.parametrize("nu", [1, 3, 5, 8, 12], ids=lambda nu: f"nu{nu}")
+def test_nu_solvers_match_plain_solves(cuda, nu):
+    """`PipelineSolver` (f64, fused and unfused), `MixedDFPipelineSolver` and
+    `DFPipelineSolver` at nu through the kernels against the same solvers
+    on their plain versions: us at 1e-10 (f64 pipeline) and 1e-5 (the
+    polish, a tenth of its accuracy gate: its f32 phases differ by f32
+    rounding), the refiner's fp64 phase from one f32 handoff at 1e-9."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.df_pipeline import (
+        DFPipelineSolver,
+    )
+
+    dyn, cost, q0s, xi0s, us0 = _nu_problem(torch.float64, cuda, nu)
+    grav = dict(gravity=True, exact_gravity_jacobian=True)
+    dt = float(dyn.dt)
+    ref = P.PipelineSolver(H, 3, dt, plain=True, **grav).solve(dyn, cost, q0s, xi0s, us0)
+    for fused in (True, False):
+        out = P.PipelineSolver(H, 3, dt, fused=fused, **grav).solve(dyn, cost, q0s, xi0s, us0)
+        torch.testing.assert_close(out.us, ref.us, rtol=0, atol=1e-10)
+    mk = lambda plain: DM.MixedDFPipelineSolver(H, dt, 4, 2, plain=plain, **grav)
+    out, ref = (mk(plain).solve(dyn, cost, q0s, xi0s, us0) for plain in (False, True))
+    torch.testing.assert_close(join_us(out), join_us(ref), rtol=0, atol=1e-5)
+    mk = lambda plain: DFPipelineSolver(H, dt, 4, 2, plain=plain, **grav)
+    handoff = mk(False)._solve_f32(dyn, cost, q0s, xi0s, us0)
+    out, ref = (mk(plain).refine(dyn, cost, *handoff) for plain in (False, True))
+    torch.testing.assert_close(join_us(out), join_us(ref), rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("nu", [0, 13], ids=["nu0", "nu13"])
+def test_nu_wrappers_refuse_out_of_range(cuda, nu):
+    """On CUDA tensors at nu = 0 and 13 B1's, B4's and B6's wrappers raise
+    ValueError naming the range before any launch."""
+    g = torch.Generator().manual_seed(0)
+    r = lambda *shape, dtype=torch.float64: torch.randn(
+        shape, generator=g, dtype=torch.float64).to(dtype=dtype, device=cuda)
+    N_, B_ = 2, 3
+    traj = (r(N_ + 1, 3, 3, B_), r(N_ + 1, 3, B_), r(N_ + 1, 6, B_), r(N_, nu, B_))
+    lin = dict(d=r(N_, 12, B_), fqR=r(N_, 3, 3, B_), fqp=r(N_, 3, B_), fxi=r(N_, 6, B_))
+    before = _counts()
+    for call in (lambda: P.linearize_lane(*traj, {}, {}, dt=0.01),
+                 lambda: P.rollout_lane(*traj, r(N_, nu, B_), r(N_, nu, 12, B_), lin, {},
+                                        dt=0.01),
+                 lambda: DM.rollout_mx_lane(*traj, r(N_, nu, B_, dtype=torch.float32),
+                                            r(N_, nu, 12, B_, dtype=torch.float32), lin, {},
+                                            dt=0.01, gravity=False)):
+        with pytest.raises(ValueError, match="1..12"):
+            call()
+    assert _counts() == before

@@ -8,9 +8,11 @@ per problem copying stage t - 1's inputs ahead, at any other shape the
 group design with the shape a runtime argument, and B14 a thread per
 problem copying stage t + 1's inputs ahead); the rollouts B4 and B3
 (csrc/pipeline.cu: a thread per problem copying stage t + 1's inputs
-ahead, then, for B3, B1's kernel on the new trajectory) and the SO(3)
+ahead, then, for B3, B1's kernel on the new trajectory), the SO(3)
 kernels B11 and B12 (csrc/so3.cu: a thread per problem copying the next
-stage's inputs ahead, then, for B12, B10's kernel on the new trajectory).
+stage's inputs ahead, then, for B12, B10's kernel on the new trajectory),
+and the instances of B1-B6 at any other input dimension nu up to 12
+(csrc/nu.cuh, built as csrc/pipeline_nu.cu and csrc/polish_nu.cu).
 
 This runs the kernels' own code, barriers and shared-memory exchanges
 included, which the CPU tests of the wrappers cannot reach (on CPU tensors
@@ -32,6 +34,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
     FAST_ROLLOUT_ARGS,
     GATES,
     OUTPUTS,
+    POLISH_OUTPUTS,
     READS,
     SO3_OUTPUTS,
     _flat,
@@ -53,8 +56,12 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
 from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline_so3 as S
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import so3_bench
+from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import linearize as LN
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (
     build_screw200,
+    build_screw200_nu,
+    nu_pu,
+    rcs12_pu,
     screw200_model,
     screw_batch,
 )
@@ -62,7 +69,8 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (
 UNITS = {"f32": ("pipeline", "f32", "float"), "f64": ("pipeline", "f64", "double"),
          "mx": ("polish", "mx", None), "fast_f32": ("fast", "f32", "float"),
          "fast_f64": ("fast", "f64", "double"), "so3_f32": ("so3", "f32", "float"),
-         "so3_f64": ("so3", "f64", "double")}
+         "so3_f64": ("so3", "f64", "double"), "nu_f32": ("pipeline_nu", "f32", "float"),
+         "nu_f64": ("pipeline_nu", "f64", "double"), "nu_mx": ("polish_nu", "mx", None)}
 # one problem in a block of 8; a ragged last block with rows not 16-byte
 # aligned (odd B)
 SHAPES = [pytest.param(1, 1, id="B1-N1"), pytest.param(9, 3, id="B9-N3")]
@@ -137,9 +145,9 @@ def test_b5_host_rehearsal_matches_plain(libs, drone, B, N):
 
 
 def test_riccati_launchers_refuse_what_they_do_not_take(libs):
-    """nu = 5 reaches B2's and B5's launchers (the wrappers' shape checks
-    pass), which return an error that the kernel calls raise."""
-    N, B, nu = 2, 3, 5
+    """nu = 13 reaches B2's and B5's launchers (the kernel calls' shape
+    checks pass), which return an error that the kernel calls raise."""
+    N, B, nu = 2, 3, 13
     g = torch.Generator().manual_seed(0)
     r = lambda *shape: torch.randn(shape, generator=g, dtype=torch.float64)
     lin = dict(Fx=r(N, 12, 12, B), d=r(N, 12, B), lx=r(N, 12, B), lxx=r(N, 12, 12, B))
@@ -294,10 +302,11 @@ def test_b3_b4_host_rehearsal_match_plain(libs, dtype, drone, gravity, B, N):
 
 
 def test_fast_and_rollout_launchers_refuse_what_they_do_not_take(libs):
-    """(nx, nu) = (12, 5) reaches B13's launcher and nu = 5 the rollout's
+    """(nx, nu) = (12, 5) reaches B13's launcher and nu = 13 the rollout's
     (the calls' shape checks pass), which return an error that the kernel
     calls raise."""
-    N, B, nx, nu = 2, 3, 12, 5
+    N, B, nx = 2, 3, 12
+    nu = 5
     g = torch.Generator().manual_seed(0)
     r = lambda *shape: torch.randn(shape, generator=g, dtype=torch.float64)
     fn = HR.function(libs["fast_f64"], "fast_riccati_f64", RC._ARGS)
@@ -305,6 +314,7 @@ def test_fast_and_rollout_launchers_refuse_what_they_do_not_take(libs):
         RC._backward_kernel(fn, None, r(N, nx, nx, B), r(N, nx, nu, B), r(N, nx, B),
                             r(N + 1, nx, B), r(N, nu, B), r(N + 1, nx, nx, B),
                             r(N, nu, nx, B), r(N, nu, nu, B))
+    nu = 13
     lin = dict(d=r(N, 12, B), fqR=r(N, 3, 3, B), fqp=r(N, 3, B), fxi=r(N, 6, B))
     consts = dict(J=r(6, 6), Jinv=r(6, 6), Pu=r(6, nu), mg=0.0)
     fn = HR.function(libs["f64"], "rollout_f64", P._ROLLOUT_ARGS)
@@ -312,6 +322,237 @@ def test_fast_and_rollout_launchers_refuse_what_they_do_not_take(libs):
         P._rollout_kernel(fn, None, r(N + 1, 3, 3, B), r(N + 1, 3, B), r(N + 1, 6, B),
                           r(N, nu, B), r(N, nu, B), r(N, nu, 12, B), lin, None, consts,
                           dt=0.01, gravity=False, exact_grav=False, fused=False)
+
+
+# The runtime-nu instances of B1-B6 (csrc/nu.cuh: pipeline_nu.cu, polish_nu.cu)
+# at nu = 1, 3, 5, 8 and 12 (the instance of maximum 6, and of 12), on the
+# rigid body driven through `al_bench.nu_pu(nu)` (g = 0, the rigid-body
+# family); N = 3; the group kernels at B = 9 (a ragged second block of 8),
+# the rollouts at B = 33 (a ragged second block of 32).
+NUS = [pytest.param(nu, id=f"nu{nu}") for nu in (1, 3, 5, 8, 12)]
+
+
+def _nu_problem(dtype, nu, B, N):
+    dyn, cost, q0, xi0 = build_screw200_nu(nu_pu(nu), dtype, "cpu", horizon=N)
+    q0s, xi0s = screw_batch(q0, xi0, B, seed=1)
+    return dyn, cost, q0s, xi0s, torch.zeros((B, N, nu), dtype=dtype)
+
+
+def _nu_inputs(dtype, nu, B, N):
+    """A real pipeline iterate (2 iterations, plain) at nu, and its solver."""
+    args = _nu_problem(dtype, nu, B, N)
+    solver = P.PipelineSolver(N, 2, float(args[0].dt), gravity=True,
+                              exact_gravity_jacobian=True)
+    return kernel_inputs(solver, *args, luu_al=True), solver
+
+
+@pytest.mark.parametrize("nu", NUS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b2_nu_host_rehearsal_matches_plain(libs, dtype, nu):
+    """B2's runtime-nu instance, with and without the AL diagonal on Q_uu,
+    within its card gate of the plain version (f32); f64 to 1e-12."""
+    s, _ = _nu_inputs(dtype, nu, 9, 3)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    fn = HR.function(libs[f"nu_{tag}"], f"riccati_nu_{tag}", P._RICCATI_NU_ARGS)
+    bargs = (s["lin"], s["lu"], s["qR"], s["qp"], s["xi"], s["refs"], s["consts"])
+    gate = {torch.float32: GATES[torch.float32]["B2"], torch.float64: 1e-12}[dtype]
+    for al in (None, s["luu_al"]):
+        kern = P._backward_kernel(fn, None, *bargs, glow=True, luu_al=al, hand=True)
+        plain = P.backward_plain(*bargs, glow=True, luu_al=al)
+        for name, a, b in zip(("k", "K", "gvec", "lN"), kern, plain, strict=True):
+            assert rel_err(a, b) <= gate, (name, al is not None, rel_err(a, b))
+
+
+def test_b2_nu_f64_hand_off_stays_in_its_own_array(libs):
+    """fp64 B2 at nu = 1, N = 1: K holds 12 values a problem, fewer than the
+    48 of the terminal quadratization's hand-off, which therefore has an
+    array of its own; the memory after K (a guard) stays untouched, and K
+    matches the plain version."""
+    s, _ = _nu_inputs(torch.float64, 1, 9, 1)
+    fn = HR.function(libs["nu_f64"], "riccati_nu_f64", P._RICCATI_NU_ARGS)
+    N, nu, B = s["lu"].shape
+    guard = 1000
+    K_mem = torch.full((N * nu * 12 * B + guard,), 7.25, dtype=torch.float64)
+
+    def fn_guarded(*args):  # K (argument 19) into the guarded memory
+        args = list(args)
+        args[19] = ctypes.c_void_p(K_mem.data_ptr())
+        return fn(*args)
+
+    bargs = (s["lin"], s["lu"], s["qR"], s["qp"], s["xi"], s["refs"], s["consts"])
+    P._backward_kernel(fn_guarded, None, *bargs, glow=True, luu_al=None, hand=True)
+    plain = P.backward_plain(*bargs, glow=True)
+    assert (K_mem[N * nu * 12 * B:] == 7.25).all()
+    assert rel_err(K_mem[:N * nu * 12 * B].reshape(plain[1].shape), plain[1]) <= 1e-12
+
+
+@pytest.mark.parametrize("nu", NUS)
+def test_b5_nu_host_rehearsal_matches_plain(libs, nu):
+    """B5's runtime-nu instance, with and without the AL diagonal, within its
+    per-output card gates of the plain version."""
+    N, B = 3, 9
+    args = _nu_problem(torch.float64, nu, B, N)
+    solver = DM.MixedDFPipelineSolver(N, float(args[0].dt), 2, 1, gravity=True,
+                                      exact_gravity_jacobian=True)
+    s = polish_inputs(solver, *args, luu_al=True)
+    fn = HR.function(libs["nu_mx"], "riccati_nu_mx", DM._RICCATI_ARGS)
+    bargs = (s["lin"], s["lu"], s["VxN"], s["VxxN"], s["consts"], s["consts32"])
+    for al in (None, s["luu_al"]):
+        kern = DM._backward_mx_kernel(fn, None, *bargs, glow=True, luu_al=al)
+        plain = DM.backward_mx_plain(*bargs, glow=True, luu_al=al)
+        for name, a, b in zip(("k", "K", "gvec"), kern, plain, strict=True):
+            gate = GATES["mixed"]["B5"][name]
+            assert rel_err(a, b) <= gate, (name, al is not None, rel_err(a, b))
+    # B6's runtime-nu instance on the same iterate, every output at its gate
+    fn = HR.function(libs["nu_mx"], "rollout_nu_mx", DM._ROLLOUT_ARGS)
+    rargs = (s["qR"], s["qp"], s["xi"], s["us"], s["k"], s["K"], s["lin"], s["consts"])
+    kw = dict(dt=solver.dt, gravity=True)
+    kern = DM._rollout_mx_kernel(fn, None, *rargs, **kw)
+    plain = DM.rollout_mx_plain(*rargs, **kw)
+    flat = lambda out: [*out[:4], *out[4]]
+    for name, a, b in zip(POLISH_OUTPUTS["B6"], flat(kern), flat(plain), strict=True):
+        assert rel_err(a, b) <= GATES["mixed"]["B6"][name], (name, rel_err(a, b))
+
+
+@pytest.mark.parametrize("nu", [pytest.param(nu, id=f"nu{nu}") for nu in (4, 6)])
+def test_b5_nu_instance_is_its_tuned_twin_on_a_rough_iterate(libs, nu):
+    """At nu = 4 and 6, which both instances of B5 take, the runtime-nu one
+    gives the tuned one's k, K and gvec bit for bit on the same iterate,
+    here a rough one (2 f32 iterations on the first nu thrusters of
+    `rcs12_pu`: under-actuated), where both stay far from plain's gvec (the
+    card gate's small-residual premise fails: scripts/nu_instances.py)."""
+    N, B = 3, 9
+    dyn, cost, q0, xi0 = build_screw200_nu(rcs12_pu()[:, :nu], torch.float64, "cpu",
+                                           horizon=N)
+    q0s, xi0s = screw_batch(q0, xi0, B, seed=1)
+    solver = DM.MixedDFPipelineSolver(N, float(dyn.dt), 2, 1, gravity=True,
+                                      exact_gravity_jacobian=True)
+    s = polish_inputs(solver, dyn, cost, q0s, xi0s,
+                      torch.zeros((B, N, nu), dtype=torch.float64), luu_al=True)
+    bargs = (s["lin"], s["lu"], s["VxN"], s["VxxN"], s["consts"], s["consts32"])
+    tuned = HR.function(libs["mx"], "riccati_mx", DM._RICCATI_ARGS)
+    nu_fn = HR.function(libs["nu_mx"], "riccati_nu_mx", DM._RICCATI_ARGS)
+    for al in (None, s["luu_al"]):
+        a = DM._backward_mx_kernel(tuned, None, *bargs, glow=True, luu_al=al)
+        b = DM._backward_mx_kernel(nu_fn, None, *bargs, glow=True, luu_al=al)
+        for name, x, y in zip(("k", "K", "gvec"), a, b, strict=True):
+            assert torch.equal(x, y), (name, al is not None, rel_err(x, y))
+
+
+@pytest.mark.parametrize("nu", NUS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b1_b3_b4_nu_host_rehearsal_match_plain(libs, dtype, nu):
+    """B1's, B3's and B4's runtime-nu instances within their card gates of
+    the plain versions (f32); f64 to 1e-12."""
+    s, solver = _nu_inputs(dtype, nu, 33, 3)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    gate = lambda name: GATES[dtype][name] if dtype == torch.float32 else 1e-12
+    traj = (s["qR"], s["qp"], s["xi"], s["us"])
+    lkw = dict(dt=solver.dt, gravity=True, exact_grav=True)
+    fn = HR.function(libs[f"nu_{tag}"], f"linearize_nu_{tag}", LN._LINEARIZE_ARGS)
+    kern = LN._linearize_kernel(fn, None, *traj, s["refs"], s["consts"], **lkw)
+    plain = LN.linearize_plain(*traj, s["refs"], s["consts"], **lkw)
+    for out, a, b in zip(OUTPUTS["B1"], _flat(kern), _flat(plain), strict=True):
+        assert rel_err(a, b) <= gate("B1"), ("B1", out, rel_err(a, b))
+    fn = HR.function(libs[f"nu_{tag}"], f"rollout_nu_{tag}", P._ROLLOUT_ARGS)
+    rargs = (*traj, s["k"], s["K"], s["lin"])
+    kw = dict(dt=solver.dt, gravity=True)
+    for name, fused in (("B3", True), ("B4", False)):
+        kern = P._rollout_kernel(fn, None, *rargs, s["refs"], s["consts"], fused=fused,
+                                 exact_grav=True, **kw)
+        if fused:
+            plain = P.rollout_linearize_plain(*rargs, s["refs"], s["consts"],
+                                              exact_grav=True, **kw)
+        else:
+            kern, plain = kern[:4], P.rollout_plain(*rargs, s["consts"], **kw)
+        for out, a, b in zip(OUTPUTS[name], _flat(kern), _flat(plain), strict=True):
+            assert rel_err(a, b) <= gate(name), (name, out, rel_err(a, b))
+
+
+def test_nu_launchers_refuse_past_their_bound(libs):
+    """nu = 0 and 13 reach the runtime-nu instances' launchers of B1-B6 (the
+    kernel calls' shape checks pass), which return an error that the kernel
+    calls raise."""
+    N, B = 2, 3
+    g = torch.Generator().manual_seed(0)
+    r = lambda *shape: torch.randn(shape, generator=g, dtype=torch.float64)
+    f32 = torch.float32
+    for nu in (0, 13):
+        lin = dict(Fx=r(N, 12, 12, B), d=r(N, 12, B), lx=r(N, 12, B), lxx=r(N, 12, 12, B),
+                   fqR=r(N, 3, 3, B), fqp=r(N, 3, B), fxi=r(N, 6, B))
+        refs = dict(RbiR=r(N + 1, 3, 3), Rbip=r(N + 1, 3), Adb=r(N + 1, 6, 6),
+                    xib=r(N + 1, 6))
+        consts = dict(W1N=r(6, 6), W2N=r(6, 6), W1=r(6, 6), W2=r(6, 6), J=r(6, 6),
+                      Jinv=r(6, 6), fu2=r(6, nu), Luu=r(nu, nu), Pu=r(6, nu), mg=0.0)
+        traj = (r(N + 1, 3, 3, B), r(N + 1, 3, B), r(N + 1, 6, B), r(N, nu, B))
+        fn = HR.function(libs["nu_f64"], "linearize_nu_f64", LN._LINEARIZE_ARGS)
+        with pytest.raises(RuntimeError, match="linearize"):
+            LN._linearize_kernel(fn, None, *traj, refs, consts, dt=0.01, gravity=True,
+                                 exact_grav=True)
+        fn = HR.function(libs["nu_f64"], "riccati_nu_f64", P._RICCATI_NU_ARGS)
+        with pytest.raises(RuntimeError, match="riccati"):
+            P._backward_kernel(fn, None, lin, r(N, nu, B), *traj[:3], refs, consts,
+                               glow=True, luu_al=None, hand=True)
+        fn = HR.function(libs["nu_f64"], "rollout_nu_f64", P._ROLLOUT_ARGS)
+        with pytest.raises(RuntimeError, match="rollout"):
+            P._rollout_kernel(fn, None, *traj, r(N, nu, B), r(N, nu, 12, B), lin, None,
+                              consts, dt=0.01, gravity=True, exact_grav=True, fused=False)
+        lin_mx = dict(Fx=lin["Fx"], d=lin["d"], lx=lin["lx"], lxx32=lin["lxx"].to(f32),
+                      fqR=lin["fqR"], fqp=lin["fqp"], fxi=lin["fxi"])
+        consts32 = dict(fu2=consts["fu2"].to(f32), Luu=consts["Luu"].to(f32))
+        fn = HR.function(libs["nu_mx"], "riccati_nu_mx", DM._RICCATI_ARGS)
+        with pytest.raises(RuntimeError, match="riccati_mx"):
+            DM._backward_mx_kernel(fn, None, lin_mx, r(N, nu, B), r(12, B),
+                                   r(12, 12, B).to(f32), consts, consts32, glow=True,
+                                   luu_al=None)
+        fn = HR.function(libs["nu_mx"], "rollout_nu_mx", DM._ROLLOUT_ARGS)
+        with pytest.raises(RuntimeError, match="rollout_mx"):
+            DM._rollout_mx_kernel(fn, None, *traj, r(N, nu, B).to(f32), r(N, nu, 12, B).to(f32),
+                                  lin_mx, consts, dt=0.01, gravity=True)
+
+
+@pytest.mark.parametrize("nu", [0, 13], ids=["nu0", "nu13"])
+def test_wrappers_refuse_nu_out_of_range_before_any_launch(nu):
+    """On a device tensor (here the meta device: no data, no kernel) at nu = 0
+    or 13, every wrapper of B1-B6 raises ValueError naming the range 1..12
+    before it looks for a kernel, and counts no launch (neither its own
+    count nor its runtime-nu instance's); at nu = 3 it gets as far as the
+    device."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.pipeline import (
+        KERNELS as PK,
+    )
+
+    def calls(nu):
+        m = lambda *shape, dtype=torch.float64: torch.empty(shape, dtype=dtype,
+                                                             device="meta")
+        N, B = 2, 3
+        traj = (m(N + 1, 3, 3, B), m(N + 1, 3, B), m(N + 1, 6, B), m(N, nu, B))
+        lin = dict(Fx=m(N, 12, 12, B), d=m(N, 12, B), lx=m(N, 12, B), lxx=m(N, 12, 12, B),
+                   lxx32=m(N, 12, 12, B, dtype=torch.float32), fqR=m(N, 3, 3, B),
+                   fqp=m(N, 3, B), fxi=m(N, 6, B))
+        gains = (m(N, nu, B), m(N, nu, 12, B))
+        kw = dict(dt=0.01, gravity=True)
+        bargs = (lin, m(N, nu, B), *traj[:3], {}, {})
+        margs = (lin, m(N, nu, B), m(12, B), m(12, 12, B), {}, {})
+        yield lambda: LN.linearize_lane(*traj, {}, {}, **kw)
+        yield lambda: P.backward_lane(*bargs, glow=True)
+        yield lambda: P.rollout_lane(*traj, *gains, lin, {}, **kw)
+        yield lambda: P.rollout_linearize_lane(*traj, *gains, lin, {}, {}, **kw)
+        yield lambda: DM.backward_mx_lane(*margs, glow=True)
+        yield lambda: DM.rollout_mx_lane(*traj, *gains, lin, {}, **kw)
+
+    counters = {**PK, **DM.KERNELS}
+    before = {k: w.launches for k, w in counters.items()}
+    n = 0
+    for call in calls(nu):
+        with pytest.raises(ValueError, match=r"nu = -?\d+: the kernels take nu in 1\.\.12"):
+            call()
+        n += 1
+    assert n == 6
+    assert {k: w.launches for k, w in counters.items()} == before
+    for call in calls(3):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            call()
 
 
 # B11 and B12 on both SO(3) families at SHAPES: one problem, a ragged block

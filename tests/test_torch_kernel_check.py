@@ -71,15 +71,17 @@ ptxas info    : Function properties for __internal_trig_reduction_slowpathd
 
 
 def test_each_unit_is_built_once_per_scalar_and_the_polish_once():
-    """linearize, pipeline, so3 and fast are built for f32 and f64; the
-    mixed-precision polish unit once, under its own suffix, with no scalar
-    macro; every library is named {unit}_{suffix}_{hash}.so in the build
+    """linearize, pipeline, so3, fast and pipeline_nu (B1-B4 at any nu) are
+    built for f32 and f64; the mixed-precision polish unit and polish_nu
+    (B5, B6 at any nu) once, under their own suffix, with no scalar macro;
+    every library is named {unit}_{suffix}_{hash}.so in the build
     directory."""
     assert _build.LIBS == (("linearize", "f32", "float"), ("linearize", "f64", "double"),
                            ("pipeline", "f32", "float"), ("pipeline", "f64", "double"),
                            ("polish", "mx", None), ("so3", "f32", "float"),
                            ("so3", "f64", "double"), ("fast", "f32", "float"),
-                           ("fast", "f64", "double"))
+                           ("fast", "f64", "double"), ("pipeline_nu", "f32", "float"),
+                           ("pipeline_nu", "f64", "double"), ("polish_nu", "mx", None))
     for unit, sfx, _ in _build.LIBS:
         path = _build._lib_path(unit, sfx)
         assert path.parent == _build.BUILD_DIR

@@ -8,8 +8,10 @@ type (``-DTRAOPT_SCALAR=float`` / ``double``, suffixes ``f32`` / ``f64``),
 and so are ``so3`` (the SO(3)-family pipeline) and ``fast`` (the generic
 fast tier's Riccati backward and rollout);
 ``polish`` mixes f32 and fp64 by design and is built once, under the suffix
-``mx``.  The libraries go to ``build/torch_kernels/`` beside the package,
-named ``{unit}_{suffix}_{hash}.so`` by a hash of the sources and flags, so a
+``mx``; ``pipeline_nu`` (per scalar) and ``polish_nu`` (``mx``) hold the
+instances of B1-B6 at the input dimensions the tuned ones do not take.
+The libraries go to ``build/torch_kernels/`` beside the package, named
+``{unit}_{suffix}_{hash}.so`` by a hash of the sources and flags, so a
 changed source rebuilds and an unchanged one loads.  All libraries are
 compiled concurrently at first use.
 
@@ -35,7 +37,13 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 LIBS = (("linearize", "f32", "float"), ("linearize", "f64", "double"),
         ("pipeline", "f32", "float"), ("pipeline", "f64", "double"),
         ("polish", "mx", None), ("so3", "f32", "float"), ("so3", "f64", "double"),
-        ("fast", "f32", "float"), ("fast", "f64", "double"))
+        ("fast", "f32", "float"), ("fast", "f64", "double"),
+        ("pipeline_nu", "f32", "float"), ("pipeline_nu", "f64", "double"),
+        ("polish_nu", "mx", None))
+# The input dimensions of B1-B6: their tuned instances (linearize, pipeline,
+# polish) take TUNED_NU, their runtime-nu instances (pipeline_nu: B1-B4,
+# polish_nu: B5 and B6) every nu from 1 to MAX_NU.
+TUNED_NU, MAX_NU = (6, 4), 12
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -151,6 +159,14 @@ def arg(t, shape, like, name, dtype=None):
 def device_index(t):
     """The CUDA device ordinal the kernel launches on (0 for host tensors)."""
     return t.device.index or 0
+
+
+def check_nu(kernel, nu):
+    """Raise ValueError, before any launch, for an input dimension ``nu``
+    that no instance of B1-B6 takes."""
+    if not 1 <= nu <= MAX_NU:
+        raise ValueError(f"{kernel}: no kernel for nu = {nu}: the kernels take nu in "
+                         f"1..{MAX_NU}")
 
 
 def check(err, kernel):

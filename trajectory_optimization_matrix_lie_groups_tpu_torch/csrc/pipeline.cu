@@ -19,6 +19,7 @@
 #include "ahead.cuh"
 #include "common.cuh"
 #include "linearize.cuh"
+#include "pipeline.cuh"
 #include "riccati_f64.cuh"
 #include "riccati_group.cuh"
 #include "stage.cuh"
@@ -48,17 +49,6 @@ namespace traopt {
 // product (half the loads), and the terminal quadratization runs first in
 // terminal_kernel, a thread a problem, so that the stage loop's kernel
 // carries no transcendental functions.
-template <typename T>
-struct RiccatiArgs {
-  const T *Fx, *d, *lx, *lu, *lxx, *luual;  // (N, ..., B); luual may be null
-  const T *qR, *qp, *xi;                    // (N+1, ..., B): terminal state
-  Refs<T> refs;
-  Consts<T> c;
-  int glow;
-  T *k, *K, *gvec, *lN;  // (N, nu, B), (N, nu, 12, B), (N, nu, B), (B,)
-  int N, B;
-};
-
 template <typename T, int NU>
 __global__ void __launch_bounds__(kGroupThreads) riccati_kernel(RiccatiArgs<T> a) {
   using L = RiccatiLayout<T, T, NU>;
@@ -92,37 +82,6 @@ __global__ void __launch_bounds__(kGroupThreads) riccati_kernel(RiccatiArgs<T> a
                                 a.glow != 0, a.K, a.k, a.gvec);
 }
 
-// B2 in fp64, phase 1: the terminal quadratization (stage_cost_quad at
-// stage N), a thread a problem, into K's stage-0 entries of the problem:
-// l_x in entries 0..11, the top-left 6 x 6 block of l_xx in 12..47 (its other
-// blocks are 0 and 2 W2N).  Phase 2 reads them first and writes K's stage 0
-// last.
-// (A template, so that only the fp64 library, which launches it, compiles
-// it.)
-template <typename T>
-struct TerminalLxx {
-  Lane<T> k;
-  mutable T sink;  // the blocks phase 2 rebuilds
-  __device__ __forceinline__ T& operator[](int e) const {
-    return e / 12 < 6 && e % 12 < 6 ? k[12 + (e / 12) * 6 + e % 12] : sink;
-  }
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) terminal_kernel(RiccatiArgs<T> a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const int B = a.B, N = a.N;
-  T R[9], p[3], xi[6];
-  load<9>(R, lane<9>(a.qR, N, B, b));
-  load<3>(p, lane<3>(a.qp, N, B, b));
-  load<6>(xi, lane<6>(a.xi, N, B, b));
-  const Lane<T> k0 = lane<48>(a.K, 0, B, b);
-  a.lN[b] = stage_cost_quad<T>(k0, TerminalLxx<T>{k0, T(0)}, R, p, xi, a.refs.RbiR + N * 9,
-                               a.refs.Rbip + N * 3, a.refs.Adb + N * 36, a.refs.xib + N * 6,
-                               a.c.W1N, a.c.W2N);
-}
-
 // B2 in fp64, phase 2 (riccati_f64.cuh): the carry of stage N from phase 1
 // (V_xx = l_xx into the group's VS, V_x = l_x), then the stage loop.
 template <int NU>
@@ -151,20 +110,6 @@ __global__ void __launch_bounds__(kGroupThreads) riccati_f64_kernel(RiccatiArgs<
   double Vx = gs.Vm[l < 12 ? l : 11];
   riccati_f64_sweep<NU>(smem, N, B, Vx, a.Fx, a.d, a.lx, a.lu, a.lxx, a.luual, a.glow != 0,
                         a.K, a.k, a.gvec);
-}
-
-// Let a kernel take `bytes` of dynamic shared memory, with the SM's
-// carve-out all shared memory (B2 and the rollout in fp64 fit three and four
-// blocks an SM only so).
-template <typename K>
-int set_smem(K kernel, size_t bytes, bool carveout) {
-  if (cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)bytes))
-    return (int)e;
-  if (carveout)
-    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                     100);
-  return 0;
 }
 
 template <typename T, int NU>
@@ -201,16 +146,6 @@ int launch_riccati(const RiccatiArgs<T>& a, cudaStream_t s) {
 // the carry (R, p, xi) in registers, and copies stage t + 1's inputs into
 // shared memory while it computes stage t: in f32 rollout_kernel, in fp64
 // rollout_f64_kernel (below).
-template <typename T>
-struct RolloutArgs {
-  const T *qR, *qp, *xi, *u;      // nominal trajectory (N+1, ...) and (N, nu, B)
-  const T *k, *K;                 // gains (N, nu, B), (N, nu, 12, B)
-  const T *d, *fqR, *fqp, *fxi;   // nominal linearization (N, ..., B)
-  Consts<T> c;
-  T *oR, *op, *oxi, *ou;          // new trajectory (N+1, ...), controls (N, nu, B)
-  int N, B;
-};
-
 // The entries of one stage in a thread's column: the nominal x_t and
 // x_{t+1}, u_t, the gains, the nominal's defect and dynamics evaluation.
 template <int NU>
@@ -311,17 +246,6 @@ __global__ void __launch_bounds__(kAheadThreads) rollout_kernel(RolloutArgs<T> a
 // f(xbar_t)^-1, first, off the carry's chain (B14's order): the same
 // functions in the same order as rollout_stage.  Its addresses are derived
 // anew each stage (opaque_zero), not held in registers across the loop.
-template <int NU>
-struct RolloutF64Column {
-  // a stage slot: u_t, k_t, the defect d_t, the nominal's evaluation
-  static constexpr int u = 0, k = NU, d = 2 * NU, fqR = d + 12, fqp = fqR + 9, fxi = fqp + 3,
-                       ns = fxi + 6;
-  // an x slot: the nominal state
-  static constexpr int R = 0, p = 9, xi = 12, nx = 18;
-  // the column: K, two stage slots, three x slots
-  static constexpr int K = 0, S = 12 * NU, X = S + 2 * ns, n = X + 3 * nx;
-};
-
 template <int NU>
 constexpr size_t rollout_f64_bytes() {
   return RolloutF64Column<NU>::n * kAheadThreads * sizeof(double);
@@ -473,15 +397,6 @@ int launch_rollout(const RolloutArgs<T>& a, const LinearizeArgs<T>* lin, cudaStr
 // The blocks of B2's (kernel 0) or the rollout's (kernel 1) kernel at nu
 // that an SM holds at once, as launch_riccati and launch_rollout launch
 // them; -1 on an error.
-template <typename K>
-int blocks_per_sm(K kernel, int threads, size_t bytes, bool carveout) {
-  int n = -1;
-  if (set_smem(kernel, bytes, carveout) ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, bytes))
-    return -1;
-  return n;
-}
-
 template <typename T, int NU>
 int occupancy(int kernel) {
   if constexpr (std::is_same<T, double>::value) {

@@ -13,6 +13,7 @@
 //
 // This unit is built once (-DTRAOPT_SUFFIX=mx): its scalar types are fixed.
 #include "common.cuh"
+#include "polish.cuh"
 #include "riccati_group.cuh"
 #include "stage.cuh"
 
@@ -32,19 +33,6 @@ namespace traopt {
 // ahead into shared memory; each stage's fp64 Fx is rounded to f32 once, in
 // shared memory, for the f32 products, and read in fp64 only by the
 // adjoint Q_x = l_x + Fx^T (V_x + V_xx d).
-struct RiccatiMxArgs {
-  const double *Fx, *d, *lx, *lu;  // (N, 12, 12, B), (N, 12, B), (N, 12, B), (N, nu, B)
-  const float *lxx, *luual;        // (N, 12, 12, B), (N, nu, B) or null
-  const double* VxN;               // (12, B) terminal V_x
-  const float* VxxN;               // (12, 12, B) terminal V_xx
-  const double* fu2;               // (6, nu)
-  const float *fu2_32, *Luu;       // (6, nu), (nu, nu)
-  int glow;
-  float *k, *K;                    // (N, nu, B), (N, nu, 12, B)
-  double* gvec;                    // (N, nu, B) = Q_u
-  int N, B;
-};
-
 template <int NU>
 __global__ void __launch_bounds__(kGroupThreads) riccati_mx_kernel(RiccatiMxArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -87,16 +75,6 @@ int launch_riccati_mx(const RiccatiMxArgs& a, cudaStream_t s) {
 // trajectory and the per-stage dynamics evaluations that B7-B9 reuse.
 // What bounds it on an H100: registers (the fp64 B3 already spills) and
 // B / 128 blocks; per stage it reads ~90 values and writes ~40, coalesced.
-struct RolloutMxArgs {
-  const double *qR, *qp, *xi, *u;  // nominal (N+1, ..., B), (N, nu, B)
-  const float *k, *K;              // gains (N, nu, B), (N, nu, 12, B)
-  const double *d, *fqR, *fqp, *fxi;  // nominal linearization (N, ..., B)
-  Consts<double> c;
-  double *oR, *op, *oxi, *ou;      // new trajectory (N+1, ...), controls
-  double *efqR, *efqp, *efxi;      // dynamics evaluations (N, ..., B)
-  int N, B;
-};
-
 template <int NU>
 __global__ void __launch_bounds__(kThreads) rollout_mx_kernel(RolloutMxArgs a) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;

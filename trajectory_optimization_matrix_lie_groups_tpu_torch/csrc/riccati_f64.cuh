@@ -76,7 +76,7 @@ struct Layout64 {
                           ostage = oLuu + align16(NU * NUP * D), oout = ostage + 2 * stage,
                           ogroup = oout + 2 * out, gstride = group_stride(sizeof(Scratch64<NU>)),
                           bytes = ogroup + P * gstride;
-  static_assert(24 * NUP <= pF && NUP <= pd, "K^T, K^T Q_uu and k fit in their rows");
+  static_assert(NUP <= pd, "k fits in its row");
 };
 
 // The block's copy of stage t's inputs into a stage buffer.
@@ -403,6 +403,7 @@ __device__ __forceinline__ void riccati_f64_sweep(unsigned char* smem, int N, in
                                                   const double* lxx, const double* luual,
                                                   bool glow, double* K, double* k, double* gvec) {
   using L = Layout64<NU>;
+  static_assert(24 * L::NUP <= L::pF, "K^T and K^T Q_uu fit in the l_xx row");
   const int tid = threadIdx.x, g = tid / kGroup, l = tid % kGroup;
   const int b0 = blockIdx.x * kProblems;
   riccati_f64_copy<NU>(smem + L::ostage, Fx, d, lx, lu, lxx, luual, N - 1, b0, B, tid);

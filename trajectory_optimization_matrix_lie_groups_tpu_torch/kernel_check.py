@@ -163,15 +163,21 @@ def compare(s, **kw):
 
 
 def polish_inputs(solver, dyn, cost, q0s, xi0s, us0, luu_al=False, seed=0,
-                  kernel_gains=False):
+                  kernel_gains=False, polished=False):
     """A real polish iterate in lane layout: the handoff of ``solver``'s f32
-    phase (a `MixedDFPipelineSolver`) promoted to fp64, its dynamics
-    evaluations and linearization, lu, the terminal carry and the gains of
-    its backward pass (plain versions, or with ``kernel_gains`` B7-B9's and
-    B5's), i.e. every input B5-B9 take.  With ``luu_al``, also a positive
-    (N, nu, B) f32 AL diagonal for Q_uu, drawn from ``seed``."""
+    phase (a `MixedDFPipelineSolver`) promoted to fp64 (with ``polished``,
+    the iterate after ``solver``'s polish of it), its dynamics evaluations
+    and linearization, lu, the terminal carry and the gains of its backward
+    pass (plain versions, or with ``kernel_gains`` B7-B9's and B5's), i.e.
+    every input B5-B9 take.  With ``luu_al``, also a positive (N, nu, B) f32
+    AL diagonal for Q_uu, drawn from ``seed``."""
     qR, qp, xi, us = (x.double() for x in
                       solver._solve_f32(dyn, cost, q0s, xi0s, us0))
+    if polished:
+        st = solver.polish(dyn, cost, qR, qp, xi, us)
+        tl = lambda x: x.movedim(0, -1).contiguous()   # (B, ...) -> (..., B)
+        qR, qp, xi = tl(st.qs[:, :, :3, :3]), tl(st.qs[:, :, :3, 3]), tl(st.xis)
+        us = tl(st.us_hi.double() + st.us_lo)
     consts, refs, consts32 = solver._df_setup(dyn, cost, us.device)
     kw = dict(dt=solver.dt, gravity=solver.gravity)
     evals = DM.dyn_evals_mx(qR, qp, xi, us, consts, **kw)

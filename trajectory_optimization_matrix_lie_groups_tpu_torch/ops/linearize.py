@@ -13,11 +13,14 @@ For every stage, on batch-last lane tensors:
 `stage_dynamics_eval`, `stage_jacobian` and `stage_cost_quad` are the plain
 stage math, shared with the pipeline's rollout.  `linearize_lane` is kernel
 B1's wrapper: CPU tensors take the plain version `linearize_plain` (all N
-stages at once), CUDA tensors the kernel (`csrc/linearize.cu`).
+stages at once), CUDA tensors the kernel (`csrc/linearize.cu`; at nu other
+than 6 and 4 its runtime-nu instance, `csrc/pipeline_nu.cu`).
 `linearize` is the solver-layout wrapper (counterpart of `pallas_linearize`).
 
 Scope: the SE(3) free body, rigid body with gravity and drone + GN tracking.
 """
+
+import types
 
 import torch
 
@@ -198,23 +201,31 @@ def linearize_lane(qR, qp, xi, us, refs, consts, *, dt, gravity=False,
     d (N, 12, B), Fx (N, 12, 12, B), lx, lxx, l (N, 1, B)).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32 or float64), or raise.  On an H100 the kernel is bound by its
-    stores (Fx and lxx, 288 values per stage and problem); it writes each
-    entry once, coalesced over the batch."""
+    (float32 or float64), or raise (nu outside 1..12 before any launch).
+    On an H100 the kernel is bound by its stores (Fx and lxx, 288 values
+    per stage and problem); it writes each entry once, coalesced over the
+    batch.  At nu other than 6 and 4 it launches the runtime-nu instance,
+    counted in ``linearize_lane.nu``: u and Pu padded with zeros to the
+    instance's maximum (6, or 12 past nu = 6), Pu in the block's shared
+    memory (`csrc/nu.cuh`)."""
     kw = dict(dt=dt, gravity=gravity, exact_grav=exact_grav)
     if us.device.type == "cpu":
         return linearize_plain(qR, qp, xi, us, refs, consts, **kw)
+    _build.check_nu("linearize_lane", us.shape[1])
     if us.device.type != "cuda":
         raise ValueError(f"linearize_lane: no kernel for device {us.device}")
-    fn = _build.function("linearize", "linearize", _build.suffix(us.dtype),
-                         _LINEARIZE_ARGS)
+    tuned = us.shape[1] in _build.TUNED_NU
+    fn = _build.function(*(("linearize", "linearize") if tuned else
+                           ("pipeline_nu", "linearize_nu")),
+                         _build.suffix(us.dtype), _LINEARIZE_ARGS)
     out = _linearize_kernel(fn, torch.cuda.current_stream(us.device).cuda_stream,
                             qR, qp, xi, us, refs, consts, **kw)
-    linearize_lane.launches += 1
+    (linearize_lane if tuned else linearize_lane.nu).launches += 1
     return out
 
 
 linearize_lane.launches = 0
+linearize_lane.nu = types.SimpleNamespace(launches=0)
 
 
 def lane_refs(q_ref_inv, Ad_ref, xi_ref):

@@ -26,10 +26,13 @@ backward, B6 the rollout, which emits the next evaluations.
 Each kernel wrapper (`backward_mx_lane`, `rollout_mx_lane`,
 `linearize_tail_mx_lane`) takes the plain version (`*_plain`) for CPU
 tensors and launches the CUDA kernel (`csrc/polish.cu`) for CUDA tensors, or
-raises.  The TPU-only specializations of the JAX polish (small-angle Log,
-truncated Exp series, one-step Newton renormalization, sublane packing) are
-not ported: the port uses the full fp64 `se3_log`, `se3_exp` and
-`so3_normalize`.
+raises; B5 and B6 at nu other than 6 and 4 launch their runtime-nu
+instances (`csrc/polish_nu.cu`), counted apart (each wrapper's
+``nu.launches``), and nu outside 1..12 raises ValueError before any
+launch.  The TPU-only
+specializations of the JAX polish (small-angle Log, truncated Exp series,
+one-step Newton renormalization, sublane packing) are not ported: the port
+uses the full fp64 `se3_log`, `se3_exp` and `so3_normalize`.
 """
 
 import types
@@ -258,19 +261,26 @@ def backward_mx_lane(lin, lu, VxN, VxxN, consts, consts32, *, glow,
 
     On an H100 a group of 16 threads runs one problem's recursion, as B2,
     with the fp64 V_x and f32 V_xx rows of the carry in registers and each
-    stage's inputs copied ahead into shared memory."""
+    stage's inputs copied ahead into shared memory.  At nu other than 6
+    and 4 it launches the runtime-nu instance, counted in
+    ``backward_mx_lane.nu``: the same design with nu a runtime argument
+    (`csrc/nu.cuh`), as `pipeline.backward_lane`'s is B2's."""
     kw = dict(glow=glow, luu_al=luu_al)
     if lu.device.type == "cpu":
         return backward_mx_plain(lin, lu, VxN, VxxN, consts, consts32, **kw)
+    _build.check_nu("backward_mx_lane", lu.shape[1])
     _check_device(lu, "backward_mx_lane")
-    fn = _build.function("polish", "riccati", "mx", _RICCATI_ARGS)
+    tuned = lu.shape[1] in _build.TUNED_NU
+    fn = _build.function(*(("polish", "riccati") if tuned else ("polish_nu", "riccati_nu")),
+                         "mx", _RICCATI_ARGS)
     out = _backward_mx_kernel(fn, _stream(lu), lin, lu, VxN, VxxN, consts,
                               consts32, **kw)
-    backward_mx_lane.launches += 1
+    (backward_mx_lane if tuned else backward_mx_lane.nu).launches += 1
     return out
 
 
 backward_mx_lane.launches = 0
+backward_mx_lane.nu = types.SimpleNamespace(launches=0)
 
 
 def rollout_mx_lane(qR, qp, xi, us, k32, K32, lin, consts, *, dt, gravity):
@@ -285,18 +295,37 @@ def rollout_mx_lane(qR, qp, xi, us, k32, K32, lin, consts, *, dt, gravity):
 
     On an H100 one thread per problem walks the stages with the fp64 carry
     in registers; the fp64 state and the dynamics evaluation press on the
-    register file."""
+    register file.  At nu other than 6 and 4 it launches the runtime-nu
+    instance, counted in ``rollout_mx_lane.nu``: u, k and K zero past nu in
+    registers, Pu padded in the block's shared memory (`csrc/nu.cuh`)."""
     kw = dict(dt=dt, gravity=gravity)
     if us.device.type == "cpu":
         return rollout_mx_plain(qR, qp, xi, us, k32, K32, lin, consts, **kw)
+    _build.check_nu("rollout_mx_lane", us.shape[1])
     _check_device(us, "rollout_mx_lane")
+    tuned = us.shape[1] in _build.TUNED_NU
+    fn = _build.function(*(("polish", "rollout") if tuned else ("polish_nu", "rollout_nu")),
+                         "mx", _ROLLOUT_ARGS)
+    out = _rollout_mx_kernel(fn, _stream(us), qR, qp, xi, us, k32, K32, lin, consts,
+                             **kw)
+    (rollout_mx_lane if tuned else rollout_mx_lane.nu).launches += 1
+    return out
+
+
+rollout_mx_lane.launches = 0
+rollout_mx_lane.nu = types.SimpleNamespace(launches=0)
+
+
+def _rollout_mx_kernel(fn, stream, qR, qp, xi, us, k32, K32, lin, consts, *, dt,
+                       gravity):
+    """Check the arguments, allocate the outputs and launch B6 through the C
+    entry point ``fn`` on ``stream``."""
     N, nu, B = us.shape
     a = lambda t, shape, name, dt_=F64: _build.arg(t, shape, us, name, dtype=dt_)
     e = lambda *shape: torch.empty(shape, dtype=F64, device=us.device)
     oR, op, oxi, ou = e(N + 1, 3, 3, B), e(N + 1, 3, B), e(N + 1, 6, B), e(N, nu, B)
     ev = (e(N, 3, 3, B), e(N, 3, B), e(N, 6, B))
     c = consts
-    fn = _build.function("polish", "rollout", "mx", _ROLLOUT_ARGS)
     err = fn(a(qR, (N + 1, 3, 3, B), "qR"), a(qp, (N + 1, 3, B), "qp"),
              a(xi, (N + 1, 6, B), "xi"), a(us, (N, nu, B), "us"),
              a(k32, (N, nu, B), "k32", F32), a(K32, (N, nu, NX, B), "K32", F32),
@@ -305,13 +334,9 @@ def rollout_mx_lane(qR, qp, xi, us, k32, K32, lin, consts, *, dt, gravity):
              a(c["J"], (6, 6), "J"), a(c["Jinv"], (6, 6), "Jinv"),
              a(c["Pu"], (6, nu), "Pu"), float(c["mg"]), float(dt), int(gravity),
              *(a(o, o.shape, "out") for o in (oR, op, oxi, ou) + ev),
-             N, nu, B, _build.device_index(us), _stream(us))
+             N, nu, B, _build.device_index(us), stream)
     _build.check(err, "rollout_mx")
-    rollout_mx_lane.launches += 1
     return oR, op, oxi, ou, ev
-
-
-rollout_mx_lane.launches = 0
 
 
 def linearize_tail_mx_lane(qR, qp, xi, evals, refs, consts, *, dt, gravity,
@@ -369,10 +394,12 @@ linearize_tail_mx_lane.launches = 0
 # B8's count: the launches of the tail kernel that computed Fx
 linearize_tail_mx_lane.with_fx = types.SimpleNamespace(launches=0)
 
-# B7, B8 and B9 are one kernel; each keeps its name and count
+# B7, B8 and B9 are one kernel; each keeps its name and count.  B5 and B6
+# at nu other than 6 and 4: their runtime-nu instances, counted apart.
 KERNELS = {"B5": backward_mx_lane, "B6": rollout_mx_lane,
            "B7": linearize_tail_mx_lane, "B8": linearize_tail_mx_lane.with_fx,
-           "B9": linearize_tail_mx_lane}
+           "B9": linearize_tail_mx_lane, "B5nu": backward_mx_lane.nu,
+           "B6nu": rollout_mx_lane.nu}
 
 
 # -- the solver -------------------------------------------------------------------

@@ -16,10 +16,16 @@ positive definite: R > 0).  Fu and Luu are constant and Lux = 0.
 Each kernel wrapper (`backward_lane`, `rollout_lane`,
 `rollout_linearize_lane`) takes the plain version (`*_plain`, a Python loop
 over stages) for CPU tensors and launches the CUDA kernel
-(`csrc/pipeline.cu`) for CUDA tensors, or raises.
+(`csrc/pipeline.cu`) for CUDA tensors, or raises.  The tuned kernels take
+nu = 6 and 4; at every other nu up to 12 the same wrappers launch the
+runtime-nu instances (`csrc/pipeline_nu.cu`) and count them apart (each
+wrapper's ``nu.launches``), and nu outside 1..12 raises ValueError before
+any launch.
 """
 
 from typing import NamedTuple
+
+import types
 
 import torch
 
@@ -182,14 +188,24 @@ def backward_plain(lin, lu, qR, qp, xi, refs, consts, *, glow, luu_al=None):
 
 _P, _I = _build.PTR, _build.INT
 _RICCATI_ARGS = [_P] * 17 + [_I] + [_P] * 4 + [_I] * 4 + [_P]
+# the runtime-nu entry also takes the fp64 terminal hand-off (48, B)
+_RICCATI_NU_ARGS = _RICCATI_ARGS + [_P]
 
 
 def _backward_kernel(fn, stream, lin, lu, qR, qp, xi, refs, consts, *, glow,
-                     luu_al):
+                     luu_al, hand=False):
+    """Check the arguments, allocate the outputs and launch B2 through the C
+    entry point ``fn`` on ``stream``; ``hand``: ``fn`` is the runtime-nu
+    entry, which also takes the (48, B) array its fp64 terminal
+    quadratization hands over in (allocated here; none in f32)."""
     N, nu, B = lu.shape
     a = lambda t, shape, name: _build.arg(t, shape, lu, name)
     e = lambda *shape: torch.empty(shape, dtype=lu.dtype, device=lu.device)
     k, K, gvec, lN = e(N, nu, B), e(N, nu, NX, B), e(N, nu, B), e(B)
+    extra = []
+    if hand:
+        hand = e(48, B) if lu.dtype == torch.float64 else None  # alive until the launch
+        extra = [None if hand is None else a(hand, (48, B), "hand")]
     err = fn(a(lin["Fx"], (N, NX, NX, B), "Fx"), a(lin["d"], (N, NX, B), "d"),
              a(lin["lx"], (N, NX, B), "lx"), a(lu, (N, nu, B), "lu"),
              a(lin["lxx"], (N, NX, NX, B), "lxx"),
@@ -204,7 +220,7 @@ def _backward_kernel(fn, stream, lin, lu, qR, qp, xi, refs, consts, *, glow,
              a(consts["fu2"], (6, nu), "fu2"), a(consts["Luu"], (nu, nu), "Luu"),
              int(glow), a(k, k.shape, "k"), a(K, K.shape, "K"),
              a(gvec, gvec.shape, "gvec"), a(lN, lN.shape, "lN"),
-             N, nu, B, _build.device_index(lu), stream)
+             N, nu, B, _build.device_index(lu), stream, *extra)
     _build.check(err, "riccati")
     return k, K, gvec, lN
 
@@ -227,21 +243,33 @@ def backward_lane(lin, lu, qR, qp, xi, refs, consts, *, glow, luu_al=None):
     copied there one stage ahead.  In fp64 the terminal quadratization runs
     first, a thread a problem, and each lane of the group computes a 3 x 3
     block of every 12 x 12 product, V_xx between stages in shared memory:
-    two kernels on the caller's stream, counted as one launch."""
+    two kernels on the caller's stream, counted as one launch.
+
+    At nu other than 6 and 4 it launches the runtime-nu instance, counted in
+    ``backward_lane.nu``: the same design with nu a runtime argument
+    (`csrc/nu.cuh`): every per-lane array sized for the instance's maximum
+    (6, or 12 past nu = 6), fu2 and Luu padded in shared memory so that the
+    dimensions past nu contribute exact zeros, the stage copies and stores
+    of the (N, nu, ...) arrays at the runtime nu; in fp64 the terminal
+    quadratization hands over in a (48, B) array of its own."""
     kw = dict(glow=glow, luu_al=luu_al)
     if lu.device.type == "cpu":
         return backward_plain(lin, lu, qR, qp, xi, refs, consts, **kw)
+    _build.check_nu("backward_lane", lu.shape[1])
     if lu.device.type != "cuda":
         raise ValueError(f"backward_lane: no kernel for device {lu.device}")
-    fn = _build.function("pipeline", "riccati", _build.suffix(lu.dtype),
-                         _RICCATI_ARGS)
+    tuned = lu.shape[1] in _build.TUNED_NU
+    fn = (_build.function("pipeline", "riccati", _build.suffix(lu.dtype), _RICCATI_ARGS)
+          if tuned else _build.function("pipeline_nu", "riccati_nu",
+                                        _build.suffix(lu.dtype), _RICCATI_NU_ARGS))
     out = _backward_kernel(fn, torch.cuda.current_stream(lu.device).cuda_stream,
-                           lin, lu, qR, qp, xi, refs, consts, **kw)
-    backward_lane.launches += 1
+                           lin, lu, qR, qp, xi, refs, consts, hand=not tuned, **kw)
+    (backward_lane if tuned else backward_lane.nu).launches += 1
     return out
 
 
 backward_lane.launches = 0
+backward_lane.nu = types.SimpleNamespace(launches=0)
 
 
 # -- rollout ------------------------------------------------------------------
@@ -373,6 +401,12 @@ def _rollout_kernel(fn, stream, qR, qp, xi, us, k, K, lin, refs, consts, *,
     return oR, op, oxi, ou, new
 
 
+def _rollout_entry(tuned):
+    """(unit, entry) of B3's and B4's C entry: the tuned instances' or the
+    runtime-nu ones'."""
+    return ("pipeline", "rollout") if tuned else ("pipeline_nu", "rollout_nu")
+
+
 def rollout_lane(qR, qp, xi, us, k, K, lin, consts, *, dt, gravity=False):
     """Kernel B4 (replaces `solvers/pipeline.py::_rollout_kernel_lane` as
     called by `PallasPipelineSolver._rollout_lane`).
@@ -386,22 +420,30 @@ def rollout_lane(qR, qp, xi, us, k, K, lin, consts, *, dt, gravity=False):
     (R, p, xi) in registers, on blocks of one warp, and copies the next
     stage's ~150 inputs into shared memory while it computes a stage (in
     fp64 each input once: the nominal states in a ring of three, K in the
-    slot the feedback has just read)."""
+    slot the feedback has just read).
+
+    At nu other than 6 and 4 it launches the runtime-nu instance, counted in
+    ``rollout_lane.nu``: in f32 and fp64 alike the fp64 rollout's design
+    with nu a runtime argument (`csrc/nu.cuh`): each stage input copied once
+    into the thread's shared-memory column and read where it is used, u, k
+    and K zero past nu there, Pu padded in shared memory."""
     kw = dict(dt=dt, gravity=gravity)
     if us.device.type == "cpu":
         return rollout_plain(qR, qp, xi, us, k, K, lin, consts, **kw)
+    _build.check_nu("rollout_lane", us.shape[1])
     if us.device.type != "cuda":
         raise ValueError(f"rollout_lane: no kernel for device {us.device}")
-    fn = _build.function("pipeline", "rollout", _build.suffix(us.dtype),
-                         _ROLLOUT_ARGS)
+    tuned = us.shape[1] in _build.TUNED_NU
+    fn = _build.function(*_rollout_entry(tuned), _build.suffix(us.dtype), _ROLLOUT_ARGS)
     out = _rollout_kernel(fn, torch.cuda.current_stream(us.device).cuda_stream,
                           qR, qp, xi, us, k, K, lin, None, consts,
                           exact_grav=False, fused=False, **kw)
-    rollout_lane.launches += 1
+    (rollout_lane if tuned else rollout_lane.nu).launches += 1
     return out[:4]
 
 
 rollout_lane.launches = 0
+rollout_lane.nu = types.SimpleNamespace(launches=0)
 
 
 def rollout_linearize_lane(qR, qp, xi, us, k, K, lin, refs, consts, *, dt,
@@ -418,26 +460,34 @@ def rollout_linearize_lane(qR, qp, xi, us, k, K, lin, refs, consts, *, dt,
     per problem and stage), so the linearization's stores (Fx and lxx, 288
     values per stage) do not wait behind the rollout's serial chain.  The
     values are the fused loop's: the same stage functions on the same
-    inputs."""
+    inputs.  At nu other than 6 and 4: the runtime-nu instances of both
+    phases (`rollout_lane`'s and `linearize_lane`'s), counted in
+    ``rollout_linearize_lane.nu``."""
     kw = dict(dt=dt, gravity=gravity, exact_grav=exact_grav)
     if us.device.type == "cpu":
         return rollout_linearize_plain(qR, qp, xi, us, k, K, lin, refs, consts,
                                        **kw)
+    _build.check_nu("rollout_linearize_lane", us.shape[1])
     if us.device.type != "cuda":
         raise ValueError(f"rollout_linearize_lane: no kernel for device {us.device}")
-    fn = _build.function("pipeline", "rollout", _build.suffix(us.dtype),
-                         _ROLLOUT_ARGS)
+    tuned = us.shape[1] in _build.TUNED_NU
+    fn = _build.function(*_rollout_entry(tuned), _build.suffix(us.dtype), _ROLLOUT_ARGS)
     out = _rollout_kernel(fn, torch.cuda.current_stream(us.device).cuda_stream,
                           qR, qp, xi, us, k, K, lin, refs, consts, fused=True,
                           **kw)
-    rollout_linearize_lane.launches += 1
+    (rollout_linearize_lane if tuned else rollout_linearize_lane.nu).launches += 1
     return out
 
 
 rollout_linearize_lane.launches = 0
+rollout_linearize_lane.nu = types.SimpleNamespace(launches=0)
 
+
+# the tuned instances (nu = 6 and 4) and the runtime-nu ones, each counted
 KERNELS = {"B1": linearize_lane, "B2": backward_lane,
-           "B3": rollout_linearize_lane, "B4": rollout_lane}
+           "B3": rollout_linearize_lane, "B4": rollout_lane,
+           "B1nu": linearize_lane.nu, "B2nu": backward_lane.nu,
+           "B3nu": rollout_linearize_lane.nu, "B4nu": rollout_lane.nu}
 
 
 # -- the solver ---------------------------------------------------------------

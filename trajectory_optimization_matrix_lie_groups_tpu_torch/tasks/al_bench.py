@@ -15,6 +15,15 @@ R = 1e-3 I (the pipeline's Cholesky needs Quu > 0) and no box.  Its f64
 golden (`golden/screw200_us.npy`, `golden/screw200_meta.json`) comes from
 the JAX package's f64 engine (`scripts/gen_torch_port_golden.py`); the
 JAX anchored tier's accuracy on it is in `golden/screw200_anchored_meta.json`.
+
+`build_screw200_nu` puts the same tracking problem on a rigid body driven
+through an input projection Pu (6, nu), with g = 0 and R = 1e-2 I: the
+rigid-body family (`gravity=True` in the pipelines) is how Pu reaches the
+solvers.  Its two named cases, with goldens from
+`scripts/gen_torch_port_golden_nu.py` (`load_nu_golden`), are
+`screw200_torques3` (three body torques, Pu = [I3; 0], nu = 3) and
+`screw200_rcs12` (a 12-thruster reaction-control layout, `rcs12_pu`,
+nu = 12).
 """
 
 import json
@@ -28,7 +37,9 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import make
 from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SE3
 
 __all__ = ["build_al1400", "build_screw200", "screw200_model", "screw_batch",
-           "load_screw200_golden", "load_screw200_anchored_meta", "load_al1400_golden"]
+           "load_screw200_golden", "load_screw200_anchored_meta", "load_al1400_golden",
+           "torques3_pu", "rcs12_pu", "nu_pu", "build_screw200_nu", "NU_PROBLEMS",
+           "load_nu_golden"]
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
@@ -92,6 +103,64 @@ def screw200_model(dtype=torch.float64, device=torch.device("cuda"), horizon=200
         model, params = make_model(dynamics.se3_dynamics(),
                                    costs.tracking_cost(SE3, 6), dyn, cost)
     return model, params, q0, xi0
+
+
+def torques3_pu():
+    """Pu = [I3; 0] (6, 3), f64 numpy: three body torques."""
+    return np.vstack([np.eye(3), np.zeros((3, 3))])
+
+
+def rcs12_pu():
+    """A 12-thruster reaction-control layout (6, 12), f64 numpy: for each
+    axis a in (x, y, z), each sign s in (+1, -1) and each offset o in
+    (+0.5, -0.5) along axis b = (a + 1) mod 3, in that order, the thruster
+    of direction d = s e_a at r = o e_b, column [r x d; d].  Rank 6."""
+    eye = np.eye(3)
+    cols = [np.concatenate([np.cross(o * eye[(a + 1) % 3], s * eye[a]), s * eye[a]])
+            for a in range(3) for s in (1.0, -1.0) for o in (0.5, -0.5)]
+    return np.stack(cols, axis=1)
+
+
+def nu_pu(nu):
+    """The input projection (6, nu), f64 numpy, that the checks at input
+    dimension nu take: the first nu columns of I6 up to nu = 6 (nu = 3:
+    `torques3_pu`), I6 and the first nu - 6 thrusters of `rcs12_pu` past it,
+    and `rcs12_pu` at nu = 12.  (The first 1, 5 or 8 thrusters alone act on
+    too few directions: the polish does not converge on them, and at its
+    iterates the f32 roundings that kernel and plain version order
+    differently reach B5's Q_u at up to 1e-6, in the tuned instance (nu = 4,
+    6) as in the runtime-nu one: `scripts/nu_instances.py`.)"""
+    if nu == 12:
+        return rcs12_pu()
+    eye = np.eye(6)
+    return eye[:, :nu] if nu <= 6 else np.hstack([eye, rcs12_pu()[:, :nu - 6]])
+
+
+def build_screw200_nu(Pu, dtype=torch.float64, device=torch.device("cuda"), horizon=200):
+    """`build_screw200`'s tracking problem on a rigid body driven through
+    ``Pu`` (6, nu), with g = 0, the exact gravity Jacobian (zero at g = 0)
+    and R = 1e-2 I (the value the goldens of `NU_PROBLEMS` were made with),
+    on ``device`` (the card unless asked for another); solve it with
+    ``gravity=True, exact_gravity_jacobian=True``.
+    Returns (dyn, cost, q0, xi0)."""
+    dyn, cost, q0, xi0 = build_screw200(dtype, device, horizon)
+    Pu = torch.as_tensor(np.asarray(Pu), dtype=dtype, device=device)
+    dyn = dynamics.rigid_body_params(dyn.J, dyn.dt, g=0.0, Pu=Pu,
+                                     exact_gravity_jacobian=True)
+    cost.R = 1e-2 * torch.eye(Pu.shape[1], dtype=dtype, device=device)
+    return dyn, cost, q0, xi0
+
+
+# the named problems of `build_screw200_nu`: name -> input projection
+NU_PROBLEMS = {"screw200_torques3": torques3_pu, "screw200_rcs12": rcs12_pu}
+
+
+def load_nu_golden(name):
+    """(us (200, nu) f64 numpy, meta dict) of the committed f64 golden of a
+    problem of `NU_PROBLEMS`."""
+    us = np.load(os.path.join(GOLDEN_DIR, f"{name}_us.npy"))
+    with open(os.path.join(GOLDEN_DIR, f"{name}_meta.json")) as f:
+        return us, json.load(f)
 
 
 def screw_batch(q0, xi0, B, seed, scale=0.05):
