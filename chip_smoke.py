@@ -141,7 +141,7 @@ Phases, each printed as one JSON line:
   timing_al     the times of these paths: the f32 AL loop, each polish
                 (solve and dual ascent apart), the AL fast tier and MPC
                 solves/s (B T / wall).
-  solve_exact_al  `ALILQR` on the AL problem's first 200 stages (box +-10,
+  solve_exact_al  `ALILQR` on the AL problem's first 100 stages (box +-10,
                 R = 0), B = 256: every lane below
                 violation 1e-2, |u| <= 10 (1 + 1e-3), lane 0's tracking J
                 within 1e-4 of `ALFastSolver`'s in f64 on the same lane
@@ -199,33 +199,39 @@ Phases, each printed as one JSON line:
                 a stack frame); one `DFPipelineSolver` solve, its f32 and
                 fp64 phases counted apart, lane 0 within 1e-4 of the
                 golden, and the solve's median time (3 reps);
-  kernels_nu    the instances of B1-B6 at any input dimension nu = 1..12
-                (`csrc/pipeline_nu.cu`, `polish_nu.cu`): (a) B1-B4 (f32 and
-                fp64) and B5-B6 against their plain versions at nu = 1, 3,
-                5, 8, 12 (N = 200, B = 1024, on a real iterate of the rigid
-                body driven through `al_bench.nu_pu(nu)`, g = 0: B1-B4
-                after two f32 iterations, B5-B6 at the polish's second
-                iteration, after 12 f32 iterations and one polish
-                iteration), each with its time, plain time, bound and
-                share, the tuned instances' times at nu = 6 on the same
-                shapes beside them, B5's runtime-nu instance equal to the
+  kernels_nu    the instances of B1-B6 at any input dimension nu = 1..
+                MAX_NU (`csrc/pipeline_nu.cu`, `polish_nu.cu`: nu.cuh up to
+                12, nu_large.cuh past it): (a) B1-B4 (f32 and fp64) and
+                B5-B6 against their plain versions at nu = 1, 3, 5, 8, 12,
+                13, 16, 24 and MAX_NU (B = 1024, on a real iterate of the
+                rigid body driven through `al_bench.nu_pu(nu)`, g = 0:
+                B1-B4 after two f32 iterations, B5-B6 at the polish's
+                second iteration, after 12 f32 iterations and one polish
+                iteration; compared at N = 40, but the kernels line's rows
+                (nu = 3 and 16: B1-B4 in f32, B5, B6) at N = 200, and
+                timed at N = 200), each with its time, plain time,
+                bound and share, the tuned instances' times at nu = 6 on
+                the same shapes beside them, B5's runtime-nu instance equal to the
                 tuned one at nu = 4 and 6 on a rough iterate (2 f32
                 iterations on the first 4 or 6 thrusters of
                 `al_bench.rcs12_pu`), the blocks an SM holds of B2's and
-                the rollout's instances and their ptxas lines; (b) the two
+                the rollout's instances and their ptxas lines; (b) the four
                 problems of `al_bench.NU_PROBLEMS` (screw200_torques3, nu =
-                3; screw200_rcs12, nu = 12) through the f32 path (B = 8192,
+                3; screw200_rcs12, nu = 12; screw200_rcs16, nu = 16;
+                screw200_rcs24, nu = 24) through the f32 path (B = 8192,
                 12 iterations; unfused at B = 256, as solve_f32's B4), the
                 polish (B = 16384) and the fp64 refiner
                 (B = 16384), each with its golden's schedule, counted (only
-                the runtime-nu instances launch), lane 0 within 10 x the
-                JAX f32 pipeline's error, 1e-4 and 1e-6 of the golden,
-                every lane finite, then timed on a new batch; (c) every nu
-                from 1 to 12 (B = 64, N = 40, 2 f32 iterations) through
-                `PipelineSolver` fused and unfused in f32 and f64,
-                `MixedDFPipelineSolver` and `DFPipelineSolver`, counted
-                (nu = 6 and 4 on the tuned instances, every other nu on the
-                runtime-nu ones), fused against unfused J, all finite;
+                the runtime-nu or large-nu instances launch), lane 0 within
+                10 x the JAX f32 pipeline's error, 1e-4 and 1e-6 of the
+                golden, every lane finite, then timed on a new batch; (c)
+                every nu from 1 to 12, and 13, 16, 24 and MAX_NU (B = 64,
+                N = 40, 2 f32 iterations) through `PipelineSolver` fused
+                and unfused in f32 and f64, `MixedDFPipelineSolver` and
+                `DFPipelineSolver`, counted (nu = 6 and 4 on the tuned
+                instances, every other nu up to 12 on the runtime-nu ones,
+                past 12 on the large-nu ones), fused against unfused J, all
+                finite; each part's seconds;
   solve_errstate  each of the three CLI problems (errstate_tracking,
                 errstate_generate, errstate_generate_linear) against its
                 JAX f64 golden (`golden/errstate_*`): the same iterations
@@ -284,9 +290,9 @@ larger of the bytes it must move (each array it reads once, each output
 written once) over 3.35 TB/s and its operations over 67 TFLOP/s (f32) or
 34 TFLOP/s (fp64), counted on this run's inputs (`kernel_check.work`).
 Then the kernels summary line, one entry for each of B1-B14, B13's
-runtime-shape instance (B13any) and the runtime-nu instances of B1-B6
-(B1nu-B6nu: their times at nu = 3, f32 for B1-B4, B = 1024; launches from
-kernels_nu's part (b)) (B2's times at B=8192; launches of B1-B3
+runtime-shape instance (B13any) and the runtime-nu and large-nu instances
+of B1-B6 (B1nu-B6nu and B1nuL-B6nuL: their times at nu = 3 and 16, f32 for
+B1-B4, N = 200, B = 1024; launches from kernels_nu's part (b)) (B2's times at B=8192; launches of B1-B3
 from the fused f32 run, of B4 from the unfused run, of B5-B9 from the
 polish run, of B10-B12 from the free-attitude run, of B13 and B14 from the
 free-body fast run, of B13any from the (12, 3) solve, each named in "run";
@@ -373,9 +379,11 @@ MPC_HOST_STEPS, MPC_HOST_LANES, MPC_RESCUE_T, MPC_RESCUE_OUTERS = 5, 4, 5, 1
 # 1.6e-6 from so3_track249's golden), lanes 0..3 against B = 1 solves
 EXACT_PROBLEMS = ("so3_track249", "pendulum_swingup80", "screw200")
 EXACT_BATCH, EXACT_LANES, EXACT_MAX_ITERS, EXACT_GATE = 1024, 4, 100, 1e-6
-# ALILQR on the AL problem's first 200 stages (box +-10, R = 0), B = 256,
-# the inner to `SolverConfig`'s default tolerance (1e-6)
-EXACT_AL_N, EXACT_AL_BATCH, EXACT_AL_OUTERS, EXACT_AL_INNERS = 200, 256, 20, 100
+# ALILQR on the AL problem's first 100 stages (box +-10, R = 0; the box
+# binds in its first 10), B = 256, the inner to `SolverConfig`'s default
+# tolerance (1e-6); 200 stages before the large-nu rows of kernels_nu came
+# (its two host-bound solves, ALILQR's and the f64 AL fast tier's, follow N)
+EXACT_AL_N, EXACT_AL_BATCH, EXACT_AL_OUTERS, EXACT_AL_INNERS = 100, 256, 20, 100
 # make_closed_loop on screw-200: 4 plants, H = 40, T = 50 (100 before the
 # error-state and sweep phases came), each window to
 # the default tolerance within the batch drivers' 4 iterations a step, plant
@@ -412,15 +420,22 @@ ANY_PARENT_MS = {"6x2 float32 B=8192": 13.206645965576172,
                  "12x3 float64 B=1024": 103.24589029947917,
                  "12x12 float64 B=1024": 284.1482340494792}
 # the instances of B1-B6 at any input dimension (kernels_nu, --nu): each
-# against its plain version at NU_CHECK on a real iterate (N = 200,
-# B = NU_CHECK_BATCH); the two problems of `al_bench.NU_PROBLEMS` on the f32
-# path (NU_F32_BATCH, ITERS iterations), the polish and the fp64 refiner
+# against its plain version at NU_CHECK on a real iterate (B =
+# NU_CHECK_BATCH); the problems of `al_bench.NU_PROBLEMS` on the f32 path
+# (NU_F32_BATCH, ITERS iterations), the polish and the fp64 refiner
 # (NU_POLISH_BATCH, each golden's schedule), lane 0 within 10 x the JAX f32
 # pipeline's error, POLISH_GATE and NU_REFINE_GATE of the golden; every nu
 # from 1 to 12 through the four solvers at NU_SWEEP = (B, N, f32 iterations)
 NU_CHECK, NU_CHECK_BATCH = (1, 3, 5, 8, 12), 1024
 NU_F32_BATCH, NU_POLISH_BATCH, NU_REFINE_GATE = 8192, 16384, 1e-6
 NU_SWEEP = (64, 40, 2)
+# the large-nu instances (past 12; the largest, _build.MAX_NU, added in
+# nu_phase), the per-nu sweep at these nu too.  Every row of part (a) is
+# timed at N = 200 and compared with its plain version at N = NU_PLAIN_N
+# (the plain versions, Python loops over the stages, take 1-5 s a call at
+# N = 200; every row compared at 200 before the large-nu rows came), but
+# the kernels line's rows (nu = LINE_NU: B1-B4 in f32, B5, B6) at N = 200
+NU_CHECK_LARGE, NU_PLAIN_N, LINE_NU = (13, 16, 24), 40, (3, 16)
 # B5's runtime-nu instance against the tuned one, both at nu = 4 and 6 on
 # the same iterate: identical (max_rel, every output)
 NU_TWIN_GATE = 1e-12
@@ -524,6 +539,18 @@ KERNELS = {
              "trajectory_optimization_matrix_lie_groups_tpu/solvers/df_mixed.py:285"),
     "B6nu": ("mixed rollout, runtime nu", "csrc/polish_nu.cu",
              "trajectory_optimization_matrix_lie_groups_tpu/solvers/df_mixed.py:391"),
+    "B1nuL": ("linearize, large nu", "csrc/pipeline_nu.cu",
+              "trajectory_optimization_matrix_lie_groups_tpu/ops/pallas_linearize.py:123"),
+    "B2nuL": ("riccati backward, large nu", "csrc/pipeline_nu.cu",
+              "trajectory_optimization_matrix_lie_groups_tpu/solvers/pipeline.py:189"),
+    "B3nuL": ("rollout + linearize, large nu", "csrc/pipeline_nu.cu",
+              "trajectory_optimization_matrix_lie_groups_tpu/solvers/pipeline.py:304"),
+    "B4nuL": ("rollout, large nu", "csrc/pipeline_nu.cu",
+              "trajectory_optimization_matrix_lie_groups_tpu/solvers/pipeline.py:274"),
+    "B5nuL": ("mixed riccati backward, large nu", "csrc/polish_nu.cu",
+              "trajectory_optimization_matrix_lie_groups_tpu/solvers/df_mixed.py:285"),
+    "B6nuL": ("mixed rollout, large nu", "csrc/polish_nu.cu",
+              "trajectory_optimization_matrix_lie_groups_tpu/solvers/df_mixed.py:391"),
 }
 PKG = "trajectory_optimization_matrix_lie_groups_tpu_torch"
 
@@ -1140,7 +1167,7 @@ def exact_phases(dev, card, counted, expect, rates, pool):
                     "the associative/linear solve launched a kernel")
         del st
 
-    # -- solve_exact_al: ALILQR on the AL problem's first 200 stages ---------
+    # -- solve_exact_al: ALILQR on the AL problem's first EXACT_AL_N stages ---
     al_p, lb, ub, aq0, axi0 = al_bench.build_al1400(f64, EXACT_AL_N, dev)[:5]
     dt_al = float(al_p["dyn"].dt)
     aq0s, axi0s = al_bench.screw_batch(aq0, axi0, EXACT_AL_BATCH, SEED)
@@ -1551,15 +1578,17 @@ def refine_phase(dev, card, counted, expect):
 
 
 def nu_phase(dev, card, counted, expect):
-    """`kernels_nu` (module docstring): (a) the runtime-nu instances of B1-B6
-    against their plain versions at NU_CHECK (N = 200, B = NU_CHECK_BATCH)
-    with times, bounds, occupancy and ptxas lines, and B5's against the
-    tuned B5 at nu = 4 and 6 on a rough iterate; (b) the two full-width
-    problems of `al_bench.NU_PROBLEMS` on the f32 path, the polish and the
-    fp64 refiner, counted, lane 0 against each golden; (c) every nu from 1
-    to 12 through the four solvers at NU_SWEEP's size, counted.  Returns
-    ({kernel: launches in (b)}, {kernel: its entry of the kernels line, at
-    nu = 3: f32 where it has an f32 instance})."""
+    """`kernels_nu` (module docstring): (a) the runtime-nu and large-nu
+    instances of B1-B6 against their plain versions at NU_CHECK and
+    NU_CHECK_LARGE and MAX_NU (B = NU_CHECK_BATCH) with times, bounds,
+    occupancy and ptxas lines, and B5's against the tuned B5 at nu = 4 and 6
+    on a rough iterate; (b) the full-width problems of `al_bench.NU_PROBLEMS`
+    on the f32 path, the polish and the fp64 refiner, counted, lane 0
+    against each golden; (c) every nu from 1 to 12 and the large ones
+    through the four solvers at NU_SWEEP's size, counted.  Returns
+    ({kernel: launches in (b)}, {kernel: its entry of the kernels line: the
+    runtime-nu instances' at nu = 3, the large-nu ones' at nu = 16, f32
+    where they have an f32 instance})."""
     from trajectory_optimization_matrix_lie_groups_tpu_torch import _build, kernel_check
     from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
     from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
@@ -1570,20 +1599,25 @@ def nu_phase(dev, card, counted, expect):
     from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench
 
     grav = dict(gravity=True, exact_gravity_jacobian=True)
-    nu_keys = {"B1": "B1nu", "B2": "B2nu", "B2_al": "B2nu", "B3": "B3nu", "B4": "B4nu",
-               "B5": "B5nu", "B5_al": "B5nu", "B6": "B6nu"}
+    base = {"B1": "B1", "B2": "B2", "B2_al": "B2", "B3": "B3", "B4": "B4", "B5": "B5",
+            "B5_al": "B5", "B6": "B6"}
+    # the counted instance at nu: runtime-nu ("nu") up to 12, large-nu past it
+    sfx = lambda nu: "" if nu in _build.TUNED_NU else ("nu" if nu <= _build.MU_MAX_NU else "nuL")
     nu_pipe = ("B1", "B2", "B2_al", "B3", "B4")
     failed = []  # the checks that failed, required after the phase's line
+    parts_s = {"s": time.perf_counter()}  # the start and each part's end, host clock
 
     def check(cond, what):
         if not cond:
             failed.append(what)
 
-    def row(name, kern, plain, s, outputs, gate):
+    def row(name, nu, kern, plain, s, outputs, gate, timing=None):
         """One kernel against its plain version: errors per output, the
         kernel's time by CUDA events (mean of 3, after the checked call), the
         plain version's on the host clock around the one call compared, the
-        bound and its share."""
+        bound and its share.  ``timing``: (kernel call, inputs) at N = 200
+        when the comparison runs at a smaller depth; the time and the bound
+        are then of that call."""
         named = lambda o: (dict(zip(outputs, kernel_check._flat(o))) if name in nu_pipe
                            else kernel_check._named(o, outputs))
         kout = kern()
@@ -1591,68 +1625,95 @@ def nu_phase(dev, card, counted, expect):
         a, b = named(kout), named(pout)
         per = {o: kernel_check.rel_err(a[o], b[o]) for o in outputs}
         gates = gate if isinstance(gate, dict) else {o: gate for o in outputs}
-        ms = event_ms(kern, 3)
         r = {"max_err": max(per.values()),
              "max_abs_err": max((a[o].double() - b[o].double()).abs().max().item()
                                 for o in outputs),
-             "per_output": per, "gate": gate, "ms": ms, "plain_ms": plain_s * 1e3,
-             **bound(name, s, kout), "library_ms": None}
-        r["bound_share"] = r["bound_ms"] / ms
-        failed.extend(f"{nu_keys[name]} {name} {o}: {per[o]} > {gates[o]}"
+             "per_output": per, "gate": gate, "N_check": s["us"].shape[0],
+             "plain_ms": plain_s * 1e3, "library_ms": None}
+        del a, b, pout
+        if timing is not None:
+            kern, s = timing
+            kout = kern()
+        r.update(ms=event_ms(kern, 3), N_timed=s["us"].shape[0], **bound(name, s, kout))
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        failed.extend(f"{base[name]}{sfx(nu)} {name} nu={nu} {o}: {per[o]} > {gates[o]}"
                       for o in outputs if not per[o] <= gates[o])
         return r
 
-    # (a) each instance against its plain version on real iterates
+    def problem(nu, dtype, n):
+        """The rigid body driven through `al_bench.nu_pu(nu)` at depth n:
+        (dyn, cost, q0s, xi0s, us0)."""
+        dyn, cost, q0, xi0 = al_bench.build_screw200_nu(al_bench.nu_pu(nu), dtype, dev,
+                                                        horizon=n)
+        q0s, xi0s = al_bench.screw_batch(q0, xi0, NU_CHECK_BATCH, SEED)
+        return dyn, cost, q0s, xi0s, torch.zeros((NU_CHECK_BATCH, n, nu), dtype=dtype,
+                                                 device=dev)
+
+    def pipe_inputs(nu, dtype, n):
+        """B1-B4's real iterate at nu (two f32 iterations, B2 on its
+        kernel), depth n, and its solver."""
+        args = problem(nu, dtype, n)
+        solver = P.PipelineSolver(n, 2, float(args[0].dt), **grav)
+        return kernel_check.kernel_inputs(solver, *args, kernel_gains=True), solver
+
+    def polish_inputs(nu, n):
+        """B5's and B6's iterate of the polish's second iteration (the f32
+        phase at bench.py's full budget, ITERS, then one polish iteration)
+        at nu, depth n: B5's gvec gate holds where the residuals that
+        multiply its f32 roundings are small."""
+        args = problem(nu, torch.float64, n)
+        mx = DM.MixedDFPipelineSolver(n, float(args[0].dt), ITERS, 1, **grav)
+        return kernel_check.polish_inputs(mx, *args, kernel_gains=True, polished=True), mx
+
+    def depth(nu, kind):
+        """The comparison's depth: N for the kernels line's rows (nu =
+        LINE_NU: B1-B4 in f32, B5, B6), else NU_PLAIN_N."""
+        return N if nu in LINE_NU and kind != "float64" else NU_PLAIN_N
+
+    # (a) each instance against its plain version on real iterates, timed
+    # at N = 200
     rows = {}
-    for nu in NU_CHECK:
+    for nu in (*NU_CHECK, *NU_CHECK_LARGE, _build.MAX_NU):
+        kw = dict(gravity=True, exact_grav=True)
         for dtype in (torch.float32, torch.float64):
-            dyn, cost, q0, xi0 = al_bench.build_screw200_nu(al_bench.nu_pu(nu), dtype, dev)
-            q0s, xi0s = al_bench.screw_batch(q0, xi0, NU_CHECK_BATCH, SEED)
-            us0 = torch.zeros((NU_CHECK_BATCH, N, nu), dtype=dtype, device=dev)
-            solver = P.PipelineSolver(N, 2, float(dyn.dt), **grav)
-            s = kernel_check.kernel_inputs(solver, dyn, cost, q0s, xi0s, us0,
-                                           kernel_gains=True)
-            kw = dict(dt=solver.dt, gravity=True, exact_grav=True)
             tag = str(dtype).replace("torch.", "")
-            for k, (kern, plain) in kernel_check.calls(s, **kw).items():
-                rows[f"{k} nu={nu} {tag}"] = row(k, kern, plain, s, kernel_check.OUTPUTS[k],
-                                                 kernel_check.GATES[dtype][k])
-            del s
-            if dtype == torch.float64:
-                # the iterate of the polish's second iteration (the f32
-                # phase at bench.py's full budget, ITERS, then one polish
-                # iteration): B5's gvec gate holds where the residuals that
-                # multiply its f32 roundings are small
-                mx = DM.MixedDFPipelineSolver(N, float(dyn.dt), ITERS, 1, **grav)
-                s = kernel_check.polish_inputs(mx, dyn, cost, q0s, xi0s, us0,
-                                               kernel_gains=True, polished=True)
-                for k, (kern, plain) in kernel_check.polish_calls(s, mx).items():
-                    if k != "tail":
-                        rows[f"{k} nu={nu} mixed"] = row(
-                            k, kern, plain, s, kernel_check.POLISH_OUTPUTS[k],
-                            kernel_check.GATES["mixed"][k])
-                del s
+            n = depth(nu, tag)
+            s, solver = pipe_inputs(nu, dtype, n)
+            sT = timing = None
+            if n != N:
+                sT, solverT = pipe_inputs(nu, dtype, N)
+                timing = kernel_check.calls(sT, dt=solverT.dt, **kw)
+            for k, (kern, plain) in kernel_check.calls(s, dt=solver.dt, **kw).items():
+                rows[f"{k} nu={nu} {tag}"] = row(
+                    k, nu, kern, plain, s, kernel_check.OUTPUTS[k],
+                    kernel_check.GATES[dtype][k], timing and (timing[k][0], sT))
+            del s, sT, timing
+        n = depth(nu, "mixed")
+        s, mx = polish_inputs(nu, n)
+        sT = timing = None
+        if n != N:
+            sT, mxT = polish_inputs(nu, N)
+            timing = kernel_check.polish_calls(sT, mxT)
+        for k, (kern, plain) in kernel_check.polish_calls(s, mx).items():
+            if k != "tail":
+                rows[f"{k} nu={nu} mixed"] = row(
+                    k, nu, kern, plain, s, kernel_check.POLISH_OUTPUTS[k],
+                    kernel_check.GATES["mixed"][k], timing and (timing[k][0], sT))
+        del s, sT, timing
     # the tuned instances' times at nu = 6 on the same shapes, beside the rows
     tuned = {}
     for dtype in (torch.float32, torch.float64):
-        dyn, cost, q0, xi0 = al_bench.build_screw200_nu(al_bench.nu_pu(6), dtype, dev)
-        q0s, xi0s = al_bench.screw_batch(q0, xi0, NU_CHECK_BATCH, SEED)
-        us0 = torch.zeros((NU_CHECK_BATCH, N, 6), dtype=dtype, device=dev)
         tag = str(dtype).replace("torch.", "")
-        solver = P.PipelineSolver(N, 2, float(dyn.dt), **grav)
-        s = kernel_check.kernel_inputs(solver, dyn, cost, q0s, xi0s, us0, kernel_gains=True)
+        s, solver = pipe_inputs(6, dtype, N)
         for k, (kern, _) in kernel_check.calls(s, dt=solver.dt, gravity=True,
                                                exact_grav=True).items():
             tuned[f"{k} nu=6 {tag}"] = event_ms(kern, 3)
         del s
-        if dtype == torch.float64:
-            mx = DM.MixedDFPipelineSolver(N, float(dyn.dt), ITERS, 1, **grav)
-            s = kernel_check.polish_inputs(mx, dyn, cost, q0s, xi0s, us0, kernel_gains=True,
-                                           polished=True)
-            for k, (kern, _) in kernel_check.polish_calls(s, mx).items():
-                if k != "tail":
-                    tuned[f"{k} nu=6 mixed"] = event_ms(kern, 3)
-            del s
+    s, mx = polish_inputs(6, N)
+    for k, (kern, _) in kernel_check.polish_calls(s, mx).items():
+        if k != "tail":
+            tuned[f"{k} nu=6 mixed"] = event_ms(kern, 3)
+    del s
     # B5's runtime-nu instance against the tuned one at nu = 4 and 6, which
     # both take, on the same rough iterate (2 f32 iterations on the first nu
     # thrusters of rcs12_pu: under-actuated), where both miss the gvec gate
@@ -1684,16 +1745,21 @@ def nu_phase(dev, card, counted, expect):
     resident = {}
     for tag in ("f32", "f64"):
         occ = _build.function("pipeline_nu", "occupancy_nu", tag, [_build.INT] * 3)
-        for i, (name, per) in enumerate((("B2nu", 8), ("rollout nu", 32))):
-            for nu in (3, 12):
+        for i, name in enumerate(("B2", "rollout")):
+            for nu in (3, 12, 13, 24, _build.MAX_NU):
                 n = occ(i, nu, 0)
-                resident[f"{name} {tag} MU={6 if nu <= 6 else 12}"] = {
-                    "blocks_per_sm": n, "problems_per_sm": n * per,
-                    "waves_B16384": (math.ceil(math.ceil(16384 / per) / (n * sms))
+                # problems a block: fp64 B2 takes 4 past nu = 12
+                p = 32 if i else (4 if tag == "f64" and nu > _build.MU_MAX_NU else 8)
+                inst = f"MU={6 if nu <= 6 else 12}" if nu <= _build.MU_MAX_NU else "large"
+                resident[f"{name} {tag} nu={nu} ({inst})"] = {
+                    "blocks_per_sm": n, "problems_per_sm": n * p,
+                    "waves_B16384": (math.ceil(math.ceil(16384 / p) / (n * sms))
                                      if n > 0 else None)}
-    ptxas = {k: v for k, v in _build.ptxas_report().items() if "_nu_kernel<" in k}
+    ptxas = {k: v for k, v in _build.ptxas_report().items()
+             if "_nu_kernel<" in k or "_large_kernel" in k}
+    parts_s["a"] = time.perf_counter()
 
-    # (b) the two full-width problems on the f32 path, the polish and the
+    # (b) the full-width problems on the f32 path, the polish and the
     # refiner: each counted, then timed on a new batch
     solves, launches_b = {}, {k: 0 for k in expect()}
     for name, pu in al_bench.NU_PROBLEMS.items():
@@ -1701,13 +1767,14 @@ def nu_phase(dev, card, counted, expect):
         nu = us_gold.shape[1]
         pol, ref = meta["polish_schedule"], meta["refine_schedule"]
         f32_gate = 10 * meta["jax_f32_pipeline"]["lane0_us_max_abs_err"]
+        c = lambda **n: {f"{k}{sfx(nu)}": v for k, v in n.items()}
 
         def inputs(dtype, B, seed):
             dyn, cost, q0, xi0 = al_bench.build_screw200_nu(pu(), dtype, dev)
             q0s, xi0s = al_bench.screw_batch(q0, xi0, B, seed)
             return dyn, cost, q0s, xi0s, torch.zeros((B, N, nu), dtype=dtype, device=dev)
 
-        def run(solver, dtype, B, us_of, gate, what, **launches):
+        def run(solver, dtype, B, us_of, gate, what, launches):
             a = inputs(dtype, B, SEED)
             st, sec, n = counted(lambda: solver.solve(*a))
             check(n == expect(**launches), f"{name} {what} launches {n}")
@@ -1730,27 +1797,28 @@ def nu_phase(dev, card, counted, expect):
         solves[name] = {
             "f32": {"iterations": ITERS, **run(
                 P.PipelineSolver(N, ITERS, dt, **grav), torch.float32, NU_F32_BATCH,
-                lambda st: st.us, f32_gate, "f32", B1nu=1, B2nu=ITERS, B3nu=ITERS)},
+                lambda st: st.us, f32_gate, "f32", c(B1=1, B2=ITERS, B3=ITERS))},
             "f32_unfused": {"iterations": ITERS, **run(
                 P.PipelineSolver(N, ITERS, dt, fused=False, **grav), torch.float32,
-                CHECK_BATCH, lambda st: st.us, f32_gate, "f32 unfused", B1nu=ITERS,
-                B2nu=ITERS, B4nu=ITERS)},
+                CHECK_BATCH, lambda st: st.us, f32_gate, "f32 unfused",
+                c(B1=ITERS, B2=ITERS, B4=ITERS))},
             "polish": {"f32_iterations": nf, "polish_iterations": npol, **run(
                 DM.MixedDFPipelineSolver(N, dt, nf, npol, **grav), torch.float64,
-                NU_POLISH_BATCH, join_us, POLISH_GATE, "polish", B1nu=1, B2nu=nf, B3nu=nf,
-                B5nu=npol, B6nu=npol, B7=npol, B8=npol, B9=npol)},
+                NU_POLISH_BATCH, join_us, POLISH_GATE, "polish",
+                {**c(B1=1, B2=nf, B3=nf, B5=npol, B6=npol), "B7": npol, "B8": npol,
+                 "B9": npol})},
             "refine": {"f32_iterations": nr, "fp64_iterations": ndf, **run(
                 DFPipelineSolver(N, dt, nr, ndf, **grav), torch.float64, NU_POLISH_BATCH,
-                join_us, NU_REFINE_GATE, "refiner", B1nu=2, B2nu=nr + ndf + 1,
-                B3nu=nr + ndf)}}
+                join_us, NU_REFINE_GATE, "refiner", c(B1=2, B2=nr + ndf + 1, B3=nr + ndf))}}
 
+    parts_s["b"] = time.perf_counter()
     # (c) every nu through the four solvers: launch counts, finite values
     sweep = {}
     B_, N_, it = NU_SWEEP
-    for nu in range(1, _build.MAX_NU + 1):
+    for nu in (*range(1, _build.MU_MAX_NU + 1), *NU_CHECK_LARGE, _build.MAX_NU):
         pu = al_bench.nu_pu(nu)
-        k_ = lambda k: k if nu in _build.TUNED_NU else k + "nu"
-        res = {"instances": "tuned" if nu in _build.TUNED_NU else "nu"}
+        k_ = lambda k: k + sfx(nu)
+        res = {"instances": {"": "tuned", "nu": "nu", "nuL": "large"}[sfx(nu)]}
         for dtype in (torch.float32, torch.float64):
             dyn, cost, q0, xi0 = al_bench.build_screw200_nu(pu, dtype, dev, horizon=N_)
             q0s, xi0s = al_bench.screw_batch(q0, xi0, B_, SEED)
@@ -1760,25 +1828,26 @@ def nu_phase(dev, card, counted, expect):
             un, t2, n2 = counted(lambda: P.PipelineSolver(N_, it, dt, fused=False,
                                                           **grav).solve(*a))
             check(n1 == expect(**{k_("B1"): 1, k_("B2"): it, k_("B3"): it}),
-                    f"nu={nu} {tag} fused launches {n1}")
+                  f"nu={nu} {tag} fused launches {n1}")
             check(n2 == expect(**{k_("B1"): it, k_("B2"): it, k_("B4"): it}),
-                    f"nu={nu} {tag} unfused launches {n2}")
+                  f"nu={nu} {tag} unfused launches {n2}")
             J_rel = ((fu.J_opt - un.J_opt).abs() / un.J_opt.abs()).max().item()
             fin = all(bool(torch.isfinite(x.us).all().item()) for x in (fu, un))
             check(fin and J_rel <= (1e-4 if dtype == torch.float32 else 1e-9),
-                    f"nu={nu} {tag}: finite {fin}, fused vs unfused J {J_rel}")
+                  f"nu={nu} {tag}: finite {fin}, fused vs unfused J {J_rel}")
             res[tag] = {"fused_vs_unfused_J_rel": J_rel, "s": t1 + t2}
         # a is the f64 problem
         mx, t3, n3 = counted(lambda: DM.MixedDFPipelineSolver(N_, dt, it, 1, **grav).solve(*a))
         check(n3 == expect(**{k_("B1"): 1, k_("B2"): it, k_("B3"): it, k_("B5"): 1,
-                                k_("B6"): 1}, B7=1, B8=1, B9=1), f"nu={nu} polish {n3}")
+                              k_("B6"): 1}, B7=1, B8=1, B9=1), f"nu={nu} polish {n3}")
         dfp, t4, n4 = counted(lambda: DFPipelineSolver(N_, dt, it, 1, **grav).solve(*a))
         check(n4 == expect(**{k_("B1"): 2, k_("B2"): it + 2, k_("B3"): it + 1}),
-                f"nu={nu} refiner {n4}")
+              f"nu={nu} refiner {n4}")
         fin = all(bool(torch.isfinite(join_us(x)).all().item()) for x in (mx, dfp))
         check(fin, f"nu={nu}: non-finite polish / refiner lanes")
         res.update(polish_s=t3, refine_s=t4)
         sweep[nu] = res
+    parts_s["c"] = time.perf_counter()
 
     emit({"phase": "kernels_nu", "card": card, "N": N, "B": NU_CHECK_BATCH, "metric":
           "max_rel = max|kernel - plain| / max(1, max|plain|) over outputs",
@@ -1786,13 +1855,15 @@ def nu_phase(dev, card, counted, expect):
           "ptxas": ptxas,
           "solves": solves,
           "launches_b": launches_b,
-          "sweep": {"B": B_, "N": N_, "iterations": it, "by_nu": sweep}})
+          "sweep": {"B": B_, "N": N_, "iterations": it, "by_nu": sweep},
+          "parts_s": {k: parts_s[k] - parts_s[j] for j, k in zip("sab", "abc")}})
     require(not failed, f"kernels_nu checks failed: {failed}")
     line = {}
-    for key in ("B1", "B2", "B3", "B4"):
-        line[nu_keys[key]] = rows[f"{key} nu=3 float32"]
-    for key in ("B5", "B6"):
-        line[nu_keys[key]] = rows[f"{key} nu=3 mixed"]
+    for nu, s_ in zip(LINE_NU, ("nu", "nuL")):
+        for key in ("B1", "B2", "B3", "B4"):
+            line[key + s_] = rows[f"{key} nu={nu} float32"]
+        for key in ("B5", "B6"):
+            line[key + s_] = rows[f"{key} nu={nu} mixed"]
     return launches_b, line
 
 
@@ -2967,8 +3038,8 @@ def run(pool):
     runs.update({k: (f"free_body fast B={BATCH}", per_fast["free_body"])
                  for k in ("B13", "B14")})
     runs["B13any"] = (f"(12, 3) rigid body fast B={ANY_SOLVE_BATCH}", per_any)
-    runs.update({k: ("kernels_nu (b): both problems, f32 path, polish and refiner", per_nu)
-                 for k in nu_line})
+    runs.update({k: ("kernels_nu (b): the four problems, f32 path, polish and refiner",
+                     per_nu) for k in nu_line})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
         {"name": f"{k} {KERNELS[k][0]}", "route": "cuda",

@@ -1,7 +1,7 @@
-"""Generate the f64 goldens and the solver schedules of the PyTorch port's two
+"""Generate the f64 goldens and the solver schedules of the PyTorch port's four
 problems at input dimensions other than 6 and 4.
 
-Both are the screw-200 tracking problem (`tasks/al_bench.build_al1400`'s
+Each is the screw-200 tracking problem (`tasks/al_bench.build_al1400`'s
 first 200 stages, no input box) on a rigid body with g = 0 and the exact
 gravity Jacobian (zero at g = 0), driven through an input projection Pu
 (6, nu), with R = 1e-2 I:
@@ -11,7 +11,16 @@ gravity Jacobian (zero at g = 0), driven through an input projection Pu
                      each axis a in (x, y, z), each sign s in (+1, -1) and
                      each offset o in (+0.5, -0.5) along axis b = (a + 1) mod
                      3, in that order, the thruster of direction d = s e_a at
-                     r = o e_b, column [r x d; d] (rank 6).
+                     r = o e_b, column [r x d; d] (rank 6);
+  screw200_rcs16     four quads of four thrusters (nu = 16, the Apollo
+                     Service Module's pattern): quads at r = +0.5 e_y,
+                     -0.5 e_y, +0.5 e_z, -0.5 e_z, each firing along +e_x,
+                     -e_x, + and - the third axis (e_z for the quads on y,
+                     e_y for those on z), in that order;
+  screw200_rcs24     rcs12's construction with four offsets (nu = 24): for
+                     each axis a and sign s, the thrusters of direction s e_a
+                     at r = +0.5 e_b, -0.5 e_b, +0.5 e_c, -0.5 e_c (b = (a +
+                     1) mod 3, c = (a + 2) mod 3), in that order.
 
 Steps for each (JAX on the CPU; no part of the port is imported):
   1. solve lane 0 (the unperturbed x0) with the XLA f64 engine
@@ -38,8 +47,8 @@ Steps for each (JAX on the CPU; no part of the port is imported):
 Writes `trajectory_optimization_matrix_lie_groups_tpu_torch/tasks/golden/
 {name}_us.npy` (200, nu) and `{name}_meta.json` for each problem.
 
-Run from the repository root:
-    JAX_PLATFORMS=cpu python scripts/gen_torch_port_golden_nu.py
+Run from the repository root (all four, or the problems named):
+    JAX_PLATFORMS=cpu python scripts/gen_torch_port_golden_nu.py [name ...]
 """
 import contextlib
 import json
@@ -100,7 +109,28 @@ def rcs12_pu():
     return np.stack(cols, axis=1)
 
 
-PROBLEMS = {"screw200_torques3": torques3_pu, "screw200_rcs12": rcs12_pu}
+def _thruster(r, d):
+    return np.concatenate([np.cross(r, d), d])
+
+
+def rcs16_pu():
+    eye = np.eye(3)
+    cols = [_thruster(o * eye[b], d)
+            for b, c in ((1, 2), (2, 1)) for o in (0.5, -0.5)
+            for d in (eye[0], -eye[0], eye[c], -eye[c])]
+    return np.stack(cols, axis=1)
+
+
+def rcs24_pu():
+    eye = np.eye(3)
+    cols = [_thruster(o * eye[b], s * eye[a])
+            for a in range(3) for s in (1.0, -1.0)
+            for b in ((a + 1) % 3, (a + 2) % 3) for o in (0.5, -0.5)]
+    return np.stack(cols, axis=1)
+
+
+PROBLEMS = {"screw200_torques3": torques3_pu, "screw200_rcs12": rcs12_pu,
+            "screw200_rcs16": rcs16_pu, "screw200_rcs24": rcs24_pu}
 
 
 def golden(dp, cp, q0, xi0, q_ref, xi_ref, nu):

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """B1-B6's runtime-nu instances (`csrc/nu.cuh`) against their tuned twins
-(nu = 6 and 4), on one card.  Prints one JSON line.
+(nu = 6 and 4), and their large-nu instances (`csrc/nu_large.cuh`) against
+the runtime-nu ones at nu = 12, on one card.  Prints one JSON line.
 
-    python3 scripts/nu_instances.py [--root DIR]
+    python3 scripts/nu_instances.py [--root DIR] [--large12]
 
 ``--root``: the checkout whose package is measured (default: the one this
-script lies in).  Two measurements, ~3 minutes with the build:
+script lies in).  Three measurements, ~3 minutes with the build
+(``--large12``: the third alone, ~1 minute):
 
 gvec   B5's Q_u (gvec) from the tuned instance and from the runtime-nu one
        (called through its C entry, which takes nu = 4 and 6 too), each
@@ -26,6 +28,15 @@ pad    screw200_torques3 (nu = 3) on the runtime-nu instances against the
        schedule, median of 3), a new batch each rep, in turns native,
        padded, padded, native; lane 0 of each against the golden, and the
        padded inputs' largest |u|.
+large12  at nu = 12 (`al_bench.rcs12_pu`), N = 200, B = 1024 and 16384, the
+       large-nu instances of B2 (f32, fp64), B5, B4 (f32, fp64) and B6,
+       launched through their direct C entries (`riccati_large`,
+       `rollout_large`), against the runtime-nu instances of maximum 12
+       that the wrappers launch there: ms by CUDA events (mean of 5 after a
+       warm-up call), in turns nu, large, large, nu, on a real iterate (two
+       f32 iterations; the polish's after 12 and one polish iteration),
+       and the largest error of each output of the large-nu call against
+       the runtime-nu one.  Routing at nu <= 12 does not depend on it.
 """
 
 import argparse
@@ -40,6 +51,7 @@ import numpy as np
 import torch
 
 N, B_GVEC, B_F32, B_POLISH, ITERS, SEED = 200, 1024, 8192, 16384, 12, 0
+LARGE12_BATCHES, LARGE12_REPS = (1024, 16384), 5
 GVEC_ITERS = (2, 7)
 F32_REPS, POLISH_REPS = 5, 3
 
@@ -47,6 +59,7 @@ F32_REPS, POLISH_REPS = 5, 3
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+    ap.add_argument("--large12", action="store_true", help="the large12 measurement alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("nu_instances: needs a CUDA device")
@@ -58,8 +71,10 @@ def main():
     out = {"card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), "build_s": _build.build()}
-    out["gvec"] = gvec_rows(dev)
-    out["pad"] = pad_rates(dev)
+    if not args.large12:
+        out["gvec"] = gvec_rows(dev)
+        out["pad"] = pad_rates(dev)
+    out["large12"] = large12_rows(dev)
     print(json.dumps(out), flush=True)
 
 
@@ -107,6 +122,85 @@ def gvec_rows(dev):
                 r.update(tuned_vs_plain=rel_err(g_t, plain), tuned_vs_nu=rel_err(g_t, g_nu))
             rows[name][its] = r
             del s, bargs, plain
+    return rows
+
+
+def event_ms(fn, reps):
+    """Mean milliseconds per call over ``reps`` calls by CUDA events, after
+    a warm-up call."""
+    fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def large12_rows(dev):
+    """{kernel B: {"ms_nu", "ms_large" (in turns), "large_vs_nu"}} of the
+    ``large12`` measurement."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
+        kernel_inputs,
+        polish_inputs,
+        rel_err,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench
+
+    grav = dict(gravity=True, exact_gravity_jacobian=True)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    flat = lambda out: [t for x in out for t in (x if isinstance(x, tuple) else (x,))]
+    rows = {}
+
+    def pair(name, calls):
+        """calls: {"nu": fn, "large": fn}; ms in turns and the errors."""
+        ms = {"nu": [], "large": []}
+        for which in ("nu", "large", "large", "nu"):
+            ms[which].append(event_ms(calls[which], LARGE12_REPS))
+        a, b = flat(calls["large"]()), flat(calls["nu"]())
+        rows[name] = {"ms_nu": ms["nu"], "ms_large": ms["large"],
+                      "large_vs_nu": max(rel_err(x.double(), y.double()) for x, y in zip(a, b))}
+
+    for B in LARGE12_BATCHES:
+        for dtype in (torch.float32, torch.float64):
+            tag = "f32" if dtype == torch.float32 else "f64"
+            dyn, cost, q0, xi0 = al_bench.build_screw200_nu(al_bench.rcs12_pu(), dtype, dev)
+            q0s, xi0s = al_bench.screw_batch(q0, xi0, B, SEED)
+            us0 = torch.zeros((B, N, 12), dtype=dtype, device=dev)
+            solver = P.PipelineSolver(N, 2, float(dyn.dt), **grav)
+            s = kernel_inputs(solver, dyn, cost, q0s, xi0s, us0, kernel_gains=True)
+            bargs = (s["lin"], s["lu"], s["qR"], s["qp"], s["xi"], s["refs"], s["consts"])
+            fns = {w: _build.function("pipeline_nu", f"riccati_{e}", tag, P._RICCATI_NU_ARGS)
+                   for w, e in (("nu", "nu"), ("large", "large"))}
+            pair(f"B2 {tag} B={B}", {w: (lambda f=f: P._backward_kernel(
+                f, stream, *bargs, glow=True, luu_al=None, hand=True)) for w, f in fns.items()})
+            rargs = (s["qR"], s["qp"], s["xi"], s["us"], s["k"], s["K"], s["lin"])
+            fns = {w: _build.function("pipeline_nu", f"rollout_{e}", tag, P._ROLLOUT_ARGS)
+                   for w, e in (("nu", "nu"), ("large", "large"))}
+            pair(f"B4 {tag} B={B}", {w: (lambda f=f: P._rollout_kernel(
+                f, stream, *rargs, None, s["consts"], dt=solver.dt, gravity=True,
+                exact_grav=True, fused=False)[:4]) for w, f in fns.items()})
+            del s, bargs, rargs
+            if dtype == torch.float64:
+                mx = DM.MixedDFPipelineSolver(N, float(dyn.dt), ITERS, 1, **grav)
+                s = polish_inputs(mx, dyn, cost, q0s, xi0s, us0, kernel_gains=True,
+                                  polished=True)
+                bargs = (s["lin"], s["lu"], s["VxN"], s["VxxN"], s["consts"], s["consts32"])
+                fns = {w: _build.function("polish_nu", f"riccati_{e}", "mx", DM._RICCATI_ARGS)
+                       for w, e in (("nu", "nu"), ("large", "large"))}
+                pair(f"B5 B={B}", {w: (lambda f=f: DM._backward_mx_kernel(
+                    f, stream, *bargs, glow=True, luu_al=None)) for w, f in fns.items()})
+                rargs = (s["qR"], s["qp"], s["xi"], s["us"], s["k"], s["K"], s["lin"],
+                         s["consts"])
+                fns = {w: _build.function("polish_nu", f"rollout_{e}", "mx", DM._ROLLOUT_ARGS)
+                       for w, e in (("nu", "nu"), ("large", "large"))}
+                pair(f"B6 B={B}", {w: (lambda f=f: DM._rollout_mx_kernel(
+                    f, stream, *rargs, dt=mx.dt, gravity=True)) for w, f in fns.items()})
+                del s, bargs, rargs
     return rows
 
 

@@ -18,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
+
 REPO = Path(__file__).resolve().parent.parent
 CSRC = REPO / "trajectory_optimization_matrix_lie_groups_tpu_torch" / "csrc"
 STUB = Path(__file__).resolve().parent / "cuda_host"
@@ -72,7 +74,8 @@ def build(unit, suffix, scalar, out_dir):
     cpp = out_dir / f"{unit}_{suffix}.cpp"
     cpp.write_text(host_source((CSRC / f"{unit}.cu").read_text()))
     lib = out_dir / f"{unit}_{suffix}.so"
-    defs = [f"-DTRAOPT_SUFFIX={suffix}"] + ([f"-DTRAOPT_SCALAR={scalar}"] if scalar else [])
+    defs = ([f"-DTRAOPT_SUFFIX={suffix}", f"-DTRAOPT_MAX_NU={_build.MAX_NU}"]
+            + ([f"-DTRAOPT_SCALAR={scalar}"] if scalar else []))
     cmd = [compiler(), "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
            "-I", str(STUB), "-I", str(inc), *defs, "-o", str(lib), str(cpp)]
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

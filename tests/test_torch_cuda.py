@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
 from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
     FAST_OUTPUTS,
     GATES,
@@ -47,6 +48,8 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (
 )
 
 pytestmark = pytest.mark.cuda
+
+_MAX_NU = _build.MAX_NU  # the largest input dimension B1-B6 take
 
 H, B = 16, 130  # B crosses a 128-thread block boundary and ends a ragged 8-problem block
 
@@ -175,13 +178,12 @@ def test_group_riccati_b5_edges(cuda, drone, B_, N_):
 
 
 def test_riccati_wrappers_raise_when_the_launch_fails(cuda):
-    """nu = 13 passes the wrappers' shape checks: B2's and B5's wrappers
-    raise ValueError before any launch, count none and do not fall back to
-    their plain versions; called directly, the launchers of the tuned and
-    the runtime-nu instances return an error that the kernel calls raise."""
-    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
-
-    N_, B_, nu = 2, 3, 13
+    """nu = MAX_NU + 1 passes the wrappers' shape checks: B2's and B5's
+    wrappers raise ValueError before any launch, count none and do not fall
+    back to their plain versions; called directly, the launchers of the
+    tuned and the runtime-nu instances return an error that the kernel calls
+    raise."""
+    N_, B_, nu = 2, 3, _MAX_NU + 1
     g = torch.Generator().manual_seed(0)
     r = lambda *shape, dtype=torch.float64: torch.randn(
         shape, generator=g, dtype=torch.float64).to(dtype=dtype, device=cuda)
@@ -193,7 +195,7 @@ def test_riccati_wrappers_raise_when_the_launch_fails(cuda):
     bargs = (lin, r(N_, nu, B_), r(N_ + 1, 3, 3, B_), r(N_ + 1, 3, B_), r(N_ + 1, 6, B_),
              refs, consts)
     launches = {k: w.launches for k, w in P.KERNELS.items()}
-    with pytest.raises(ValueError, match="1..12"):
+    with pytest.raises(ValueError, match=rf"1\.\.{_MAX_NU}$"):
         P.backward_lane(*bargs, glow=False)
     assert {k: w.launches for k, w in P.KERNELS.items()} == launches
     stream = torch.cuda.current_stream(cuda).cuda_stream
@@ -207,7 +209,7 @@ def test_riccati_wrappers_raise_when_the_launch_fails(cuda):
     consts32 = dict(fu2=consts["fu2"].to(f32), Luu=consts["Luu"].to(f32))
     margs = (lin_mx, r(N_, nu, B_), r(12, B_), r(12, 12, B_, dtype=f32), consts, consts32)
     launches = {k: w.launches for k, w in DM.KERNELS.items()}
-    with pytest.raises(ValueError, match="1..12"):
+    with pytest.raises(ValueError, match=rf"1\.\.{_MAX_NU}$"):
         DM.backward_mx_lane(*margs, glow=False)
     assert {k: w.launches for k, w in DM.KERNELS.items()} == launches
     for unit, name in (("polish", "riccati"), ("polish_nu", "riccati_nu")):
@@ -487,10 +489,9 @@ def test_rollout_b3_b4_edges(cuda, dtype, nu, gravity, B_):
 
 
 def test_fast_and_rollout_launchers_refuse_what_they_do_not_take(cuda):
-    """(nx, nu) = (12, 5) reaches B13's launcher and nu = 13 the rollout's
-    (the kernel calls' shape checks pass), which return an error that the
-    kernel calls raise, with no fallback to the plain versions."""
-    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
+    """(nx, nu) = (12, 5) reaches B13's launcher and nu = MAX_NU + 1 the
+    rollout's (the kernel calls' shape checks pass), which return an error
+    that the kernel calls raise, with no fallback to the plain versions."""
     from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import riccati as RC
 
     N_, B_, nx, nu = 2, 3, 12, 5
@@ -502,7 +503,7 @@ def test_fast_and_rollout_launchers_refuse_what_they_do_not_take(cuda):
         RC._backward_kernel(fn, stream, r(N_, nx, nx, B_), r(N_, nx, nu, B_), r(N_, nx, B_),
                             r(N_ + 1, nx, B_), r(N_, nu, B_), r(N_ + 1, nx, nx, B_),
                             r(N_, nu, nx, B_), r(N_, nu, nu, B_))
-    nu = 13
+    nu = _MAX_NU + 1
     lin = dict(d=r(N_, 12, B_), fqR=r(N_, 3, 3, B_), fqp=r(N_, 3, B_), fxi=r(N_, 6, B_))
     consts = dict(J=r(6, 6), Jinv=r(6, 6), Pu=r(6, nu), mg=0.0)
     for unit, name in (("pipeline", "rollout"), ("pipeline_nu", "rollout_nu")):
@@ -757,11 +758,12 @@ def test_graph_cache_follows_closure_tensors(cuda):
 
 
 # The runtime-nu instances of B1-B6 (csrc/nu.cuh) at every nu from 1 to 12
-# (nu = 6 and 4 on the tuned instances), on the rigid body driven through
-# `al_bench.nu_pu(nu)` (g = 0, the rigid-body family), against their plain
-# versions; the launches go to the runtime-nu instances, never to a plain
-# version.
-NUS = [pytest.param(nu, id=f"nu{nu}") for nu in range(1, 13)]
+# (nu = 6 and 4 on the tuned instances) and the large-nu ones
+# (csrc/nu_large.cuh) at 13, 16, 24 and MAX_NU, on the rigid body driven
+# through `al_bench.nu_pu(nu)` (g = 0, the rigid-body family), against their
+# plain versions; the launches go to the runtime-nu and large-nu instances,
+# never to a plain version.
+NUS = [pytest.param(nu, id=f"nu{nu}") for nu in (*range(1, 13), 13, 16, 24, _MAX_NU)]
 
 
 def _nu_problem(dtype, device, nu, B_=B, H_=H):
@@ -778,15 +780,15 @@ def _counts():
 
 
 def _launched(before, keys, nu):
-    """The kernels of ``keys`` launched since ``before``: the runtime-nu
-    instances' at nu other than 6 and 4, the tuned ones' at 6 and 4, and
-    no other of B1-B6."""
-    tuned = nu in (4, 6)
+    """The kernels of ``keys`` launched since ``before``: the tuned ones' at
+    nu = 6 and 4, the runtime-nu instances' at every other nu up to 12, the
+    large-nu ones' past it, and no other of B1-B6."""
     now = _counts()
     moved = {k for k in now if now[k] != before[k]}
-    want = {k if tuned else k + "nu" for k in keys}
+    want = {k if nu in (4, 6) else k + ("nu" if nu <= 12 else "nuL") for k in keys}
     assert want <= moved and not (moved - want) & set(
-        [k for k in now if k.endswith("nu")] + ["B1", "B2", "B3", "B4", "B5", "B6"]), moved
+        [k for k in now if k.endswith(("nu", "nuL"))] + ["B1", "B2", "B3", "B4", "B5", "B6"]
+    ), moved
 
 
 @pytest.mark.parametrize("nu", NUS)
@@ -806,7 +808,7 @@ def test_nu_kernels_match_plain(cuda, dtype, nu):
 
 
 @pytest.mark.parametrize("B_", [1, 257], ids=["B1", "B257"])
-@pytest.mark.parametrize("nu", [1, 5, 12], ids=["nu1", "nu5", "nu12"])
+@pytest.mark.parametrize("nu", [1, 5, 12, 13, _MAX_NU], ids=lambda nu: f"nu{nu}")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_nu_kernels_edges(cuda, dtype, nu, B_):
     """B1-B4 at nu with one problem and with a ragged last block of every
@@ -837,7 +839,7 @@ def test_nu_polish_kernels_match_plain(cuda, nu):
             assert err <= GATES["mixed"][name][out], (name, out, err)
 
 
-@pytest.mark.parametrize("nu", [1, 3, 5, 8, 12], ids=lambda nu: f"nu{nu}")
+@pytest.mark.parametrize("nu", [1, 3, 5, 8, 12, 16, _MAX_NU], ids=lambda nu: f"nu{nu}")
 def test_nu_solvers_match_plain_solves(cuda, nu):
     """`PipelineSolver` (f64, fused and unfused), `MixedDFPipelineSolver` and
     `DFPipelineSolver` at nu through the kernels against the same solvers
@@ -864,10 +866,10 @@ def test_nu_solvers_match_plain_solves(cuda, nu):
     torch.testing.assert_close(join_us(out), join_us(ref), rtol=0, atol=1e-9)
 
 
-@pytest.mark.parametrize("nu", [0, 13], ids=["nu0", "nu13"])
+@pytest.mark.parametrize("nu", [0, _MAX_NU + 1], ids=lambda nu: f"nu{nu}")
 def test_nu_wrappers_refuse_out_of_range(cuda, nu):
-    """On CUDA tensors at nu = 0 and 13 B1's, B4's and B6's wrappers raise
-    ValueError naming the range before any launch."""
+    """On CUDA tensors at nu = 0 and MAX_NU + 1 B1's, B4's and B6's wrappers
+    raise ValueError naming the range before any launch."""
     g = torch.Generator().manual_seed(0)
     r = lambda *shape, dtype=torch.float64: torch.randn(
         shape, generator=g, dtype=torch.float64).to(dtype=dtype, device=cuda)
@@ -881,6 +883,6 @@ def test_nu_wrappers_refuse_out_of_range(cuda, nu):
                  lambda: DM.rollout_mx_lane(*traj, r(N_, nu, B_, dtype=torch.float32),
                                             r(N_, nu, 12, B_, dtype=torch.float32), lin, {},
                                             dt=0.01, gravity=False)):
-        with pytest.raises(ValueError, match="1..12"):
+        with pytest.raises(ValueError, match=rf"1\.\.{_MAX_NU}$"):
             call()
     assert _counts() == before

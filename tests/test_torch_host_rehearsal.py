@@ -12,7 +12,9 @@ ahead, then, for B3, B1's kernel on the new trajectory), the SO(3)
 kernels B11 and B12 (csrc/so3.cu: a thread per problem copying the next
 stage's inputs ahead, then, for B12, B10's kernel on the new trajectory),
 and the instances of B1-B6 at any other input dimension nu up to 12
-(csrc/nu.cuh, built as csrc/pipeline_nu.cu and csrc/polish_nu.cu).
+(csrc/nu.cuh) and past it (csrc/nu_large.cuh: B2 and B5 a cooperative
+Cholesky factorization in the group's shared memory, csrc/riccati_large.cuh),
+built as csrc/pipeline_nu.cu and csrc/polish_nu.cu.
 
 This runs the kernels' own code, barriers and shared-memory exchanges
 included, which the CPU tests of the wrappers cannot reach (on CPU tensors
@@ -45,6 +47,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
     riccati_inputs,
     so3_inputs,
 )
+from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
 from trajectory_optimization_matrix_lie_groups_tpu_torch.models.dynamics import (
     drone_params,
     rigid_body_params,
@@ -469,15 +472,173 @@ def test_b1_b3_b4_nu_host_rehearsal_match_plain(libs, dtype, nu):
             assert rel_err(a, b) <= gate(name), (name, out, rel_err(a, b))
 
 
+# The large-nu instances of B1-B6 (csrc/nu_large.cuh, csrc/riccati_large.cuh)
+# at nu = 13, 16, 24 and _build.MAX_NU on the rigid body driven through
+# `al_bench.nu_pu(nu)`; N = 3; B = 3 (one block) and 33 (a ragged last block
+# of every block size: 8 and 4 problems for B2 and B5, 32 and 128 for the
+# rollouts and B1).
+NUS_LARGE = [pytest.param(nu, id=f"nu{nu}") for nu in (13, 16, 24, _build.MAX_NU)]
+B_LARGE = [pytest.param(3, id="B3"), pytest.param(33, id="B33")]
+
+
+@pytest.mark.parametrize("B", B_LARGE)
+@pytest.mark.parametrize("nu", NUS_LARGE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b2_large_host_rehearsal_matches_plain(libs, dtype, nu, B):
+    """B2's large-nu instance (its cooperative Cholesky between the group's
+    barriers), with and without the AL diagonal on Q_uu, within its card
+    gate of the plain version (f32); f64 to 1e-12."""
+    s, _ = _nu_inputs(dtype, nu, B, 3)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    fn = HR.function(libs[f"nu_{tag}"], f"riccati_nu_{tag}", P._RICCATI_NU_ARGS)
+    bargs = (s["lin"], s["lu"], s["qR"], s["qp"], s["xi"], s["refs"], s["consts"])
+    gate = {torch.float32: GATES[torch.float32]["B2"], torch.float64: 1e-12}[dtype]
+    for al in (None, s["luu_al"]):
+        kern = P._backward_kernel(fn, None, *bargs, glow=True, luu_al=al, hand=True)
+        plain = P.backward_plain(*bargs, glow=True, luu_al=al)
+        for name, a, b in zip(("k", "K", "gvec", "lN"), kern, plain, strict=True):
+            assert rel_err(a, b) <= gate, (name, al is not None, rel_err(a, b))
+
+
+@pytest.mark.parametrize("B", B_LARGE)
+@pytest.mark.parametrize("nu", NUS_LARGE)
+def test_b5_b6_large_host_rehearsal_match_plain(libs, nu, B):
+    """B5's and B6's large-nu instances, B5 with and without the AL
+    diagonal, within their per-output card gates of the plain versions."""
+    N = 3
+    args = _nu_problem(torch.float64, nu, B, N)
+    solver = DM.MixedDFPipelineSolver(N, float(args[0].dt), 2, 1, gravity=True,
+                                      exact_gravity_jacobian=True)
+    s = polish_inputs(solver, *args, luu_al=True)
+    fn = HR.function(libs["nu_mx"], "riccati_nu_mx", DM._RICCATI_ARGS)
+    bargs = (s["lin"], s["lu"], s["VxN"], s["VxxN"], s["consts"], s["consts32"])
+    for al in (None, s["luu_al"]):
+        kern = DM._backward_mx_kernel(fn, None, *bargs, glow=True, luu_al=al)
+        plain = DM.backward_mx_plain(*bargs, glow=True, luu_al=al)
+        for name, a, b in zip(("k", "K", "gvec"), kern, plain, strict=True):
+            assert rel_err(a, b) <= GATES["mixed"]["B5"][name], (name, al is not None,
+                                                                 rel_err(a, b))
+    fn = HR.function(libs["nu_mx"], "rollout_nu_mx", DM._ROLLOUT_ARGS)
+    rargs = (s["qR"], s["qp"], s["xi"], s["us"], s["k"], s["K"], s["lin"], s["consts"])
+    kw = dict(dt=solver.dt, gravity=True)
+    kern = DM._rollout_mx_kernel(fn, None, *rargs, **kw)
+    plain = DM.rollout_mx_plain(*rargs, **kw)
+    flat = lambda out: [*out[:4], *out[4]]
+    for name, a, b in zip(POLISH_OUTPUTS["B6"], flat(kern), flat(plain), strict=True):
+        assert rel_err(a, b) <= GATES["mixed"]["B6"][name], (name, rel_err(a, b))
+
+
+@pytest.mark.parametrize("B", B_LARGE)
+@pytest.mark.parametrize("nu", NUS_LARGE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b1_b3_b4_large_host_rehearsal_match_plain(libs, dtype, nu, B):
+    """B1's, B3's and B4's large-nu instances within their card gates of the
+    plain versions (f32); f64 to 1e-12."""
+    s, solver = _nu_inputs(dtype, nu, B, 3)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    gate = lambda name: GATES[dtype][name] if dtype == torch.float32 else 1e-12
+    traj = (s["qR"], s["qp"], s["xi"], s["us"])
+    lkw = dict(dt=solver.dt, gravity=True, exact_grav=True)
+    fn = HR.function(libs[f"nu_{tag}"], f"linearize_nu_{tag}", LN._LINEARIZE_ARGS)
+    kern = LN._linearize_kernel(fn, None, *traj, s["refs"], s["consts"], **lkw)
+    plain = LN.linearize_plain(*traj, s["refs"], s["consts"], **lkw)
+    for out, a, b in zip(OUTPUTS["B1"], _flat(kern), _flat(plain), strict=True):
+        assert rel_err(a, b) <= gate("B1"), ("B1", out, rel_err(a, b))
+    fn = HR.function(libs[f"nu_{tag}"], f"rollout_nu_{tag}", P._ROLLOUT_ARGS)
+    rargs = (*traj, s["k"], s["K"], s["lin"])
+    kw = dict(dt=solver.dt, gravity=True)
+    for name, fused in (("B3", True), ("B4", False)):
+        kern = P._rollout_kernel(fn, None, *rargs, s["refs"], s["consts"], fused=fused,
+                                 exact_grav=True, **kw)
+        if fused:
+            plain = P.rollout_linearize_plain(*rargs, s["refs"], s["consts"],
+                                              exact_grav=True, **kw)
+        else:
+            kern, plain = kern[:4], P.rollout_plain(*rargs, s["consts"], **kw)
+        for out, a, b in zip(OUTPUTS[name], _flat(kern), _flat(plain), strict=True):
+            assert rel_err(a, b) <= gate(name), (name, out, rel_err(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_large_instances_at_nu12_match_plain(libs, dtype):
+    """The large-nu instances of B2, B4, B5 and B6 launched at nu = 12 through
+    their direct entries (`riccati_large`, `rollout_large`: what
+    scripts/nu_instances.py times against the runtime-nu instances of
+    maximum 12) within their gates of the plain versions (f32; f64 1e-12)."""
+    s, solver = _nu_inputs(dtype, 12, 9, 3)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    gate = lambda name: GATES[dtype][name] if dtype == torch.float32 else 1e-12
+    bargs = (s["lin"], s["lu"], s["qR"], s["qp"], s["xi"], s["refs"], s["consts"])
+    fn = HR.function(libs[f"nu_{tag}"], f"riccati_large_{tag}", P._RICCATI_NU_ARGS)
+    kern = P._backward_kernel(fn, None, *bargs, glow=True, luu_al=None, hand=True)
+    for a, b in zip(kern, P.backward_plain(*bargs, glow=True), strict=True):
+        assert rel_err(a, b) <= gate("B2")
+    fn = HR.function(libs[f"nu_{tag}"], f"rollout_large_{tag}", P._ROLLOUT_ARGS)
+    rargs = (s["qR"], s["qp"], s["xi"], s["us"], s["k"], s["K"], s["lin"])
+    kern = P._rollout_kernel(fn, None, *rargs, None, s["consts"], dt=solver.dt, gravity=True,
+                             exact_grav=True, fused=False)[:4]
+    for a, b in zip(kern, P.rollout_plain(*rargs, s["consts"], dt=solver.dt, gravity=True),
+                    strict=True):
+        assert rel_err(a, b) <= gate("B4")
+    if dtype == torch.float32:
+        return
+    mx = DM.MixedDFPipelineSolver(3, solver.dt, 2, 1, gravity=True, exact_gravity_jacobian=True)
+    s = polish_inputs(mx, *_nu_problem(torch.float64, 12, 9, 3))
+    bargs = (s["lin"], s["lu"], s["VxN"], s["VxxN"], s["consts"], s["consts32"])
+    fn = HR.function(libs["nu_mx"], "riccati_large_mx", DM._RICCATI_ARGS)
+    kern = DM._backward_mx_kernel(fn, None, *bargs, glow=True, luu_al=None)
+    for name, a, b in zip(("k", "K", "gvec"), kern, DM.backward_mx_plain(*bargs, glow=True),
+                          strict=True):
+        assert rel_err(a, b) <= GATES["mixed"]["B5"][name], name
+    fn = HR.function(libs["nu_mx"], "rollout_large_mx", DM._ROLLOUT_ARGS)
+    rargs = (s["qR"], s["qp"], s["xi"], s["us"], s["k"], s["K"], s["lin"], s["consts"])
+    kern = DM._rollout_mx_kernel(fn, None, *rargs, dt=mx.dt, gravity=True)
+    plain = DM.rollout_mx_plain(*rargs, dt=mx.dt, gravity=True)
+    for name, a, b in zip(POLISH_OUTPUTS["B6"], [*kern[:4], *kern[4]], [*plain[:4], *plain[4]],
+                          strict=True):
+        assert rel_err(a, b) <= GATES["mixed"]["B6"][name], name
+
+
+def test_large_layout_matches_the_build_count():
+    """`_build.riccati_large_bytes`, from which MAX_NU comes, counts the
+    layout of csrc/riccati_large.cuh that the kernels lay out at launch: the
+    unit's own count (large_layout, compiled on the host) at every nu from
+    13 to MAX_NU + 1 in each scalar, and the unit's static_assert that
+    MAX_NU is the largest nu that fits (it compiled)."""
+    if HR.compiler() is None:
+        pytest.skip("no host C++ compiler")
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        src = f"{d}/layout.cpp"
+        with open(src, "w") as f:
+            f.write('#define TRAOPT_SUFFIX f64\n#include "riccati_large.cuh"\n'
+                    'extern "C" long large_bytes(int nu, int kind) {\n'
+                    '  using namespace traopt;\n'
+                    '  return (long)(kind == 0 ? large_layout<float, float, 8>(nu).bytes\n'
+                    '                : kind == 1 ? large_layout<float, double, 8>(nu).bytes\n'
+                    '                : large_layout<double, double, 4>(nu).bytes);\n}\n')
+        lib = f"{d}/layout.so"
+        subprocess.run([HR.compiler(), "-std=c++20", "-O1", "-shared", "-fPIC", "-w",
+                        "-I", str(HR.STUB), "-I", str(HR.CSRC), "-o", lib, src], check=True)
+        fn = ctypes.CDLL(lib).large_bytes
+        fn.restype = ctypes.c_long
+        for nu in range(13, _build.MAX_NU + 2):
+            for kind, (tp, tr) in enumerate(((4, 4), (4, 8), (8, 8))):
+                assert fn(nu, kind) == _build.riccati_large_bytes(nu, tp, tr), (nu, kind)
+    assert _build.MAX_NU >= 32
+
+
 def test_nu_launchers_refuse_past_their_bound(libs):
-    """nu = 0 and 13 reach the runtime-nu instances' launchers of B1-B6 (the
-    kernel calls' shape checks pass), which return an error that the kernel
-    calls raise."""
+    """nu = 0 and MAX_NU + 1 reach the runtime-nu instances' launchers of
+    B1-B6 (the kernel calls' shape checks pass), which return an error that
+    the kernel calls raise; at nu = 13 (random inputs) each launches."""
     N, B = 2, 3
     g = torch.Generator().manual_seed(0)
     r = lambda *shape: torch.randn(shape, generator=g, dtype=torch.float64)
     f32 = torch.float32
-    for nu in (0, 13):
+
+    def calls(nu):
+        """(name, kernel call) of each launcher of B1-B6 at nu."""
         lin = dict(Fx=r(N, 12, 12, B), d=r(N, 12, B), lx=r(N, 12, B), lxx=r(N, 12, 12, B),
                    fqR=r(N, 3, 3, B), fqp=r(N, 3, B), fxi=r(N, 6, B))
         refs = dict(RbiR=r(N + 1, 3, 3), Rbip=r(N + 1, 3), Adb=r(N + 1, 6, 6),
@@ -485,39 +646,43 @@ def test_nu_launchers_refuse_past_their_bound(libs):
         consts = dict(W1N=r(6, 6), W2N=r(6, 6), W1=r(6, 6), W2=r(6, 6), J=r(6, 6),
                       Jinv=r(6, 6), fu2=r(6, nu), Luu=r(nu, nu), Pu=r(6, nu), mg=0.0)
         traj = (r(N + 1, 3, 3, B), r(N + 1, 3, B), r(N + 1, 6, B), r(N, nu, B))
-        fn = HR.function(libs["nu_f64"], "linearize_nu_f64", LN._LINEARIZE_ARGS)
-        with pytest.raises(RuntimeError, match="linearize"):
-            LN._linearize_kernel(fn, None, *traj, refs, consts, dt=0.01, gravity=True,
-                                 exact_grav=True)
-        fn = HR.function(libs["nu_f64"], "riccati_nu_f64", P._RICCATI_NU_ARGS)
-        with pytest.raises(RuntimeError, match="riccati"):
-            P._backward_kernel(fn, None, lin, r(N, nu, B), *traj[:3], refs, consts,
-                               glow=True, luu_al=None, hand=True)
-        fn = HR.function(libs["nu_f64"], "rollout_nu_f64", P._ROLLOUT_ARGS)
-        with pytest.raises(RuntimeError, match="rollout"):
-            P._rollout_kernel(fn, None, *traj, r(N, nu, B), r(N, nu, 12, B), lin, None,
-                              consts, dt=0.01, gravity=True, exact_grav=True, fused=False)
         lin_mx = dict(Fx=lin["Fx"], d=lin["d"], lx=lin["lx"], lxx32=lin["lxx"].to(f32),
                       fqR=lin["fqR"], fqp=lin["fqp"], fxi=lin["fxi"])
         consts32 = dict(fu2=consts["fu2"].to(f32), Luu=consts["Luu"].to(f32))
-        fn = HR.function(libs["nu_mx"], "riccati_nu_mx", DM._RICCATI_ARGS)
-        with pytest.raises(RuntimeError, match="riccati_mx"):
-            DM._backward_mx_kernel(fn, None, lin_mx, r(N, nu, B), r(12, B),
-                                   r(12, 12, B).to(f32), consts, consts32, glow=True,
-                                   luu_al=None)
-        fn = HR.function(libs["nu_mx"], "rollout_nu_mx", DM._ROLLOUT_ARGS)
-        with pytest.raises(RuntimeError, match="rollout_mx"):
-            DM._rollout_mx_kernel(fn, None, *traj, r(N, nu, B).to(f32), r(N, nu, 12, B).to(f32),
-                                  lin_mx, consts, dt=0.01, gravity=True)
+        fn = lambda lib, name, args: HR.function(libs[lib], name, args)
+        yield "linearize", lambda: LN._linearize_kernel(
+            fn("nu_f64", "linearize_nu_f64", LN._LINEARIZE_ARGS), None, *traj, refs, consts,
+            dt=0.01, gravity=True, exact_grav=True)
+        yield "riccati", lambda: P._backward_kernel(
+            fn("nu_f64", "riccati_nu_f64", P._RICCATI_NU_ARGS), None, lin, r(N, nu, B),
+            *traj[:3], refs, consts, glow=True, luu_al=None, hand=True)
+        yield "rollout", lambda: P._rollout_kernel(
+            fn("nu_f64", "rollout_nu_f64", P._ROLLOUT_ARGS), None, *traj, r(N, nu, B),
+            r(N, nu, 12, B), lin, None, consts, dt=0.01, gravity=True, exact_grav=True,
+            fused=False)
+        yield "riccati_mx", lambda: DM._backward_mx_kernel(
+            fn("nu_mx", "riccati_nu_mx", DM._RICCATI_ARGS), None, lin_mx, r(N, nu, B),
+            r(12, B), r(12, 12, B).to(f32), consts, consts32, glow=True, luu_al=None)
+        yield "rollout_mx", lambda: DM._rollout_mx_kernel(
+            fn("nu_mx", "rollout_nu_mx", DM._ROLLOUT_ARGS), None, *traj,
+            r(N, nu, B).to(f32), r(N, nu, 12, B).to(f32), lin_mx, consts, dt=0.01,
+            gravity=True)
+
+    for nu in (0, _build.MAX_NU + 1):
+        for name, call in calls(nu):
+            with pytest.raises(RuntimeError, match=name):
+                call()
+    assert len([call() for _, call in calls(13)]) == 5
 
 
-@pytest.mark.parametrize("nu", [0, 13], ids=["nu0", "nu13"])
+@pytest.mark.parametrize("nu", [0, 13, _build.MAX_NU + 1],
+                         ids=["nu0", "nu13", f"nu{_build.MAX_NU + 1}"])
 def test_wrappers_refuse_nu_out_of_range_before_any_launch(nu):
     """On a device tensor (here the meta device: no data, no kernel) at nu = 0
-    or 13, every wrapper of B1-B6 raises ValueError naming the range 1..12
-    before it looks for a kernel, and counts no launch (neither its own
-    count nor its runtime-nu instance's); at nu = 3 it gets as far as the
-    device."""
+    or MAX_NU + 1, every wrapper of B1-B6 raises ValueError naming the range
+    1..MAX_NU before it looks for a kernel, and counts no launch (neither its
+    own count nor its runtime-nu or large-nu instance's); at nu = 3 and 13
+    (the large-nu instances' first) it gets as far as the device."""
     from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.pipeline import (
         KERNELS as PK,
     )
@@ -545,8 +710,13 @@ def test_wrappers_refuse_nu_out_of_range_before_any_launch(nu):
     before = {k: w.launches for k, w in counters.items()}
     n = 0
     for call in calls(nu):
-        with pytest.raises(ValueError, match=r"nu = -?\d+: the kernels take nu in 1\.\.12"):
-            call()
+        if nu == 13:
+            with pytest.raises(ValueError, match="no kernel for device meta"):
+                call()
+        else:
+            with pytest.raises(ValueError,
+                               match=rf"nu = -?\d+: the kernels take nu in 1\.\.{_build.MAX_NU}$"):
+                call()
         n += 1
     assert n == 6
     assert {k: w.launches for k, w in counters.items()} == before

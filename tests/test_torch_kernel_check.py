@@ -44,6 +44,8 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.batched import 
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import so3_bench
 from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks.al_bench import (
     build_screw200,
+    build_screw200_nu,
+    nu_pu,
     screw200_model,
     screw_batch,
 )
@@ -298,6 +300,35 @@ def test_work_counts_what_each_kernel_reads_and_writes_once(name, request):
     t_ops = sum(n / PEAK_OPS_PER_S[dt] for dt, n in wk["ops"].items())
     assert wk["bytes"] / HBM_BYTES_PER_S >= 2 * t_ops > 0
     assert bound_ms(wk)[1] == "bytes"
+
+
+# B2's and B4's elements per problem at input dimension nu (fp64): B2 reads
+# Fx, d, lx, lu, lxx (312 + nu a stage) and the terminal state, writes k, K
+# and gvec (14 nu a stage) and lN; B4 reads the trajectory (18 a stage, N + 1
+# stages), us, k, K (14 nu), d, fqR, fqp, fxi (30) and writes the trajectory
+# and us.  At nu = 6 these are `IO`'s.
+IO_NU = {"B2": lambda N, nu: (312 + nu) * N + 18 + 14 * nu * N + 1,
+         "B4": lambda N, nu: 18 * (N + 1) + (14 * nu + 30) * N + 18 * (N + 1) + nu * N}
+
+
+@pytest.mark.parametrize("nu", [6, 16, _build.MAX_NU], ids=lambda nu: f"nu{nu}")
+@pytest.mark.parametrize("name", list(IO_NU))
+def test_work_counts_the_nu_sized_arrays_at_every_nu(name, nu):
+    """`work` of B2 and B4 at nu = 6, 16 and MAX_NU (the large-nu
+    instances' rows in `chip_smoke.py`'s kernels_nu): every array once at
+    its nu, and the bound the larger of the bytes' and the operations'
+    times (the Riccati step's operations grow as nu^3 / 3, its bytes as
+    nu)."""
+    dyn, cost, q0, xi0 = build_screw200_nu(nu_pu(nu), torch.float64, "cpu", horizon=H)
+    q0s, xi0s = screw_batch(q0, xi0, B, seed=3)
+    solver = P.PipelineSolver(H, 1, float(dyn.dt), gravity=True, exact_gravity_jacobian=True)
+    s = kernel_inputs(solver, dyn, cost, q0s, xi0s, torch.zeros((B, H, nu), dtype=torch.float64))
+    wk = work(name, s, calls(s, dt=solver.dt, gravity=True)[name][1]())
+    assert wk["bytes"] == B * 8 * IO_NU[name](H, nu)
+    assert IO_NU[name](H, 6) == sum(IO[name](H))
+    t_bytes = wk["bytes"] / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS_PER_S[dt] for dt, n in wk["ops"].items())
+    assert bound_ms(wk) == (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
 def test_bound_ms_takes_the_larger_time():

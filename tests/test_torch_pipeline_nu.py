@@ -105,11 +105,11 @@ def jax_solves():
     return {}
 
 
-def check_pipeline(dtype, nu, jax_solves):
+def check_pipeline(dtype, nu, jax_solves, H=H, B=B):
     """The port's `PipelineSolver` (fused) in ``dtype`` against the JAX
     `PallasPipelineSolver(interpret=True, fused=False)` in f64 at ``nu``,
-    rigid-body family, from the same seeded inputs (rounded to ``dtype``),
-    at ``dtype``'s tolerances."""
+    rigid-body family, horizon ``H``, batch ``B``, from the same seeded
+    inputs (rounded to ``dtype``), at ``dtype``'s tolerances."""
     if nu not in jax_solves:
         dp, cp, _, _, q0, xi0 = nu_problem(H, nu)
         q0s, xi0s, us0 = initial_batch(q0, xi0, B, H, nu, seed=0, dtype=jnp.float64)
@@ -138,7 +138,13 @@ NAL, BOX = 6, 0.5
 def test_al_pipeline_nu3_matches_jax():
     """`ALPipelineSolver` with an input box of +-BOX at nu = 3 (f64, cold
     start) against the JAX one: the box binds, the same outer iterations."""
-    nu = 3
+    check_al_pipeline(3)
+
+
+def check_al_pipeline(nu, H=H):
+    """`ALPipelineSolver` with an input box of +-BOX at ``nu`` (f64, cold
+    start, horizon ``H``, two problems) against the JAX one: the box binds,
+    the same outer iterations, us to 1e-6, J to rtol 1e-7."""
     dp, cp, tdp, tcp, q0, xi0 = nu_problem(H, nu)
     q0s, xi0s, us0 = initial_batch(q0, xi0, 2, H, nu, seed=1, dtype=jnp.float64)
     jpipe = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt), interpret=True,

@@ -9,7 +9,8 @@ and so are ``so3`` (the SO(3)-family pipeline) and ``fast`` (the generic
 fast tier's Riccati backward and rollout);
 ``polish`` mixes f32 and fp64 by design and is built once, under the suffix
 ``mx``; ``pipeline_nu`` (per scalar) and ``polish_nu`` (``mx``) hold the
-instances of B1-B6 at the input dimensions the tuned ones do not take.
+instances of B1-B6 at the input dimensions the tuned ones do not take (up
+to `MAX_NU`, which every unit gets as ``-DTRAOPT_MAX_NU``).
 The libraries go to ``build/torch_kernels/`` beside the package, named
 ``{unit}_{suffix}_{hash}.so`` by a hash of the sources and flags, so a
 changed source rebuilds and an unchanged one loads.  All libraries are
@@ -41,11 +42,66 @@ LIBS = (("linearize", "f32", "float"), ("linearize", "f64", "double"),
         ("pipeline_nu", "f32", "float"), ("pipeline_nu", "f64", "double"),
         ("polish_nu", "mx", None))
 # The input dimensions of B1-B6: their tuned instances (linearize, pipeline,
-# polish) take TUNED_NU, their runtime-nu instances (pipeline_nu: B1-B4,
-# polish_nu: B5 and B6) every nu from 1 to MAX_NU.
-TUNED_NU, MAX_NU = (6, 4), 12
+# polish) take TUNED_NU; their runtime-nu instances (pipeline_nu: B1-B4,
+# polish_nu: B5 and B6) every nu from 1 to MU_MAX_NU (csrc/nu.cuh), and
+# their large-nu instances every nu from MU_MAX_NU + 1 to MAX_NU
+# (csrc/nu_large.cuh).
+TUNED_NU, MU_MAX_NU = (6, 4), 12
+# An H100's shared memory for one block (csrc/riccati_large.cuh kSmemPerBlock).
+SMEM_PER_BLOCK = 232448
+
+
+def _pitch(size, ne):
+    """csrc/group.cuh pitch: a row of at least ne elements of ``size``
+    bytes, 20 banks (mod 32) from the next."""
+    p = ne
+    while (p * (size // 4)) % 32 != 20:
+        p += 1
+    return p
+
+
+def _align16(n):
+    return (n + 15) // 16 * 16
+
+
+def _group_stride(n):
+    s = _align16(n)
+    while s % 128 != 80:
+        s += 16
+    return s
+
+
+def riccati_large_bytes(nu, tp, tr):
+    """The shared memory of a block of the large-nu Riccati kernel (B2 in
+    f32: element sizes ``tp`` = ``tr`` = 4; B5: 4, 8; fp64 B2: 8, 8) at
+    ``nu``: csrc/riccati_large.cuh's LargeLayout with 8 problems a block (4
+    in fp64), which the build checks against this count."""
+    P, w = (4 if tp == 8 else 8), nu | 1
+    stage = P * ((_pitch(tr, 144) + 2 * _pitch(tr, 12) + _pitch(tr, nu)) * tr
+                 + (_pitch(tp, 144) + _pitch(tp, nu)) * tp)
+    out = (_align16(12 * nu * (P + 1) * tp) + _align16(nu * (P + 1) * tp)
+           + _align16(nu * (P + 1) * tr))
+    group = (_align16(12 * tr) + _align16(nu * tr) + 288 * tp + _align16(13 * w * tp)
+             + 2 * _align16(12 * w * tp) + 2 * _align16(nu * w * tp) + _align16(6 * w * tp)
+             + (144 * tp if tp != tr else 0))
+    consts = _align16(6 * w * tp) + _align16(6 * w * tr) + _align16(nu * w * tp)
+    return consts + 2 * stage + 2 * out + P * _group_stride(group)
+
+
+def _max_nu():
+    nu = MU_MAX_NU
+    while all(riccati_large_bytes(nu + 1, *k) <= SMEM_PER_BLOCK
+              for k in ((4, 4), (4, 8), (8, 8))):
+        nu += 1
+    return nu
+
+
+# The largest nu that B1-B6 take: the largest whose large-nu Riccati layout
+# fits one block in every scalar.
+MAX_NU = _max_nu()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+              f"-DTRAOPT_MAX_NU={MAX_NU}")
 
 
 def nvcc_path():
@@ -167,6 +223,15 @@ def check_nu(kernel, nu):
     if not 1 <= nu <= MAX_NU:
         raise ValueError(f"{kernel}: no kernel for nu = {nu}: the kernels take nu in "
                          f"1..{MAX_NU}")
+
+
+def nu_counter(wrapper, nu):
+    """What counts a launch of the instance of B1-B6 at ``nu``: the tuned
+    one's wrapper itself, the runtime-nu one's ``wrapper.nu`` or the
+    large-nu one's ``wrapper.nuL``."""
+    if nu in TUNED_NU:
+        return wrapper
+    return wrapper.nu if nu <= MU_MAX_NU else wrapper.nuL
 
 
 def check(err, kernel):

@@ -45,6 +45,7 @@
 
 namespace traopt {
 
+// The largest nu of these instances (nu_large.cuh takes nu past it).
 constexpr int kMaxNu = 12;
 
 // The instance of a runtime nu: MU = 6 for nu <= 6, else 12.

@@ -75,10 +75,12 @@ struct Refs {
 };
 
 // fq = normalize(q Exp(xi dt)); fxi = xi + dt Jinv (coad(xi) J xi
-// [+ m g R^T down] + Pu u)  (models/dynamics.py free body / rigid body)
-template <typename T, int NU>
-__device__ __forceinline__ void stage_dynamics_eval(
-    T* fqR, T* fqp, T* fxi, const T* R, const T* p, const T* xi, const T* u,
+// [+ m g R^T down] + Pu u)  (models/dynamics.py free body / rigid body),
+// the input wrench Pu u from pu_u(w), which writes it into the 6-vector w
+// where the sum needs it.
+template <typename T, typename PuU>
+__device__ __forceinline__ void stage_dynamics_eval_with(
+    T* fqR, T* fqp, T* fxi, const T* R, const T* p, const T* xi, PuU&& pu_u,
     const Consts<T>& c) {
   T tau[6];
 #pragma unroll
@@ -92,7 +94,7 @@ __device__ __forceinline__ void stage_dynamics_eval(
   cross3(c1, xi, Jxi);
   cross3(c2, xi + 3, Jxi + 3);
   cross3(c3, xi, Jxi + 3);
-  mat_vec<6, NU>(Puu, c.Pu, u);
+  pu_u(Puu);
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     wrench[i] = (-c1[i] - c2[i]) + Puu[i];
@@ -106,6 +108,15 @@ __device__ __forceinline__ void stage_dynamics_eval(
   mat_vec<6, 6>(Jw, c.Jinv, wrench);
 #pragma unroll
   for (int i = 0; i < 6; ++i) fxi[i] = xi[i] + c.dt * Jw[i];
+}
+
+// stage_dynamics_eval_with the wrench Pu u of the nu = NU inputs u.
+template <typename T, int NU>
+__device__ __forceinline__ void stage_dynamics_eval(
+    T* fqR, T* fqp, T* fxi, const T* R, const T* p, const T* xi, const T* u,
+    const Consts<T>& c) {
+  stage_dynamics_eval_with(fqR, fqp, fxi, R, p, xi,
+                           [&](T* w) { mat_vec<6, NU>(w, c.Pu, u); }, c);
 }
 
 // Fx = [[Ad(Exp(-tau)), Jr(tau) dt], [J_xi_q, I + H dt]], tau = xi dt, with

@@ -201,13 +201,16 @@ def linearize_lane(qR, qp, xi, us, refs, consts, *, dt, gravity=False,
     d (N, 12, B), Fx (N, 12, 12, B), lx, lxx, l (N, 1, B)).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32 or float64), or raise (nu outside 1..12 before any launch).
+    (float32 or float64), or raise (nu outside 1.._build.MAX_NU before any
+    launch).
     On an H100 the kernel is bound by its stores (Fx and lxx, 288 values
     per stage and problem); it writes each entry once, coalesced over the
     batch.  At nu other than 6 and 4 it launches the runtime-nu instance,
     counted in ``linearize_lane.nu``: u and Pu padded with zeros to the
     instance's maximum (6, or 12 past nu = 6), Pu in the block's shared
-    memory (`csrc/nu.cuh`)."""
+    memory (`csrc/nu.cuh`); past nu = 12 the large-nu instance, counted in
+    ``linearize_lane.nuL``: the wrench Pu u summed one input at a time, Pu
+    in the block's shared memory (`csrc/nu_large.cuh`)."""
     kw = dict(dt=dt, gravity=gravity, exact_grav=exact_grav)
     if us.device.type == "cpu":
         return linearize_plain(qR, qp, xi, us, refs, consts, **kw)
@@ -220,12 +223,13 @@ def linearize_lane(qR, qp, xi, us, refs, consts, *, dt, gravity=False,
                          _build.suffix(us.dtype), _LINEARIZE_ARGS)
     out = _linearize_kernel(fn, torch.cuda.current_stream(us.device).cuda_stream,
                             qR, qp, xi, us, refs, consts, **kw)
-    (linearize_lane if tuned else linearize_lane.nu).launches += 1
+    _build.nu_counter(linearize_lane, us.shape[1]).launches += 1
     return out
 
 
 linearize_lane.launches = 0
 linearize_lane.nu = types.SimpleNamespace(launches=0)
+linearize_lane.nuL = types.SimpleNamespace(launches=0)
 
 
 def lane_refs(q_ref_inv, Ad_ref, xi_ref):

@@ -27,9 +27,9 @@ Each kernel wrapper (`backward_mx_lane`, `rollout_mx_lane`,
 `linearize_tail_mx_lane`) takes the plain version (`*_plain`) for CPU
 tensors and launches the CUDA kernel (`csrc/polish.cu`) for CUDA tensors, or
 raises; B5 and B6 at nu other than 6 and 4 launch their runtime-nu
-instances (`csrc/polish_nu.cu`), counted apart (each wrapper's
-``nu.launches``), and nu outside 1..12 raises ValueError before any
-launch.  The TPU-only
+instances (`csrc/polish_nu.cu`: up to 12 and past it), counted apart (each
+wrapper's ``nu.launches`` and ``nuL.launches``), and nu outside
+1.._build.MAX_NU raises ValueError before any launch.  The TPU-only
 specializations of the JAX polish (small-angle Log, truncated Exp series,
 one-step Newton renormalization, sublane packing) are not ported: the port
 uses the full fp64 `se3_log`, `se3_exp` and `so3_normalize`.
@@ -264,7 +264,9 @@ def backward_mx_lane(lin, lu, VxN, VxxN, consts, consts32, *, glow,
     stage's inputs copied ahead into shared memory.  At nu other than 6
     and 4 it launches the runtime-nu instance, counted in
     ``backward_mx_lane.nu``: the same design with nu a runtime argument
-    (`csrc/nu.cuh`), as `pipeline.backward_lane`'s is B2's."""
+    (`csrc/nu.cuh`), as `pipeline.backward_lane`'s is B2's; past nu = 12
+    the large-nu instance, counted in ``backward_mx_lane.nuL``
+    (`csrc/riccati_large.cuh`, as B2's)."""
     kw = dict(glow=glow, luu_al=luu_al)
     if lu.device.type == "cpu":
         return backward_mx_plain(lin, lu, VxN, VxxN, consts, consts32, **kw)
@@ -275,12 +277,13 @@ def backward_mx_lane(lin, lu, VxN, VxxN, consts, consts32, *, glow,
                          "mx", _RICCATI_ARGS)
     out = _backward_mx_kernel(fn, _stream(lu), lin, lu, VxN, VxxN, consts,
                               consts32, **kw)
-    (backward_mx_lane if tuned else backward_mx_lane.nu).launches += 1
+    _build.nu_counter(backward_mx_lane, lu.shape[1]).launches += 1
     return out
 
 
 backward_mx_lane.launches = 0
 backward_mx_lane.nu = types.SimpleNamespace(launches=0)
+backward_mx_lane.nuL = types.SimpleNamespace(launches=0)
 
 
 def rollout_mx_lane(qR, qp, xi, us, k32, K32, lin, consts, *, dt, gravity):
@@ -297,7 +300,10 @@ def rollout_mx_lane(qR, qp, xi, us, k32, K32, lin, consts, *, dt, gravity):
     in registers; the fp64 state and the dynamics evaluation press on the
     register file.  At nu other than 6 and 4 it launches the runtime-nu
     instance, counted in ``rollout_mx_lane.nu``: u, k and K zero past nu in
-    registers, Pu padded in the block's shared memory (`csrc/nu.cuh`)."""
+    registers, Pu padded in the block's shared memory (`csrc/nu.cuh`); past
+    nu = 12 the large-nu instance, counted in ``rollout_mx_lane.nuL``: u, k
+    and K read one row at a time, the wrench Pu u summed one input at a time
+    (`csrc/nu_large.cuh`)."""
     kw = dict(dt=dt, gravity=gravity)
     if us.device.type == "cpu":
         return rollout_mx_plain(qR, qp, xi, us, k32, K32, lin, consts, **kw)
@@ -308,12 +314,13 @@ def rollout_mx_lane(qR, qp, xi, us, k32, K32, lin, consts, *, dt, gravity):
                          "mx", _ROLLOUT_ARGS)
     out = _rollout_mx_kernel(fn, _stream(us), qR, qp, xi, us, k32, K32, lin, consts,
                              **kw)
-    (rollout_mx_lane if tuned else rollout_mx_lane.nu).launches += 1
+    _build.nu_counter(rollout_mx_lane, us.shape[1]).launches += 1
     return out
 
 
 rollout_mx_lane.launches = 0
 rollout_mx_lane.nu = types.SimpleNamespace(launches=0)
+rollout_mx_lane.nuL = types.SimpleNamespace(launches=0)
 
 
 def _rollout_mx_kernel(fn, stream, qR, qp, xi, us, k32, K32, lin, consts, *, dt,
@@ -395,11 +402,13 @@ linearize_tail_mx_lane.launches = 0
 linearize_tail_mx_lane.with_fx = types.SimpleNamespace(launches=0)
 
 # B7, B8 and B9 are one kernel; each keeps its name and count.  B5 and B6
-# at nu other than 6 and 4: their runtime-nu instances, counted apart.
+# at nu other than 6 and 4: their runtime-nu instances (nu <= 12) and their
+# large-nu ones, counted apart.
 KERNELS = {"B5": backward_mx_lane, "B6": rollout_mx_lane,
            "B7": linearize_tail_mx_lane, "B8": linearize_tail_mx_lane.with_fx,
            "B9": linearize_tail_mx_lane, "B5nu": backward_mx_lane.nu,
-           "B6nu": rollout_mx_lane.nu}
+           "B6nu": rollout_mx_lane.nu, "B5nuL": backward_mx_lane.nuL,
+           "B6nuL": rollout_mx_lane.nuL}
 
 
 # -- the solver -------------------------------------------------------------------

@@ -17,9 +17,10 @@ Each kernel wrapper (`backward_lane`, `rollout_lane`,
 `rollout_linearize_lane`) takes the plain version (`*_plain`, a Python loop
 over stages) for CPU tensors and launches the CUDA kernel
 (`csrc/pipeline.cu`) for CUDA tensors, or raises.  The tuned kernels take
-nu = 6 and 4; at every other nu up to 12 the same wrappers launch the
-runtime-nu instances (`csrc/pipeline_nu.cu`) and count them apart (each
-wrapper's ``nu.launches``), and nu outside 1..12 raises ValueError before
+nu = 6 and 4; at every other nu the same wrappers launch the runtime-nu
+instances (`csrc/pipeline_nu.cu`: nu.cuh up to 12, nu_large.cuh from 13
+to `_build.MAX_NU`) and count them apart (each wrapper's ``nu.launches``
+and ``nuL.launches``), and nu outside 1..MAX_NU raises ValueError before
 any launch.
 """
 
@@ -54,31 +55,32 @@ def solve_device(x):
 # -- Riccati backward, const-Fu/Luu specialization ---------------------------
 
 def chol_factor_lane(Quu, nu):
-    """Batched nu x nu Cholesky (unrolled).  The DIAGONAL IS STORED AS ITS
+    """Batched nu x nu Cholesky of Quu (nu, nu, *b), column by column, each
+    column's rows at once: entry (i, j) is Quu[i, j] - L[i, 0] L[j, 0] -
+    L[i, 1] L[j, 1] - ... in that order, as the kernels sum it.  Returns L
+    (nu, nu, *b), its lower triangle set.  The DIAGONAL IS STORED AS ITS
     RECIPROCAL (L[j][j] = 1/sqrt(pivot)); `chol_solve_lane` multiplies by it."""
-    L = [[None] * nu for _ in range(nu)]
+    L = torch.empty_like(Quu)
     for j in range(nu):
-        sv = Quu[j, j]
+        sv = Quu[j:, j]
         for kk in range(j):
-            sv = sv - L[j][kk] * L[j][kk]
-        inv = 1.0 / torch.sqrt(sv)
-        L[j][j] = inv
-        for i2 in range(j + 1, nu):
-            sv = Quu[i2, j]
-            for kk in range(j):
-                sv = sv - L[i2][kk] * L[j][kk]
-            L[i2][j] = sv * inv
+            sv = sv - L[j:, kk] * L[j, kk]
+        inv = 1.0 / torch.sqrt(sv[0])
+        L[j, j] = inv
+        L[j + 1:, j] = sv[1:] * inv
     return L
 
 
 def chol_solve_lane(L, Bm, nu):
-    """Solve (L L^T) X = Bm for Bm (nu, p, *b); ``L`` from `chol_factor_lane`."""
+    """Solve (L L^T) X = Bm for Bm (nu, p, *b); ``L`` from `chol_factor_lane`.
+    The forward substitution updates the rows below each Y[kk] at once, which
+    subtracts the terms of each row in the kernels' order (kk ascending)."""
     Y = [None] * nu
-    for i2 in range(nu):
-        sv = Bm[i2]
-        for kk in range(i2):
-            sv = sv - L[i2][kk] * Y[kk]
-        Y[i2] = sv * L[i2][i2]
+    S = Bm
+    for kk in range(nu):
+        Y[kk] = S[0] * L[kk, kk]
+        if kk + 1 < nu:
+            S = S[1:] - L[kk + 1:, kk].unsqueeze(1) * Y[kk]
     X = [None] * nu
     for i2 in reversed(range(nu)):
         sv = Y[i2]
@@ -251,7 +253,12 @@ def backward_lane(lin, lu, qR, qp, xi, refs, consts, *, glow, luu_al=None):
     (6, or 12 past nu = 6), fu2 and Luu padded in shared memory so that the
     dimensions past nu contribute exact zeros, the stage copies and stores
     of the (N, nu, ...) arrays at the runtime nu; in fp64 the terminal
-    quadratization hands over in a (48, B) array of its own."""
+    quadratization hands over in a (48, B) array of its own.  Past nu = 12
+    the large-nu instance, counted in ``backward_lane.nuL``
+    (`csrc/riccati_large.cuh`): Q_uu, its factor and the 13 right-hand
+    sides in the group's shared memory (sized from nu at launch), lane r
+    rows r, r + 16, ... of Q_uu, a Cholesky factorization shared by the
+    group's lanes column by column, one triangular solve a lane."""
     kw = dict(glow=glow, luu_al=luu_al)
     if lu.device.type == "cpu":
         return backward_plain(lin, lu, qR, qp, xi, refs, consts, **kw)
@@ -264,12 +271,13 @@ def backward_lane(lin, lu, qR, qp, xi, refs, consts, *, glow, luu_al=None):
                                         _build.suffix(lu.dtype), _RICCATI_NU_ARGS))
     out = _backward_kernel(fn, torch.cuda.current_stream(lu.device).cuda_stream,
                            lin, lu, qR, qp, xi, refs, consts, hand=not tuned, **kw)
-    (backward_lane if tuned else backward_lane.nu).launches += 1
+    _build.nu_counter(backward_lane, lu.shape[1]).launches += 1
     return out
 
 
 backward_lane.launches = 0
 backward_lane.nu = types.SimpleNamespace(launches=0)
+backward_lane.nuL = types.SimpleNamespace(launches=0)
 
 
 # -- rollout ------------------------------------------------------------------
@@ -426,7 +434,11 @@ def rollout_lane(qR, qp, xi, us, k, K, lin, consts, *, dt, gravity=False):
     ``rollout_lane.nu``: in f32 and fp64 alike the fp64 rollout's design
     with nu a runtime argument (`csrc/nu.cuh`): each stage input copied once
     into the thread's shared-memory column and read where it is used, u, k
-    and K zero past nu there, Pu padded in shared memory."""
+    and K zero past nu there, Pu padded in shared memory; past nu = 12 the
+    large-nu instance, counted in ``rollout_lane.nuL``: the same column
+    without u, k and K, which each stage reads from device memory one row of
+    K at a time, the wrench Pu u summed one input at a time
+    (`csrc/nu_large.cuh`)."""
     kw = dict(dt=dt, gravity=gravity)
     if us.device.type == "cpu":
         return rollout_plain(qR, qp, xi, us, k, K, lin, consts, **kw)
@@ -438,12 +450,13 @@ def rollout_lane(qR, qp, xi, us, k, K, lin, consts, *, dt, gravity=False):
     out = _rollout_kernel(fn, torch.cuda.current_stream(us.device).cuda_stream,
                           qR, qp, xi, us, k, K, lin, None, consts,
                           exact_grav=False, fused=False, **kw)
-    (rollout_lane if tuned else rollout_lane.nu).launches += 1
+    _build.nu_counter(rollout_lane, us.shape[1]).launches += 1
     return out[:4]
 
 
 rollout_lane.launches = 0
 rollout_lane.nu = types.SimpleNamespace(launches=0)
+rollout_lane.nuL = types.SimpleNamespace(launches=0)
 
 
 def rollout_linearize_lane(qR, qp, xi, us, k, K, lin, refs, consts, *, dt,
@@ -462,7 +475,8 @@ def rollout_linearize_lane(qR, qp, xi, us, k, K, lin, refs, consts, *, dt,
     values are the fused loop's: the same stage functions on the same
     inputs.  At nu other than 6 and 4: the runtime-nu instances of both
     phases (`rollout_lane`'s and `linearize_lane`'s), counted in
-    ``rollout_linearize_lane.nu``."""
+    ``rollout_linearize_lane.nu``; past nu = 12 their large-nu instances,
+    counted in ``rollout_linearize_lane.nuL``."""
     kw = dict(dt=dt, gravity=gravity, exact_grav=exact_grav)
     if us.device.type == "cpu":
         return rollout_linearize_plain(qR, qp, xi, us, k, K, lin, refs, consts,
@@ -475,19 +489,23 @@ def rollout_linearize_lane(qR, qp, xi, us, k, K, lin, refs, consts, *, dt,
     out = _rollout_kernel(fn, torch.cuda.current_stream(us.device).cuda_stream,
                           qR, qp, xi, us, k, K, lin, refs, consts, fused=True,
                           **kw)
-    (rollout_linearize_lane if tuned else rollout_linearize_lane.nu).launches += 1
+    _build.nu_counter(rollout_linearize_lane, us.shape[1]).launches += 1
     return out
 
 
 rollout_linearize_lane.launches = 0
 rollout_linearize_lane.nu = types.SimpleNamespace(launches=0)
+rollout_linearize_lane.nuL = types.SimpleNamespace(launches=0)
 
 
-# the tuned instances (nu = 6 and 4) and the runtime-nu ones, each counted
+# the tuned instances (nu = 6 and 4), the runtime-nu ones (nu <= 12) and the
+# large-nu ones, each counted
 KERNELS = {"B1": linearize_lane, "B2": backward_lane,
            "B3": rollout_linearize_lane, "B4": rollout_lane,
            "B1nu": linearize_lane.nu, "B2nu": backward_lane.nu,
-           "B3nu": rollout_linearize_lane.nu, "B4nu": rollout_lane.nu}
+           "B3nu": rollout_linearize_lane.nu, "B4nu": rollout_lane.nu,
+           "B1nuL": linearize_lane.nuL, "B2nuL": backward_lane.nuL,
+           "B3nuL": rollout_linearize_lane.nuL, "B4nuL": rollout_lane.nuL}
 
 
 # -- the solver ---------------------------------------------------------------

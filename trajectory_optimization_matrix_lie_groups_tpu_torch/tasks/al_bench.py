@@ -19,11 +19,14 @@ JAX anchored tier's accuracy on it is in `golden/screw200_anchored_meta.json`.
 `build_screw200_nu` puts the same tracking problem on a rigid body driven
 through an input projection Pu (6, nu), with g = 0 and R = 1e-2 I: the
 rigid-body family (`gravity=True` in the pipelines) is how Pu reaches the
-solvers.  Its two named cases, with goldens from
+solvers.  Its four named cases, with goldens from
 `scripts/gen_torch_port_golden_nu.py` (`load_nu_golden`), are
-`screw200_torques3` (three body torques, Pu = [I3; 0], nu = 3) and
+`screw200_torques3` (three body torques, Pu = [I3; 0], nu = 3),
 `screw200_rcs12` (a 12-thruster reaction-control layout, `rcs12_pu`,
-nu = 12).
+nu = 12), `screw200_rcs16` (four quads of four thrusters, the pattern of
+the Apollo Service Module, `rcs16_pu`, nu = 16) and `screw200_rcs24` (24
+thrusters, `rcs24_pu`, nu = 24, as many as the Orion European Service
+Module's attitude thrusters).
 """
 
 import json
@@ -121,11 +124,41 @@ def rcs12_pu():
     return np.stack(cols, axis=1)
 
 
+def _thruster(r, d):
+    """The column [r x d; d] of a thruster of direction d at r."""
+    return np.concatenate([np.cross(r, d), d])
+
+
+def rcs16_pu():
+    """Four quads of four thrusters (6, 16), f64 numpy, the Apollo Service
+    Module's pattern: quads at r = +0.5 e_y, -0.5 e_y, +0.5 e_z, -0.5 e_z, in
+    that order, each firing along +e_x, -e_x, + and - the third axis (e_z
+    for the quads on y, e_y for those on z).  Rank 6."""
+    eye = np.eye(3)
+    cols = [_thruster(o * eye[b], d)
+            for b, c in ((1, 2), (2, 1)) for o in (0.5, -0.5)
+            for d in (eye[0], -eye[0], eye[c], -eye[c])]
+    return np.stack(cols, axis=1)
+
+
+def rcs24_pu():
+    """`rcs12_pu`'s construction with four offsets (6, 24), f64 numpy: for
+    each axis a in (x, y, z) and each sign s in (+1, -1), the thrusters of
+    direction s e_a at r = +0.5 e_b, -0.5 e_b, +0.5 e_c, -0.5 e_c with
+    b = (a + 1) mod 3 and c = (a + 2) mod 3, in that order.  Rank 6."""
+    eye = np.eye(3)
+    cols = [_thruster(o * eye[b], s * eye[a])
+            for a in range(3) for s in (1.0, -1.0)
+            for b in ((a + 1) % 3, (a + 2) % 3) for o in (0.5, -0.5)]
+    return np.stack(cols, axis=1)
+
+
 def nu_pu(nu):
     """The input projection (6, nu), f64 numpy, that the checks at input
     dimension nu take: the first nu columns of I6 up to nu = 6 (nu = 3:
     `torques3_pu`), I6 and the first nu - 6 thrusters of `rcs12_pu` past it,
-    and `rcs12_pu` at nu = 12.  (The first 1, 5 or 8 thrusters alone act on
+    `rcs12_pu` at nu = 12, and past 12 I6 and the first nu - 6 thrusters of
+    `rcs24_pu`, repeated from the first past 30.  (The first 1, 5 or 8 thrusters alone act on
     too few directions: the polish does not converge on them, and at its
     iterates the f32 roundings that kernel and plain version order
     differently reach B5's Q_u at up to 1e-6, in the tuned instance (nu = 4,
@@ -133,7 +166,11 @@ def nu_pu(nu):
     if nu == 12:
         return rcs12_pu()
     eye = np.eye(6)
-    return eye[:, :nu] if nu <= 6 else np.hstack([eye, rcs12_pu()[:, :nu - 6]])
+    if nu <= 6:
+        return eye[:, :nu]
+    if nu < 12:
+        return np.hstack([eye, rcs12_pu()[:, :nu - 6]])
+    return np.hstack([eye, rcs24_pu()[:, np.arange(nu - 6) % 24]])
 
 
 def build_screw200_nu(Pu, dtype=torch.float64, device=torch.device("cuda"), horizon=200):
@@ -152,7 +189,8 @@ def build_screw200_nu(Pu, dtype=torch.float64, device=torch.device("cuda"), hori
 
 
 # the named problems of `build_screw200_nu`: name -> input projection
-NU_PROBLEMS = {"screw200_torques3": torques3_pu, "screw200_rcs12": rcs12_pu}
+NU_PROBLEMS = {"screw200_torques3": torques3_pu, "screw200_rcs12": rcs12_pu,
+               "screw200_rcs16": rcs16_pu, "screw200_rcs24": rcs24_pu}
 
 
 def load_nu_golden(name):
