@@ -41,7 +41,8 @@ anchored tier is `solvers/anchored.AnchoredFastSolver` (f32, B13 at
 (12, 6)); the full-precision refiners are `solvers/df_pipeline.
 DFPipelineSolver` (B1-B3 in fp64) and `solvers/polish.HighPrecisionSolver`.
 B13's runtime-shape instance takes any (nx, nu) up to (12, 12) that no
-tuned instance has.  The error-state tier is `solvers/errorstate_ilqr.
+tuned instance has, its large-nu instance nx <= 12 and nu = 13 ... 34
+(screw200_rcs16 on the fast tier: a rigid body driven by 16 thrusters).  The error-state tier is `solvers/errorstate_ilqr.
 ErrorStateILQR` on the three error-state CLI problems (`tasks/
 errstate_bench.py`, N = 400, f64); the one-device sweeps are `parallel/
 sweep.run_sweep` (`BatchSolver` over `LieILQR`, its rollout on B14) and
@@ -181,12 +182,21 @@ Phases, each printed as one JSON line:
   kernels_b13_any  B13's runtime-shape instance at (6, 2), (9, 3), (12, 3)
                 and (12, 12) against its plain version (f32 B = 8192, f64
                 B = 1024, N = 200), each with its time and bound and the
-                parent kernel's time (`ANY_PARENT_MS`); its instances'
-                registers, stack and spills (ptxas; no f32 instance may
-                spill or keep a stack frame); one
+                parent kernel's time (`ANY_PARENT_MS`); one
                 `FastBatchSolver` solve (f32, B = 1024, 4 iterations;
                 B13any = 4) of a (12, 3) `LieModel` (the rigid body driven
                 by three torques) against use_pallas=False (J to 1e-4);
+                B13's large-nu instance at (12, 16) and (12, 34), timed at
+                N = 200 (f32 B = 8192, f64 B = 1024) and compared with its
+                plain version at N = 40 (the f32 (12, 16) row at 200), each
+                with its bound and its problems a block; one
+                `FastBatchSolver` solve of screw200_rcs16 (f32, B = 1024,
+                N = 200, 12 iterations; B13nuL = 12 and no other B13
+                launch), every lane finite, lane 0 within 10 x the JAX
+                fast tier's own f32 error of the golden, its solves/s;
+                the instances' registers, stack and spills (ptxas; no f32
+                instance may spill or keep a stack frame); each part's
+                seconds;
   kernels_refine  (``--refine`` only) the refiner's fp64 kernels: B1-B4 in
                 fp64 against their plain versions at its shapes (B = 16384,
                 N = 200) on the free body (nu = 6) and the drone (nu = 4,
@@ -290,13 +300,15 @@ larger of the bytes it must move (each array it reads once, each output
 written once) over 3.35 TB/s and its operations over 67 TFLOP/s (f32) or
 34 TFLOP/s (fp64), counted on this run's inputs (`kernel_check.work`).
 Then the kernels summary line, one entry for each of B1-B14, B13's
-runtime-shape instance (B13any) and the runtime-nu and large-nu instances
-of B1-B6 (B1nu-B6nu and B1nuL-B6nuL: their times at nu = 3 and 16, f32 for
-B1-B4, N = 200, B = 1024; launches from kernels_nu's part (b)) (B2's times at B=8192; launches of B1-B3
+runtime-shape and large-nu instances (B13any, B13nuL) and the runtime-nu
+and large-nu instances of B1-B6 (B1nu-B6nu and B1nuL-B6nuL: their times
+at nu = 3 and 16, f32 for B1-B4, N = 200, B = 1024; launches from
+kernels_nu's part (b)) (B2's times at B=8192; launches of B1-B3
 from the fused f32 run, of B4 from the unfused run, of B5-B9 from the
 polish run, of B10-B12 from the free-attitude run, of B13 and B14 from the
-free-body fast run, of B13any from the (12, 3) solve, each named in "run";
-B13any's times at (12, 3), f32, B = 8192; "launches_in": the launches in
+free-body fast run, of B13any from the (12, 3) solve, of B13nuL from the
+rcs16 solve, each named in "run"; B13any's times at (12, 3), B13nuL's at
+(12, 16), f32, B = 8192; "launches_in": the launches in
 each phase of the reference-exact, anchored and refiner paths, of the
 sweep, of the task CLI ("cli", all its tasks) and of the multi-device
 layer ("sharded")),
@@ -406,6 +418,14 @@ HOST_WORKERS, HOST_WAIT_S = 6, 600
 ANY_SHAPES = ((6, 2), (9, 3), (12, 3), (12, 12))
 ANY_BATCH = {torch.float32: 8192, torch.float64: 1024}
 ANY_SOLVE_BATCH, ANY_SOLVE_ITERS = 1024, 4
+# B13's large-nu instance (past nu = 12) at LARGE_SHAPES, f32 at B = 8192 and
+# f64 at B = 1024, timed at N = 200 and compared with its plain version at
+# N = NU_PLAIN_N (the kernels line's row, (12, 16) in f32, at N = 200); one
+# FastBatchSolver solve of screw200_rcs16 (f32, B = RCS16_BATCH,
+# RCS16_ITERS iterations: the JAX fast tier's recorded count), lane 0 within
+# 10 x the JAX fast tier's own f32 error of the golden
+LARGE_SHAPES, LARGE_LINE = ((12, 16), (12, 34)), (12, 16)
+RCS16_BATCH, RCS16_ITERS = 1024, 12
 # the same rows' ms on the kernel these rows replaced (one thread per
 # problem reading global memory, its carry in local memory), measured by
 # `python3 scripts/rates.py --b13-any` on that tree before the redesign
@@ -524,6 +544,8 @@ KERNELS = {
     "B13": ("generic riccati backward", "csrc/fast.cu",
             "trajectory_optimization_matrix_lie_groups_tpu/ops/pallas_riccati.py:104"),
     "B13any": ("generic riccati backward, runtime shape", "csrc/fast.cu",
+               "trajectory_optimization_matrix_lie_groups_tpu/ops/pallas_riccati.py:104"),
+    "B13nuL": ("generic riccati backward, large nu", "csrc/fast_large.cuh",
                "trajectory_optimization_matrix_lie_groups_tpu/ops/pallas_riccati.py:104"),
     "B14": ("gap-closing rollout", "csrc/fast.cu",
             "trajectory_optimization_matrix_lie_groups_tpu/ops/pallas_rollout.py:42"),
@@ -1396,19 +1418,21 @@ def b13_any_phase(dev, card, counted, expect):
     version at ANY_SHAPES (f32 B = 8192, f64 B = 1024, N = 200) with times
     (the kernel by CUDA events, mean of 3; the plain version, host-bound,
     on the host clock around the one call that the check compares) and
-    bounds and the parent kernel's time, the instances' ptxas report, and
-    one FastBatchSolver solve of a (12, 3) LieModel against
-    use_pallas=False.  Returns (the solve's launches, the kernel's entry of
-    the kernels line: its numbers at (12, 3), f32)."""
+    bounds and the parent kernel's time, and one FastBatchSolver solve of a
+    (12, 3) LieModel against use_pallas=False; B13's large-nu instance at
+    LARGE_SHAPES, each row with its problems a block, and one
+    FastBatchSolver solve of screw200_rcs16 at full width against its
+    golden; the instances' ptxas report.  Returns ((12, 3) solve's
+    launches, the runtime-shape instance's entry of the kernels line: its
+    numbers at (12, 3), f32), (the rcs16 solve's launches, the large-nu
+    instance's entry: its numbers at LARGE_LINE, f32))."""
     from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
     from trajectory_optimization_matrix_lie_groups_tpu_torch import kernel_check
-    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import costs, dynamics
-    from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import make_model
     from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import riccati as RC
-    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SE3
     from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import batched as F
     from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench
 
+    t_any = time.perf_counter()
     rows = {}
     for dtype, B in ANY_BATCH.items():
         gate = kernel_check.GATES["fast"][dtype]["B13"]
@@ -1431,13 +1455,9 @@ def b13_any_phase(dev, card, counted, expect):
             del s, args, kern, plain
     # a user's own LieModel at (12, 3): the rigid body, three torques, no gravity
     f32 = torch.float32
-    dyn, cost, q0, xi0 = al_bench.build_screw200(f32, dev, horizon=N)
-    Pu = torch.zeros((6, 3), dtype=f32, device=dev)
-    Pu[0, 0] = Pu[1, 1] = Pu[2, 2] = 1.0
-    cost.R = 1e-2 * torch.eye(3, dtype=f32, device=dev)
-    model, params = make_model(dynamics.rigid_body_dynamics()._replace(nu=3),
-                               costs.tracking_cost(SE3, 3),
-                               dynamics.rigid_body_params(dyn.J, dyn.dt, g=0.0, Pu=Pu), cost)
+    model, params, q0, xi0 = al_bench.screw200_nu_model(al_bench.torques3_pu(), f32, dev,
+                                                        horizon=N)
+    cost = params["cost"]
     q0s, xi0s = al_bench.screw_batch(q0, xi0, ANY_SOLVE_BATCH, SEED)
     args = (params, q0s, xi0s, torch.zeros((ANY_SOLVE_BATCH, N, 3), dtype=f32, device=dev),
             cost.q_ref, cost.xi_ref)
@@ -1447,28 +1467,92 @@ def b13_any_phase(dev, card, counted, expect):
     J_rel = ((out.J_opt - ref.J_opt).abs() / ref.J_opt.abs()).max().item()
     us_abs = (out.us - ref.us).abs().max().item()
     fin = bool(torch.isfinite(out.us).all().item() and torch.isfinite(out.J_opt).all().item())
+    any_s = time.perf_counter() - t_any
+
+    # -- the large-nu instance: its rows, then screw200_rcs16 at full width --
+    t_large = time.perf_counter()
+    large = {}
+    for dtype, B in ANY_BATCH.items():
+        gate = kernel_check.GATES["fast"][dtype]["B13"]
+        tp = torch.finfo(dtype).bits // 8
+        for nx, nu in LARGE_SHAPES:
+            s = kernel_check.riccati_inputs(nx, nu, B, N, dtype, dev, seed=SEED)
+            args = tuple(s[n] for n in kernel_check.READS["B13"])
+            kern = RC.backward_lane_any(*args)
+            ms = event_ms(lambda: RC.backward_lane_any(*args), 3)
+            b = bound("B13", s, kern)
+            n_plain = N if ((nx, nu) == LARGE_LINE and dtype == f32) else NU_PLAIN_N
+            if n_plain != N:
+                del s, args, kern
+                s = kernel_check.riccati_inputs(nx, nu, B, n_plain, dtype, dev, seed=SEED)
+                args = tuple(s[n] for n in kernel_check.READS["B13"])
+                kern = RC.backward_lane_any(*args)
+            plain, plain_s = timed(lambda: RC.backward_plain(*args))
+            e = kernel_check._compare({"B13": (lambda: kern, lambda: plain)},
+                                      kernel_check.FAST_OUTPUTS)["B13"]
+            key = f"{nx}x{nu} {str(dtype).replace('torch.', '')} B={B}"
+            large[key] = {"max_err": e["max_rel"], "max_abs_err": e["max_abs"], "gate": gate,
+                          "compared_at_N": n_plain, "ms": ms, "plain_ms": plain_s * 1e3,
+                          "plain_N": n_plain, **b, "bound_share": b["bound_ms"] / ms,
+                          "library_ms": None,
+                          "problems_per_block": _build.fast_large_problems(nx, nu, tp),
+                          "smem_bytes_per_block": _build.fast_large_bytes(
+                              nx, nu, tp, _build.fast_large_problems(nx, nu, tp))}
+            require(e["max_rel"] <= gate, f"B13nuL ({nx}, {nu}) {dtype}: {e['max_rel']} > {gate}")
+            del s, args, kern, plain
+    rows_s = time.perf_counter() - t_large
+    t_solve = time.perf_counter()
+    us_gold, meta = al_bench.load_nu_golden("screw200_rcs16")
+    jax_err = meta["jax_f32_fast"]["lane0_us_max_abs_err"]
+    require(meta["jax_f32_fast"]["iterations"] == RCS16_ITERS,
+            f"rcs16 golden's JAX fast-tier count {meta['jax_f32_fast']}")
+    model, params, q0, xi0 = al_bench.screw200_nu_model(al_bench.rcs16_pu(), f32, dev,
+                                                        horizon=N)
+    cost = params["cost"]
+    q0s, xi0s = al_bench.screw_batch(q0, xi0, RCS16_BATCH, SEED)
+    rcs, rcs_s, rcs_launches = counted(lambda: F.FastBatchSolver(model, N, RCS16_ITERS).solve(
+        params, q0s, xi0s, torch.zeros((RCS16_BATCH, N, 16), dtype=f32, device=dev),
+        cost.q_ref, cost.xi_ref))
+    rcs_err = float(np.abs(rcs.us[0].double().cpu().numpy() - us_gold).max())
+    rcs_fin = bool(torch.isfinite(rcs.us).all().item() and torch.isfinite(rcs.J_opt).all().item())
+    solve_s = time.perf_counter() - t_solve
+
     ptxas = {k: v for k, v in _build.ptxas_report().items()
-             if "traopt::fast_riccati_any_kernel<" in k}
+             if "traopt::fast_riccati_any_kernel<" in k
+             or "traopt::fast_riccati_large_kernel<" in k}
     emit({"phase": "kernels_b13_any", "card": card, "N": N, "metric":
           "max_rel = max|kernel - plain| / max(1, max|plain|) over outputs",
-          "ptxas": ptxas, "shapes": rows,
+          "ptxas": ptxas, "shapes": rows, "large_nu_shapes": large,
           "solve_12x3": {"model": "rigid body, Pu = [I3; 0] (three torques), g = 0, "
                                   "screw-200 tracking, R = 1e-2 I3", "dtype": "float32",
                          "B": ANY_SOLVE_BATCH, "iterations": ANY_SOLVE_ITERS,
                          "launches": launches, "use_pallas_false_launches": ref_launches,
                          "all_finite": fin, "J_rel_vs_use_pallas_false": J_rel,
                          "us_max_abs_vs_use_pallas_false": us_abs, "J_gate": 1e-4,
-                         "solve_s": sec, "use_pallas_false_s": ref_s}})
+                         "solve_s": sec, "use_pallas_false_s": ref_s},
+          "solve_rcs16": {"problem": "screw200_rcs16 (al_bench.screw200_nu_model, rcs16_pu, "
+                                     "nu = 16)", "dtype": "float32", "B": RCS16_BATCH,
+                          "N": N, "iterations": RCS16_ITERS, "launches": rcs_launches,
+                          "all_finite": rcs_fin, "lane0_us_max_abs_err_vs_golden": rcs_err,
+                          "jax_fast_f32_err": jax_err, "gate": 10 * jax_err,
+                          "solve_s": rcs_s, "solves_per_s": RCS16_BATCH / rcs_s,
+                          "card": card},
+          "seconds": {"runtime_shape_rows_and_12x3_solve": any_s, "large_nu_rows": rows_s,
+                      "rcs16_solve": solve_s}})
     require(launches == expect(B13any=ANY_SOLVE_ITERS), f"(12, 3) solve launches {launches}")
     require(ref_launches == expect(), f"(12, 3) use_pallas=False launches {ref_launches}")
     require(fin, "non-finite lanes in the (12, 3) solve")
     require(J_rel <= 1e-4, f"(12, 3) kernel vs use_pallas=False J rel err {J_rel}")
-    f32_ptxas = [v for k, v in ptxas.items() if "<float," in k]
-    require(len(ptxas) == 6 and len(f32_ptxas) == 3
+    require(rcs_launches == expect(B13nuL=RCS16_ITERS), f"rcs16 solve launches {rcs_launches}")
+    require(rcs_fin, "non-finite lanes in the rcs16 solve")
+    require(rcs_err <= 10 * jax_err, f"rcs16 lane 0 {rcs_err} > 10 x {jax_err}")
+    f32_ptxas = [v for k, v in ptxas.items() if "<float" in k]
+    require(len(ptxas) == 8 and len(f32_ptxas) == 4
             and all(v.get("stack_frame") == 0 and v.get("spill_stores") == 0
                     and v.get("spill_loads") == 0 for v in f32_ptxas),
-            f"B13any f32 instances keep a stack frame or spill: {ptxas}")
-    return launches, rows[f"12x3 float32 B={ANY_BATCH[f32]}"]
+            f"B13any / B13nuL f32 instances keep a stack frame or spill: {ptxas}")
+    line = large[f"{LARGE_LINE[0]}x{LARGE_LINE[1]} float32 B={ANY_BATCH[f32]}"]
+    return ((launches, rows[f"12x3 float32 B={ANY_BATCH[f32]}"]), (rcs_launches, line))
 
 
 def require_frameless_f64(ptxas):
@@ -2357,9 +2441,10 @@ def b13_any_only():
     build_s = _build.build()
     card = nvidia_smi()
     counted, expect = launch_counters()
-    launches, row = b13_any_phase(torch.device("cuda", 0), card, counted, expect)
-    emit({"b13_any_launches": launches, "B13any": row, "build_s": build_s,
-          "total_s": time.perf_counter() - t0})
+    (launches, row), (large_launches, large_row) = b13_any_phase(
+        torch.device("cuda", 0), card, counted, expect)
+    emit({"b13_any_launches": launches, "B13any": row, "b13_large_launches": large_launches,
+          "B13nuL": large_row, "build_s": build_s, "total_s": time.perf_counter() - t0})
     print(card, flush=True)
 
 
@@ -3015,7 +3100,8 @@ def run(pool):
     constrained_phases(dev, card, counted, expect)
     exact_runs = exact_phases(dev, card, counted, expect, {
         "fast_free_body": BATCH / med_f, "mixed_polish": POLISH_BATCH / med_p}, pool)
-    per_any, per_kernel["B13any"] = b13_any_phase(dev, card, counted, expect)
+    ((per_any, per_kernel["B13any"]),
+     (per_large, per_kernel["B13nuL"])) = b13_any_phase(dev, card, counted, expect)
     per_nu, nu_line = nu_phase(dev, card, counted, expect)
     per_kernel.update(nu_line)
     exact_runs.update(errstate_sweep_phases(dev, card, counted, expect, pool))
@@ -3038,6 +3124,7 @@ def run(pool):
     runs.update({k: (f"free_body fast B={BATCH}", per_fast["free_body"])
                  for k in ("B13", "B14")})
     runs["B13any"] = (f"(12, 3) rigid body fast B={ANY_SOLVE_BATCH}", per_any)
+    runs["B13nuL"] = (f"screw200_rcs16 fast B={RCS16_BATCH}", per_large)
     runs.update({k: ("kernels_nu (b): the four problems, f32 path, polish and refiner",
                      per_nu) for k in nu_line})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

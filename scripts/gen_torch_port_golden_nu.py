@@ -47,8 +47,18 @@ Steps for each (JAX on the CPU; no part of the port is imported):
 Writes `trajectory_optimization_matrix_lie_groups_tpu_torch/tasks/golden/
 {name}_us.npy` (200, nu) and `{name}_meta.json` for each problem.
 
+With ``--fast`` (past nu = 12: screw200_rcs16 and screw200_rcs24 by
+default) only one more step runs, on the committed golden, which it leaves
+as it is:
+  4. solve lane 0 with the JAX fast tier in f32 (`FastBatchSolver(use_pallas=
+     False)`, its XLA path, B = 1) for each iteration count of FAST_TRIED
+     and record its lane-0 control error against the golden in the
+     problem's `_meta.json` as ``jax_f32_fast``, at FAST_ITERS (the count
+     the port's fast solve on the card runs; its gate is 10 x that error).
+
 Run from the repository root (all four, or the problems named):
     JAX_PLATFORMS=cpu python scripts/gen_torch_port_golden_nu.py [name ...]
+    JAX_PLATFORMS=cpu python scripts/gen_torch_port_golden_nu.py --fast [name ...]
 """
 import contextlib
 import json
@@ -95,6 +105,7 @@ F32_ITERS = 12
 POLISH_GATE, DF_GATE = 1e-4, 1e-6
 POLISH_ITERS, DF_ITERS = (2, 3, 4, 6), (2, 3, 4, 6)
 F32_COUNTS = (4, 6, 8, 10, 12, 16, 20, 24, 28, 32)
+FAST_ITERS, FAST_TRIED = 12, (8, 12, 16)
 COMMAND = "JAX_PLATFORMS=cpu python scripts/gen_torch_port_golden_nu.py"
 
 
@@ -242,10 +253,50 @@ def refine_schedule(step, mp, dp32, cp32, q0, xi0, us_golden, nu):
     raise RuntimeError(f"no schedule reaches {DF_GATE}: {out}")
 
 
+def fast_f32(gd, name):
+    """Step 4 for ``name``: ``jax_f32_fast`` added to its `_meta.json`."""
+    us_golden = np.load(os.path.join(gd, f"{name}_us.npy"))
+    Pu = PROBLEMS[name]()
+    nu = Pu.shape[1]
+    params, _, _, q0, xi0, q_ref, xi_ref = build_al1400(jnp.float32, H)
+    dp = dynamics.rigid_body_params(params["dyn"].J, params["dyn"].dt, g=0.0,
+                                    Pu=jnp.asarray(Pu, jnp.float32),
+                                    exact_gravity_jacobian=True)
+    cp = params["cost"]._replace(R=R_WEIGHT * jnp.eye(nu, dtype=jnp.float32))
+    model, mp = make_model(dynamics.rigid_body_dynamics()._replace(nu=nu),
+                           costs.tracking_cost(SE3, nu), dp, cp)
+    errs, secs = {}, {}
+    for n in FAST_TRIED:
+        t0 = time.perf_counter()
+        with x64_off():
+            out = FastBatchSolver(model, N=H, iterations=n, use_pallas=False).solve(
+                mp, q0[None], xi0[None], jnp.zeros((1, H, nu), jnp.float32), q_ref, xi_ref)
+            assert out.us.dtype == jnp.float32, out.us.dtype
+        errs[n] = float(np.max(np.abs(np.asarray(out.us[0], np.float64) - us_golden)))
+        secs[n] = time.perf_counter() - t0
+        print(json.dumps({"problem": name, "fast_f32": n, "err": errs[n], "s": secs[n]}),
+              flush=True)
+    path = os.path.join(gd, f"{name}_meta.json")
+    with open(path) as f:
+        meta = json.load(f)
+    meta["jax_f32_fast"] = dict(
+        iterations=FAST_ITERS, lane0_us_max_abs_err=errs[FAST_ITERS],
+        tried={str(n): e for n, e in errs.items()},
+        solver="FastBatchSolver(use_pallas=False), f32, B=1",
+        cpu_seconds=secs[FAST_ITERS], command=f"{COMMAND} --fast")
+    with open(path, "w") as f:
+        json.dump(meta, f, indent=1)
+        f.write("\n")
+
+
 def main():
     gd = os.path.join(ROOT, "trajectory_optimization_matrix_lie_groups_tpu_torch",
                       "tasks", "golden")
     os.makedirs(gd, exist_ok=True)
+    if sys.argv[1:2] == ["--fast"]:
+        for name in sys.argv[2:] or ["screw200_rcs16", "screw200_rcs24"]:
+            fast_f32(gd, name)
+        return
     names = sys.argv[1:] or list(PROBLEMS)
     for name in names:
         Pu = PROBLEMS[name]()

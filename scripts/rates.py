@@ -37,12 +37,18 @@ moves B2's time by up to 2%):
 
     python3 scripts/rates.py [--root DIR] --b13-any
 
-measures B13's runtime-shape instance alone (`ops/riccati.backward_lane_any`,
-the kernel `chip_smoke.py --b13-any` checks): its ms (CUDA events, mean of
-3 launches after one) on `kernel_check.riccati_inputs` at (6, 2), (9, 3),
-(12, 3) and (12, 12), N = 200, f32 at B = 8192 and f64 at B = 1024, and
-the (12, 3) rigid body's `FastBatchSolver` solve (f32, B = 1024, 4
-iterations; median of 3 after a warm-up), ~1 minute a tree with the build.
+measures B13 alone (the kernel `chip_smoke.py --b13-any` checks): the ms
+(CUDA events, mean of 3 launches after one) of its runtime-shape instance
+(`ops/riccati.backward_lane_any`) on `kernel_check.riccati_inputs` at
+(6, 2), (9, 3), (12, 3) and (12, 12), of its tuned instances
+(`backward_lane`) at (12, 6), (12, 4) and (6, 3), and of its large-nu
+instance at (12, 16) and (12, 34) (null for a tree without it), N = 200,
+f32 at B = 8192 and f64 at B = 1024; the plain version's ms (host clock,
+one call) at (12, 3), (12, 6), (12, 12) and (12, 16), f32, B = 8192; the
+(12, 3) rigid body's `FastBatchSolver` solve (f32, B = 1024, 4 iterations;
+median of 3 after a warm-up) and screw200_rcs16's (f32, B = 1024, 12
+iterations, one rep after a warm-up; null without the large-nu
+instance), ~2 minutes a tree with the build.
 
     python3 scripts/rates.py [--root DIR] --refine
 
@@ -71,6 +77,10 @@ N, B_F32, B_POLISH, ITERS, SO3_ITERS = 200, 8192, 16384, 12, 30
 ANY_SHAPES = ((6, 2), (9, 3), (12, 3), (12, 12))
 ANY_BATCH = {torch.float32: 8192, torch.float64: 1024}
 ANY_SOLVE_BATCH, ANY_SOLVE_ITERS = 1024, 4
+# B13's tuned and large-nu instances, its plain version's shapes (f32), and
+# the rcs16 solve's iterations (--b13-any)
+TUNED_SHAPES, LARGE_SHAPES = ((12, 6), (12, 4), (6, 3)), ((12, 16), (12, 34))
+PLAIN_SHAPES, RCS16_ITERS = ((12, 3), (12, 6), (12, 12), (12, 16)), 12
 # the refiner (--refine): its batch, f32 and fp64 iterations, repetitions;
 # its fp64 kernels on the free body (nu = 6) and the drone (nu = 4)
 REFINE_BATCH, REFINE_F32_ITERS, REFINE_DF_ITERS, REFINE_REPS = 16384, 10, 3, 3
@@ -81,7 +91,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
     ap.add_argument("--b13-any", action="store_true",
-                    help="measure B13's runtime-shape instance alone")
+                    help="measure B13 alone (every instance, the plain version)")
     ap.add_argument("--refine", action="store_true",
                     help="measure the refiner's fp64 phase alone")
     args = ap.parse_args()
@@ -251,13 +261,27 @@ def b13_any_rates(dev, event_ms, timed):
     from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench
 
     out = {}
+    large = hasattr(RC.backward_lane_any, "nuL")
     for dtype, B in ANY_BATCH.items():
-        for nx, nu in ANY_SHAPES:
-            s = kernel_check.riccati_inputs(nx, nu, B, N, dtype, dev, seed=0)
-            args = tuple(s[n] for n in kernel_check.READS["B13"])
-            name = f"B13any_{nx}x{nu}_{str(dtype).replace('torch.', '')}_B{B}_ms"
-            out[name] = event_ms(lambda: RC.backward_lane_any(*args), 3)
-            del s, args
+        for kind, shapes, fn in (("B13any", ANY_SHAPES, RC.backward_lane_any),
+                                 ("B13", TUNED_SHAPES, RC.backward_lane),
+                                 ("B13nuL", LARGE_SHAPES, RC.backward_lane_any)):
+            for nx, nu in shapes:
+                name = f"{kind}_{nx}x{nu}_{str(dtype).replace('torch.', '')}_B{B}_ms"
+                if kind == "B13nuL" and not large:
+                    out[name] = None
+                    continue
+                s = kernel_check.riccati_inputs(nx, nu, B, N, dtype, dev, seed=0)
+                args = tuple(s[n] for n in kernel_check.READS["B13"])
+                out[name] = event_ms(lambda: fn(*args), 3)
+                del s, args
+    B = ANY_BATCH[torch.float32]
+    for nx, nu in PLAIN_SHAPES:
+        s = kernel_check.riccati_inputs(nx, nu, B, N, torch.float32, dev, seed=0)
+        args = tuple(s[n] for n in kernel_check.READS["B13"])
+        out[f"plain_B13_{nx}x{nu}_float32_B{B}_ms"] = timed(
+            lambda: RC.backward_plain(*args))[1] * 1e3
+        del s, args
     # the rigid body driven by three torques, no gravity (chip_smoke.py's
     # kernels_b13_any solve)
     f32 = torch.float32
@@ -275,6 +299,16 @@ def b13_any_rates(dev, event_ms, timed):
     solver.solve(*args)
     out[f"solve_12x3_B{ANY_SOLVE_BATCH}_s"] = statistics.median(
         timed(lambda: solver.solve(*args))[1] for _ in range(3))
+    out[f"solve_rcs16_B{ANY_SOLVE_BATCH}_s"] = None
+    if large:
+        model, params, q0, xi0 = al_bench.screw200_nu_model(al_bench.rcs16_pu(), f32, dev,
+                                                            horizon=N)
+        q0s, xi0s = al_bench.screw_batch(q0, xi0, ANY_SOLVE_BATCH, 0)
+        args = (params, q0s, xi0s, torch.zeros((ANY_SOLVE_BATCH, N, 16), dtype=f32, device=dev),
+                params["cost"].q_ref, params["cost"].xi_ref)
+        solver = F.FastBatchSolver(model, N, RCS16_ITERS)
+        solver.solve(*args)
+        out[f"solve_rcs16_B{ANY_SOLVE_BATCH}_s"] = timed(lambda: solver.solve(*args))[1]
     return out
 
 

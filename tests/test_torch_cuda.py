@@ -407,20 +407,121 @@ def test_ahead_b13_b14_edges(cuda, dtype, name, kind, B_):
 
 
 def test_b13_refuses_a_shape_it_has_no_kernel_for(cuda):
-    """A CUDA tensor at (nx, nu) = (13, 3), past the kernel's bound of 12,
-    raises from backward_lane: no kernel, and no fallback to the plain
-    version."""
+    """A CUDA tensor at (nx, nu) = (13, 3) or (6, MAX_NU + 1), past the
+    kernel's bounds of nx = 12 and nu = MAX_NU, raises ValueError naming
+    both from backward_lane before any launch: no kernel, and no fallback to
+    the plain version."""
     from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import riccati as RC
 
-    N_, B_, nx, nu = 2, 3, 13, 3
+    N_, B_ = 2, 3
     g = torch.Generator().manual_seed(0)
     r = lambda *shape: torch.randn(shape, generator=g, dtype=torch.float32).to(cuda)
-    launches = (RC.backward_lane.launches, RC.backward_lane_any.launches)
-    with pytest.raises(ValueError, match=r"\(nx, nu\) = \(13, 3\).*at most 12"):
-        RC.backward_lane(r(N_, nx, nx, B_), r(N_, nx, nu, B_), r(N_, nx, B_),
-                         r(N_ + 1, nx, B_), r(N_, nu, B_), r(N_ + 1, nx, nx, B_),
-                         r(N_, nu, nx, B_), r(N_, nu, nu, B_))
-    assert (RC.backward_lane.launches, RC.backward_lane_any.launches) == launches
+    for nx, nu in ((13, 3), (6, _MAX_NU + 1)):
+        launches = _b13_counts()
+        with pytest.raises(ValueError, match=rf"\(nx, nu\) = \({nx}, {nu}\): the kernels "
+                                             rf"take nx in 1\.\.12 and nu in 1\.\.{_MAX_NU}$"):
+            RC.backward_lane(r(N_, nx, nx, B_), r(N_, nx, nu, B_), r(N_, nx, B_),
+                             r(N_ + 1, nx, B_), r(N_, nu, B_), r(N_ + 1, nx, nx, B_),
+                             r(N_, nu, nx, B_), r(N_, nu, nu, B_))
+        assert _b13_counts() == launches
+
+
+def _b13_counts():
+    """The launches of B13's tuned, runtime-shape and large-nu instances."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import riccati as RC
+
+    return (RC.backward_lane.launches, RC.backward_lane_any.launches,
+            RC.backward_lane_any.nuL.launches)
+
+
+# B13's large-nu instance through backward_lane: its first nu (12, 13), the
+# rcs16 and rcs24 problems' (12, 16) and (12, 24), the largest (12, MAX_NU),
+# a small state (6, 24); one problem, a ragged block of every block size
+# (33, 257)
+@pytest.mark.parametrize("B_", [1, 33, 257], ids=["B1", "B33", "B257"])
+@pytest.mark.parametrize("nx,nu", [(12, 13), (12, 16), (12, 24), (12, _MAX_NU), (6, 24)],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b13_large_nu_launches_its_instance(cuda, dtype, nx, nu, B_):
+    """Past nu = 12 backward_lane launches B13's large-nu instance (counted
+    in backward_lane_any.nuL, no other instance) and agrees with the plain
+    version within the kernel's gate, N = 20."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import riccati as RC
+
+    s = riccati_inputs(nx, nu, B_, 20, dtype, cuda, seed=nx + nu)
+    args = tuple(s[n] for n in READS["B13"])
+    before = _b13_counts()
+    kern = RC.backward_lane(*args)
+    assert _b13_counts() == (before[0], before[1], before[2] + 1)
+    plain = RC.backward_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(FAST_OUTPUTS["B13"], kern, plain, strict=True):
+        assert rel_err(a, b) <= GATES["fast"][dtype]["B13"], (name, rel_err(a, b))
+
+
+def _rcs_model(nu, device, H_, box=None):
+    """(model, params, q0s, xi0s, us0) of the rigid body driven through 16
+    thrusters (rcs16) or `nu_pu(nu)`, f64, B = 33, H_ stages; with ``box``
+    its tracking cost in the AL cost of the input box +-box, and the
+    constraint after them."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import constraints as cs
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import costs
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models import dynamics
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.models.base import make_model
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SE3
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench
+
+    Pu = al_bench.rcs16_pu() if nu == 16 else al_bench.nu_pu(nu)
+    model, params, q0, xi0 = al_bench.screw200_nu_model(Pu, torch.float64, device, horizon=H_)
+    q0s, xi0s = screw_batch(q0, xi0, 33, seed=1)
+    us0 = torch.zeros((33, H_, nu), dtype=torch.float64, device=device)
+    if box is None:
+        return model, params, q0s, xi0s, us0
+    con = cs.input_box(12, nu)
+    model, _ = make_model(dynamics.rigid_body_dynamics()._replace(nu=nu),
+                          costs.al_cost(costs.tracking_cost(SE3, nu), con), params["dyn"], None)
+    bound = lambda v: torch.tensor(v, dtype=torch.float64, device=device)
+    al = costs.al_init_params(params["cost"], cs.input_box_params(bound(-box), bound(box), nu),
+                              H_, 2 * nu, mu0=1e-2, dtype=torch.float64)
+    return model, {"dyn": params["dyn"], "cost": al}, q0s, xi0s, us0, con
+
+
+@pytest.mark.parametrize("nu", [16, _MAX_NU], ids=lambda nu: f"nu{nu}")
+def test_fast_solver_large_nu_kernel_solve_matches_plain_solve(cuda, nu):
+    """A FastBatchSolver solve at nu = 16 (rcs16) and MAX_NU, B = 33,
+    N = 40, 3 iterations, through B13's large-nu instance (3 launches, no
+    other B13 instance) against the plain solve on the card, f64."""
+    model, params, *args = _rcs_model(nu, cuda, 40)
+    cp = params["cost"]
+    solver = FastBatchSolver(model, 40, 3)
+    before = _b13_counts()
+    out = solver.solve(params, *args, cp.q_ref, cp.xi_ref)
+    assert _b13_counts() == (before[0], before[1], before[2] + 3)
+    solver.plain = True
+    ref = solver.solve(params, *args, cp.q_ref, cp.xi_ref)
+    torch.testing.assert_close(out.us, ref.us, rtol=0, atol=1e-10)
+    torch.testing.assert_close(out.J_opt, ref.J_opt, rtol=1e-12, atol=0)
+
+
+def test_al_fast_large_nu_kernel_solve_matches_plain_solve(cuda):
+    """`ALFastSolver` at nu = 16 (rcs16) with the input box +-3 (it binds),
+    B = 33, N = 20, through B13's large-nu instance against the plain
+    solve on the card, f64: us at 1e-9, the same outer iterations."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.al_fast import (
+        ALFastSolver,
+    )
+
+    model, params, q0s, xi0s, us0, con = _rcs_model(16, cuda, 20, box=3.0)
+    solver = ALFastSolver(FastBatchSolver(model, 20, 4), con, tol_constr=1e-2)
+    before = _b13_counts()
+    out = solver.solve(params, q0s, xi0s, us0, n_al_iters=6)
+    moved = _b13_counts()
+    assert moved[:2] == before[:2] and moved[2] > before[2]
+    solver.inner.plain = True
+    ref = solver.solve(params, q0s, xi0s, us0, n_al_iters=6)
+    assert (out.us.abs() >= 3.0 - 1e-3).sum() >= 4, "the box does not bind"
+    torch.testing.assert_close(out.us, ref.us, rtol=0, atol=1e-9)
+    assert out.outer_iterations == ref.outer_iterations
 
 
 # B13's runtime-shape instance through backward_lane: a small shape on its

@@ -6,8 +6,12 @@ stated, on the same numpy inputs:
   `models/costs.tracking_cost` for SE(3) and SO(3);
 - `utils/linalg.chol_solve_psd`, the f64 loop backward's solve;
 - kernel B13's plain version (`ops/riccati`) against the JAX
-  `pallas_backward` (interpret mode) at the tuned instances' (nx, nu) and
-  at runtime shapes (6, 2), (9, 3), (12, 3), (12, 12) and (3, 12);
+  `pallas_backward` (interpret mode) at the tuned instances' (nx, nu), at
+  runtime shapes (6, 2), (9, 3), (12, 3), (12, 12) and (3, 12) and at the
+  large-nu shapes (12, 13) and (12, 16); at (12, 34) and (6, 24) against
+  the JAX `FastBatchSolver`'s XLA backward; its Cholesky
+  (`utils/linalg.chol_factor`) against the loop over the entries, bit for
+  bit;
 - kernel B14's plain version (`ops/rollout`) against the JAX
   `pallas_rollout` (interpret mode, f32) and the JAX `FastBatchSolver`'s scan
   rollout (f64).
@@ -195,9 +199,11 @@ def test_chol_solve_psd_matches_jax(rhs):
                                B if rhs else B[..., None], atol=1e-11)
 
 
-# the tuned instances' shapes, and shapes that only the runtime-shape
-# instance takes (nu > nx in (3, 12))
-BACKWARD_SHAPES = tuple(SHAPES) + ((6, 2), (9, 3), (12, 3), (12, 12), (3, 12))
+# the tuned instances' shapes, shapes that only the runtime-shape instance
+# takes (nu > nx in (3, 12)), and the large-nu instance's first nu and the
+# rcs16 problem's (12, 16)
+BACKWARD_SHAPES = tuple(SHAPES) + ((6, 2), (9, 3), (12, 3), (12, 12), (3, 12), (12, 13),
+                                   (12, 16))
 
 
 @pytest.mark.parametrize("dtype", [jnp.float64, jnp.float32], ids=["f64", "f32"])
@@ -220,6 +226,95 @@ def test_backward_plain_matches_pallas_backward(nx, nu, dtype):
         else:
             np.testing.assert_allclose(g.numpy(), w, rtol=1e-4,
                                        atol=1e-4 * np.abs(w).max(), err_msg=n)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float64, jnp.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("nx,nu", [(12, 34), (6, 24)], ids=["12x34", "6x24"])
+def test_backward_plain_matches_jax_xla_backward_at_a_large_nu(nx, nu, dtype):
+    """B13's plain version at the large-nu instance's largest nu (12, 34)
+    and at (6, 24) against the JAX `FastBatchSolver(use_pallas=False)
+    ._backward` (the same Riccati recursion as `pallas_backward`, whose
+    interpret-mode compile takes minutes past nu = 16), B = 4, N = 4: f64 at
+    atol 1e-9 (op by op under `jax.disable_jit`: the jit compile of its
+    unrolled f64 Cholesky at nu = 34 did not end within 15 minutes on the
+    CPU), f32 at rtol 1e-4 (atol 1e-4 of each output's largest entry; the
+    JAX f32 path solves by LU)."""
+    import jax
+
+    np_dt = np.float64 if dtype == jnp.float64 else np.float32
+    args = [a.astype(np_dt) for a in _random_riccati_problem(4, 4, nx, nu, nx + nu)]
+    lin = dict(zip(("Fx", "Fu", "d", "Lx", "Lu", "Lxx", "Lux", "Luu"),
+                   (jnp.asarray(a) for a in args)))
+    backward = JaxFastBatchSolver(None, N=4, iterations=1, use_pallas=False)._backward
+    if dtype == jnp.float64:
+        with jax.disable_jit():
+            want = backward(lin)
+    else:
+        want = jax.jit(backward)(lin)
+    got = fast_backward(*(T(a) for a in args))
+    for n, g, w in zip(("k", "K", "Vx1", "Vxx1"), got, want):
+        w = np.asarray(w)
+        assert g.dtype == TORCH_DTYPE[dtype] and g.shape == w.shape
+        if dtype == jnp.float64:
+            np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-9, err_msg=n)
+        else:
+            np.testing.assert_allclose(g.numpy(), w, rtol=1e-4,
+                                       atol=1e-4 * np.abs(w).max(), err_msg=n)
+
+
+def _chol_factor_entrywise(A, n):
+    """`utils/linalg.chol_factor` as a loop over the entries (as it was
+    written before it took a column's rows at once)."""
+    L = [[None] * n for _ in range(n)]
+    for j in range(n):
+        s = A[j, j]
+        for k in range(j):
+            s = s - L[j][k] * L[j][k]
+        L[j][j] = torch.sqrt(s)
+        inv = 1.0 / L[j][j]
+        for i in range(j + 1, n):
+            s = A[i, j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            L[i][j] = s * inv
+    return L
+
+
+@pytest.mark.parametrize("n", [1, 3, 16, 34])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_chol_factor_is_the_entrywise_loop_bit_for_bit(dtype, n):
+    """`chol_factor`, a column's rows at once (B13's plain version at
+    nu = 34 on the card: ~600 tensor operations a stage for the factor
+    instead of ~6,500), equals the loop over the entries bit for bit, and
+    `chol_solve` (its forward substitution a column at once) the loop
+    substitution, on a batch (5, 7) of positive definite n x n matrices
+    with 13 right-hand sides."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.utils.linalg import (
+        chol_factor,
+        chol_solve,
+    )
+
+    rng = np.random.default_rng(n)
+    W = rng.standard_normal((5, 7, n, n))
+    A = T(np.moveaxis(W @ np.swapaxes(W, -1, -2) + np.eye(n), (2, 3), (0, 1))).to(dtype)
+    Bm = T(rng.standard_normal((n, 13, 5, 7))).to(dtype)
+    want, got = _chol_factor_entrywise(A, n), chol_factor(A, n)
+    for i in range(n):
+        for j in range(i + 1):
+            assert torch.equal(got[i][j], want[i][j]), (i, j)
+    Y = [None] * n
+    for i in range(n):
+        s = Bm[i]
+        for k in range(i):
+            s = s - want[i][k] * Y[k]
+        Y[i] = s / want[i][i]
+    X = [None] * n
+    for i in reversed(range(n)):
+        s = Y[i]
+        for k in range(i + 1, n):
+            s = s - want[k][i] * X[k]
+        X[i] = s / want[i][i]
+    assert torch.equal(chol_solve(got, Bm, n), torch.stack(X))
 
 
 def _rollout_case(dtype, H=20, B=3):

@@ -5,8 +5,10 @@ buffer) on CPU tensors, against their plain versions: the group Riccati
 kernels B2 and B5 (csrc/riccati_group.cuh); B13 and B14 (csrc/fast.cu: at
 nx = 12 B13 is the same group design on a dense step, at (6, 3) a thread
 per problem copying stage t - 1's inputs ahead, at any other shape the
-group design with the shape a runtime argument, and B14 a thread per
-problem copying stage t + 1's inputs ahead); the rollouts B4 and B3
+group design with the shape a runtime argument, past nu = 12 its
+large-nu instance (csrc/fast_large.cuh: Q_uu, its factor and the solves
+in the group's shared memory, the problems a block chosen at launch), and
+B14 a thread per problem copying stage t + 1's inputs ahead); the rollouts B4 and B3
 (csrc/pipeline.cu: a thread per problem copying stage t + 1's inputs
 ahead, then, for B3, B1's kernel on the new trajectory), the SO(3)
 kernels B11 and B12 (csrc/so3.cu: a thread per problem copying the next
@@ -238,14 +240,88 @@ def test_b13_any_shape_host_rehearsal_matches_plain(libs, dtype, nx, nu, B):
 
 
 def test_b13_any_shape_launcher_refuses_past_its_bound(libs):
-    """(nx, nu) = (13, 3) and (6, 13) reach the runtime-shape instance's
-    launcher (the call's shape checks pass), which returns an error that
-    the kernel call raises."""
+    """(nx, nu) = (13, 3) and (6, MAX_NU + 1) reach the runtime-shape
+    instance's launcher (the call's shape checks pass), which returns an
+    error that the kernel call raises; (6, 13), past the runtime-shape
+    instance's 12, launches (the large-nu instance)."""
     fn = HR.function(libs["fast_f64"], "fast_riccati_any_f64", RC._ARGS)
-    for nx, nu in ((13, 3), (6, 13)):
+    for nx, nu in ((13, 3), (6, _build.MAX_NU + 1)):
         s = riccati_inputs(nx, nu, 3, 2)
         with pytest.raises(RuntimeError, match="fast_riccati"):
             RC._backward_kernel(fn, None, *(s[n] for n in READS["B13"]))
+    s = riccati_inputs(6, 13, 3, 2)
+    args = tuple(s[n] for n in READS["B13"])
+    for a, b in zip(RC._backward_kernel(fn, None, *args), RC.backward_plain(*args), strict=True):
+        assert rel_err(a, b) <= 1e-12
+
+
+# B13's large-nu instance (csrc/fast_large.cuh, a group per problem, Q_uu,
+# its factor and the solves in the group's shared memory, 8, 4 or 2 problems
+# a block) through the entry backward_lane_any calls: its first nu (12, 13),
+# the rcs16 and rcs24 problems' (12, 16) and (12, 24), the largest
+# (12, MAX_NU), a small state (6, 24); a ragged block of every block size
+# (3), a ragged seventeenth or ninth block (33).
+LARGE_SHAPES = [pytest.param(nx, nu, id=f"{nx}x{nu}")
+                for nx, nu in ((12, 13), (12, 16), (12, 24), (12, _build.MAX_NU), (6, 24))]
+
+
+@pytest.mark.parametrize("B", [3, 33], ids=["B3", "B33"])
+@pytest.mark.parametrize("nx,nu", LARGE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b13_large_host_rehearsal_matches_plain(libs, dtype, nx, nu, B):
+    """B13's large-nu instance on a random problem
+    (`kernel_check.riccati_inputs`, N = 3) within its card gate of the
+    plain version (f32); f64 to 1e-12."""
+    s = riccati_inputs(nx, nu, B, 3, dtype, seed=nx + nu)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    fn = HR.function(libs[f"fast_{tag}"], f"fast_riccati_any_{tag}", RC._ARGS)
+    args = tuple(s[n] for n in READS["B13"])
+    kern, plain = RC._backward_kernel(fn, None, *args), RC.backward_plain(*args)
+    gate = GATES["fast"][dtype]["B13"] if dtype == torch.float32 else 1e-12
+    for name, a, b in zip(FAST_OUTPUTS["B13"], kern, plain, strict=True):
+        assert rel_err(a, b) <= gate, (name, rel_err(a, b))
+
+
+@pytest.mark.parametrize("nx,nu", [(1, 1), (3, 12), (12, 6)], ids=["1x1", "3x12", "12x6"])
+def test_b13_large_entry_takes_any_nu(libs, nx, nu):
+    """The direct entry `fast_riccati_large` (what scripts time) launches the
+    large-nu instance at shapes the other instances take, within 1e-12 of
+    the plain version in f64; past (12, MAX_NU) it refuses."""
+    fn = HR.function(libs["fast_f64"], "fast_riccati_large_f64", RC._ARGS)
+    s = riccati_inputs(nx, nu, 9, 3, seed=nx + nu)
+    args = tuple(s[n] for n in READS["B13"])
+    for a, b in zip(RC._backward_kernel(fn, None, *args), RC.backward_plain(*args), strict=True):
+        assert rel_err(a, b) <= 1e-12
+    for nx_, nu_ in ((13, nu), (nx, _build.MAX_NU + 1)):
+        s = riccati_inputs(nx_, nu_, 3, 2)
+        with pytest.raises(RuntimeError, match="fast_riccati"):
+            RC._backward_kernel(fn, None, *(s[n] for n in READS["B13"]))
+
+
+@pytest.mark.parametrize("nx,nu", [(13, 3), (6, _build.MAX_NU + 1), (6, 13)],
+                         ids=["13x3", f"6x{_build.MAX_NU + 1}", "6x13"])
+def test_b13_wrapper_refuses_past_its_bounds_before_any_launch(nx, nu):
+    """On a device tensor (here the meta device: no data, no kernel) past
+    nx = 12 or nu = MAX_NU, backward_lane raises ValueError naming both
+    bounds before it looks for a kernel and counts no launch; at (6, 13)
+    (the large-nu instance's) it gets as far as the device."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.batched import (
+        KERNELS as FK,
+    )
+
+    m = lambda *shape: torch.empty(shape, dtype=torch.float32, device="meta")
+    N, B = 2, 3
+    args = (m(N, nx, nx, B), m(N, nx, nu, B), m(N, nx, B), m(N + 1, nx, B), m(N, nu, B),
+            m(N + 1, nx, nx, B), m(N, nu, nx, B), m(N, nu, nu, B))
+    before = {k: w.launches for k, w in FK.items()}
+    if (nx, nu) == (6, 13):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            RC.backward_lane(*args)
+    else:
+        with pytest.raises(ValueError, match=rf"\({nx}, {nu}\): the kernels take nx in 1\.\.12 "
+                                             rf"and nu in 1\.\.{_build.MAX_NU}$"):
+            RC.backward_lane(*args)
+    assert {k: w.launches for k, w in FK.items()} == before
 
 
 @pytest.mark.parametrize("B", [1, 9, 33], ids=["B1", "B9", "B33"])
@@ -626,6 +702,49 @@ def test_large_layout_matches_the_build_count():
             for kind, (tp, tr) in enumerate(((4, 4), (4, 8), (8, 8))):
                 assert fn(nu, kind) == _build.riccati_large_bytes(nu, tp, tr), (nu, kind)
     assert _build.MAX_NU >= 32
+
+
+def test_fast_large_layout_matches_the_build_count():
+    """`_build.fast_large_bytes` and `_build.fast_large_problems` count the
+    layout of csrc/fast_large.cuh that B13's large-nu instance lays out at
+    launch, and its choice of problems a block: the header's own counts
+    (compiled on the host) at nx = 1, 6 and 12, every nu from 1 to
+    MAX_NU + 1, 8, 4 and 2 problems a block, in each scalar; and at every nu
+    up to MAX_NU some block fits (the header's static_assert holds)."""
+    if HR.compiler() is None:
+        pytest.skip("no host C++ compiler")
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        for h in HR.CSRC.glob("*.cuh"):  # the kernel and its launch rewritten for the host
+            with open(f"{d}/{h.name}", "w") as f:
+                f.write(HR.host_source(h.read_text()))
+        src = f"{d}/layout.cpp"
+        with open(src, "w") as f:
+            f.write('#define TRAOPT_SUFFIX f64\n#include "fast_large.cuh"\n'
+                    'extern "C" long fast_bytes(int nx, int nu, int f64, int P) {\n'
+                    '  using namespace traopt;\n'
+                    '  return (long)(f64 ? fast_large_layout<double>(nx, nu, P).bytes\n'
+                    '                    : fast_large_layout<float>(nx, nu, P).bytes);\n}\n'
+                    'extern "C" int fast_problems(int nx, int nu, int f64) {\n'
+                    '  using namespace traopt;\n'
+                    '  return f64 ? fast_large_problems<double>(nx, nu)\n'
+                    '             : fast_large_problems<float>(nx, nu);\n}\n')
+        lib = f"{d}/layout.so"
+        subprocess.run([HR.compiler(), "-std=c++20", "-O1", "-shared", "-fPIC", "-w",
+                        f"-DTRAOPT_MAX_NU={_build.MAX_NU}", "-I", str(HR.STUB),
+                        "-I", d, "-o", lib, src], check=True)
+        so = ctypes.CDLL(lib)
+        so.fast_bytes.restype = ctypes.c_long
+        for f64, tp in ((0, 4), (1, 8)):
+            for nx in (1, 6, 12):
+                for nu in range(1, _build.MAX_NU + 2):
+                    for P in _build.FAST_LARGE_PROBLEMS:
+                        assert so.fast_bytes(nx, nu, f64, P) == _build.fast_large_bytes(
+                            nx, nu, tp, P), (nx, nu, tp, P)
+                    assert so.fast_problems(nx, nu, f64) == (
+                        _build.fast_large_problems(nx, nu, tp) or 0), (nx, nu, tp)
+            assert all(_build.fast_large_problems(12, nu, tp)
+                       for nu in range(1, _build.MAX_NU + 1))
 
 
 def test_nu_launchers_refuse_past_their_bound(libs):

@@ -331,6 +331,39 @@ def test_work_counts_the_nu_sized_arrays_at_every_nu(name, nu):
     assert bound_ms(wk) == (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+# Values per problem that B13 reads and writes at any (nx, nu) over N
+# stages: Fx, Fu, d, Lu, Lux, Luu and the outputs k, K, Vx1, Vxx1 a stage,
+# Lx and Lxx N + 1 stages.
+B13_IO = lambda N, nx, nu: (N * (2 * nx * nx + 3 * nx * nu + 2 * nx + 2 * nu + nu * nu)
+                            + (N + 1) * (nx + nx * nx))
+
+
+@pytest.mark.parametrize("nx,nu", [(3, 12), (12, 16), (6, 24), (12, _build.MAX_NU)],
+                         ids=lambda v: str(v))
+def test_b13_work_counts_each_array_once_at_any_shape(nx, nu):
+    """`work` and `bound_ms` of B13 on `riccati_inputs` at a runtime shape
+    and at the large-nu instance's (`chip_smoke.py`'s kernels_b13_any rows):
+    every array once at its (nx, nu), the operations `_fast_riccati_ops`'
+    per problem and stage, in the inputs' dtype; at (12, 16), f32,
+    B = 8192, N = 200 the bytes bound is 2.607 ms."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
+        READS,
+        _fast_riccati_ops,
+        riccati_inputs,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.riccati import backward_plain
+
+    N_, B_ = 3, 5
+    s = riccati_inputs(nx, nu, B_, N_, torch.float32, seed=1)
+    wk = work("B13", s, backward_plain(*(s[n] for n in READS["B13"])))
+    assert wk["bytes"] == B_ * 4 * B13_IO(N_, nx, nu)
+    assert wk["ops"] == {torch.float32: _fast_riccati_ops(nx, nu) * N_ * B_}
+    big = {"bytes": 8192 * 4 * B13_IO(200, 12, 16),
+           "ops": {torch.float32: _fast_riccati_ops(12, 16) * 200 * 8192}}
+    ms, by = bound_ms(big)
+    assert by == "bytes" and abs(ms - 2.6073155) < 1e-6
+
+
 def test_bound_ms_takes_the_larger_time():
     ms, by = bound_ms({"bytes": 3.35e9, "ops": {torch.float64: 68e9}})
     assert by == "operations" and abs(ms - 2.0) < 1e-12

@@ -47,7 +47,7 @@ LIBS = (("linearize", "f32", "float"), ("linearize", "f64", "double"),
 # their large-nu instances every nu from MU_MAX_NU + 1 to MAX_NU
 # (csrc/nu_large.cuh).
 TUNED_NU, MU_MAX_NU = (6, 4), 12
-# An H100's shared memory for one block (csrc/riccati_large.cuh kSmemPerBlock).
+# An H100's shared memory for one block (csrc/group.cuh kSmemPerBlock).
 SMEM_PER_BLOCK = 232448
 
 
@@ -99,6 +99,59 @@ def _max_nu():
 # The largest nu that B1-B6 take: the largest whose large-nu Riccati layout
 # fits one block in every scalar.
 MAX_NU = _max_nu()
+
+# An H100 SM's shared memory, and what CUDA reserves of it for each
+# resident block (csrc/fast_large.cuh kSmemPerSM, kSmemPerBlockReserved).
+SMEM_PER_SM, SMEM_BLOCK_RESERVED = 233472, 1024
+# The problems a block of B13's large-nu instance may hold.
+FAST_LARGE_PROBLEMS = (8, 4, 2)
+
+
+def _vpad(n, size):
+    """csrc/group.cuh vpad: n rounded up to whole 16-byte vectors."""
+    v = 16 // size
+    return (n + v - 1) // v * v
+
+
+def _spread_pitch(size, ne):
+    """csrc/group.cuh spread_pitch: whole 16-byte vectors, an odd number of
+    4-bank groups."""
+    p = ne
+    while (p * (size // 4)) % 8 != 4:
+        p += 1
+    return p
+
+
+def fast_large_bytes(nx, nu, tp, problems):
+    """The shared memory of a block of B13's large-nu instance at (nx, nu)
+    with elements of ``tp`` bytes and ``problems`` problems a block:
+    csrc/fast_large.cuh's FastLargeLayout (two stage buffers, two output
+    buffers, a scratch a group), which the host rehearsal checks against
+    this count."""
+    P, w, px = problems, nu | 1, _vpad(nx, tp)
+    rows = ((nx, px), (nx, w), (1, nx), (1, nx), (1, nu), (nx, px), (nu, px), (nu, w))
+    stage = P * sum(_spread_pitch(tp, n * rp) for n, rp in rows)
+    out = _vpad((nu * nx + nu + nx + nx * nx) * (P + 1), tp)
+    group = (px + _vpad(nu, tp) + nx * px + 3 * _vpad(nx * w, tp)
+             + _vpad((nx + 1) * w, tp) + 2 * _vpad(nu * w, tp))
+    return (2 * stage + 2 * out) * tp + P * _group_stride(group * tp)
+
+
+def fast_large_problems(nx, nu, tp):
+    """The problems a block of B13's large-nu instance holds at (nx, nu)
+    with elements of ``tp`` bytes (csrc/fast_large.cuh
+    fast_large_problems): of `FAST_LARGE_PROBLEMS`, the one whose blocks
+    fit the most problems on an SM at once (the larger on a tie), or None
+    if no block fits."""
+    best, pick = 0, None
+    for P in FAST_LARGE_PROBLEMS:
+        b = fast_large_bytes(nx, nu, tp, P)
+        n = P * (SMEM_PER_SM // (b + SMEM_BLOCK_RESERVED))
+        if b <= SMEM_PER_BLOCK and n > best:
+            best, pick = n, P
+    return pick
+
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
               f"-DTRAOPT_MAX_NU={MAX_NU}")

@@ -9,11 +9,14 @@
 // sequential grid axis with the carry in VMEM scratch), every per-stage array
 // batch-last: B13 at nx = 12 runs one problem per group of 16 threads
 // (group.cuh), and so does B13 at any other shape up to (12, 12), the shape
-// a runtime argument; B13 at (6, 3) and B14 one problem per thread on blocks
+// a runtime argument, and past nu = 12 (fast_large.cuh: Q_uu, its factor
+// and the solves in the group's shared memory); B13 at (6, 3) and B14 one
+// problem per thread on blocks
 // of one warp with the carry in registers and each stage's inputs copied a
 // stage ahead into shared memory (ahead.cuh).
 #include "ahead.cuh"
 #include "common.cuh"
+#include "fast_large.cuh"
 #include "group.cuh"
 #include "stage.cuh"
 
@@ -39,13 +42,7 @@ namespace traopt {
 // computes stage t, and stages its outputs to store them coalesced.  Every
 // entry keeps the one-thread step's sum order (the k-loop outermost where an
 // entry sums over k), so the result agrees with backward_plain to rounding.
-template <typename T>
-struct FastRiccatiArgs {
-  const T *Fx, *Fu, *d, *Lx, *Lu, *Lxx, *Lux, *Luu;  // Lx, Lxx: N+1 stages
-  T *k, *K, *Vx1, *Vxx1;
-  int N, B;
-  int nx, nu;  // read by the any-shape kernel only
-};
+// Its arguments, FastRiccatiArgs, are in fast_large.cuh.
 
 // One group's scratch.
 template <typename T, int NX, int NU>
@@ -716,18 +713,6 @@ int launch_fast_riccati_thread(const FastRiccatiArgs<T>& a, cudaStream_t s) {
 // with backward_plain to rounding.
 constexpr int kAnyMax = 12;
 
-// One problem's share of a stage buffer's region for an input of ne
-// entries: whole 16-byte vectors, an odd number of 4-bank groups, so that
-// the 8 problems of a block start in 8 different groups of banks (a warp's
-// copy of 4 entries of 8 problems writes 32 different banks in f32).
-template <typename T>
-constexpr int spread_pitch(int ne) {
-  constexpr int w = sizeof(T) / 4;
-  int p = ne;
-  while ((p * w) % 8 != 4) ++p;
-  return p;
-}
-
 // The block's shared memory for a runtime (nx, nu), in elements of T, each
 // region a whole number of 16-byte vectors.
 struct FastAnyLayout {
@@ -1186,9 +1171,12 @@ int launch_fast_riccati_any_instance(const FastRiccatiArgs<T>& a, cudaStream_t s
   return (int)cudaGetLastError();
 }
 
+// B13 at any (nx, nu) the tuned instances do not take: the runtime-shape
+// instance up to (12, 12), the large-nu one past nu = 12.
 template <typename T>
 int launch_fast_riccati_any(const FastRiccatiArgs<T>& a, cudaStream_t s) {
-  if (a.nx < 1 || a.nu < 1 || a.nx > kAnyMax || a.nu > kAnyMax) return (int)cudaErrorInvalidValue;
+  if (a.nx < 1 || a.nu < 1 || a.nx > kAnyMax || a.nu > kFastMaxNu) return (int)cudaErrorInvalidValue;
+  if (a.nu > kAnyMax) return launch_fast_riccati_large<T>(a, s);
   if (a.nu > 6) return launch_fast_riccati_any_instance<T, kAnyMax, kAnyMax>(a, s);
   if (a.nx > 6) return launch_fast_riccati_any_instance<T, kAnyMax, 6>(a, s);
   return launch_fast_riccati_any_instance<T, 6, 6>(a, s);
@@ -1369,14 +1357,20 @@ extern "C" int TRAOPT_FN(fast_riccati)(
   return (int)cudaErrorInvalidValue;
 }
 
-// B13's runtime-shape instance at any (nx, nu) with nx, nu <= 12, tuned
-// shape or not (ops/riccati.py calls it for the shapes fast_riccati has no
-// instance for).
-extern "C" int TRAOPT_FN(fast_riccati_any)(
-    const void* Fx, const void* Fu, const void* d, const void* Lx,
-    const void* Lu, const void* Lxx, const void* Lux, const void* Luu, void* k,
-    void* K, void* Vx1, void* Vxx1, int N, int nx, int nu, int B, int device,
-    void* stream) {
+// B13's arguments and their names.
+#define FAST_RICCATI_PARAMS                                                        \
+  const void *Fx, const void *Fu, const void *d, const void *Lx, const void *Lu,   \
+      const void *Lxx, const void *Lux, const void *Luu, void *k, void *K, void *Vx1, \
+      void *Vxx1, int N, int nx, int nu, int B, int device, void *stream
+#define FAST_RICCATI_NAMES Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu, k, K, Vx1, Vxx1, N, nx, nu, B, device, stream
+
+// B13 at any (nx, nu) with nx <= 12 and nu <= kFastMaxNu: the runtime-shape
+// instance up to nu = 12 (tuned shape or not), the large-nu one past it; or
+// with kLarge the large-nu instance at any nu (scripts time it against the
+// runtime-shape one).  ops/riccati.py calls it for the shapes fast_riccati
+// has no instance for.
+template <bool kLarge>
+static int fast_riccati_entry(FAST_RICCATI_PARAMS) {
   using T = Scalar;
   traopt::FastRiccatiArgs<T> a;
   a.Fx = (const T*)Fx; a.Fu = (const T*)Fu; a.d = (const T*)d;
@@ -1386,7 +1380,15 @@ extern "C" int TRAOPT_FN(fast_riccati_any)(
   a.N = N; a.B = B; a.nx = nx; a.nu = nu;
   if (N <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   if (cudaError_t e = cudaSetDevice(device)) return (int)e;
+  if (kLarge) return traopt::launch_fast_riccati_large<T>(a, (cudaStream_t)stream);
   return traopt::launch_fast_riccati_any<T>(a, (cudaStream_t)stream);
+}
+
+extern "C" int TRAOPT_FN(fast_riccati_any)(FAST_RICCATI_PARAMS) {
+  return fast_riccati_entry<false>(FAST_RICCATI_NAMES);
+}
+extern "C" int TRAOPT_FN(fast_riccati_large)(FAST_RICCATI_PARAMS) {
+  return fast_riccati_entry<true>(FAST_RICCATI_NAMES);
 }
 
 extern "C" int TRAOPT_FN(fast_rollout)(

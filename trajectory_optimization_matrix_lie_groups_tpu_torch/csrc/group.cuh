@@ -27,6 +27,8 @@ constexpr int kGroup = 16;                          // threads per problem: a ha
 constexpr int kProblems = 8;                        // problems per block
 constexpr int kGroupThreads = kGroup * kProblems;   // 128
 constexpr int kOutStride = kProblems + 1;           // staged output: entry e of problem p at e * 9 + p
+// An H100's shared memory for one block (227 KB).
+constexpr size_t kSmemPerBlock = 232448;
 
 inline dim3 group_grid(int B) { return dim3((B + kProblems - 1) / kProblems); }
 
@@ -48,6 +50,18 @@ __host__ __device__ constexpr int vpad(int n) {
 }
 
 __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) / 16 * 16; }
+
+// One problem's share of a stage buffer's region for an input of ne
+// entries: whole 16-byte vectors, an odd number of 4-bank groups, so that
+// the 8 problems of a block start in 8 different groups of banks (a warp's
+// copy of 4 entries of 8 problems writes 32 different banks in f32).
+template <typename T>
+constexpr int spread_pitch(int ne) {
+  constexpr int w = sizeof(T) / 4;
+  int p = ne;
+  while ((p * w) % 8 != 4) ++p;
+  return p;
+}
 
 // n consecutive values from 16-byte-aligned shared memory, in 16-byte loads
 // where n allows.
@@ -138,31 +152,33 @@ __device__ __forceinline__ void store_stage(T* dst, const T* buf, int t, int b0,
 }
 
 // The runtime-shape counterparts of copy_stage and store_stage (B13's
-// runtime-shape instance, fast.cu), the entry counts runtime arguments.
+// runtime-shape and large-nu instances, fast.cu and fast_large.cuh), the
+// entry counts runtime arguments, and the problems a block P (kGroup * P
+// threads) too where the large-nu instance chooses it at launch.
 // One input's place in a stage buffer: problem p's entry (i, j) of a
 // rows x cols matrix (a vector: one row) at off + p * pt + i * rp + j, rp >=
 // cols padding each row to whole 16-byte vectors so that a row reads in
-// vector loads.  Thread tid copies entries e = tid / kProblems + 16 s (s =
-// 0, 1, ...) of problem tid % kProblems, so (i, j) advance by (di, dj) =
+// vector loads.  Thread tid copies entries e = tid / P + 16 s (s = 0, 1,
+// ...) of problem tid % P, so (i, j) advance by (di, dj) =
 // (16 / cols, 16 % cols) a step, and i starts at (e * m) >> 16 with m =
 // ceil(2^16 / cols), exact for e < 16: no division in the device code.
 struct RowCopy {
   int off, pt, rp, cols, ne, di, dj, m;
 };
 
-inline RowCopy row_copy(int off, int pt, int rows, int cols, int rp) {
+constexpr RowCopy row_copy(int off, int pt, int rows, int cols, int rp) {
   constexpr int de = kGroupThreads / kProblems;
   return {off, pt, rp, cols, rows * cols, de / cols, de % cols, ((1 << 16) + cols - 1) / cols};
 }
 
-// Copy stage t of the batch-last array src (N, c.ne, B) for the block's
+// Copy stage t of the batch-last array src (N, c.ne, B) for the block's P
 // problems into the stage buffer buf at c's place.
 template <typename T>
 __device__ __forceinline__ void copy_stage_rows(T* buf, const RowCopy& c, const T* src, int t,
-                                                int b0, int B, int tid) {
+                                                int b0, int B, int tid, int P = kProblems) {
   constexpr int de = kGroupThreads / kProblems;
-  const int p = tid % kProblems;
-  int e = tid / kProblems, i = (e * c.m) >> 16, j = e - i * c.cols;
+  const int p = tid % P;
+  int e = tid / P, i = (e * c.m) >> 16, j = e - i * c.cols;
   T* dst = buf + c.off + p * c.pt;
   const T* s = src + (long long)t * c.ne * B + min(b0 + p, B - 1);
   for (; e < c.ne; e += de) {
@@ -176,16 +192,16 @@ __device__ __forceinline__ void copy_stage_rows(T* buf, const RowCopy& c, const 
   }
 }
 
-// Store stage t of the batch-last array dst (N, ne, B) for the block's
-// problems from the staged buf (entry e of problem p at e * kOutStride + p).
+// Store stage t of the batch-last array dst (N, ne, B) for the block's P
+// problems from the staged buf (entry e of problem p at e * (P + 1) + p).
 template <typename T>
 __device__ __forceinline__ void store_stage_rows(T* dst, const T* buf, int ne, int t, int b0,
-                                                 int B, int tid) {
-  const int p = tid % kProblems;
+                                                 int B, int tid, int P = kProblems) {
+  const int p = tid % P;
   if (b0 + p >= B) return;
   T* d = dst + (long long)t * ne * B + b0 + p;
-  for (int e = tid / kProblems; e < ne; e += kGroupThreads / kProblems)
-    d[(long long)e * B] = buf[e * kOutStride + p];
+  for (int e = tid / P; e < ne; e += kGroupThreads / kProblems)
+    d[(long long)e * B] = buf[e * (P + 1) + p];
 }
 
 // 0, from an instruction the compiler cannot see through.  Every address

@@ -36,9 +36,6 @@
 
 namespace traopt {
 
-// An H100's shared memory for one block (227 KB).
-constexpr size_t kSmemPerBlock = 232448;
-
 // The block's shared memory at nu, byte offsets, each 16-byte aligned: the
 // constants (fu2 in both types, Luu), two stage buffers (the problems'
 // rows: Fx, d, lx, lu in Tr; l_xx transposed and the AL diagonal in Tp),

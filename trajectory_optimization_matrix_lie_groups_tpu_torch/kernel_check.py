@@ -337,19 +337,28 @@ def riccati_inputs(nx, nu, B, N, dtype=torch.float64, device="cpu", seed=0):
     ``seed`` (`fast_calls` runs B13 on it): Fx = 0.8 I plus noise of norm
     ~0.2 (a contraction, so the value function stays bounded over long
     horizons), small Fu and d, positive definite Lxx and Luu, and ``us``
-    (zeros) for the shape.  Drawn in f64 and rounded to ``dtype``."""
+    (zeros) for the shape.  Drawn in f64 and rounded to ``dtype``, one array
+    at a time, W W^T a few stages at a time (at (12, 34), B = 8192, N = 200
+    Luu's noise alone takes 15 GB in f64)."""
     g = torch.Generator(device=device).manual_seed(seed)
     n = lambda *shape: torch.randn(shape + (B,), generator=g, dtype=torch.float64,
                                    device=device)
-    lanes = lambda W: torch.einsum("...ikb,...jkb->...ijb", W, W)
     eye = lambda m: torch.eye(m, dtype=torch.float64, device=device)[..., None]
-    arrays = dict(
-        Fx=0.8 * eye(nx) + 0.1 / nx ** 0.5 * n(N, nx, nx), Fu=0.1 * n(N, nx, nu),
-        d=0.01 * n(N, nx), Lx=n(N + 1, nx), Lu=n(N, nu),
-        Lxx=0.1 * lanes(n(N + 1, nx, nx)) + eye(nx), Lux=0.1 * n(N, nu, nx),
-        Luu=0.1 * lanes(n(N, nu, nu)) + eye(nu),
-        us=torch.zeros((N, nu, B), dtype=torch.float64, device=device))
-    return {k: v.to(dtype).contiguous() for k, v in arrays.items()}
+
+    def psd(W, m):
+        """0.1 W W^T + I over each stage's lanes, in place of W's chunks."""
+        out = torch.empty_like(W)
+        for i in range(0, W.shape[0], 8):
+            out[i:i + 8] = torch.einsum("...ikb,...jkb->...ijb", W[i:i + 8], W[i:i + 8])
+        return out.mul_(0.1).add_(eye(m))
+
+    r = lambda x: x.to(dtype).contiguous()
+    return dict(
+        Fx=r(0.8 * eye(nx) + 0.1 / nx ** 0.5 * n(N, nx, nx)), Fu=r(0.1 * n(N, nx, nu)),
+        d=r(0.01 * n(N, nx)), Lx=r(n(N + 1, nx)), Lu=r(n(N, nu)),
+        Lxx=r(psd(n(N + 1, nx, nx), nx)), Lux=r(0.1 * n(N, nu, nx)),
+        Luu=r(psd(n(N, nu, nu), nu)),
+        us=torch.zeros((N, nu, B), dtype=dtype, device=device))
 
 
 # B14's positional arguments, entries of the inputs of `fast_inputs`

@@ -2,13 +2,16 @@
 `ops/pallas_riccati.py`), with kernel B13.
 
 A dense defect-aware Riccati step on per-stage Fx, Fu, Lux and Luu, fixed
-mu = 0 (so Q_uu must be positive definite), for any state/input sizes with
-nx, nu <= `MAX_DIM` (the JAX kernel takes the sizes from its arguments).
-The kernel has tuned instances at `SHAPES`, the sizes of the package's
-model families: (nx, nu) = (12, 6) (SE(3) free body, rigid body), (12, 4)
-(drone) and (6, 3) (SO(3) families); any other size takes its runtime-shape
+mu = 0 (so Q_uu must be positive definite), for any state size nx <=
+`MAX_NX` and input size nu <= `MAX_NU` on the card (the JAX kernel takes
+the sizes from its arguments; the plain version any).  The kernel has tuned
+instances at `SHAPES`, the sizes of the package's model families: (nx, nu)
+= (12, 6) (SE(3) free body, rigid body), (12, 4) (drone) and (6, 3) (SO(3)
+families); any other size with nu <= `ANY_MAX_NU` takes its runtime-shape
 instance, the nx = 12 instances' group design with (nx, nu) a runtime
-argument (compiled for nu <= 6 and for nu <= 12).
+argument (compiled for nu <= 6 and for nu <= 12), and nu past it the
+large-nu instance (Q_uu, its factor and the solves in the group's shared
+memory), up to `_build.MAX_NU`, the input dimension B1-B6 take too.
 
 Lane layout (batch last): Fx (N, nx, nx, B), Fu (N, nx, nu, B), d (N, nx, B),
 Lx (N+1, nx, B), Lu (N, nu, B), Lxx (N+1, nx, nx, B), Lux (N, nu, nx, B),
@@ -23,6 +26,8 @@ through `backward_lane_any`), `fast_backward` the solver-layout wrapper
 (counterpart of `pallas_backward`).
 """
 
+import types
+
 import torch
 
 from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
@@ -33,9 +38,10 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.utils.linalg import (
 )
 
 # the (nx, nu) of the kernel's tuned instances; any other (nx, nu) with
-# nx, nu <= MAX_DIM takes the runtime-shape instance
+# nx <= MAX_NX takes the runtime-shape instance up to nu = ANY_MAX_NU and the
+# large-nu one past it, up to MAX_NU
 SHAPES = ((12, 6), (12, 4), (6, 3))
-MAX_DIM = 12
+MAX_NX, ANY_MAX_NU, MAX_NU = 12, 12, _build.MAX_NU
 
 
 def riccati_step(fx, fu, dd, lx, lu, lxx, lux, luu, Vx, Vxx):
@@ -105,20 +111,21 @@ def backward_lane(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu):
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (float32 or float64), its tuned instance at the (nx, nu) of `SHAPES`
-    and `backward_lane_any`'s at any other shape, or raise.  On an H100, at
-    nx = 12 (and at the runtime shapes) a group of 16 threads runs one
-    problem's stage recursion, lane r holding row r of V_xx in registers,
-    the group exchanging the stage's products through shared memory, and
-    the block copies each stage's inputs into shared memory a stage ahead;
+    and `backward_lane_any`'s at any other shape up to (`MAX_NX`,
+    `MAX_NU`), or raise.  On an H100, at nx = 12 (and at the other shapes)
+    a group of 16 threads runs one problem's stage recursion, lane r
+    holding row r of V_xx in registers, the group exchanging the stage's
+    products through shared memory, and the block copies each stage's
+    inputs into shared memory a stage ahead;
     at (6, 3) one thread runs one problem with its carry in registers, on
     blocks of one warp, copying each stage's 132 inputs into shared memory
     a stage ahead (`csrc/fast.cu`)."""
     if d.device.type == "cpu":
         return backward_plain(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu)
-    if d.device.type != "cuda":
-        raise ValueError(f"backward_lane: no kernel for device {d.device}")
     if (d.shape[1], Lu.shape[1]) not in SHAPES:
         return backward_lane_any(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu)
+    if d.device.type != "cuda":
+        raise ValueError(f"backward_lane: no kernel for device {d.device}")
     fn = _build.function("fast", "fast_riccati", _build.suffix(d.dtype), _ARGS)
     out = _backward_kernel(fn, torch.cuda.current_stream(d.device).cuda_stream,
                            Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu)
@@ -130,36 +137,45 @@ backward_lane.launches = 0
 
 
 def backward_lane_any(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu):
-    """Kernel B13's runtime-shape instance, at any (nx, nu) with nx and nu
-    at most `MAX_DIM` (`backward_lane` sends it the shapes its tuned
-    instances do not take).  Same arguments and outputs as `backward_lane`.
+    """Kernel B13's runtime-shape and large-nu instances, at any (nx, nu)
+    with nx <= `MAX_NX` and nu <= `MAX_NU` (`backward_lane` sends it the
+    shapes its tuned instances do not take).  Same arguments and outputs as
+    `backward_lane`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, or
-    raise (beyond the bound, or on another device).  On an H100 it is the
-    tuned nx = 12 kernel's group design with the shape a runtime argument:
-    a group of 16 threads runs one problem's stage recursion (8 problems a
-    block), lane r < nx holding row r of V_xx in registers (every per-lane
-    array sized for the instance's maximum, nu <= 6 or nu <= 12, and
-    indexed by constants), the group factoring Q_uu together and exchanging
-    the stage's products through shared memory laid out for the runtime
-    shape, the block copying each stage's inputs into shared memory a stage
-    ahead (`csrc/fast.cu`)."""
+    raise ValueError before any launch (beyond the bounds, or on another
+    device).  Up to nu = `ANY_MAX_NU` the runtime-shape instance runs
+    (counted here): on an H100 the tuned nx = 12 kernel's group design with
+    the shape a runtime argument, a group of 16 threads running one
+    problem's stage recursion (8 problems a block), lane r < nx holding row
+    r of V_xx in registers (every per-lane array sized for the instance's
+    maximum, nu <= 6 or nu <= 12, and indexed by constants), the group
+    factoring Q_uu together and exchanging the stage's products through
+    shared memory laid out for the runtime shape, the block copying each
+    stage's inputs into shared memory a stage ahead.  Past it the large-nu
+    instance runs (counted in ``backward_lane_any.nuL``): the same group and
+    copies, but V_xx Fu, Q_ux, Q_uu, its factor and the solves' rows in the
+    group's shared memory, the lanes sharing out Q_uu's rows and its
+    Cholesky column by column, no register array sized by nu, and 8, 4 or 2
+    problems a block as nu and the scalar type let the most fit on an SM
+    (`_build.fast_large_problems`; `csrc/fast.cu`, `csrc/fast_large.cuh`)."""
     if d.device.type == "cpu":
         return backward_plain(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu)
+    nx, nu = d.shape[1], Lu.shape[1]
+    if not (1 <= nx <= MAX_NX and 1 <= nu <= MAX_NU):
+        raise ValueError(f"backward_lane: no kernel for (nx, nu) = ({nx}, {nu}): "
+                         f"the kernels take nx in 1..{MAX_NX} and nu in 1..{MAX_NU}")
     if d.device.type != "cuda":
         raise ValueError(f"backward_lane_any: no kernel for device {d.device}")
-    nx, nu = d.shape[1], Lu.shape[1]
-    if not (1 <= nx <= MAX_DIM and 1 <= nu <= MAX_DIM):
-        raise ValueError(f"backward_lane: no kernel for (nx, nu) = ({nx}, {nu}): "
-                         f"nx and nu must be at most {MAX_DIM}")
     fn = _build.function("fast", "fast_riccati_any", _build.suffix(d.dtype), _ARGS)
     out = _backward_kernel(fn, torch.cuda.current_stream(d.device).cuda_stream,
                            Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu)
-    backward_lane_any.launches += 1
+    (backward_lane_any if nu <= ANY_MAX_NU else backward_lane_any.nuL).launches += 1
     return out
 
 
 backward_lane_any.launches = 0
+backward_lane_any.nuL = types.SimpleNamespace(launches=0)
 
 
 def fast_backward(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu, plain=False):

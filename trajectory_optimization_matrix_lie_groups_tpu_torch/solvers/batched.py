@@ -51,7 +51,7 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.utils.linalg import (
 )
 
 KERNELS = {"B1": linearize_lane, "B13": backward_lane, "B13any": backward_lane_any,
-           "B14": rollout_lane}
+           "B13nuL": backward_lane_any.nuL, "B14": rollout_lane}
 
 
 def _bmv(M, v):

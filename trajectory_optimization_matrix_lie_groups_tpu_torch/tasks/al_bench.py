@@ -26,7 +26,8 @@ solvers.  Its four named cases, with goldens from
 nu = 12), `screw200_rcs16` (four quads of four thrusters, the pattern of
 the Apollo Service Module, `rcs16_pu`, nu = 16) and `screw200_rcs24` (24
 thrusters, `rcs24_pu`, nu = 24, as many as the Orion European Service
-Module's attitude thrusters).
+Module's attitude thrusters).  `screw200_nu_model` is the same problem as
+the (model, params) pair of the generic fast tier.
 """
 
 import json
@@ -41,8 +42,8 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch.ops.group import SE3
 
 __all__ = ["build_al1400", "build_screw200", "screw200_model", "screw_batch",
            "load_screw200_golden", "load_screw200_anchored_meta", "load_al1400_golden",
-           "torques3_pu", "rcs12_pu", "nu_pu", "build_screw200_nu", "NU_PROBLEMS",
-           "load_nu_golden"]
+           "torques3_pu", "rcs12_pu", "nu_pu", "build_screw200_nu", "screw200_nu_model",
+           "NU_PROBLEMS", "load_nu_golden"]
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
@@ -186,6 +187,20 @@ def build_screw200_nu(Pu, dtype=torch.float64, device=torch.device("cuda"), hori
                                      exact_gravity_jacobian=True)
     cost.R = 1e-2 * torch.eye(Pu.shape[1], dtype=dtype, device=device)
     return dyn, cost, q0, xi0
+
+
+def screw200_nu_model(Pu, dtype=torch.float64, device=torch.device("cuda"), horizon=200):
+    """`build_screw200_nu` as the (model, params) pair of `make_model` that
+    the generic `solvers/batched.FastBatchSolver` and `solvers/al_fast.
+    ALFastSolver` take: the rigid body (`rigid_body_dynamics` at nu =
+    Pu.shape[1]) with the SE(3) tracking cost, on ``device`` (the card
+    unless asked for another).  Returns (model, params, q0, xi0); the
+    reference is params["cost"]'s."""
+    dyn, cost, q0, xi0 = build_screw200_nu(Pu, dtype, device, horizon)
+    nu = cost.R.shape[0]
+    model, params = make_model(dynamics.rigid_body_dynamics()._replace(nu=nu),
+                               costs.tracking_cost(SE3, nu), dyn, cost)
+    return model, params, q0, xi0
 
 
 # the named problems of `build_screw200_nu`: name -> input projection

@@ -11,33 +11,34 @@ def setup_inv(M):
 
 
 def chol_factor(A, n):
-    """Unrolled n x n Cholesky factorization of A (n, n, *b), matrix axes
-    first: a list of lists L[i][j] (i >= j) of (*b) tensors, L[j][j] the
-    square root of the pivot."""
-    L = [[None] * n for _ in range(n)]
+    """n x n Cholesky factorization of A (n, n, *b), matrix axes first:
+    L (n, n, *b) with L[i][j] (i >= j) set, L[j][j] the square root of the
+    pivot.  Column by column, each column's rows at once: entry (i, j) is
+    A[i, j] - L[i, 0] L[j, 0] - L[i, 1] L[j, 1] - ... in that order, then
+    times 1 / L[j][j] (the same operations as a loop over the entries, in
+    about n^2 / 2 tensor operations instead of n^3 / 6)."""
+    L = torch.empty_like(A)
     for j in range(n):
-        s = A[j, j]
+        s = A[j:, j]
         for k in range(j):
-            s = s - L[j][k] * L[j][k]
-        L[j][j] = torch.sqrt(s)
-        inv = 1.0 / L[j][j]
-        for i in range(j + 1, n):
-            s = A[i, j]
-            for k in range(j):
-                s = s - L[i][k] * L[j][k]
-            L[i][j] = s * inv
+            s = s - L[j:, k] * L[j, k]
+        L[j, j] = torch.sqrt(s[0])
+        L[j + 1:, j] = s[1:] * (1.0 / L[j, j])
     return L
 
 
 def chol_solve(L, Bm, n):
     """Solve (L L^T) X = Bm for Bm (n, p, *b), ``L`` from `chol_factor`, by
-    forward and back substitution; returns X (n, p, *b)."""
+    forward and back substitution; returns X (n, p, *b).  The forward
+    substitution updates the rows below each Y[k] at once, which subtracts
+    the terms of each row in the same order (k ascending) as a loop over
+    the rows."""
     Y = [None] * n
-    for i in range(n):
-        s = Bm[i]
-        for k in range(i):
-            s = s - L[i][k] * Y[k]
-        Y[i] = s / L[i][i]
+    S = Bm
+    for k in range(n):
+        Y[k] = S[0] / L[k][k]
+        if k + 1 < n:
+            S = S[1:] - L[k + 1:, k].unsqueeze(1) * Y[k]
     X = [None] * n
     for i in reversed(range(n)):
         s = Y[i]
