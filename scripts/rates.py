@@ -43,12 +43,30 @@ measures B13 alone (the kernel `chip_smoke.py --b13-any` checks): the ms
 (6, 2), (9, 3), (12, 3) and (12, 12), of its tuned instances
 (`backward_lane`) at (12, 6), (12, 4) and (6, 3), and of its large-nu
 instance at (12, 16) and (12, 34) (null for a tree without it), N = 200,
-f32 at B = 8192 and f64 at B = 1024; the plain version's ms (host clock,
+f32 at B = 8192 and f64 at B = 1024 (the large-nu instance also f32 at
+B = 1024, the rcs16 solve's batch); the plain version's ms (host clock,
 one call) at (12, 3), (12, 6), (12, 12) and (12, 16), f32, B = 8192; the
 (12, 3) rigid body's `FastBatchSolver` solve (f32, B = 1024, 4 iterations;
 median of 3 after a warm-up) and screw200_rcs16's (f32, B = 1024, 12
 iterations, one rep after a warm-up; null without the large-nu
 instance), ~2 minutes a tree with the build.
+
+    python3 scripts/rates.py [--root DIR] --large-nu
+
+measures B2 and B5 past nu = 12 (the large-nu Riccati step,
+`csrc/riccati_large.cuh`) and the paths that run them: B2 in f32 and fp64
+and B5 (CUDA events, mean of 5 launches after one), launched through their
+direct C entries (`riccati_large`, which take the large-nu instance at any
+nu, 12 included), on the rigid body driven through `al_bench.nu_pu(nu)` at
+nu = 12, 13, 16, 24 and 34, N = 200, B = 1024, on `kernel_check`'s real
+iterates (two f32 iterations; the polish's after 12 f32 and one polish
+iteration); at the paths' own shapes on screw200_rcs16 and screw200_rcs24:
+f32 B2 at B = 8192 (the f32 path), f32 B2 and B5 at B = 16384 (the polish),
+fp64 B2 at B = 16384 (the refiner); then both problems' f32 path (B = 8192,
+12 iterations), polish and refiner (B = 16384, each golden's schedule):
+median solves/s of 3 reps after a warm-up, a new batch each, and the
+warm-up's lane 0 against the golden with its gate (`chip_smoke.py`'s
+kernels_nu gates), ~4 minutes a tree with the build.
 
     python3 scripts/rates.py [--root DIR] --refine
 
@@ -85,6 +103,14 @@ PLAIN_SHAPES, RCS16_ITERS = ((12, 3), (12, 6), (12, 12), (12, 16)), 12
 # its fp64 kernels on the free body (nu = 6) and the drone (nu = 4)
 REFINE_BATCH, REFINE_F32_ITERS, REFINE_DF_ITERS, REFINE_REPS = 16384, 10, 3, 3
 REFINE_MODELS = ("free_body", "drone")
+# the large-nu Riccati step (--large-nu): the kernel rows' nu and batch, the
+# paths' batches (f32 path; polish and refiner), repetitions, and the lane-0
+# gates of the polish and the refiner (the f32 path's is 10 x the JAX f32
+# pipeline's error, from each golden's meta)
+LARGE_NUS, LARGE_BATCH = (12, 13, 16, 24, 34), 1024
+LARGE_F32_BATCH, LARGE_POLISH_BATCH, LARGE_REPS = 8192, 16384, 3
+LARGE_PROBLEMS = ("screw200_rcs16", "screw200_rcs24")
+LARGE_POLISH_GATE, LARGE_REFINE_GATE = 1e-4, 1e-6
 
 
 def main():
@@ -94,6 +120,8 @@ def main():
                     help="measure B13 alone (every instance, the plain version)")
     ap.add_argument("--refine", action="store_true",
                     help="measure the refiner's fp64 phase alone")
+    ap.add_argument("--large-nu", action="store_true",
+                    help="measure B2 and B5 past nu = 12 and the rcs16/rcs24 paths alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("rates: needs a CUDA device")
@@ -146,6 +174,10 @@ def main():
         return
     if args.refine:
         out.update(refine_rates(dev, event_ms, timed))
+        print(json.dumps(out), flush=True)
+        return
+    if args.large_nu:
+        out.update(large_nu_rates(dev, event_ms, timed))
         print(json.dumps(out), flush=True)
         return
 
@@ -275,6 +307,15 @@ def b13_any_rates(dev, event_ms, timed):
                 args = tuple(s[n] for n in kernel_check.READS["B13"])
                 out[name] = event_ms(lambda: fn(*args), 3)
                 del s, args
+    # the large-nu instance at the rcs16 solve's own batch too (f32)
+    for nx, nu in LARGE_SHAPES:
+        name = f"B13nuL_{nx}x{nu}_float32_B{ANY_SOLVE_BATCH}_ms"
+        out[name] = None
+        if large:
+            s = kernel_check.riccati_inputs(nx, nu, ANY_SOLVE_BATCH, N, torch.float32, dev, seed=0)
+            args = tuple(s[n] for n in kernel_check.READS["B13"])
+            out[name] = event_ms(lambda: RC.backward_lane_any(*args), 3)
+            del s, args
     B = ANY_BATCH[torch.float32]
     for nx, nu in PLAIN_SHAPES:
         s = kernel_check.riccati_inputs(nx, nu, B, N, torch.float32, dev, seed=0)
@@ -353,6 +394,91 @@ def refine_rates(dev, event_ms, timed):
     med = statistics.median(solve(901 + r) for r in range(REFINE_REPS))
     out[f"refine_B{B}_median_s"] = med
     out["refine_solves_per_s"] = B / med
+    return out
+
+
+def large_nu_rates(dev, event_ms, timed):
+    """``--large-nu`` (module docstring): {row: ms} of B2 (f32, fp64) and B5
+    past nu = 12 and at the rcs paths' shapes, and {path: solves/s, lane-0
+    error, gate} of the rcs16 and rcs24 f32 path, polish and refiner."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build, kernel_check
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers.df_pipeline import (
+        DFPipelineSolver,
+        join_us,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench
+
+    grav = dict(gravity=True, exact_gravity_jacobian=True)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    f64, out = torch.float64, {}
+
+    def inputs(pu, dtype, B, seed=0):
+        dyn, cost, q0, xi0 = al_bench.build_screw200_nu(pu, dtype, dev, horizon=N)
+        q0s, xi0s = al_bench.screw_batch(q0, xi0, B, seed)
+        return dyn, cost, q0s, xi0s, torch.zeros((B, N, pu.shape[1]), dtype=dtype, device=dev)
+
+    def b2_ms(pu, dtype, B):
+        args = inputs(pu, dtype, B)
+        s = kernel_check.kernel_inputs(P.PipelineSolver(N, 2, float(args[0].dt), **grav), *args,
+                                       kernel_gains=True)
+        tag = "f32" if dtype == torch.float32 else "f64"
+        fn = _build.function("pipeline_nu", "riccati_large", tag, P._RICCATI_NU_ARGS)
+        bargs = (s["lin"], s["lu"], s["qR"], s["qp"], s["xi"], s["refs"], s["consts"])
+        return event_ms(lambda: P._backward_kernel(fn, stream, *bargs, glow=True, luu_al=None,
+                                                   hand=True))
+
+    def b5_ms(pu, B):
+        args = inputs(pu, f64, B)
+        mx = DM.MixedDFPipelineSolver(N, float(args[0].dt), ITERS, 1, **grav)
+        s = kernel_check.polish_inputs(mx, *args, kernel_gains=True, polished=True)
+        fn = _build.function("polish_nu", "riccati_large", "mx", DM._RICCATI_ARGS)
+        bargs = (s["lin"], s["lu"], s["VxN"], s["VxxN"], s["consts"], s["consts32"])
+        return event_ms(lambda: DM._backward_mx_kernel(fn, stream, *bargs, glow=True,
+                                                       luu_al=None))
+
+    for nu in LARGE_NUS:
+        pu = al_bench.nu_pu(nu)
+        out[f"B2nuL_f32_nu{nu}_B{LARGE_BATCH}_ms"] = b2_ms(pu, torch.float32, LARGE_BATCH)
+        out[f"B2nuL_f64_nu{nu}_B{LARGE_BATCH}_ms"] = b2_ms(pu, f64, LARGE_BATCH)
+        out[f"B5nuL_nu{nu}_B{LARGE_BATCH}_ms"] = b5_ms(pu, LARGE_BATCH)
+    pus = {name: al_bench.NU_PROBLEMS[name]() for name in LARGE_PROBLEMS}
+    for name, pu in pus.items():
+        out[f"B2nuL_f32_{name}_B{LARGE_F32_BATCH}_ms"] = b2_ms(pu, torch.float32,
+                                                               LARGE_F32_BATCH)
+        out[f"B2nuL_f32_{name}_B{LARGE_POLISH_BATCH}_ms"] = b2_ms(pu, torch.float32,
+                                                                  LARGE_POLISH_BATCH)
+        out[f"B5nuL_{name}_B{LARGE_POLISH_BATCH}_ms"] = b5_ms(pu, LARGE_POLISH_BATCH)
+        out[f"B2nuL_f64_{name}_B{LARGE_POLISH_BATCH}_ms"] = b2_ms(pu, f64, LARGE_POLISH_BATCH)
+    for name, pu in pus.items():
+        us_gold, meta = al_bench.load_nu_golden(name)
+        pol, ref = meta["polish_schedule"], meta["refine_schedule"]
+        dt = float(inputs(pu, f64, 1)[0].dt)
+        paths = {
+            "f32": (P.PipelineSolver(N, ITERS, dt, **grav), torch.float32, LARGE_F32_BATCH,
+                    lambda st: st.us, 10 * meta["jax_f32_pipeline"]["lane0_us_max_abs_err"]),
+            "polish": (DM.MixedDFPipelineSolver(N, dt, pol["f32_iterations"],
+                                                pol["inner_iterations"], **grav),
+                       f64, LARGE_POLISH_BATCH, join_us, LARGE_POLISH_GATE),
+            "refine": (DFPipelineSolver(N, dt, ref["f32_iterations"], ref["inner_iterations"],
+                                        **grav), f64, LARGE_POLISH_BATCH, join_us,
+                       LARGE_REFINE_GATE)}
+        for path, (solver, dtype, B, us_of, gate) in paths.items():
+            a = inputs(pu, dtype, B, 0)
+            st = solver.solve(*a)
+            us = us_of(st)
+            err = float(np.abs(us[0].double().cpu().numpy() - us_gold).max())
+            fin = bool(torch.isfinite(us).all().item())
+            del st, us, a
+            secs = []
+            for r in range(LARGE_REPS):
+                a = inputs(pu, dtype, B, 1 + r)
+                secs.append(timed(lambda: solver.solve(*a))[1])
+                del a
+            out[f"{name}_{path}"] = {"B": B, "solves_per_s": B / statistics.median(secs),
+                                     "s": secs, "lane0_us_max_abs_err": err, "gate": gate,
+                                     "gate_met": err <= gate, "all_finite": fin}
     return out
 
 

@@ -908,6 +908,50 @@ def test_nu_kernels_match_plain(cuda, dtype, nu):
         assert e["max_rel"] <= GATES[dtype][name], (name, e["per_output"])
 
 
+# B2's and B5's large-nu Riccati step (csrc/riccati_large.cuh: a lane holds
+# rows l, l + 16, l + 32 of the nu-long arrays) at its first nu, the rcs16 and
+# rcs24 problems', the lane edges (17: a second row on lane 0 alone; 32: two
+# rows on every lane; 33: a third row on lane 0, the pitch nu | 1 equal to
+# nu) and MAX_NU; B = 33 ends a ragged last block of 8 and of 4 problems.
+@pytest.mark.parametrize("nu", [13, 16, 17, 24, 32, 33, _MAX_NU], ids=lambda nu: f"nu{nu}")
+def test_large_riccati_kernels_match_plain(cuda, nu):
+    """B2nuL (f32, fp64) and B5nuL, with and without the AL diagonal, on a
+    real iterate at B = 33, N = 8, each output within its gate of the plain
+    version, one launch of the large-nu instance a call and none of
+    another."""
+    B_, H_ = 33, 8
+    for dtype in (torch.float32, torch.float64):
+        dyn, cost, q0s, xi0s, us0 = _nu_problem(dtype, cuda, nu, B_, H_)
+        solver = P.PipelineSolver(H_, 2, float(dyn.dt), gravity=True,
+                                  exact_gravity_jacobian=True)
+        s = kernel_inputs(solver, dyn, cost, q0s, xi0s, us0, luu_al=True)
+        bargs = (s["lin"], s["lu"], s["qR"], s["qp"], s["xi"], s["refs"], s["consts"])
+        for al in (None, s["luu_al"]):
+            before = _counts()
+            kern = P.backward_lane(*bargs, glow=True, luu_al=al)
+            torch.cuda.synchronize()
+            now = _counts()
+            assert {k for k in now if now[k] != before[k]} == {"B2nuL"}
+            assert now["B2nuL"] == before["B2nuL"] + 1
+            plain = P.backward_plain(*bargs, glow=True, luu_al=al)
+            for name, a, b in zip(("k", "K", "gvec", "lN"), kern, plain, strict=True):
+                assert rel_err(a, b) <= GATES[dtype]["B2"], (dtype, name, al is not None)
+    dyn, cost, q0s, xi0s, us0 = _nu_problem(torch.float64, cuda, nu, B_, H_)
+    mx = DM.MixedDFPipelineSolver(H_, float(dyn.dt), 7, 1, gravity=True,
+                                  exact_gravity_jacobian=True)
+    s = polish_inputs(mx, dyn, cost, q0s, xi0s, us0, luu_al=True)
+    bargs = (s["lin"], s["lu"], s["VxN"], s["VxxN"], s["consts"], s["consts32"])
+    for al in (None, s["luu_al"]):
+        before = _counts()
+        kern = DM.backward_mx_lane(*bargs, glow=True, luu_al=al)
+        torch.cuda.synchronize()
+        now = _counts()
+        assert {k for k in now if now[k] != before[k]} == {"B5nuL"}
+        plain = DM.backward_mx_plain(*bargs, glow=True, luu_al=al)
+        for name, a, b in zip(("k", "K", "gvec"), kern, plain, strict=True):
+            assert rel_err(a, b) <= GATES["mixed"]["B5"][name], (name, al is not None)
+
+
 @pytest.mark.parametrize("B_", [1, 257], ids=["B1", "B257"])
 @pytest.mark.parametrize("nu", [1, 5, 12, 13, _MAX_NU], ids=lambda nu: f"nu{nu}")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])

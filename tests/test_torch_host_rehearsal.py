@@ -552,13 +552,17 @@ def test_b1_b3_b4_nu_host_rehearsal_match_plain(libs, dtype, nu):
 # at nu = 13, 16, 24 and _build.MAX_NU on the rigid body driven through
 # `al_bench.nu_pu(nu)`; N = 3; B = 3 (one block) and 33 (a ragged last block
 # of every block size: 8 and 4 problems for B2 and B5, 32 and 128 for the
-# rollouts and B1).
+# rollouts and B1).  B2 and B5 also at the lane edges of the Riccati step
+# (a lane holds rows l, l + 16, l + 32 of the nu-long arrays): nu = 17 (a
+# second row on lane 0 alone), 32 (two rows on every lane) and 33 (a third
+# row on lane 0; the pitch nu | 1 equal to nu).
 NUS_LARGE = [pytest.param(nu, id=f"nu{nu}") for nu in (13, 16, 24, _build.MAX_NU)]
+NUS_LARGE_STEP = NUS_LARGE + [pytest.param(nu, id=f"nu{nu}") for nu in (17, 32, 33)]
 B_LARGE = [pytest.param(3, id="B3"), pytest.param(33, id="B33")]
 
 
 @pytest.mark.parametrize("B", B_LARGE)
-@pytest.mark.parametrize("nu", NUS_LARGE)
+@pytest.mark.parametrize("nu", NUS_LARGE_STEP)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_b2_large_host_rehearsal_matches_plain(libs, dtype, nu, B):
     """B2's large-nu instance (its cooperative Cholesky between the group's
@@ -577,7 +581,7 @@ def test_b2_large_host_rehearsal_matches_plain(libs, dtype, nu, B):
 
 
 @pytest.mark.parametrize("B", B_LARGE)
-@pytest.mark.parametrize("nu", NUS_LARGE)
+@pytest.mark.parametrize("nu", NUS_LARGE_STEP)
 def test_b5_b6_large_host_rehearsal_match_plain(libs, nu, B):
     """B5's and B6's large-nu instances, B5 with and without the AL
     diagonal, within their per-output card gates of the plain versions."""
@@ -680,7 +684,7 @@ def test_large_layout_matches_the_build_count():
     layout of csrc/riccati_large.cuh that the kernels lay out at launch: the
     unit's own count (large_layout, compiled on the host) at every nu from
     13 to MAX_NU + 1 in each scalar, and the unit's static_assert that
-    MAX_NU is the largest nu that fits (it compiled)."""
+    MAX_NU fits (it compiled)."""
     if HR.compiler() is None:
         pytest.skip("no host C++ compiler")
     import tempfile
@@ -701,7 +705,7 @@ def test_large_layout_matches_the_build_count():
         for nu in range(13, _build.MAX_NU + 2):
             for kind, (tp, tr) in enumerate(((4, 4), (4, 8), (8, 8))):
                 assert fn(nu, kind) == _build.riccati_large_bytes(nu, tp, tr), (nu, kind)
-    assert _build.MAX_NU >= 32
+    assert _build.MAX_NU >= 34
 
 
 def test_fast_large_layout_matches_the_build_count():

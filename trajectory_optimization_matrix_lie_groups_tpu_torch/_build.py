@@ -71,6 +71,12 @@ def _group_stride(n):
     return s
 
 
+def _vpad(n, size):
+    """csrc/group.cuh vpad: n rounded up to whole 16-byte vectors."""
+    v = 16 // size
+    return (n + v - 1) // v * v
+
+
 def riccati_large_bytes(nu, tp, tr):
     """The shared memory of a block of the large-nu Riccati kernel (B2 in
     f32: element sizes ``tp`` = ``tr`` = 4; B5: 4, 8; fp64 B2: 8, 8) at
@@ -81,36 +87,28 @@ def riccati_large_bytes(nu, tp, tr):
                  + (_pitch(tp, 144) + _pitch(tp, nu)) * tp)
     out = (_align16(12 * nu * (P + 1) * tp) + _align16(nu * (P + 1) * tp)
            + _align16(nu * (P + 1) * tr))
-    group = (_align16(12 * tr) + _align16(nu * tr) + 288 * tp + _align16(13 * w * tp)
-             + 2 * _align16(12 * w * tp) + 2 * _align16(nu * w * tp) + _align16(6 * w * tp)
-             + (144 * tp if tp != tr else 0))
+    # V_m, Q_u; V_xx; K^T Q_uu and Q_ux (nu-major); K (13 a row); Q_uu; its
+    # lower triangle; F in Tp (mixed)
+    group = (_align16(12 * tr) + _align16(nu * tr) + 144 * tp + 2 * _align16(12 * nu * tp)
+             + nu * _vpad(13, tp) * tp + _align16(nu * w * tp)
+             + _align16(nu * (nu + 1) // 2 * tp) + (144 * tp if tp != tr else 0))
     consts = _align16(6 * w * tp) + _align16(6 * w * tr) + _align16(nu * w * tp)
     return consts + 2 * stage + 2 * out + P * _group_stride(group)
 
 
-def _max_nu():
-    nu = MU_MAX_NU
-    while all(riccati_large_bytes(nu + 1, *k) <= SMEM_PER_BLOCK
-              for k in ((4, 4), (4, 8), (8, 8))):
-        nu += 1
-    return nu
-
-
-# The largest nu that B1-B6 take: the largest whose large-nu Riccati layout
-# fits one block in every scalar.
-MAX_NU = _max_nu()
+# The largest nu that B1-B6 take, and B13's large-nu instance with them
+# (csrc/fast_large.cuh).  The large-nu Riccati layout fits one block in
+# every scalar up to nu = 39; no problem of the port needs more than 24.
+# Every unit gets it as -DTRAOPT_MAX_NU; csrc/nu_large.cuh checks that it
+# fits.
+MAX_NU = 34
+assert all(riccati_large_bytes(MAX_NU, *k) <= SMEM_PER_BLOCK for k in ((4, 4), (4, 8), (8, 8)))
 
 # An H100 SM's shared memory, and what CUDA reserves of it for each
 # resident block (csrc/fast_large.cuh kSmemPerSM, kSmemPerBlockReserved).
 SMEM_PER_SM, SMEM_BLOCK_RESERVED = 233472, 1024
 # The problems a block of B13's large-nu instance may hold.
 FAST_LARGE_PROBLEMS = (8, 4, 2)
-
-
-def _vpad(n, size):
-    """csrc/group.cuh vpad: n rounded up to whole 16-byte vectors."""
-    v = 16 // size
-    return (n + v - 1) // v * v
 
 
 def _spread_pitch(size, ne):

@@ -6,9 +6,8 @@
 // Why a design of its own.  fast_any_step (fast.cu) gives lane a < nu row a
 // of Q_uu and keeps per-lane arrays sized for the instance's maximum nu
 // (12): past it the lanes no longer cover the rows, and the arrays outgrow
-// the register file.  The design is riccati_large.cuh's (B2 and B5 at a
-// large nu) on B13's dense step; nu is a runtime argument and no register
-// array grows with it:
+// the register file.  Here nu is a runtime argument and no register array
+// grows with it:
 //   - lane r < nx owns row r of V_xx and V_x[r] in registers, as in
 //     fast_riccati_any_kernel;
 //   - V_xx Fu, Q_ux^T, Q_uu, its factor, K^T (row c < nx: column c of K,
@@ -21,7 +20,7 @@
 //   - phase C: a cooperative Cholesky, column by column between
 //     __syncwarp()s (every lane the pivot, lane r the rows j + 1 + r,
 //     j + 17 + r, ...), the diagonal stored as 1 / sqrt(pivot) as
-//     riccati_large.cuh stores it; then lane c <= nx one of the nx + 1
+//     pipeline.chol_factor_lane stores it; then lane c <= nx one of the nx + 1
 //     triangular solves in its row of K^T, multiplying by the stored
 //     reciprocal where utils/linalg.chol_solve divides by the square root
 //     (the two agree to rounding), and lane r < nx row r of K^T Q_uu;

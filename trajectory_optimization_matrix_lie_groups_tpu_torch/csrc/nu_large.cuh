@@ -2,12 +2,13 @@
 // (pipeline_nu.cu: B1, B2, B3 and B4 in f32 and fp64; polish_nu.cu: B5 and
 // B6), which the C entry points launch past nu.cuh's kMaxNu = 12.  nu is a
 // runtime argument, and no register array grows with it:
-//   - B2 and B5: riccati_large.cuh's step (Q_uu, its factor and the solves'
-//     rows in the group's shared memory, sized from nu at launch), 8
-//     problems a block in f32 and mixed, 4 in fp64 (its layout is twice as
-//     large); fp64 B2's terminal quadratization runs first in a kernel of
-//     its own into a (48, B) hand-off array (terminal_kernel<double>, as at
-//     nu <= 12);
+//   - B2 and B5: riccati_large.cuh's step (Q_uu, its factor and the nu-long
+//     arrays in the group's shared memory, sized from nu at launch; the
+//     factor and the 13 solves spread over the group's 16 lanes, the 12 x 12
+//     and nu-long products in register blocks), 8 problems a block in f32
+//     and mixed, 4 in fp64 (its layout is twice as large); fp64 B2's
+//     terminal quadratization runs first in a kernel of its own into a
+//     (48, B) hand-off array (terminal_kernel<double>, as at nu <= 12);
 //   - B1 forms the wrench Pu u by a loop over the inputs, Pu in the block's
 //     shared memory;
 //   - B3 and B4 take rollout_nu_kernel's design (each stage input copied
@@ -54,11 +55,13 @@ constexpr bool large_fits(int nu) {
          riccati_large_layout<double, double>(nu).bytes <= kSmemPerBlock;
 }
 
-// The largest nu of the large-nu instances: the build's (_build.MAX_NU,
-// computed there from the same layout), checked against the layout here.
+// The largest nu of the large-nu instances: the build's (_build.MAX_NU),
+// checked here against the Riccati step (a lane holds at most kLargeSlots
+// rows of an nu-long array) and its layout.
 constexpr int kMaxNuLarge = TRAOPT_MAX_NU;
-static_assert(kMaxNuLarge > kMaxNu && large_fits(kMaxNuLarge) && !large_fits(kMaxNuLarge + 1),
-              "TRAOPT_MAX_NU must be the largest nu whose Riccati layouts fit one block");
+static_assert(kMaxNuLarge > kMaxNu && kMaxNuLarge <= kLargeSlots * kGroup &&
+                  large_fits(kMaxNuLarge),
+              "TRAOPT_MAX_NU must be a nu whose Riccati layouts fit one block");
 
 // Pu (6 x nu, row-major) into shared memory at dst; the block's threads
 // share the copy and meet at a barrier.
@@ -201,15 +204,11 @@ __global__ void __launch_bounds__(kGroup * kLargeProblems<T>)
     if (b < B) a.lN[b] = l;
   }
   __syncwarp();
-  T V[12], Vx = T(0);
+  T Vx[3];  // V_x[I] on the diagonal lanes (riccati_large_step)
 #pragma unroll
-  for (int j = 0; j < 12; ++j) V[j] = T(0);
-  if (r < 12) {
-    lds<T, 12>(V, gs.VS + r * 12);
-    Vx = gs.Vm[r];
-  }
-  riccati_large_sweep<T, T, P>(smem, L, N, B, V, Vx, a.Fx, a.d, a.lx, a.lu, a.lxx, a.luual,
-                               a.glow != 0, a.K, a.k, a.gvec);
+  for (int ii = 0; ii < 3; ++ii) Vx[ii] = gs.Vm[3 * (r / 4) + ii];
+  riccati_large_run<T, T, P>(smem, L, N, B, Vx, a.Fx, a.d, a.lx, a.lu, a.lxx, a.luual,
+                             a.glow != 0, a.K, a.k, a.gvec);
 }
 
 // B2 at a large nu on stream s; in fp64 its two phases, the terminal
@@ -236,34 +235,38 @@ struct RiccatiMxLargeArgs {
   LargeLayout L;
 };
 
-__global__ void __launch_bounds__(kGroup * kLargeProblems<float>)
-    riccati_mx_large_kernel(RiccatiMxLargeArgs x) {
-  constexpr int P = kLargeProblems<float>;
+// A template (on the problems a block), as its launcher, so that only the
+// unit that launches it (polish_nu.cu) compiles it.
+template <int P>
+__global__ void __launch_bounds__(kGroup * P) riccati_mx_large_kernel(RiccatiMxLargeArgs x) {
   extern __shared__ __align__(16) unsigned char smem[];
   const RiccatiMxArgs& a = x.a;
   const int tid = threadIdx.x, g = tid / kGroup, r = tid % kGroup;
   const int B = a.B;
   const int bc = min(int(blockIdx.x) * P + g, B - 1);  // past B: problem B - 1's
   riccati_large_consts<float, double, P>(smem, x.L, a.fu2_32, a.fu2, a.Luu, tid);
-  float V[12];
-  double Vx = 0.0;
-#pragma unroll
-  for (int j = 0; j < 12; ++j) V[j] = 0.f;
+  const LargeScratch<float, double> gs =
+      large_scratch<float, double>(smem + x.L.ogroup + g * x.L.gstride, x.L);
+  // the terminal carry into the group's scratch
   if (r < 12) {
-    Vx = a.VxN[(long long)r * B + bc];
+    gs.Vm[r] = a.VxN[(long long)r * B + bc];
 #pragma unroll
-    for (int j = 0; j < 12; ++j) V[j] = a.VxxN[((long long)r * 12 + j) * B + bc];
+    for (int j = 0; j < 12; ++j) gs.VS[r * 12 + j] = a.VxxN[((long long)r * 12 + j) * B + bc];
   }
-  riccati_large_sweep<float, double, P>(smem, x.L, a.N, B, V, Vx, a.Fx, a.d, a.lx, a.lu, a.lxx,
-                                        a.luual, a.glow != 0, a.K, a.k, a.gvec);
+  __syncwarp();
+  double Vx[3];  // V_x[I] on the diagonal lanes (riccati_large_step)
+#pragma unroll
+  for (int ii = 0; ii < 3; ++ii) Vx[ii] = gs.Vm[3 * (r / 4) + ii];
+  riccati_large_run<float, double, P>(smem, x.L, a.N, B, Vx, a.Fx, a.d, a.lx, a.lu, a.lxx,
+                                      a.luual, a.glow != 0, a.K, a.k, a.gvec);
 }
 
 // B5 at a large nu on stream s.
-inline int launch_riccati_mx_large(const RiccatiMxArgs& a, int nu, cudaStream_t s) {
-  constexpr int P = kLargeProblems<float>;
+template <int P = kLargeProblems<float>>
+int launch_riccati_mx_large(const RiccatiMxArgs& a, int nu, cudaStream_t s) {
   const LargeLayout L = riccati_large_layout<float, double>(nu);
-  if (int e = set_smem(riccati_mx_large_kernel, L.bytes, true)) return e;
-  riccati_mx_large_kernel<<<dim3((a.B + P - 1) / P), kGroup * P, L.bytes, s>>>(
+  if (int e = set_smem(riccati_mx_large_kernel<P>, L.bytes, true)) return e;
+  riccati_mx_large_kernel<P><<<dim3((a.B + P - 1) / P), kGroup * P, L.bytes, s>>>(
       RiccatiMxLargeArgs{a, L});
   return (int)cudaGetLastError();
 }

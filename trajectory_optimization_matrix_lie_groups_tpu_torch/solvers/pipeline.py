@@ -255,10 +255,11 @@ def backward_lane(lin, lu, qR, qp, xi, refs, consts, *, glow, luu_al=None):
     of the (N, nu, ...) arrays at the runtime nu; in fp64 the terminal
     quadratization hands over in a (48, B) array of its own.  Past nu = 12
     the large-nu instance, counted in ``backward_lane.nuL``
-    (`csrc/riccati_large.cuh`): Q_uu, its factor and the 13 right-hand
-    sides in the group's shared memory (sized from nu at launch), lane r
-    rows r, r + 16, ... of Q_uu, a Cholesky factorization shared by the
-    group's lanes column by column, one triangular solve a lane."""
+    (`csrc/riccati_large.cuh`): Q_uu, its factor and the nu-long arrays in
+    the group's shared memory (sized from nu at launch), lane l the rows
+    l, l + 16, l + 32 of Q_uu, of its factor and of the 13 right-hand sides,
+    the factorization and the solves a barrier step a row, every lane's
+    rows updated at once; the 12 x 12 products a 3 x 3 block a lane."""
     kw = dict(glow=glow, luu_al=luu_al)
     if lu.device.type == "cpu":
         return backward_plain(lin, lu, qR, qp, xi, refs, consts, **kw)
