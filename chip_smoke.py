@@ -189,7 +189,8 @@ Phases, each printed as one JSON line:
                 B13's large-nu instance at (12, 16) and (12, 34), timed at
                 N = 200 (f32 B = 8192, f64 B = 1024) and compared with its
                 plain version at N = 40 (the f32 (12, 16) row at 200), each
-                with its bound and its problems a block; one
+                with its bound, its problems a block and its time before
+                the instance's redesign (`LARGE_PARENT_MS`); one
                 `FastBatchSolver` solve of screw200_rcs16 (f32, B = 1024,
                 N = 200, 12 iterations; B13nuL = 12 and no other B13
                 launch), every lane finite, lane 0 within 10 x the JAX
@@ -225,7 +226,17 @@ Phases, each printed as one JSON line:
                 tuned one at nu = 4 and 6 on a rough iterate (2 f32
                 iterations on the first 4 or 6 thrusters of
                 `al_bench.rcs12_pu`), the blocks an SM holds of B2's and
-                the rollout's instances and their ptxas lines; (b) the four
+                the rollout's instances and their ptxas lines (the
+                large-nu rollout, f32 and fp64, neither spills nor keeps
+                a stack frame),
+                and the large-nu B3 and B4 rows' times before
+                the rollout's redesign (`NU_LARGE_PARENT_MS`); B3 and B4 at
+                the rcs paths' B = 16384 past one wave of the large-nu
+                rollout's feedback slot (`NU_PAST_SLOT`: f32 rcs24, fp64
+                rcs16 and rcs24, compared and timed at N = 40), each
+                large-nu rollout launch of (a) and (b) held to the instance
+                it should take (the feedback slot's while the batch is
+                resident at once, device memory's past it); (b) the four
                 problems of `al_bench.NU_PROBLEMS` (screw200_torques3, nu =
                 3; screw200_rcs12, nu = 12; screw200_rcs16, nu = 16;
                 screw200_rcs24, nu = 24) through the f32 path (B = 8192,
@@ -439,6 +450,14 @@ ANY_PARENT_MS = {"6x2 float32 B=8192": 13.206645965576172,
                  "9x3 float64 B=1024": 46.83412170410156,
                  "12x3 float64 B=1024": 103.24589029947917,
                  "12x12 float64 B=1024": 284.1482340494792}
+# the same rows' ms on B13's large-nu instance before its redesign on the
+# large-nu Riccati step (the earlier step: a lane's own solves, left-looking
+# chains), measured by `python3 scripts/rates.py --b13-any` on that tree
+# (NVIDIA H100 80GB HBM3, 700.00 W; the redesign's first call)
+LARGE_PARENT_MS = {"12x16 float32 B=8192": 60.23121134440104,
+                   "12x34 float32 B=8192": 327.661376953125,
+                   "12x16 float64 B=1024": 20.645994822184246,
+                   "12x34 float64 B=1024": 85.74344889322917}
 # the instances of B1-B6 at any input dimension (kernels_nu, --nu): each
 # against its plain version at NU_CHECK on a real iterate (B =
 # NU_CHECK_BATCH); the problems of `al_bench.NU_PROBLEMS` on the f32 path
@@ -456,6 +475,37 @@ NU_SWEEP = (64, 40, 2)
 # N = 200; every row compared at 200 before the large-nu rows came), but
 # the kernels line's rows (nu = LINE_NU: B1-B4 in f32, B5, B6) at N = 200
 NU_CHECK_LARGE, NU_PLAIN_N, LINE_NU = (13, 16, 24), 40, (3, 16)
+# the large-nu rows' ms of B3 and B4 before the rollout's redesign (each
+# stage reading K, u and k from device memory one input at a time on the
+# carry's chain), measured by `python3 scripts/rates.py --large-nu` on that
+# tree at the same shapes (B = NU_CHECK_BATCH, N = 200; NVIDIA H100 80GB
+# HBM3, 700.00 W; the redesign's first call)
+NU_LARGE_PARENT_MS = {"B3 nu=13 float32": 2.324620819091797,
+                      "B3 nu=13 float64": 2.8647296905517576,
+                      "B3 nu=16 float32": 2.670886421203613,
+                      "B3 nu=16 float64": 3.2311038970947266,
+                      "B3 nu=24 float32": 3.562771224975586,
+                      "B3 nu=24 float64": 4.170604705810547,
+                      "B3 nu=34 float32": 4.693529510498047,
+                      "B3 nu=34 float64": 5.353055953979492,
+                      "B4 nu=13 float32": 2.1539327621459963,
+                      "B4 nu=13 float64": 2.5074880599975584,
+                      "B4 nu=16 float32": 2.4913728713989256,
+                      "B4 nu=16 float64": 2.863462448120117,
+                      "B4 nu=24 float32": 3.390252685546875,
+                      "B4 nu=24 float64": 3.8054527282714843,
+                      "B4 nu=34 float32": 4.520127868652343,
+                      "B4 nu=34 float64": 4.990451049804688}
+# the large-nu rollout past one wave of its feedback slot's blocks, at the
+# paths' own shapes (B = NU_POLISH_BATCH, where the rcs24 f32 polish and the
+# fp64 refiner phase of both problems take its device-memory instance):
+# B3nuL and B4nuL against their plain versions at N = NU_PLAIN_N, timed there
+NU_PAST_SLOT = (("screw200_rcs24", torch.float32), ("screw200_rcs16", torch.float64),
+                ("screw200_rcs24", torch.float64))
+# the instances of the large-nu rollout (B3nuL's first phase, B4nuL: the
+# feedback from its shared-memory slot, or from device memory; f32 and
+# fp64), which may neither spill nor keep a stack frame
+ROLLOUT_LARGE = "traopt::rollout_large_kernel<"
 # B5's runtime-nu instance against the tuned one, both at nu = 4 and 6 on
 # the same iterate: identical (max_rel, every output)
 NU_TWIN_GATE = 1e-12
@@ -1498,6 +1548,9 @@ def b13_any_phase(dev, card, counted, expect):
                           "problems_per_block": _build.fast_large_problems(nx, nu, tp),
                           "smem_bytes_per_block": _build.fast_large_bytes(
                               nx, nu, tp, _build.fast_large_problems(nx, nu, tp))}
+            parent = LARGE_PARENT_MS.get(key)
+            if parent is not None:
+                large[key].update(parent_ms=parent, speedup_vs_parent=parent / ms)
             require(e["max_rel"] <= gate, f"B13nuL ({nx}, {nu}) {dtype}: {e['max_rel']} > {gate}")
             del s, args, kern, plain
     rows_s = time.perf_counter() - t_large
@@ -1665,8 +1718,9 @@ def nu_phase(dev, card, counted, expect):
     """`kernels_nu` (module docstring): (a) the runtime-nu and large-nu
     instances of B1-B6 against their plain versions at NU_CHECK and
     NU_CHECK_LARGE and MAX_NU (B = NU_CHECK_BATCH) with times, bounds,
-    occupancy and ptxas lines, and B5's against the tuned B5 at nu = 4 and 6
-    on a rough iterate; (b) the full-width problems of `al_bench.NU_PROBLEMS`
+    occupancy and ptxas lines, B3 and B4 past one wave of the large-nu
+    rollout's feedback slot (NU_PAST_SLOT), and B5's against the tuned B5 at
+    nu = 4 and 6 on a rough iterate; (b) the full-width problems of `al_bench.NU_PROBLEMS`
     on the f32 path, the polish and the fp64 refiner, counted, lane 0
     against each golden; (c) every nu from 1 to 12 and the large ones
     through the four solvers at NU_SWEEP's size, counted.  Returns
@@ -1695,13 +1749,40 @@ def nu_phase(dev, card, counted, expect):
         if not cond:
             failed.append(what)
 
-    def row(name, nu, kern, plain, s, outputs, gate, timing=None):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def slot_fits(dtype, nu, B):
+        """Whether the large-nu rollout at (nu, B) takes its feedback slot's
+        instance: the whole batch resident at once (`rollout_large_slot`)."""
+        occ = _build.function("pipeline_nu", "occupancy_nu", _build.suffix(dtype),
+                              [_build.INT] * 3)
+        return occ(1, nu, 0) * sms * 32 >= B
+
+    def instances():
+        return {t: P.rollout_large_instances(t) for t in (torch.float32, torch.float64)}
+
+    def took(before, nu, B, dtype=None):
+        """{scalar: {instance: launches}} of the large-nu rollout since
+        ``before`` (`instances`), each launch held to the instance
+        `slot_fits` names at (nu, B); with ``dtype``, at least one launch in
+        that scalar."""
+        now = instances()
+        d = {t: {i: now[t][i] - before[t][i] for i in now[t]} for t in now}
+        for t, di in d.items():
+            want = "slot" if slot_fits(t, nu, B) else "device"
+            check(all(v == 0 for i, v in di.items() if i != want)
+                  and (t != dtype or di[want] > 0),
+                  f"rollout nu={nu} B={B} {t}: launches {di}, expected the {want} instance")
+        return {str(t)[6:]: di for t, di in d.items()}
+
+    def row(name, nu, kern, plain, s, outputs, gate, timing=None, parent=True):
         """One kernel against its plain version: errors per output, the
         kernel's time by CUDA events (mean of 3, after the checked call), the
         plain version's on the host clock around the one call compared, the
         bound and its share.  ``timing``: (kernel call, inputs) at N = 200
         when the comparison runs at a smaller depth; the time and the bound
-        are then of that call."""
+        are then of that call.  ``parent``: beside the parent kernel's time
+        at B = NU_CHECK_BATCH where NU_LARGE_PARENT_MS has it."""
         named = lambda o: (dict(zip(outputs, kernel_check._flat(o))) if name in nu_pipe
                            else kernel_check._named(o, outputs))
         kout = kern()
@@ -1720,23 +1801,25 @@ def nu_phase(dev, card, counted, expect):
             kout = kern()
         r.update(ms=event_ms(kern, 3), N_timed=s["us"].shape[0], **bound(name, s, kout))
         r["bound_share"] = r["bound_ms"] / r["ms"]
+        parent = parent and NU_LARGE_PARENT_MS.get(f"{name} nu={nu} {str(s['us'].dtype)[6:]}")
+        if parent:
+            r.update(parent_ms=parent, speedup_vs_parent=parent / r["ms"])
         failed.extend(f"{base[name]}{sfx(nu)} {name} nu={nu} {o}: {per[o]} > {gates[o]}"
                       for o in outputs if not per[o] <= gates[o])
         return r
 
-    def problem(nu, dtype, n):
-        """The rigid body driven through `al_bench.nu_pu(nu)` at depth n:
-        (dyn, cost, q0s, xi0s, us0)."""
-        dyn, cost, q0, xi0 = al_bench.build_screw200_nu(al_bench.nu_pu(nu), dtype, dev,
-                                                        horizon=n)
-        q0s, xi0s = al_bench.screw_batch(q0, xi0, NU_CHECK_BATCH, SEED)
-        return dyn, cost, q0s, xi0s, torch.zeros((NU_CHECK_BATCH, n, nu), dtype=dtype,
-                                                 device=dev)
+    def problem(nu, dtype, n, pu=None, B=NU_CHECK_BATCH):
+        """The rigid body driven through ``pu`` (default `al_bench.nu_pu(nu)`)
+        at depth n, batch B: (dyn, cost, q0s, xi0s, us0)."""
+        pu = al_bench.nu_pu(nu) if pu is None else pu
+        dyn, cost, q0, xi0 = al_bench.build_screw200_nu(pu, dtype, dev, horizon=n)
+        q0s, xi0s = al_bench.screw_batch(q0, xi0, B, SEED)
+        return dyn, cost, q0s, xi0s, torch.zeros((B, n, nu), dtype=dtype, device=dev)
 
-    def pipe_inputs(nu, dtype, n):
+    def pipe_inputs(nu, dtype, n, pu=None, B=NU_CHECK_BATCH):
         """B1-B4's real iterate at nu (two f32 iterations, B2 on its
-        kernel), depth n, and its solver."""
-        args = problem(nu, dtype, n)
+        kernel), depth n, batch B, and its solver."""
+        args = problem(nu, dtype, n, pu, B)
         solver = P.PipelineSolver(n, 2, float(args[0].dt), **grav)
         return kernel_check.kernel_inputs(solver, *args, kernel_gains=True), solver
 
@@ -1768,9 +1851,12 @@ def nu_phase(dev, card, counted, expect):
                 sT, solverT = pipe_inputs(nu, dtype, N)
                 timing = kernel_check.calls(sT, dt=solverT.dt, **kw)
             for k, (kern, plain) in kernel_check.calls(s, dt=solver.dt, **kw).items():
-                rows[f"{k} nu={nu} {tag}"] = row(
+                i0 = instances()
+                rows[f"{k} nu={nu} {tag}"] = r = row(
                     k, nu, kern, plain, s, kernel_check.OUTPUTS[k],
                     kernel_check.GATES[dtype][k], timing and (timing[k][0], sT))
+                if k in ("B3", "B4") and nu > _build.MU_MAX_NU:
+                    r["instances"] = took(i0, nu, NU_CHECK_BATCH, dtype)
             del s, sT, timing
         n = depth(nu, "mixed")
         s, mx = polish_inputs(nu, n)
@@ -1784,6 +1870,22 @@ def nu_phase(dev, card, counted, expect):
                     k, nu, kern, plain, s, kernel_check.POLISH_OUTPUTS[k],
                     kernel_check.GATES["mixed"][k], timing and (timing[k][0], sT))
         del s, sT, timing
+    # the large-nu rollout past one wave of its feedback slot's blocks: the
+    # device-memory instance at the paths' own shapes
+    for name, dtype in NU_PAST_SLOT:
+        pu = al_bench.NU_PROBLEMS[name]()
+        nu, tag = pu.shape[1], str(dtype).replace("torch.", "")
+        check(not slot_fits(dtype, nu, NU_POLISH_BATCH),
+              f"{name} {tag}: B = {NU_POLISH_BATCH} fits the rollout's feedback slot")
+        s, solver = pipe_inputs(nu, dtype, NU_PLAIN_N, pu, NU_POLISH_BATCH)
+        pairs = kernel_check.calls(s, dt=solver.dt, gravity=True, exact_grav=True)
+        for k in ("B3", "B4"):
+            i0 = instances()
+            rows[f"{k} {name} B={NU_POLISH_BATCH} {tag}"] = r = row(
+                k, nu, *pairs[k], s, kernel_check.OUTPUTS[k], kernel_check.GATES[dtype][k],
+                parent=False)
+            r["instances"] = took(i0, nu, NU_POLISH_BATCH, dtype)
+        del s, pairs
     # the tuned instances' times at nu = 6 on the same shapes, beside the rows
     tuned = {}
     for dtype in (torch.float32, torch.float64):
@@ -1825,7 +1927,6 @@ def nu_phase(dev, card, counted, expect):
         failed.extend(f"B5nu twin nu={nu} {o}: {r[o]} > {NU_TWIN_GATE}"
                       for o in r if o.endswith("_vs_nu") and not r[o] <= NU_TWIN_GATE)
         del s, bargs, a, b, plain
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     resident = {}
     for tag in ("f32", "f64"):
         occ = _build.function("pipeline_nu", "occupancy_nu", tag, [_build.INT] * 3)
@@ -1860,8 +1961,13 @@ def nu_phase(dev, card, counted, expect):
 
         def run(solver, dtype, B, us_of, gate, what, launches):
             a = inputs(dtype, B, SEED)
+            i0 = instances()
             st, sec, n = counted(lambda: solver.solve(*a))
             check(n == expect(**launches), f"{name} {what} launches {n}")
+            inst = took(i0, nu, B)
+            check(sum(sum(d.values()) for d in inst.values()) == n["B3nuL"] + n["B4nuL"],
+                  f"{name} {what}: rollout instances {inst}, B3nuL + B4nuL launches "
+                  f"{n['B3nuL'] + n['B4nuL']}")
             for k, v in n.items():
                 launches_b[k] += v
             us = us_of(st)
@@ -1872,7 +1978,8 @@ def nu_phase(dev, card, counted, expect):
             del st, us, a
             a = inputs(dtype, B, SEED + 1)
             _, rep = timed(lambda: solver.solve(*a))
-            return {"B": B, "launches": n, "lane0_us_max_abs_err": err, "gate": gate,
+            return {"B": B, "launches": n, "rollout_instances": inst,
+                    "lane0_us_max_abs_err": err, "gate": gate,
                     "all_finite": fin, "s_first_call": sec, "s": rep, "solves_per_s": B / rep}
 
         dt = float(inputs(torch.float64, 1, SEED)[0].dt)
@@ -1942,6 +2049,10 @@ def nu_phase(dev, card, counted, expect):
           "sweep": {"B": B_, "N": N_, "iterations": it, "by_nu": sweep},
           "parts_s": {k: parts_s[k] - parts_s[j] for j, k in zip("sab", "abc")}})
     require(not failed, f"kernels_nu checks failed: {failed}")
+    roll = {k: v for k, v in ptxas.items() if ROLLOUT_LARGE in k}
+    require(len(roll) == 4 and all(v.get("stack_frame") == 0 and v.get("spill_stores") == 0
+                                   and v.get("spill_loads") == 0 for v in roll.values()),
+            f"B3nuL / B4nuL rollout keeps a stack frame or spills: {roll}")
     line = {}
     for nu, s_ in zip(LINE_NU, ("nu", "nuL")):
         for key in ("B1", "B2", "B3", "B4"):

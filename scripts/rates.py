@@ -53,16 +53,18 @@ instance), ~2 minutes a tree with the build.
 
     python3 scripts/rates.py [--root DIR] --large-nu
 
-measures B2 and B5 past nu = 12 (the large-nu Riccati step,
-`csrc/riccati_large.cuh`) and the paths that run them: B2 in f32 and fp64
-and B5 (CUDA events, mean of 5 launches after one), launched through their
-direct C entries (`riccati_large`, which take the large-nu instance at any
-nu, 12 included), on the rigid body driven through `al_bench.nu_pu(nu)` at
-nu = 12, 13, 16, 24 and 34, N = 200, B = 1024, on `kernel_check`'s real
-iterates (two f32 iterations; the polish's after 12 f32 and one polish
-iteration); at the paths' own shapes on screw200_rcs16 and screw200_rcs24:
-f32 B2 at B = 8192 (the f32 path), f32 B2 and B5 at B = 16384 (the polish),
-fp64 B2 at B = 16384 (the refiner); then both problems' f32 path (B = 8192,
+measures B2-B5 past nu = 12 (the large-nu Riccati step,
+`csrc/riccati_large.cuh`, and the large-nu rollout, `csrc/nu_large.cuh`)
+and the paths that run them: B2, B3 and B4 in f32 and fp64 and B5 (CUDA
+events, mean of 5 launches after one), launched through their direct C
+entries (`riccati_large`, `rollout_large`, which take the large-nu instance
+at any nu, 12 included), on the rigid body driven through
+`al_bench.nu_pu(nu)` at nu = 12, 13, 16, 24 and 34, N = 200, B = 1024, on
+`kernel_check`'s real iterates (two iterations; the polish's after 12 f32
+and one polish iteration); at the paths' own shapes on screw200_rcs16 and
+screw200_rcs24: f32 B2 and B3 at B = 8192 (the f32 path), f32 B2 and B3 and
+B5 at B = 16384 (the polish), fp64 B2 and B3 at B = 16384 (the refiner);
+then both problems' f32 path (B = 8192,
 12 iterations), polish and refiner (B = 16384, each golden's schedule):
 median solves/s of 3 reps after a warm-up, a new batch each, and the
 warm-up's lane 0 against the golden with its gate (`chip_smoke.py`'s
@@ -121,7 +123,7 @@ def main():
     ap.add_argument("--refine", action="store_true",
                     help="measure the refiner's fp64 phase alone")
     ap.add_argument("--large-nu", action="store_true",
-                    help="measure B2 and B5 past nu = 12 and the rcs16/rcs24 paths alone")
+                    help="measure B2-B5 past nu = 12 and the rcs16/rcs24 paths alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("rates: needs a CUDA device")
@@ -419,15 +421,24 @@ def large_nu_rates(dev, event_ms, timed):
         q0s, xi0s = al_bench.screw_batch(q0, xi0, B, seed)
         return dyn, cost, q0s, xi0s, torch.zeros((B, N, pu.shape[1]), dtype=dtype, device=dev)
 
-    def b2_ms(pu, dtype, B):
+    def b234_ms(pu, dtype, B, kernels=("B2", "B3", "B4")):
+        """{kernel: ms} of B2, B3 and B4 through their direct large-nu entries
+        on one real iterate."""
         args = inputs(pu, dtype, B)
-        s = kernel_check.kernel_inputs(P.PipelineSolver(N, 2, float(args[0].dt), **grav), *args,
-                                       kernel_gains=True)
+        solver = P.PipelineSolver(N, 2, float(args[0].dt), **grav)
+        s = kernel_check.kernel_inputs(solver, *args, kernel_gains=True)
         tag = "f32" if dtype == torch.float32 else "f64"
         fn = _build.function("pipeline_nu", "riccati_large", tag, P._RICCATI_NU_ARGS)
         bargs = (s["lin"], s["lu"], s["qR"], s["qp"], s["xi"], s["refs"], s["consts"])
-        return event_ms(lambda: P._backward_kernel(fn, stream, *bargs, glow=True, luu_al=None,
-                                                   hand=True))
+        rfn = _build.function("pipeline_nu", "rollout_large", tag, P._ROLLOUT_ARGS)
+        rargs = (s["qR"], s["qp"], s["xi"], s["us"], s["k"], s["K"], s["lin"], s["refs"],
+                 s["consts"])
+        rkw = dict(dt=solver.dt, gravity=True, exact_grav=True)
+        run = {"B2": lambda: P._backward_kernel(fn, stream, *bargs, glow=True, luu_al=None,
+                                                hand=True),
+               "B3": lambda: P._rollout_kernel(rfn, stream, *rargs, fused=True, **rkw),
+               "B4": lambda: P._rollout_kernel(rfn, stream, *rargs, fused=False, **rkw)}
+        return {k: event_ms(run[k]) for k in kernels}
 
     def b5_ms(pu, B):
         args = inputs(pu, f64, B)
@@ -440,17 +451,20 @@ def large_nu_rates(dev, event_ms, timed):
 
     for nu in LARGE_NUS:
         pu = al_bench.nu_pu(nu)
-        out[f"B2nuL_f32_nu{nu}_B{LARGE_BATCH}_ms"] = b2_ms(pu, torch.float32, LARGE_BATCH)
-        out[f"B2nuL_f64_nu{nu}_B{LARGE_BATCH}_ms"] = b2_ms(pu, f64, LARGE_BATCH)
+        for dtype, tag in ((torch.float32, "f32"), (f64, "f64")):
+            for k, ms in b234_ms(pu, dtype, LARGE_BATCH).items():
+                out[f"{k}nuL_{tag}_nu{nu}_B{LARGE_BATCH}_ms"] = ms
         out[f"B5nuL_nu{nu}_B{LARGE_BATCH}_ms"] = b5_ms(pu, LARGE_BATCH)
     pus = {name: al_bench.NU_PROBLEMS[name]() for name in LARGE_PROBLEMS}
     for name, pu in pus.items():
-        out[f"B2nuL_f32_{name}_B{LARGE_F32_BATCH}_ms"] = b2_ms(pu, torch.float32,
-                                                               LARGE_F32_BATCH)
-        out[f"B2nuL_f32_{name}_B{LARGE_POLISH_BATCH}_ms"] = b2_ms(pu, torch.float32,
-                                                                  LARGE_POLISH_BATCH)
+        # the f32 path's batch; the polish's f32 phase, B5 and the refiner's
+        # fp64 phase at theirs
+        for dtype, tag, B in ((torch.float32, "f32", LARGE_F32_BATCH),
+                              (torch.float32, "f32", LARGE_POLISH_BATCH),
+                              (f64, "f64", LARGE_POLISH_BATCH)):
+            for k, ms in b234_ms(pu, dtype, B, ("B2", "B3")).items():
+                out[f"{k}nuL_{tag}_{name}_B{B}_ms"] = ms
         out[f"B5nuL_{name}_B{LARGE_POLISH_BATCH}_ms"] = b5_ms(pu, LARGE_POLISH_BATCH)
-        out[f"B2nuL_f64_{name}_B{LARGE_POLISH_BATCH}_ms"] = b2_ms(pu, f64, LARGE_POLISH_BATCH)
     for name, pu in pus.items():
         us_gold, meta = al_bench.load_nu_golden(name)
         pol, ref = meta["polish_schedule"], meta["refine_schedule"]

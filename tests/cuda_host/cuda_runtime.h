@@ -43,6 +43,18 @@ enum cudaFuncAttribute {
   cudaFuncAttributePreferredSharedMemoryCarveout = 9
 };
 inline cudaError_t cudaSetDevice(int) { return 0; }
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return 0;
+}
+// Two SMs of one block each (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// below): the large-nu rollout takes its feedback slot up to B = 64 and
+// reads the feedback from device memory past it.
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;
+  return 0;
+}
 inline cudaError_t cudaGetLastError() { return 0; }
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }

@@ -15,7 +15,10 @@ from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
 from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
     FAST_OUTPUTS,
     GATES,
+    OUTPUTS,
     READS,
+    _flat,
+    calls,
     compare,
     fast_compare,
     fast_inputs,
@@ -950,6 +953,80 @@ def test_large_riccati_kernels_match_plain(cuda, nu):
         plain = DM.backward_mx_plain(*bargs, glow=True, luu_al=al)
         for name, a, b in zip(("k", "K", "gvec"), kern, plain, strict=True):
             assert rel_err(a, b) <= GATES["mixed"]["B5"][name], (name, al is not None)
+
+
+# B3's and B4's large-nu rollout (csrc/nu_large.cuh): u_t, k_t and K_t
+# copied ahead into a feedback slot of the thread's shared-memory column
+# while the whole batch is resident at once, else read from device memory;
+# the feedback in feedback_pu's order either way.  Over a whole horizon,
+# where a drift of the feedback would show.
+@pytest.mark.parametrize("nu", [13, 16, _MAX_NU], ids=lambda nu: f"nu{nu}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_large_rollout_kernels_match_plain_over_n200(cuda, dtype, nu):
+    """B3nuL and B4nuL on a real iterate at B = 33, N = 200, each output
+    within its gate of the plain version, one launch of each a call, each
+    on the feedback slot's instance."""
+    B_, H_ = 33, 200
+    dyn, cost, q0s, xi0s, us0 = _nu_problem(dtype, cuda, nu, B_, H_)
+    solver = P.PipelineSolver(H_, 2, float(dyn.dt), gravity=True, exact_gravity_jacobian=True)
+    s = kernel_inputs(solver, dyn, cost, q0s, xi0s, us0)
+    pairs = calls(s, dt=solver.dt, gravity=True, exact_grav=True)
+    for name in ("B3", "B4"):
+        before, inst = _counts(), P.rollout_large_instances(dtype)
+        kern = pairs[name][0]()
+        torch.cuda.synchronize()
+        now = _counts()
+        assert {k for k in now if now[k] != before[k]} == {name + "nuL"}
+        assert now[name + "nuL"] == before[name + "nuL"] + 1
+        assert P.rollout_large_instances(dtype) == {"slot": inst["slot"] + 1,
+                                                   "device": inst["device"]}
+        plain = pairs[name][1]()
+        for out, a, b in zip(OUTPUTS[name], _flat(kern), _flat(plain), strict=True):
+            assert rel_err(a, b) <= GATES[dtype][name], (name, out, rel_err(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_large_rollout_device_memory_feedback_matches_plain(cuda, dtype):
+    """One problem past what the feedback slot's blocks hold at once (nu =
+    MAX_NU: f32 three blocks of 32 problems an SM, fp64 one) the large-nu
+    rollout reads its feedback from device memory: B3nuL and B4nuL at N =
+    40 each take that instance and are within their gates of the plain
+    versions."""
+    occ = _build.function("pipeline_nu", "occupancy_nu", _build.suffix(dtype),
+                          [_build.INT] * 3)(1, _MAX_NU, torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert occ > 0
+    B_, H_ = occ * sms * 32 + 1, 40
+    dyn, cost, q0s, xi0s, us0 = _nu_problem(dtype, cuda, _MAX_NU, B_, H_)
+    solver = P.PipelineSolver(H_, 2, float(dyn.dt), gravity=True, exact_gravity_jacobian=True)
+    s = kernel_inputs(solver, dyn, cost, q0s, xi0s, us0, kernel_gains=True)
+    pairs = calls(s, dt=solver.dt, gravity=True, exact_grav=True)
+    for name in ("B3", "B4"):
+        inst = P.rollout_large_instances(dtype)
+        kern = pairs[name][0]()
+        assert P.rollout_large_instances(dtype) == {"slot": inst["slot"],
+                                                   "device": inst["device"] + 1}
+        plain = pairs[name][1]()
+        torch.cuda.synchronize()
+        for out, a, b in zip(OUTPUTS[name], _flat(kern), _flat(plain), strict=True):
+            assert rel_err(a, b) <= GATES[dtype][name], (name, out, rel_err(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b13_large_nu_matches_plain_over_n200(cuda, dtype):
+    """B13's large-nu instance at (12, 16), B = 33, N = 200 against the
+    plain version within the kernel's gate."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.ops import riccati as RC
+
+    s = riccati_inputs(12, 16, 33, 200, dtype, cuda, seed=28)
+    args = tuple(s[n] for n in READS["B13"])
+    before = _b13_counts()
+    kern = RC.backward_lane(*args)
+    assert _b13_counts() == (before[0], before[1], before[2] + 1)
+    plain = RC.backward_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(FAST_OUTPUTS["B13"], kern, plain, strict=True):
+        assert rel_err(a, b) <= GATES["fast"][dtype]["B13"], (name, rel_err(a, b))
 
 
 @pytest.mark.parametrize("B_", [1, 257], ids=["B1", "B257"])

@@ -263,9 +263,14 @@ def test_b13_any_shape_launcher_refuses_past_its_bound(libs):
 # (3), a ragged seventeenth or ninth block (33).
 LARGE_SHAPES = [pytest.param(nx, nu, id=f"{nx}x{nu}")
                 for nx, nu in ((12, 13), (12, 16), (12, 24), (12, _build.MAX_NU), (6, 24))]
+# and the lane edges of the step (a lane holds rows l, l + 16, l + 32 of
+# the nu-long arrays: 17, 32, 33), states padded to 12 (3, 13) and
+# (6, MAX_NU); one problem (B = 1)
+LARGE_SHAPES += [pytest.param(nx, nu, id=f"{nx}x{nu}")
+                 for nx, nu in ((12, 17), (12, 32), (12, 33), (3, 13), (6, _build.MAX_NU))]
 
 
-@pytest.mark.parametrize("B", [3, 33], ids=["B3", "B33"])
+@pytest.mark.parametrize("B", [1, 3, 33], ids=["B1", "B3", "B33"])
 @pytest.mark.parametrize("nx,nu", LARGE_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_b13_large_host_rehearsal_matches_plain(libs, dtype, nx, nu, B):
@@ -522,7 +527,8 @@ def test_b5_nu_instance_is_its_tuned_twin_on_a_rough_iterate(libs, nu):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_b1_b3_b4_nu_host_rehearsal_match_plain(libs, dtype, nu):
     """B1's, B3's and B4's runtime-nu instances within their card gates of
-    the plain versions (f32); f64 to 1e-12."""
+    the plain versions (f32); f64 to 1e-12; no launch of the large-nu
+    rollout."""
     s, solver = _nu_inputs(dtype, nu, 33, 3)
     tag = "f32" if dtype == torch.float32 else "f64"
     gate = lambda name: GATES[dtype][name] if dtype == torch.float32 else 1e-12
@@ -534,11 +540,14 @@ def test_b1_b3_b4_nu_host_rehearsal_match_plain(libs, dtype, nu):
     for out, a, b in zip(OUTPUTS["B1"], _flat(kern), _flat(plain), strict=True):
         assert rel_err(a, b) <= gate("B1"), ("B1", out, rel_err(a, b))
     fn = HR.function(libs[f"nu_{tag}"], f"rollout_nu_{tag}", P._ROLLOUT_ARGS)
+    count = HR.function(libs[f"nu_{tag}"], f"rollout_large_launches_{tag}", [ctypes.c_int])
     rargs = (*traj, s["k"], s["K"], s["lin"])
     kw = dict(dt=solver.dt, gravity=True)
     for name, fused in (("B3", True), ("B4", False)):
+        before = count(0), count(1)
         kern = P._rollout_kernel(fn, None, *rargs, s["refs"], s["consts"], fused=fused,
                                  exact_grav=True, **kw)
+        assert (count(0), count(1)) == before  # no large-nu rollout launched
         if fused:
             plain = P.rollout_linearize_plain(*rargs, s["refs"], s["consts"],
                                               exact_grav=True, **kw)
@@ -559,6 +568,11 @@ def test_b1_b3_b4_nu_host_rehearsal_match_plain(libs, dtype, nu):
 NUS_LARGE = [pytest.param(nu, id=f"nu{nu}") for nu in (13, 16, 24, _build.MAX_NU)]
 NUS_LARGE_STEP = NUS_LARGE + [pytest.param(nu, id=f"nu{nu}") for nu in (17, 32, 33)]
 B_LARGE = [pytest.param(3, id="B3"), pytest.param(33, id="B33")]
+# the rollouts also at one problem, and past the host's 64 resident
+# problems (tests/cuda_host: two SMs), where the rollout reads its feedback
+# from device memory instead of its shared-memory slot
+B_LARGE_ROLLOUT = [pytest.param(1, id="B1")] + B_LARGE + [pytest.param(65, id="B65")]
+HOST_RESIDENT = 64
 
 
 @pytest.mark.parametrize("B", B_LARGE)
@@ -608,12 +622,14 @@ def test_b5_b6_large_host_rehearsal_match_plain(libs, nu, B):
         assert rel_err(a, b) <= GATES["mixed"]["B6"][name], (name, rel_err(a, b))
 
 
-@pytest.mark.parametrize("B", B_LARGE)
-@pytest.mark.parametrize("nu", NUS_LARGE)
+@pytest.mark.parametrize("B", B_LARGE_ROLLOUT)
+@pytest.mark.parametrize("nu", NUS_LARGE_STEP)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_b1_b3_b4_large_host_rehearsal_match_plain(libs, dtype, nu, B):
     """B1's, B3's and B4's large-nu instances within their card gates of the
-    plain versions (f32); f64 to 1e-12."""
+    plain versions (f32); f64 to 1e-12.  Each rollout launch takes the
+    feedback slot's instance while the batch is resident at once, the
+    device-memory one past it (the entry's per-instance launch counts)."""
     s, solver = _nu_inputs(dtype, nu, B, 3)
     tag = "f32" if dtype == torch.float32 else "f64"
     gate = lambda name: GATES[dtype][name] if dtype == torch.float32 else 1e-12
@@ -625,11 +641,15 @@ def test_b1_b3_b4_large_host_rehearsal_match_plain(libs, dtype, nu, B):
     for out, a, b in zip(OUTPUTS["B1"], _flat(kern), _flat(plain), strict=True):
         assert rel_err(a, b) <= gate("B1"), ("B1", out, rel_err(a, b))
     fn = HR.function(libs[f"nu_{tag}"], f"rollout_nu_{tag}", P._ROLLOUT_ARGS)
+    count = HR.function(libs[f"nu_{tag}"], f"rollout_large_launches_{tag}", [ctypes.c_int])
     rargs = (*traj, s["k"], s["K"], s["lin"])
     kw = dict(dt=solver.dt, gravity=True)
     for name, fused in (("B3", True), ("B4", False)):
+        before = count(0), count(1)
         kern = P._rollout_kernel(fn, None, *rargs, s["refs"], s["consts"], fused=fused,
                                  exact_grav=True, **kw)
+        slot = B <= HOST_RESIDENT
+        assert (count(0), count(1)) == (before[0] + (not slot), before[1] + slot)
         if fused:
             plain = P.rollout_linearize_plain(*rargs, s["refs"], s["consts"],
                                               exact_grav=True, **kw)
@@ -959,6 +979,40 @@ def test_f64_trig_within_an_ulp_of_libm(tmp_path):
     for got, want in ((s, np.sin(x)), (c, np.cos(x))):
         assert (np.abs(got - want) <= np.spacing(np.abs(want))).all()
     bad = np.array([np.nan, np.inf, -np.inf])
+    s, c = np.empty_like(bad), np.empty_like(bad)
+    fn(ptr(bad), ptr(s), ptr(c), len(bad))
+    assert np.isnan(s).all() and np.isnan(c).all()
+
+
+def test_f32_frameless_trig_within_2_ulp(tmp_path):
+    """lie.cuh's sin and cos in float without the library's slow path
+    (xsin_shift, the large-nu rollout's FramelessTrig) on the host:
+    within 2 ulp of the float64 sin and cos over |x| <= 1e4, tiny and
+    signed-zero arguments and multiples of pi / 4; NaN for NaN and
+    infinity."""
+    if HR.compiler() is None:
+        pytest.skip("no host C++ compiler")
+    src = tmp_path / "trig.cpp"
+    src.write_text('#include "lie.cuh"\n'
+                   'extern "C" void sincos_f32(const float* x, float* s, float* c, int n) {\n'
+                   '  for (int i = 0; i < n; ++i) {\n'
+                   '    s[i] = traopt::FramelessTrig::sin(x[i]);\n'
+                   '    c[i] = traopt::FramelessTrig::cos(x[i]);\n  }\n}\n')
+    lib = tmp_path / "trig.so"
+    subprocess.run([HR.compiler(), "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-I", str(HR.CSRC), "-o", str(lib), str(src)], check=True)
+    fn = ctypes.CDLL(str(lib)).sincos_f32
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.uniform(-4.0, 4.0, 100_000), rng.uniform(-1e4, 1e4, 100_000),
+                        rng.uniform(-1e-4, 1e-4, 10_000), np.pi / 4 * np.arange(-40, 41),
+                        [0.0, -0.0, 1e-38, -1e-45]]).astype(np.float32)
+    s, c = np.empty_like(x), np.empty_like(x)
+    ptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+    fn(ptr(x), ptr(s), ptr(c), len(x))
+    for got, want in ((s, np.sin(x.astype(np.float64))), (c, np.cos(x.astype(np.float64)))):
+        ulp = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
+        assert (np.abs(got.astype(np.float64) - want) <= 2 * ulp).all()
+    bad = np.array([np.nan, np.inf, -np.inf], dtype=np.float32)
     s, c = np.empty_like(bad), np.empty_like(bad)
     fn(ptr(bad), ptr(s), ptr(c), len(bad))
     assert np.isnan(s).all() and np.isnan(c).all()

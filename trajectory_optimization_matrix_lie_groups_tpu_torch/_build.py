@@ -123,15 +123,17 @@ def _spread_pitch(size, ne):
 def fast_large_bytes(nx, nu, tp, problems):
     """The shared memory of a block of B13's large-nu instance at (nx, nu)
     with elements of ``tp`` bytes and ``problems`` problems a block:
-    csrc/fast_large.cuh's FastLargeLayout (two stage buffers, two output
-    buffers, a scratch a group), which the host rehearsal checks against
-    this count."""
-    P, w, px = problems, nu | 1, _vpad(nx, tp)
-    rows = ((nx, px), (nx, w), (1, nx), (1, nx), (1, nu), (nx, px), (nu, px), (nu, w))
-    stage = P * sum(_spread_pitch(tp, n * rp) for n, rp in rows)
+    csrc/fast_large.cuh's FastLargeLayout (two stage buffers, each input at
+    12 for nx; two output buffers; a scratch a group), which the host
+    rehearsal checks against this count."""
+    P, w = problems, nu | 1
+    regions = (144, 12 * w, 12, 12, nu, 144, 12 * nu, nu * w)
+    stage = P * sum(_spread_pitch(tp, n) for n in regions)
     out = _vpad((nu * nx + nu + nx + nx * nx) * (P + 1), tp)
-    group = (px + _vpad(nu, tp) + nx * px + 3 * _vpad(nx * w, tp)
-             + _vpad((nx + 1) * w, tp) + 2 * _vpad(nu * w, tp))
+    # V_m, Q_u; V_xx; K^T Q_uu and Q_ux (nu-major); [K | k] (13 a row);
+    # Q_uu; its lower triangle
+    group = (12 + _vpad(nu, tp) + 144 + 24 * nu + nu * _vpad(13, tp)
+             + _vpad(nu * w, tp) + _vpad(nu * (nu + 1) // 2, tp))
     return (2 * stage + 2 * out) * tp + P * _group_stride(group * tp)
 
 

@@ -9,8 +9,9 @@
 // sequential grid axis with the carry in VMEM scratch), every per-stage array
 // batch-last: B13 at nx = 12 runs one problem per group of 16 threads
 // (group.cuh), and so does B13 at any other shape up to (12, 12), the shape
-// a runtime argument, and past nu = 12 (fast_large.cuh: Q_uu, its factor
-// and the solves in the group's shared memory); B13 at (6, 3) and B14 one
+// a runtime argument, and past nu = 12 (fast_large.cuh: riccati_large.cuh's
+// step on the dense step, Q_uu, its factor and the solves in the group's
+// shared memory); B13 at (6, 3) and B14 one
 // problem per thread on blocks
 // of one warp with the carry in registers and each stage's inputs copied a
 // stage ahead into shared memory (ahead.cuh).

@@ -3,49 +3,41 @@
 // problem held by a group of kGroup = 16 threads, and the kernel
 // fast_riccati_large_kernel that loops it over the stages.
 //
-// Why a design of its own.  fast_any_step (fast.cu) gives lane a < nu row a
-// of Q_uu and keeps per-lane arrays sized for the instance's maximum nu
-// (12): past it the lanes no longer cover the rows, and the arrays outgrow
-// the register file.  Here nu is a runtime argument and no register array
-// grows with it:
-//   - lane r < nx owns row r of V_xx and V_x[r] in registers, as in
-//     fast_riccati_any_kernel;
-//   - V_xx Fu, Q_ux^T, Q_uu, its factor, K^T (row c < nx: column c of K,
-//     row nx: k) and K^T Q_uu live in the group's shared memory, every
-//     nu-wide row at the odd pitch w = nu | 1, so that the lanes of a group
-//     reading one column of 16 rows hit 16 banks;
-//   - phase A: lane r writes row r of V_xx F and of V_xx Fu (a loop over nu);
-//   - phase B: lane r column r of Q_xx (registers) and of Q_ux, lane nx Q_u,
-//     and lane r rows r, r + 16, ... of Q_uu, each a sum over nx;
-//   - phase C: a cooperative Cholesky, column by column between
-//     __syncwarp()s (every lane the pivot, lane r the rows j + 1 + r,
-//     j + 17 + r, ...), the diagonal stored as 1 / sqrt(pivot) as
-//     pipeline.chol_factor_lane stores it; then lane c <= nx one of the nx + 1
-//     triangular solves in its row of K^T, multiplying by the stored
-//     reciprocal where utils/linalg.chol_solve divides by the square root
-//     (the two agree to rounding), and lane r < nx row r of K^T Q_uu;
-//   - phases D and E: the new V_x and V_xx, their sums over nu loops.
-// Every entry is riccati_step's sum in fast_any_step's order (the k-loop
-// outermost where an entry sums over k), so the kernel agrees with
-// backward_plain to rounding.  Lane r's column of Q_xx waits for phase D in
-// its problem's L_xx column of the stage buffer (only lane r reads it),
-// so that no register array lives across the factorization, whose square
-// roots and divisions call their slow paths.
+// It is riccati_large.cuh's step (B2 at a large nu) carried onto the dense
+// step, nu and nx runtime arguments and no register array growing with nu:
+//   - every nx-sized array is padded to 12 with zeros (the stage buffers
+//     are zeroed once, and the copies write only the entries below nx), so
+//     the 12 x 12 products run as at nx = 12 and the padding stays exactly
+//     zero: V_xx F, Q_xx = l_xx + F^T (V_xx F), S = Q_xx + K^T Q_uu K,
+//     M = K^T Q_ux and the new V_xx in 3 x 3 blocks, one a lane (lane l:
+//     rows I = 3 (l / 4).., columns J = 3 (l % 4)..), V_xx in the group's
+//     scratch between stages, V_x[I] on the lanes of the diagonal blocks;
+//     V_xx Fu in the same blocks, its columns c = l % 4 + 4 m;
+//   - the nu-long arrays are nu-major (rows of Q_ux, of (V_xx Fu)^T, of
+//     [K | k] and of K^T Q_uu: 12 or 13 values), lane l owning rows a = l,
+//     l + 16, l + 32 of Q_uu, of its factor and of the 13 right-hand sides
+//     [Q_ux | Q_u] (Q_u in column 12, whatever nx);
+//   - the factor right-looking in panels of four columns fused with the
+//     forward solve, then the back substitution a row a step: B2's
+//     large_factor_solve itself; K^T Q_uu by rows.
+// What differs from B2's step: Fu is dense (nx x nu) and l_ux, l_uu are
+// read per stage; the outputs are K, k and the carry V_x, V_xx of each
+// stage.  Every entry is riccati_step's sum in its order (the back
+// substitution's from row nu - 1 down, and the new V_xx as sym(Q_xx +
+// K^T Q_uu K) + M + M^T), so the kernel agrees with backward_plain to
+// rounding.
 //
-// The block copies stage t - 1's inputs (Luu too) into shared memory with
-// cp.async while it computes stage t and stages its outputs to store them
-// coalesced over its problems, as fast_riccati_any_kernel does.  The shared
-// memory (FastLargeLayout) is laid out at launch from (nx, nu), and so is
-// the number of problems a block, P = 8, 4 or 2 (fast_large_problems: the
-// one that puts the most problems on an SM), so P is a runtime argument
-// too.  What bounds it on an H100: its bytes, as at the smaller shapes
-// (1,332 values per problem and stage at (12, 16): 2.6 ms at B = 8192,
-// N = 200, f32); a problem's stages form a chain of dependent steps, and
-// the shared memory a problem takes keeps 8 to 13 problems on an SM.
+// The block copies stage t - 1's inputs into shared memory with cp.async
+// while it computes stage t and stages its outputs to store them coalesced
+// over its problems, as fast_riccati_any_kernel does.  The shared memory
+// (FastLargeLayout) is laid out at launch from (nx, nu), and so is the
+// number of problems a block, P = 8, 4 or 2 (fast_large_problems: the one
+// that puts the most problems on an SM), so P is a runtime argument too.
 #pragma once
 
 #include "group.cuh"
 #include "lie.cuh"
+#include "riccati_large.cuh"
 
 #ifndef TRAOPT_MAX_NU
 #error "build with -DTRAOPT_MAX_NU=<nu> (_build.MAX_NU)"
@@ -72,15 +64,19 @@ constexpr int kFastLargeMaxProblems = 8;
 constexpr int kFastMaxNx = 12, kFastMaxNu = TRAOPT_MAX_NU;
 
 // The block's shared memory for (nx, nu) and P problems a block, in
-// elements of T, each region a whole number of 16-byte vectors.
+// elements of T, each region a whole number of 16-byte vectors.  A stage
+// buffer holds each input at 12 for nx: F and l_xx 12 x 12 (rows of 12),
+// Fu 12 x nu (rows of w = nu | 1), d and l_x 12, l_ux nu x 12; the entries
+// past nx stay zero.
 struct FastLargeLayout {
-  int nx, nu, px, w, P;  // the shape; nx- and nu-wide rows' pitches; problems a block
+  int nx, nu, w, P;      // the shape; the pitch of nu-wide rows; problems a block
   RowCopy in[8];         // F, Fu, d, lx, lu, lxx, lux, luu in a stage buffer
   int stage;             // one stage buffer
   int ek, eVx, eVxx, out;  // an output buffer: entries of k, Vx1, Vxx1 (K at 0); its size
-  // a group's scratch: V_x + V_xx d, Q_u, (V_xx F)^T then X^T (rows of px),
-  // V_xx Fu, K^T (row nx: k), K^T Q_uu, Q_ux^T, Q_uu, L (rows of w); its stride
-  int Vm, Qu, VS, VFu, KT, KQ, QuxT, Quu, L, group;
+  // a group's scratch (V_m, 12, at 0): Q_u, V_xx (12 x 12), K^T Q_uu's rows
+  // (in phases A-B (V_xx Fu)^T's), Q_ux's rows (12 a row), [K | k]'s rows
+  // (vpad(13) a row), Q_uu (rows of w), its lower triangle; its stride
+  int Qu, VS, KQ, Qx, KX, Quu, A, group;
   int oout, ogroup;      // the block: two stage buffers at 0, two output buffers, the scratch
   size_t bytes;
 };
@@ -91,12 +87,14 @@ constexpr FastLargeLayout fast_large_layout(int nx, int nu, int P) {
   l.nx = nx;
   l.nu = nu;
   l.P = P;
-  const int px = l.px = vpad<T>(nx), w = l.w = nu | 1;
+  const int w = l.w = nu | 1;
   int off = 0;
-  const int rows[8][3] = {{nx, nx, px}, {nx, nu, w}, {1, nx, nx}, {1, nx, nx},
-                          {1, nu, nu},  {nx, nx, px}, {nu, nx, px}, {nu, nu, w}};
+  // rows copied, their entries, the rows' pitch, the region's entries
+  const int rows[8][4] = {{nx, nx, 12, 144},    {nx, nu, w, 12 * w}, {1, nx, nx, 12},
+                          {1, nx, nx, 12},      {1, nu, nu, nu},     {nx, nx, 12, 144},
+                          {nu, nx, 12, 12 * nu}, {nu, nu, w, nu * w}};
   for (int k = 0; k < 8; ++k) {
-    const int pt = spread_pitch<T>(rows[k][0] * rows[k][2]);
+    const int pt = spread_pitch<T>(rows[k][3]);
     l.in[k] = row_copy(off, pt, rows[k][0], rows[k][1], rows[k][2]);
     off += P * pt;
   }
@@ -105,16 +103,14 @@ constexpr FastLargeLayout fast_large_layout(int nx, int nu, int P) {
   l.eVx = l.ek + nu;
   l.eVxx = l.eVx + nx;
   l.out = vpad<T>((l.eVxx + nx * nx) * (P + 1));
-  l.Vm = 0;
-  l.Qu = px;
+  l.Qu = 12;
   l.VS = l.Qu + vpad<T>(nu);
-  l.VFu = l.VS + nx * px;
-  l.KT = l.VFu + vpad<T>(nx * w);
-  l.KQ = l.KT + vpad<T>((nx + 1) * w);
-  l.QuxT = l.KQ + vpad<T>(nx * w);
-  l.Quu = l.QuxT + vpad<T>(nx * w);
-  l.L = l.Quu + vpad<T>(nu * w);
-  l.group = (int)(group_stride((l.L + vpad<T>(nu * w)) * sizeof(T)) / sizeof(T));
+  l.KQ = l.VS + 144;
+  l.Qx = l.KQ + 12 * nu;
+  l.KX = l.Qx + 12 * nu;
+  l.Quu = l.KX + nu * vpad<T>(13);
+  l.A = l.Quu + vpad<T>(nu * w);
+  l.group = (int)(group_stride((l.A + vpad<T>(nu * (nu + 1) / 2)) * sizeof(T)) / sizeof(T));
   l.oout = 2 * l.stage;
   l.ogroup = l.oout + 2 * l.out;
   l.bytes = (size_t)(l.ogroup + P * l.group) * sizeof(T);
@@ -152,9 +148,7 @@ struct FastLargeArgs {
 // [e * os]).
 template <typename T>
 struct FastLargeIn {
-  const T *F, *Fu, *d, *lx, *lu;
-  T* lxx;  // column r: Q_xx's from phase B to phase D
-  const T *lux, *luu;
+  const T *F, *Fu, *d, *lx, *lu, *lxx, *lux, *luu;
 };
 
 template <typename T>
@@ -163,199 +157,345 @@ struct FastLargeOut {
   int os;
 };
 
-// One Riccati step for lane r of a group: (V, Vx) hold row r of V_xx and
-// V_x[r] of stage t + 1 on entry and of stage t on exit (lanes r < nx).
+// One Riccati step for lane l of a group holding NS rows of the nu-long
+// arrays: V_xx of stage t + 1 in the group's scratch and, on the lanes of
+// the diagonal blocks, V_x[I] in Vx on entry, of stage t on exit.  Mx: the
+// problem's F region of the stage buffer being computed, which holds M once
+// phase D has read F.  The phases, between __syncwarp()s:
+//   A  the carry out as Vx1 and Vxx1; V_x + V_xx d on the diagonal lanes;
+//      the blocks (I, c) of V_xx Fu into rows c of (V_xx Fu)^T; the block
+//      (I, J) of V_xx F, stored once every lane has read V_xx;
+//   B  lane l its rows a of Q_ux and Q_u (the right-hand sides) and of
+//      Q_uu (and its lower triangle into A);
+//   C  large_factor_solve; lane l its rows of K and k out, and its rows a
+//      of (K^T Q_uu)^T;
+//   D  the block (I, J) of Q_xx and Q_x[I]; V_x[I] (diagonal lanes), the
+//      blocks (I, J) of S and M, stored once every lane has read F, V_xx F
+//      and l_xx;
+//   E  the block (I, J) of the new V_xx, stored once every lane has read S
+//      and M.
 // Every lane of the warp calls it (it synchronises the warp).
-template <typename T>
-__device__ __forceinline__ void fast_large_step(int r, T (&V)[12], T& Vx, const FastLargeLayout& l,
-                                                const FastLargeIn<T>& in, T* gs,
+template <typename T, int NS>
+__device__ __forceinline__ void fast_large_step(int l, const FastLargeLayout& L, T (&Vx)[3],
+                                                const FastLargeIn<T>& in, T* Mx, T* gs,
                                                 const FastLargeOut<T>& out) {
-  constexpr int MX = 12;
-  const int nx = l.nx, nu = l.nu, px = l.px, w = l.w, os = out.os;
-  const bool own = r < nx;
-  T *Vm = gs + l.Vm, *Qu = gs + l.Qu, *VS = gs + l.VS, *VFu = gs + l.VFu, *KT = gs + l.KT,
-    *KQ = gs + l.KQ, *QuxT = gs + l.QuxT, *Quu = gs + l.Quu, *Ls = gs + l.L;
+  constexpr int NX = 12, NC = NX + 1, S = NS, PK = vpad<T>(NC);
+  constexpr bool kZs = sizeof(T) == 8;
+  const int nx = L.nx, nu = L.nu, w = L.w, os = out.os;
+  const int bi = 3 * (l / 4), bj = 3 * (l % 4);
+  T *Vm = gs, *Qu = gs + L.Qu, *VS = gs + L.VS, *KQ = gs + L.KQ, *Qx = gs + L.Qx,
+    *KX = gs + L.KX, *Quu = gs + L.Quu, *A = gs + L.A;
+  // lane l's row of slot s (slots 0 .. NS - 2 hold a row on every lane),
+  // whether it is one, the row it computes there (past nu: the last), and
+  // where row i of the triangle A starts
+  const auto row = [&](int s) { return l + kGroup * s; };
+  const auto live = [&](int s) { return s < S - 1 || l + kGroup * s < nu; };
+  const auto crow = [&](int s) { return min(l + kGroup * s, nu - 1); };
+  const auto tri = [](int i) { return (i * (i + 1)) >> 1; };
 
   // ---- A ----
-  // the carry staged as the outputs Vx1, Vxx1; V_x + V_xx d; row r of V_xx F
-  // (into column r of VS) and of V_xx Fu
-  if (own) {
-    out.Vx[r * os] = Vx;
+  {
 #pragma unroll
-    for (int j = 0; j < MX; ++j)
-      if (j < nx) out.Vxx[(r * nx + j) * os] = V[j];
-    T s = V[0] * in.d[0];
+    for (int ii = 0; ii < 3; ++ii)
 #pragma unroll
-    for (int j = 1; j < MX; ++j)
-      if (j < nx) s += V[j] * in.d[j];
-    Vm[r] = Vx + s;
-    T vf[MX];
+      for (int jj = 0; jj < 3; ++jj)
+        if (bi + ii < nx && bj + jj < nx)
+          out.Vxx[((bi + ii) * nx + bj + jj) * os] = VS[(bi + ii) * NX + bj + jj];
+    T v[3][NX];  // rows I of V_xx
 #pragma unroll
-    for (int j = 0; j < MX; ++j) vf[j] = j < nx ? V[0] * in.F[j] : T(0);
+    for (int ii = 0; ii < 3; ++ii) lds<T, NX>(v[ii], VS + (bi + ii) * NX);
+    {
+      T dd[NX];
+      lds<T, NX>(dd, in.d);
 #pragma unroll
-    for (int k = 1; k < MX; ++k)
-      if (k < nx) {
+      for (int ii = 0; ii < 3; ++ii) {
+        T s = v[ii][0] * dd[0];
 #pragma unroll
-        for (int j = 0; j < MX; ++j)
-          if (j < nx) vf[j] = vf[j] + V[k] * in.F[k * px + j];
+        for (int j = 1; j < NX; ++j) s += v[ii][j] * dd[j];
+        if (bi == bj) {
+          if (bi + ii < nx) out.Vx[(bi + ii) * os] = Vx[ii];
+          Vm[bi + ii] = Vx[ii] + s;
+        }
       }
-#pragma unroll
-    for (int j = 0; j < MX; ++j)
-      if (j < nx) VS[j * px + r] = vf[j];
-    for (int c = 0; c < nu; ++c) {
-      T sc = V[0] * in.Fu[c];
-#pragma unroll
-      for (int k = 1; k < MX; ++k)
-        if (k < nx) sc = sc + V[k] * in.Fu[k * w + c];
-      VFu[r * w + c] = sc;
     }
+    // the blocks (I, c) of V_xx Fu, c = l % 4 + 4 m, into rows c of
+    // (V_xx Fu)^T
+    for (int c = l % 4; c < nu; c += 4) {
+      T f[NX];
+#pragma unroll
+      for (int k = 0; k < NX; ++k) f[k] = in.Fu[k * w + c];
+#pragma unroll
+      for (int ii = 0; ii < 3; ++ii) {
+        T s = v[ii][0] * f[0];
+#pragma unroll
+        for (int k = 1; k < NX; ++k) s += v[ii][k] * f[k];
+        KQ[c * NX + bi + ii] = s;
+      }
+    }
+    // the block (I, J) of V_xx F
+    T vf[9];
+#pragma unroll
+    for (int k = 0; k < NX; ++k) {
+      T f[3];
+#pragma unroll
+      for (int jj = 0; jj < 3; ++jj) f[jj] = in.F[k * NX + bj + jj];
+#pragma unroll
+      for (int ii = 0; ii < 3; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 3; ++jj)
+          vf[ii * 3 + jj] = k == 0 ? v[ii][0] * f[jj] : vf[ii * 3 + jj] + v[ii][k] * f[jj];
+    }
+    __syncwarp();  // every lane has read V_xx: VS takes V_xx F
+#pragma unroll
+    for (int ii = 0; ii < 3; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < 3; ++jj) VS[(bi + ii) * NX + bj + jj] = vf[ii * 3 + jj];
   }
   __syncwarp();
 
   // ---- B ----
-  // lane r < nx: column r of Q_xx (into L_xx's), of Q_ux (row r of QuxT)
-  // and Q_x[r]; lane nx: Q_u; lane r: rows r, r + 16, ... of Q_uu
-  T qx = T(0);
-  if (own) {
-    T qxx[MX];
-    T vc[MX];  // column r of V_xx F
+  // lane l's rows of [Q_ux | Q_u], solved in place in C: in registers, or
+  // in fp64 in its rows of K
+  T Z[kZs ? 1 : S][NC];
 #pragma unroll
-    for (int k = 0; k < MX; ++k) vc[k] = k < nx ? VS[r * px + k] : T(0);
+  for (int s = 0; s < (kZs ? 1 : S); ++s)
 #pragma unroll
-    for (int i = 0; i < MX; ++i) qxx[i] = i < nx ? in.F[i] * vc[0] : T(0);
+    for (int c = 0; c < NC; ++c) Z[s][c] = T(0);
+  {
+    T vm[NX];
+    lds<T, NX>(vm, Vm);
+    T fa[S][NX];  // column a of Fu for each of lane l's rows a
 #pragma unroll
-    for (int k = 1; k < MX; ++k)
-      if (k < nx) {
+    for (int s = 0; s < S; ++s)
 #pragma unroll
-        for (int i = 0; i < MX; ++i)
-          if (i < nx) qxx[i] = qxx[i] + in.F[k * px + i] * vc[k];
+      for (int k = 0; k < NX; ++k) fa[s][k] = in.Fu[k * w + crow(s)];
+    // Q_u[a] = l_u[a] + Fu^T (V_x + V_xx d)
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int a = crow(s);
+      T q = fa[s][0] * vm[0];
+#pragma unroll
+      for (int k = 1; k < NX; ++k) q += fa[s][k] * vm[k];
+      q = in.lu[a] + q;
+      if constexpr (kZs) {
+        if (live(s)) {
+          KX[row(s) * PK + NX] = q;
+#pragma unroll
+          for (int c = NC; c < PK; ++c) KX[row(s) * PK + c] = T(0);
+        }
+      } else {
+        Z[s][NX] = q;
+      }
+      if (live(s)) Qu[a] = q;
+    }
+    // row a of Q_ux = l_ux + Fu^T (V_xx F)
+#pragma unroll
+    for (int c = 0; c < NX; ++c) {
+      T vc[NX];
+#pragma unroll
+      for (int k = 0; k < NX; ++k) vc[k] = VS[k * NX + c];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        T t = fa[s][0] * vc[0];
+#pragma unroll
+        for (int k = 1; k < NX; ++k) t += fa[s][k] * vc[k];
+        t = in.lux[crow(s) * NX + c] + t;
+        if (live(s)) {
+          Qx[row(s) * NX + c] = t;
+          if constexpr (kZs) KX[row(s) * PK + c] = t;
+        }
+        if constexpr (!kZs) Z[s][c] = t;
+      }
+    }
+    // rows a of Q_uu = l_uu + Fu^T (V_xx Fu), and their lower triangle into
+    // A (row 0's pivot then as its reciprocal), E columns a batch (fp64: one,
+    // for its registers), the loads ahead of the stores (the second of the
+    // last batch past nu reads column nu - 1 and stores nothing)
+    constexpr int E = kZs ? 1 : 2;
+    for (int b0 = 0; b0 < nu; b0 += E) {
+      T tm[E][NX], lu[S][E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) lds<T, NX>(tm[e], KQ + min(b0 + e, nu - 1) * NX);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) lu[s][e] = in.luu[crow(s) * w + min(b0 + e, nu - 1)];
       }
 #pragma unroll
-    for (int i = 0; i < MX; ++i)
-      if (i < nx) in.lxx[i * px + r] = in.lxx[i * px + r] + qxx[i];
-    for (int a = 0; a < nu; ++a) {
-      T sa = in.Fu[a] * vc[0];
+      for (int s = 0; s < S; ++s) {
+        const int a = crow(s);
 #pragma unroll
-      for (int k = 1; k < MX; ++k)
-        if (k < nx) sa = sa + in.Fu[k * w + a] * vc[k];
-      QuxT[r * w + a] = in.lux[a * px + r] + sa;
+        for (int e = 0; e < E; ++e) {
+          const int b2 = b0 + e;
+          T t = fa[s][0] * tm[e][0];
+#pragma unroll
+          for (int k = 1; k < NX; ++k) t += fa[s][k] * tm[e][k];
+          const T v = lu[s][e] + t;
+          if (live(s) && b2 < nu) {
+            Quu[a * w + b2] = v;
+            if (b2 <= a) A[tri(a) + b2] = v;
+          }
+        }
+      }
     }
-    T s = in.F[r] * Vm[0];
-#pragma unroll
-    for (int k = 1; k < MX; ++k)
-      if (k < nx) s += in.F[k * px + r] * Vm[k];
-    qx = in.lx[r] + s;
-  } else if (r == nx) {
-    T vm[MX];
-#pragma unroll
-    for (int k = 0; k < MX; ++k) vm[k] = k < nx ? Vm[k] : T(0);
-    for (int a = 0; a < nu; ++a) {
-      T sa = in.Fu[a] * vm[0];
-#pragma unroll
-      for (int k = 1; k < MX; ++k)
-        if (k < nx) sa = sa + in.Fu[k * w + a] * vm[k];
-      Qu[a] = in.lu[a] + sa;
-    }
-  }
-  for (int a = r; a < nu; a += kGroup) {
-    T fa[MX];  // column a of Fu
-#pragma unroll
-    for (int k = 0; k < MX; ++k) fa[k] = k < nx ? in.Fu[k * w + a] : T(0);
-    for (int c = 0; c < nu; ++c) {
-      T sc = fa[0] * VFu[c];
-#pragma unroll
-      for (int k = 1; k < MX; ++k)
-        if (k < nx) sc = sc + fa[k] * VFu[k * w + c];
-      Quu[a * w + c] = in.luu[a * w + c] + sc;
-    }
+    if (l == 0) A[0] = T(1) / xsqrt(A[0]);
   }
   __syncwarp();
 
   // ---- C ----
-  // the factor, column j at a time: every lane the pivot, lane r rows
-  // j + 1 + r, j + 17 + r, ...
-  for (int j = 0; j < nu; ++j) {
-    const T* Lj = Ls + j * w;
-    T sv = Quu[j * w + j];
-    for (int kk = 0; kk < j; ++kk) sv = sv - Lj[kk] * Lj[kk];
-    const T inv = T(1) / xsqrt(sv);
-    for (int i = j + 1 + r; i < nu; i += kGroup) {
-      T s2 = Quu[i * w + j];
-      for (int kk = 0; kk < j; ++kk) s2 = s2 - Ls[i * w + kk] * Lj[kk];
-      Ls[i * w + j] = s2 * inv;
+  large_factor_solve<T, S>(l, nu, A, KX, Z);
+  // lane l's rows of K and k out
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int a = row(s);
+    if (live(s)) {
+      T z[PK];
+      if constexpr (kZs) {
+        lds<T, PK>(z, KX + a * PK);
+      } else {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) z[c] = Z[s][c];
+      }
+#pragma unroll
+      for (int c = 0; c < NX; ++c)
+        if (c < nx) out.K[(a * nx + c) * os] = z[c];
+      out.k[a * os] = z[NX];
     }
-    if (r == 0) Ls[j * w + j] = inv;
-    __syncwarp();
   }
-  // lane c <= nx: -Q_uu^-1 times column c of Q_ux (c < nx) or Q_u (c = nx),
-  // L y = q then L^T x = y in place in row c of K^T
-  if (r <= nx) {
-    T* y = KT + r * w;
-    const T* q = own ? QuxT + r * w : Qu;
-    for (int i = 0; i < nu; ++i) {
-      T sv = q[i];
-      const T* Li = Ls + i * w;
-      for (int kk = 0; kk < i; ++kk) sv = sv - Li[kk] * y[kk];
-      y[i] = sv * Li[i];
-    }
-    for (int i = nu - 1; i >= 0; --i) {
-      T sv = y[i];
-      for (int kk = i + 1; kk < nu; ++kk) sv = sv - Ls[kk * w + i] * y[kk];
-      y[i] = sv * Ls[i * w + i];
-    }
-    for (int a = 0; a < nu; ++a) y[a] = -y[a];
-  }
-  if (own) {
-    const T* kc = KT + r * w;  // column r of K
-    for (int a = 0; a < nu; ++a) {
-      out.K[(a * nx + r) * os] = kc[a];
-      T sa = kc[0] * Quu[a];
-      for (int c = 1; c < nu; ++c) sa = sa + kc[c] * Quu[c * w + a];
-      KQ[r * w + a] = sa;  // row r of K^T Q_uu
-    }
-  } else if (r == nx) {
-    for (int a = 0; a < nu; ++a) out.k[a * os] = KT[nx * w + a];
+  // rows a of (K^T Q_uu)^T: (K^T Q_uu)[c, a] = sum_b K[b, c] Q_uu[b, a]
+  {
+    T kq[S][NX];
+    const auto term = [&](int b2, auto first) {
+      T kb[PK];
+      lds<T, PK>(kb, KX + b2 * PK);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const T q = Quu[b2 * w + crow(s)];
+#pragma unroll
+        for (int c = 0; c < NX; ++c) {
+          if constexpr (decltype(first)::value) {
+            kq[s][c] = kb[c] * q;
+          } else {
+            kq[s][c] += kb[c] * q;
+          }
+        }
+      }
+    };
+    term(0, std::true_type{});
+#pragma unroll 2
+    for (int b2 = 1; b2 < nu; ++b2) term(b2, std::false_type{});
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      if (live(s)) sts<T, NX>(KQ + row(s) * NX, kq[s]);
   }
   __syncwarp();
 
   // ---- D ----
-  // V_x[r], and column r of X = Q_xx + K^T Q_uu K + K^T Q_ux + Q_ux^T K
-  // into VS.  The carry (V_x, and V_xx in E) is written whole, on every
-  // lane: a value written only under a guard would keep the old one live
-  // from phase A through the factorization.
-  T vx = T(0);
-  if (own) {
-    const T *kk = KT + nx * w, *kc = KT + r * w, *kq = KQ + r * w, *qc = QuxT + r * w;
-    T s1 = kq[0] * kk[0], s2 = kc[0] * Qu[0], s3 = qc[0] * kk[0];
-    for (int a = 1; a < nu; ++a) {
-      s1 = s1 + kq[a] * kk[a];
-      s2 = s2 + kc[a] * Qu[a];
-      s3 = s3 + qc[a] * kk[a];
-    }
-    vx = ((qx + s1) + s2) + s3;
+  // the block (I, J) of Q_xx and Q_x[I], from F, V_xx F (VS), l_xx and
+  // V_x + V_xx d, which D overwrites only after its barrier
+  T qxx[9], qx[3];
+  {
 #pragma unroll
-    for (int i = 0; i < MX; ++i)
-      if (i < nx) {
-        const T *kqi = KQ + i * w, *kti = KT + i * w, *qti = QuxT + i * w;
-        T av = kqi[0] * kc[0], bv = kti[0] * qc[0], cv = qti[0] * kc[0];
-        for (int a = 1; a < nu; ++a) {
-          av = av + kqi[a] * kc[a];
-          bv = bv + kti[a] * qc[a];
-          cv = cv + qti[a] * kc[a];
-        }
-        VS[i * px + r] = ((in.lxx[i * px + r] + av) + bv) + cv;
-      }
+    for (int k = 0; k < NX; ++k) {
+      T f[3], vw[3];
+#pragma unroll
+      for (int ii = 0; ii < 3; ++ii) f[ii] = in.F[k * NX + bi + ii];
+#pragma unroll
+      for (int jj = 0; jj < 3; ++jj) vw[jj] = VS[k * NX + bj + jj];
+#pragma unroll
+      for (int ii = 0; ii < 3; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 3; ++jj)
+          qxx[ii * 3 + jj] = k == 0 ? f[ii] * vw[jj] : qxx[ii * 3 + jj] + f[ii] * vw[jj];
+    }
+#pragma unroll
+    for (int ii = 0; ii < 3; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < 3; ++jj)
+        qxx[ii * 3 + jj] = in.lxx[(bi + ii) * NX + bj + jj] + qxx[ii * 3 + jj];
+    T vm[NX];
+    lds<T, NX>(vm, Vm);
+#pragma unroll
+    for (int ii = 0; ii < 3; ++ii) {
+      const int r = bi + ii;
+      T s = in.F[r] * vm[0];
+#pragma unroll
+      for (int k = 1; k < NX; ++k) s += in.F[k * NX + r] * vm[k];
+      qx[ii] = in.lx[r] + s;
+    }
   }
-  Vx = vx;
+  T sb[9], mb[9];  // the blocks (I, J) of S and of M
+  {
+    // and on the diagonal lanes the three V_x corrections of rows I:
+    // K^T Q_uu k, K^T Q_u, Q_ux^T k
+    T c1[3], c2[3], c3[3];
+    const auto term = [&](int a, auto first) {
+      const T *kr = KX + a * PK, *qr = KQ + a * NX, *xr = Qx + a * NX;
+      T kqi[3], ki[3], kj[3], qj[3];
+#pragma unroll
+      for (int ii = 0; ii < 3; ++ii) {
+        kqi[ii] = qr[bi + ii];
+        ki[ii] = kr[bi + ii];
+        kj[ii] = kr[bj + ii];
+        qj[ii] = xr[bj + ii];
+      }
+      const T ka = kr[NX], qa = Qu[a];
+#pragma unroll
+      for (int ii = 0; ii < 3; ++ii) {
+        if constexpr (decltype(first)::value) {
+#pragma unroll
+          for (int jj = 0; jj < 3; ++jj) {
+            sb[ii * 3 + jj] = kqi[ii] * kj[jj];
+            mb[ii * 3 + jj] = ki[ii] * qj[jj];
+          }
+          c1[ii] = kqi[ii] * ka;
+          c2[ii] = ki[ii] * qa;
+          c3[ii] = qj[ii] * ka;
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < 3; ++jj) {
+            sb[ii * 3 + jj] += kqi[ii] * kj[jj];
+            mb[ii * 3 + jj] += ki[ii] * qj[jj];
+          }
+          c1[ii] += kqi[ii] * ka;
+          c2[ii] += ki[ii] * qa;
+          c3[ii] += qj[ii] * ka;
+        }
+      }
+    };
+    term(0, std::true_type{});
+#pragma unroll 2
+    for (int a = 1; a < nu; ++a) term(a, std::false_type{});
+#pragma unroll
+    for (int ii = 0; ii < 3; ++ii) Vx[ii] = ((qx[ii] + c1[ii]) + c2[ii]) + c3[ii];
+  }
+  __syncwarp();  // every lane has read F, V_xx F and l_xx: they take S and M
+#pragma unroll
+  for (int ii = 0; ii < 3; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < 3; ++jj) {
+      sb[ii * 3 + jj] = qxx[ii * 3 + jj] + sb[ii * 3 + jj];
+      VS[(bi + ii) * NX + bj + jj] = sb[ii * 3 + jj];
+      Mx[(bi + ii) * NX + bj + jj] = mb[ii * 3 + jj];
+    }
   __syncwarp();
 
   // ---- E ----
-  // row r of V_xx = (X + X^T) / 2
+  {
+    T vb[9];
 #pragma unroll
-  for (int j = 0; j < MX; ++j) {
-    T v = T(0);
-    if (own && j < nx) v = T(0.5) * (VS[r * px + j] + VS[j * px + r]);
-    V[j] = v;
+    for (int ii = 0; ii < 3; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < 3; ++jj) {
+        const int t = (bj + jj) * NX + bi + ii;  // (j, i)
+        const T h = T(0.5) * (sb[ii * 3 + jj] + VS[t]);
+        vb[ii * 3 + jj] = (h + mb[ii * 3 + jj]) + Mx[t];
+      }
+    __syncwarp();  // every lane has read S and M: VS takes V_xx
+#pragma unroll
+    for (int ii = 0; ii < 3; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < 3; ++jj) VS[(bi + ii) * NX + bj + jj] = vb[ii * 3 + jj];
   }
 }
 
@@ -383,27 +523,18 @@ __device__ __forceinline__ void fast_large_store(const FastLargeArgs<T>& x, cons
   store_stage_rows(a.Vxx1, buf + l.eVxx * S, l.nx * l.nx, t, b0, a.B, tid, P);
 }
 
-// The stage loop: fast_riccati_any_kernel's, on the large layout, blocks of
-// kGroup * l.P threads.
-template <typename T>
-__global__ void __launch_bounds__(kGroup* kFastLargeMaxProblems)
-    fast_riccati_large_kernel(FastLargeArgs<T> x) {
+// The stage loop, from the carry of stage N (V_xx in the group's scratch,
+// V_x[I] in Vx on the diagonal lanes) down to stage 0: while the group
+// computes stage t, the block copies stage t - 1's inputs into the other
+// stage buffer and stores stage t + 1's outputs from the other output
+// buffer; one block barrier a stage makes them, and the reuse of a stage
+// buffer's F region for M, safe.
+template <typename T, int NS>
+__device__ __forceinline__ void fast_large_sweep(const FastLargeArgs<T>& x, T* sm, T (&Vx)[3]) {
   const FastLargeLayout& l = x.l;
-  extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, g = tid / kGroup, r = tid % kGroup;
-  const int B = x.a.B, N = x.a.N, nx = l.nx, P = l.P, b0 = blockIdx.x * P;
-  T V[12], Vx = T(0);
-#pragma unroll
-  for (int j = 0; j < 12; ++j) V[j] = T(0);
-  if (r < nx) {
-    const int bc = min(b0 + g, B - 1);
-    const T* lxx = x.a.Lxx + ((long long)N * nx * nx + r * nx) * B + bc;
-#pragma unroll
-    for (int j = 0; j < 12; ++j)
-      if (j < nx) V[j] = lxx[(long long)j * B];
-    Vx = x.a.Lx[((long long)N * nx + r) * B + bc];
-  }
-  T* sm = reinterpret_cast<T*>(smem);
+  const int N = x.a.N, P = l.P, b0 = blockIdx.x * P;
+  T* const gs = sm + l.ogroup + g * l.group;
   fast_large_copy(sm, x, N - 1, b0, tid);
   for (int t = N - 1; t >= 0; --t) {
     const int cur = (N - 1 - t) & 1;
@@ -414,14 +545,54 @@ __global__ void __launch_bounds__(kGroup* kFastLargeMaxProblems)
     T* buf = sm + cur * l.stage;
     const auto at = [&](int k) { return buf + l.in[k].off + g * l.in[k].pt; };
     T* o = sm + l.oout + (t & 1) * l.out + g;
-    fast_large_step<T>(r, V, Vx, l,
-                       FastLargeIn<T>{at(0), at(1), at(2), at(3), at(4), at(5), at(6), at(7)},
-                       sm + l.ogroup + g * l.group,
-                       FastLargeOut<T>{o, o + l.ek * (P + 1), o + l.eVx * (P + 1),
-                                       o + l.eVxx * (P + 1), P + 1});
+    fast_large_step<T, NS>(r, l, Vx,
+                           FastLargeIn<T>{at(0), at(1), at(2), at(3), at(4), at(5), at(6), at(7)},
+                           at(0), gs,
+                           FastLargeOut<T>{o, o + l.ek * (P + 1), o + l.eVx * (P + 1),
+                                           o + l.eVxx * (P + 1), P + 1});
   }
   __syncthreads();
   fast_large_store(x, sm + l.oout, 0, b0, tid);
+}
+
+// The kernel: the stage buffers and the groups' V_xx zeroed (the entries
+// past nx stay zero), the terminal carry, then fast_large_sweep with the
+// slots (rows of an nu-long array a lane holds) that nu takes: ceil(nu /
+// 16), 1 ... kLargeSlots.  Blocks of kGroup * l.P threads.
+template <typename T>
+__global__ void __launch_bounds__(kGroup* kFastLargeMaxProblems)
+    fast_riccati_large_kernel(FastLargeArgs<T> x) {
+  static_assert(kLargeSlots == 3, "one sweep a slot count");
+  const FastLargeLayout& l = x.l;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const sm = reinterpret_cast<T*>(smem);
+  const int tid = threadIdx.x, g = tid / kGroup, r = tid % kGroup;
+  const int B = x.a.B, N = x.a.N, nx = l.nx, bc = min(int(blockIdx.x) * l.P + g, B - 1);
+  T* const VS = sm + l.ogroup + g * l.group + l.VS;
+  for (int q = tid; q < 2 * l.stage; q += blockDim.x) sm[q] = T(0);
+#pragma unroll
+  for (int i = 0; i < 144 / kGroup; ++i) VS[r + kGroup * i] = T(0);
+  __syncthreads();
+  // the terminal carry (problems past B take problem B - 1's)
+  if (r < nx) {
+    const T* lxx = x.a.Lxx + ((long long)N * nx * nx + r * nx) * B + bc;
+    for (int j = 0; j < nx; ++j) VS[r * 12 + j] = lxx[(long long)j * B];
+  }
+  T Vx[3];  // V_x[I] on the diagonal lanes (fast_large_step)
+#pragma unroll
+  for (int ii = 0; ii < 3; ++ii) {
+    const int i = 3 * (r / 4) + ii;
+    Vx[ii] = i < nx ? x.a.Lx[((long long)N * nx + i) * B + bc] : T(0);
+  }
+  __syncwarp();
+  const int ns = (l.nu + kGroup - 1) / kGroup;
+  if (ns <= 1) {
+    fast_large_sweep<T, 1>(x, sm, Vx);
+  } else if (ns == 2) {
+    fast_large_sweep<T, 2>(x, sm, Vx);
+  } else {
+    fast_large_sweep<T, 3>(x, sm, Vx);
+  }
 }
 
 // B13's large-nu instance on the arguments a, at any nx <= kFastMaxNx and

@@ -85,6 +85,50 @@ TRAOPT_HD double xcos(double x) { return cos(x); }
 TRAOPT_HD float xatan2(float y, float x) { return atan2f(y, x); }
 TRAOPT_HD double xatan2(double y, double x) { return atan2(y, x); }
 
+// sin x in float (cos x: shift 1, as sin(x + pi/2)) without the CUDA
+// library's slow path for huge arguments (a Payne-Hanek reduction, whose
+// local array gives every kernel that calls sinf or cosf a 32-byte stack
+// frame): x less the nearest multiple q of pi/2 (a three-part Cody-Waite
+// reduction with fused multiply-adds), then one minimax polynomial on
+// [-pi/4, pi/4], sin's or cos's by the quadrant q + shift, as sinf's and
+// cosf's own fast path.  Within 2 ulp of sin and cos over |x| <= 1e4
+// (tests/test_torch_host_rehearsal.py); the kernels' angles are rotation
+// angles, far below where the reduction loses digits.
+TRAOPT_HD float xsin_shift(float x, int shift) {
+  const float q = rintf(x * 0.636619772f);
+  float r = fmaf(-q, 1.57079601e+00f, x);
+  r = fmaf(-q, 3.13916473e-07f, r);
+  r = fmaf(-q, 5.39030253e-15f, r);
+  const int n = static_cast<int>(q) + shift;
+  const bool odd = n & 1;
+  const float r2 = r * r;
+  float p = odd ? 2.44677067e-5f : 2.86567956e-6f;
+  p = fmaf(p, r2, odd ? -1.38877297e-3f : -1.98559923e-4f);
+  p = fmaf(p, r2, odd ? 4.16666567e-2f : 8.33338592e-3f);
+  p = fmaf(p, r2, odd ? -5.0e-1f : -1.66666672e-1f);
+  const float v = odd ? fmaf(p, r2, 1.0f) : fmaf(r * r2, p, r);
+  return n & 2 ? -v : v;
+}
+
+// The trigonometry of the Lie functions below that take sin or cos (their
+// first template argument): the scalar's xsin and xcos (LibTrig, the
+// default), or, in float, xsin_shift above (FramelessTrig: the large-nu
+// rollout of B3 and B4 keeps no stack frame); in double both take xsin and
+// xcos.
+struct LibTrig {
+  template <typename T>
+  TRAOPT_HD static T sin(T x) { return xsin(x); }
+  template <typename T>
+  TRAOPT_HD static T cos(T x) { return xcos(x); }
+};
+
+struct FramelessTrig {
+  TRAOPT_HD static float sin(float x) { return xsin_shift(x, 0); }
+  TRAOPT_HD static float cos(float x) { return xsin_shift(x, 1); }
+  TRAOPT_HD static double sin(double x) { return xsin(x); }
+  TRAOPT_HD static double cos(double x) { return xcos(x); }
+};
+
 template <typename T>
 TRAOPT_HD bool small_angle(T th_sq) { return th_sq < T(1e-8); }
 
@@ -103,7 +147,7 @@ TRAOPT_HD T poly11(T x, const double (&c)[11]) {
 }
 
 // (th - sin th) / th^3
-template <typename T>
+template <typename Trig = LibTrig, typename T>
 TRAOPT_HD T coeff_c1(T th_sq) {
   if (series_range(th_sq)) {
     const double c[11] = {
@@ -114,7 +158,7 @@ TRAOPT_HD T coeff_c1(T th_sq) {
     return poly11(th_sq, c);
   }
   const T th = xsqrt(th_sq);
-  return (th - xsin(th)) / (th_sq * th);
+  return (th - Trig::sin(th)) / (th_sq * th);
 }
 
 // (th^2 + 2 cos th - 2) / (2 th^4)
@@ -148,7 +192,7 @@ TRAOPT_HD T coeff_c3(T th_sq) {
 }
 
 // 1/th^2 - cos(th/2) / (2 th sin(th/2))
-template <typename T>
+template <typename Trig = LibTrig, typename T>
 TRAOPT_HD T coeff_jinv(T th_sq) {
   if (series_range(th_sq)) {
     const double c[11] = {
@@ -159,7 +203,7 @@ TRAOPT_HD T coeff_jinv(T th_sq) {
     return poly11(th_sq, c);
   }
   const T th = xsqrt(th_sq);
-  return T(1) / th_sq - xcos(th / T(2)) / (T(2) * th * xsin(th / T(2)));
+  return T(1) / th_sq - Trig::cos(th / T(2)) / (T(2) * th * Trig::sin(th / T(2)));
 }
 
 // C (n x p) = A (n x m) B (m x p)
@@ -216,7 +260,7 @@ TRAOPT_HD void eye_plus(T* out, const T* w, T a, T b) {
   out[0] += T(1); out[4] += T(1); out[8] += T(1);
 }
 
-template <typename T>
+template <typename Trig = LibTrig, typename T>
 TRAOPT_HD void so3_exp(T* R, const T* w) {
   T th_sq = theta_sq(w), a, b;
   if (small_angle(th_sq)) {
@@ -224,27 +268,27 @@ TRAOPT_HD void so3_exp(T* R, const T* w) {
     b = T(0.5) - th_sq / T(24);
   } else {
     T th = xsqrt(th_sq);
-    a = xsin(th) / th;
-    b = (T(1) - xcos(th)) / th_sq;
+    a = Trig::sin(th) / th;
+    b = (T(1) - Trig::cos(th)) / th_sq;
   }
   eye_plus(R, w, a, b);
 }
 
-template <typename T>
+template <typename Trig = LibTrig, typename T>
 TRAOPT_HD void so3_left_jacobian(T* J, const T* w) {
   const T th_sq = theta_sq(w);
   T b;
   if (small_angle(th_sq)) {
     b = T(0.5) - th_sq / T(24);
   } else {
-    b = (T(1) - xcos(xsqrt(th_sq))) / th_sq;
+    b = (T(1) - Trig::cos(xsqrt(th_sq))) / th_sq;
   }
-  eye_plus(J, w, b, coeff_c1(th_sq));
+  eye_plus(J, w, b, coeff_c1<Trig>(th_sq));
 }
 
-template <typename T>
+template <typename Trig = LibTrig, typename T>
 TRAOPT_HD void so3_left_jacobian_inv(T* J, const T* w) {
-  eye_plus(J, w, T(-0.5), coeff_jinv(theta_sq(w)));
+  eye_plus(J, w, T(-0.5), coeff_jinv<Trig>(theta_sq(w)));
 }
 
 // sqrt(max(x, 1e-30))^2: the pivot's own candidate entry, rounded as the
@@ -323,19 +367,19 @@ TRAOPT_HD void so3_log(T* w, const T* R) {
 
 // ---- SE(3): pose = (R[9], p[3]) ------------------------------------------
 
-template <typename T>
+template <typename Trig = LibTrig, typename T>
 TRAOPT_HD void se3_exp(T* R, T* p, const T* xi) {
-  so3_exp(R, xi);
+  so3_exp<Trig>(R, xi);
   T Jl[9];
-  so3_left_jacobian(Jl, xi);
+  so3_left_jacobian<Trig>(Jl, xi);
   mat_vec<3, 3>(p, Jl, xi + 3);
 }
 
-template <typename T>
+template <typename Trig = LibTrig, typename T>
 TRAOPT_HD void se3_log(T* xi, const T* R, const T* p) {
   so3_log(xi, R);
   T Jli[9];
-  so3_left_jacobian_inv(Jli, xi);
+  so3_left_jacobian_inv<Trig>(Jli, xi);
   mat_vec<3, 3>(xi + 3, Jli, p);
 }
 

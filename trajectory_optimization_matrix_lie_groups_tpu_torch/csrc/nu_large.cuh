@@ -13,13 +13,15 @@
 //     shared memory;
 //   - B3 and B4 take rollout_nu_kernel's design (each stage input copied
 //     ahead once into the thread's shared-memory column and read where it
-//     is used), but without u, k and K in the column: each stage reads
-//     row a of K (12 values, coalesced over the batch), u_a and k_a from
-//     global memory, forms u_a = u_a + k_a + K_a xs_err, stores it and adds
-//     Pu[:, a] u_a to the wrench, one input at a time; B3's second phase is
-//     B1's kernel on the new trajectory;
+//     is used), u_t, k_t and K_t in a feedback slot of 14 nu values that
+//     the thread refills for stage t + 1 as soon as stage t's feedback has
+//     read it: the feedback and the wrench Pu u run over the inputs from
+//     shared memory, and nothing on the carry's chain waits on device
+//     memory; B3's second phase is B1's kernel on the new trajectory;
 //   - B6 takes rollout_mx_nu_kernel's design (a thread a problem, the fp64
-//     carry in registers) with the same feedback loop.
+//     carry in registers) with a feedback loop over the inputs
+//     (feedback_pu): each stage reads row a of K, u_a and k_a from device
+//     memory, forms u_a, stores it and adds Pu[:, a] u_a to the wrench.
 // The sums run in the order of the instances at nu <= 12 (mat_vec's for
 // Pu u, the feedback's over j), so the kernels agree with their plain
 // versions as those do.
@@ -273,21 +275,44 @@ int launch_riccati_mx_large(const RiccatiMxArgs& a, int nu, cudaStream_t s) {
 
 // ---- B3 and B4: the rollout ------------------------------------------------
 // A thread's column: two stage slots (the defect d_t, the nominal's
-// evaluation), three x slots (the nominal state); then Pu (6 x nu) after
-// the block's columns.
+// evaluation), three x slots (the nominal state) and, with kSlot, one
+// feedback slot (u_t, k_t and K_t: 14 nu values), which the thread refills
+// with stage t + 1's as soon as stage t's feedback has read it; then Pu
+// (6 x nu) after the block's columns.
 struct LargeRolloutColumn {
   static constexpr int d = 0, fqR = 12, fqp = 21, fxi = 24, ns = 30;
   static constexpr int R = 0, p = 9, xi = 12, nx = 18;
-  static constexpr int S = 0, X = 2 * ns, n = X + 3 * nx;
+  static constexpr int S = 0, X = 2 * ns, F = X + 3 * nx;
+  __host__ __device__ static constexpr int n(int nu, bool slot) {
+    return F + (slot ? 14 * nu : 0);
+  }
 };
 
-template <typename T>
+template <typename T, bool kSlot>
 constexpr size_t rollout_large_bytes(int nu) {
-  return LargeRolloutColumn::n * kAheadThreads * sizeof(T) + align16(6 * nu * sizeof(T));
+  return LargeRolloutColumn::n(nu, kSlot) * kAheadThreads * sizeof(T) +
+         align16(6 * nu * sizeof(T));
 }
 
+// The rollout's blocks an SM that its launch bounds ask for: in f32, 12
+// caps a thread's registers at 170, under which ptxas holds a stage without
+// a spill (uncapped, f32 took 254 and spilled: its trigonometry without the
+// library's slow path left the stage one long block of code); fp64 is left
+// uncapped, as before the redesign (capped at 170 it spilled), and its
+// shared memory holds it to fewer blocks an SM than its registers would.
 template <typename T>
-__global__ void __launch_bounds__(kAheadThreads) rollout_large_kernel(NuArgs<RolloutArgs<T>> x) {
+constexpr int kRolloutLargeBlocks = std::is_same<T, float>::value ? 12 : 1;
+
+// rollout_nu_kernel's design at a large nu: each stage input copied ahead
+// once into the thread's column; the feedback u_a = (u_t[a] + k_t[a]) +
+// K_t[a] xs_err and the wrench Pu u run over the inputs in feedback_pu's
+// order, reading u_t, k_t and K_t from the feedback slot (kSlot: nothing on
+// the carry's chain waits on device memory) or, where the slot's shared
+// memory would leave too few problems resident (launch_rollout_large), from
+// device memory.
+template <typename T, bool kSlot>
+__global__ void __launch_bounds__(kAheadThreads, kRolloutLargeBlocks<T>)
+    rollout_large_kernel(NuArgs<RolloutArgs<T>> x) {
   using C = LargeRolloutColumn;
   constexpr int P = kAheadThreads;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -296,7 +321,7 @@ __global__ void __launch_bounds__(kAheadThreads) rollout_large_kernel(NuArgs<Rol
   const int B = a.B, N = a.N, b = blockIdx.x * P + threadIdx.x, bc = min(b, B - 1);
   const bool live = b < B;
   T* const col0 = reinterpret_cast<T*>(smem) + threadIdx.x;
-  T* const Pu = reinterpret_cast<T*>(smem + C::n * P * sizeof(T));
+  T* const Pu = reinterpret_cast<T*>(smem + C::n(nu, kSlot) * P * sizeof(T));
   copy_pu(Pu, a.c.Pu, nu);
   T* col = col0;
   const auto slot = [&](int t) { return col + (C::S + (t & 1) * C::ns) * P; };
@@ -313,6 +338,12 @@ __global__ void __launch_bounds__(kAheadThreads) rollout_large_kernel(NuArgs<Rol
     copy_column<3>(sl + C::p * P, a.qp, t, B, bb);
     copy_column<6>(sl + C::xi * P, a.xi, t, B, bb);
   };
+  const auto copy_feedback = [&](int t, int bb) {
+    T* const f = col + C::F * P;
+    copy_column_n(f, a.u, nu, t, B, bb);
+    copy_column_n(f + nu * P, a.k, nu, t, B, bb);
+    copy_column_n(f + 2 * nu * P, a.K, 12 * nu, t, B, bb);
+  };
   T R[9], p[3], xi[6];
   load<9>(R, lane<9>(a.qR, 0, B, bc));
   load<3>(p, lane<3>(a.qp, 0, B, bc));
@@ -325,6 +356,7 @@ __global__ void __launch_bounds__(kAheadThreads) rollout_large_kernel(NuArgs<Rol
   copy_x(xslot(0), 0, bc);
   copy_x(xslot(1), 1, bc);
   copy_stage(slot(0), 0, bc);
+  if constexpr (kSlot) copy_feedback(0, bc);
   cp_async_commit();
   for (int t = 0; t < N; ++t) {
     // every address derived anew each stage (opaque_zero)
@@ -337,49 +369,75 @@ __global__ void __launch_bounds__(kAheadThreads) rollout_large_kernel(NuArgs<Rol
     const T* st = slot(t);
     const T* xt = xslot(t);
     const T* xn = xslot(t + 1);
-    // off the carry's chain: x_t^-1 and G_t = (x_{t+1} Exp(d_q)) f(xbar_t)^-1
-    T Ri[9], pi[3], GR[9], Gp[3];
-    {
-      T Rt[9], pt[3], Rn[9], pn[3], dq[6], Ed[9], ed[3], Fq[9], fq[3], Fi[9], fi[3];
-      T Ra[9], pa[3];
-      load<9>(Rt, in(xt, C::R));
-      load<3>(pt, in(xt, C::p));
-      load<9>(Rn, in(xn, C::R));
-      load<3>(pn, in(xn, C::p));
-      load<6>(dq, in(st, C::d));
-      load<9>(Fq, in(st, C::fqR));
-      load<3>(fq, in(st, C::fqp));
-      se3_inverse(Ri, pi, Rt, pt);
-      se3_exp(Ed, ed, dq);
-      se3_inverse(Fi, fi, Fq, fq);
-      se3_compose(Ra, pa, Rn, pn, Ed, ed);
-      se3_compose(GR, Gp, Ra, pa, Fi, fi);
-    }
-    // the chain: the deviation, the feedback, the dynamics, G_t f(x, u)
+    // the chain: the deviation (x_t^-1 off it), the feedback, the
+    // dynamics, G_t f(x, u) with G_t = (x_{t+1} Exp(d_q)) f(xbar_t)^-1 off
+    // it, formed after the feedback (holding G_t across it cost registers)
     T xs_err[12];
     {
-      T Re[9], pe[3];
+      T Rt[9], pt[3], Ri[9], pi[3], Re[9], pe[3];
+      load<9>(Rt, in(xt, C::R));
+      load<3>(pt, in(xt, C::p));
+      se3_inverse(Ri, pi, Rt, pt);
       se3_compose(Re, pe, Ri, pi, R, p);
-      se3_log(xs_err, Re, pe);
+      se3_log<FramelessTrig>(xs_err, Re, pe);
       const Lane<const T> xit = in(xt, C::xi);
 #pragma unroll
       for (int i = 0; i < 6; ++i) xs_err[6 + i] = xi[i] - xit[i];
     }
+    // the feedback: entry e of u_t, k_t at fu[e fs], fk[e fs]; entry (e, j)
+    // of K_t at fK[(12 e + j) fs]
     T Puu[6];
     {
-      const long long o = (long long)t * nu * B;
-      feedback_pu<T, T>(Puu, xs_err, a.u + o + bz, a.k + o + bz, a.K + 12 * o + bz, B, nu, Pu,
-                        live ? a.ou + o + b : nullptr);
+      const long long o = (long long)t * nu * B, fs = kSlot ? P : B;
+      const T *fu, *fk, *fK;
+      if constexpr (kSlot) {
+        fu = col + C::F * P;
+        fk = fu + nu * P;
+        fK = fu + 2 * nu * P;
+      } else {
+        fu = a.u + o + bz;
+        fk = a.k + o + bz;
+        fK = a.K + 12 * o + bz;
+      }
+      T* const ou = a.ou + o + b;
+      pu_times(Puu, Pu, nu, [&](int e) {
+        const T* Ke = fK + 12 * e * fs;
+        T s = Ke[0] * xs_err[0];
+#pragma unroll
+        for (int j = 1; j < 12; ++j) s += Ke[j * fs] * xs_err[j];
+        const T ue = (fu[e * fs] + fk[e * fs]) + s;
+        if (live) ou[e * B] = ue;
+        return ue;
+      });
+    }
+    if constexpr (kSlot) {
+      if (t + 1 < N) {
+        copy_feedback(t + 1, bz);  // stage t's has been read
+        cp_async_commit();
+      }
     }
     T fqR[9], fqp[3], fxi[6];
-    stage_dynamics_eval_with(
+    stage_dynamics_eval_with<FramelessTrig>(
         fqR, fqp, fxi, R, p, xi,
         [&](T* w) {
 #pragma unroll
           for (int i = 0; i < 6; ++i) w[i] = Puu[i];
         },
         a.c);
-    se3_compose(R, p, GR, Gp, fqR, fqp);
+    {
+      T Rn[9], pn[3], dq[6], Ed[9], ed[3], Fq[9], fq[3], Fi[9], fi[3], Ra[9], pa[3];
+      T GR[9], Gp[3];
+      load<9>(Rn, in(xn, C::R));
+      load<3>(pn, in(xn, C::p));
+      load<6>(dq, in(st, C::d));
+      load<9>(Fq, in(st, C::fqR));
+      load<3>(fq, in(st, C::fqp));
+      se3_exp<FramelessTrig>(Ed, ed, dq);
+      se3_inverse(Fi, fi, Fq, fq);
+      se3_compose(Ra, pa, Rn, pn, Ed, ed);
+      se3_compose(GR, Gp, Ra, pa, Fi, fi);
+      se3_compose(R, p, GR, Gp, fqR, fqp);
+    }
     so3_normalize(R);
     {
       const Lane<const T> xin = in(xn, C::xi), fxt = in(st, C::fxi), dd = in(st, C::d);
@@ -394,15 +452,45 @@ __global__ void __launch_bounds__(kAheadThreads) rollout_large_kernel(NuArgs<Rol
   }
 }
 
+// Whether the rollout at nu takes the feedback slot for a batch of B
+// (*slot): while the whole batch is resident at once.  Past that (f32 at
+// nu >= 24 and fp64 at nu >= 16, B = 16384, on an H100) the slot's shared
+// memory leaves too few problems resident, and the feedback from device
+// memory, with every problem resident, was the faster (PERF.md).
+// Returns the CUDA error of the device query, if any.
+template <typename T>
+int rollout_large_slot(int nu, int B, bool* slot) {
+  int dev = 0, sms = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  if (cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+    return (int)e;
+  const size_t bytes = rollout_large_bytes<T, true>(nu);
+  int n = 0;
+  if (int e = set_smem(rollout_large_kernel<T, true>, bytes, true)) return e;
+  if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, rollout_large_kernel<T, true>, kAheadThreads, bytes))
+    return (int)e;
+  *slot = n > 0 && (long long)n * sms * kAheadThreads >= B;
+  return 0;
+}
+
 // B4 at a large nu; B3 (lin not null): the rollout, then B1's kernel at the
-// same nu on the new trajectory, both on stream s.
+// same nu on the new trajectory, both on stream s.  *slot: whether the
+// rollout took its feedback-slot instance.
 template <typename T>
 int launch_rollout_large(const RolloutArgs<T>& a, const LinearizeArgs<T>* lin, int nu,
-                         cudaStream_t s) {
-  const size_t bytes = rollout_large_bytes<T>(nu);
-  if (int e = set_smem(rollout_large_kernel<T>, bytes, true)) return e;
-  rollout_large_kernel<T><<<ahead_grid(a.B), kAheadThreads, bytes, s>>>(
-      NuArgs<RolloutArgs<T>>{a, nu});
+                         cudaStream_t s, bool* slot) {
+  const NuArgs<RolloutArgs<T>> x{a, nu};
+  if (int e = rollout_large_slot<T>(nu, a.B, slot)) return e;
+  if (*slot) {
+    const size_t bytes = rollout_large_bytes<T, true>(nu);
+    if (int e = set_smem(rollout_large_kernel<T, true>, bytes, true)) return e;
+    rollout_large_kernel<T, true><<<ahead_grid(a.B), kAheadThreads, bytes, s>>>(x);
+  } else {
+    const size_t bytes = rollout_large_bytes<T, false>(nu);
+    if (int e = set_smem(rollout_large_kernel<T, false>, bytes, true)) return e;
+    rollout_large_kernel<T, false><<<ahead_grid(a.B), kAheadThreads, bytes, s>>>(x);
+  }
   if (cudaError_t e = cudaGetLastError()) return (int)e;
   if (lin) return launch_linearize_large<T>(*lin, nu, s);
   return (int)cudaGetLastError();

@@ -12,12 +12,14 @@
 
 namespace traopt {
 
-// The blocks of B2's (kernel 0) or the rollout's (kernel 1) instance at nu
-// that an SM holds at once, as they are launched; -1 on an error.
+// The blocks of B2's (kernel 0) or the rollout's (kernel 1; past 12 its
+// feedback-slot instance) instance at nu that an SM holds at once, as they
+// are launched; -1 on an error.
 template <typename T>
 int occupancy_large(int kernel, int nu) {
   if (kernel == 1)
-    return blocks_per_sm(rollout_large_kernel<T>, kAheadThreads, rollout_large_bytes<T>(nu), true);
+    return blocks_per_sm(rollout_large_kernel<T, true>, kAheadThreads,
+                         rollout_large_bytes<T, true>(nu), true);
   return blocks_per_sm(riccati_large_kernel<T>, kGroup * kLargeProblems<T>,
                        riccati_large_layout<T, T>(nu).bytes, true);
 }
@@ -132,6 +134,15 @@ extern "C" int TRAOPT_FN(riccati_large)(RICCATI_PARAMS) {
       dt, gravity, exact_grav, oR, op, oxi, ou, nfqR, nfqp, nfxi, nd, nFx, nlx, nlxx,   \
       nl, N, nu, B, device, stream
 
+// The large-nu rollout's launches since the library was loaded, by the
+// instance taken: [0] the feedback read from device memory, [1] from the
+// feedback slot (rollout_large_slot).
+static int rollout_large_launches[2];
+
+extern "C" int TRAOPT_FN(rollout_large_launches)(int slot) {
+  return slot == 0 || slot == 1 ? rollout_large_launches[slot] : -1;
+}
+
 // B4 when the new-linearization pointers are null, else B3: the large-nu
 // instances past 12, or with kLarge at any nu up to kMaxNuLarge.
 template <bool kLarge>
@@ -157,8 +168,12 @@ static int rollout_entry(ROLLOUT_PARAMS) {
   if (N <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   if (cudaError_t e = cudaSetDevice(device)) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
-  if ((kLarge || nu > traopt::kMaxNu) && nu >= 1 && nu <= traopt::kMaxNuLarge)
-    return traopt::launch_rollout_large<T>(a, lin, nu, s);
+  if ((kLarge || nu > traopt::kMaxNu) && nu >= 1 && nu <= traopt::kMaxNuLarge) {
+    bool slot = false;
+    const int e = traopt::launch_rollout_large<T>(a, lin, nu, s, &slot);
+    if (!e) ++rollout_large_launches[slot];
+    return e;
+  }
   if (kLarge) return (int)cudaErrorInvalidValue;
   return traopt::by_mu(nu, [&](auto mu) {
     return traopt::launch_rollout_nu<T, decltype(mu)::value>(a, lin, nu, s);

@@ -183,6 +183,234 @@ __device__ __forceinline__ void sts(T* dst, const T* src) {
   }
 }
 
+// Phase C of the large-nu Riccati steps (riccati_large_step here, B13's
+// fast_large_step in fast_large.cuh) for lane l of a group holding S rows of
+// the nu-long arrays: on entry A holds Q_uu's lower triangle (row i at
+// i (i + 1) / 2, row 0's pivot as its reciprocal) and the lane's rows of the
+// 13 right-hand sides are in Z (fp64: in its rows of KX, pitch vpad(13));
+// on exit A holds the factor (the diagonal as the pivots' reciprocals) and
+// KX the solution [K | k] (and Z the lane's rows of it).
+template <typename Tp, int S>
+__device__ __forceinline__ void large_factor_solve(int l, int nu, Tp* A, Tp* KX,
+                                                   Tp (&Z)[sizeof(Tp) == 8 ? 1 : S][13]) {
+  constexpr bool kZs = sizeof(Tp) == 8;
+  constexpr int NC = 13, PK = vpad<Tp>(NC);
+  const auto row = [&](int s) { return l + kGroup * s; };
+  const auto live = [&](int s) { return s < S - 1 || l + kGroup * s < nu; };
+  const auto tri = [](int i) { return (i * (i + 1)) >> 1; };
+  const auto getz = [&](int s, Tp(&z)[PK]) {
+    if constexpr (kZs) {
+      lds<Tp, PK>(z, KX + row(s) * PK);
+    } else {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) z[c] = Z[s][c];
+    }
+  };
+  const auto putz = [&](int s, const Tp(&z)[PK]) {
+    if constexpr (kZs) {
+      sts<Tp, PK>(KX + row(s) * PK, z);
+    } else {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) Z[s][c] = z[c];
+    }
+  };
+  // The factorization and the forward solve, column j a step, in panels of
+  // four columns (right-looking: each entry's terms in riccati_stage's
+  // order).  At step j every lane reads the pivot's reciprocal r_j (which
+  // row j's owner stored on the diagonal when it finished the pivot),
+  // scales column j of its rows, L_mj (kept in lq until the panel is done),
+  // and takes L_mj L_cj off its rows' entries in the panel's later columns
+  // c (each lane scales the L_cj it needs itself); row j's owner writes
+  // y_j, and at the next step the rows m > j take L_mj y_j.  After a
+  // panel's last column every lane takes the panel's four terms off its
+  // rows' entries right of it, and the panel's L goes into A during the
+  // next one (its raw columns are read until then).
+  int tr[S];  // where lane l's rows start in A
+#pragma unroll
+  for (int s = 0; s < S; ++s) tr[s] = tri(row(s));
+  Tp inv[S], lo[S], lq[S][4], rp[4];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    inv[s] = lo[s] = Tp(0);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) lq[s][p] = Tp(0);
+  }
+#pragma unroll
+  for (int p = 0; p < 4; ++p) rp[p] = Tp(0);
+  const auto put_panel = [&](int J) {  // lane l's L of columns J .. J + 3
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int m = row(s);
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        if (live(s) && m > J + p) A[tr[s] + J + p] = lq[s][p];
+    }
+  };
+#pragma unroll
+  for (int s0 = 0; s0 < S; ++s0) {
+    const int oe = min(kGroup, nu - kGroup * s0);
+    for (int o4 = 0; o4 < oe; o4 += 4) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (o4 + q >= oe) break;
+        const int o = o4 + q, j = kGroup * s0 + o, J = j - q;
+        // the step's loads: r_j, column j of lane l's rows and of the
+        // panel's rows c = j + 1 .. J + 3, y_{j-1}, the panel's entries
+        const Tp rj = A[tri(j) + j];
+        Tp aj[S], ac[3], av[S][3];
+#pragma unroll
+        for (int s = s0; s < S; ++s) {
+          const int m = row(s), tm = tr[s];
+          aj[s] = live(s) && m > j ? A[tm + j] : Tp(0);
+#pragma unroll
+          for (int e = 0; e < 3 - q; ++e)
+            av[s][e] = live(s) && m > j + e ? A[tm + j + 1 + e] : Tp(0);
+        }
+#pragma unroll
+        for (int e = 0; e < 3 - q; ++e) ac[e] = A[tri(min(j + 1 + e, nu - 1)) + j];
+        if (j > 0) {
+          Tp y[PK];
+          lds<Tp, PK>(y, KX + (j - 1) * PK);
+#pragma unroll
+          for (int s = s0; s < S; ++s) {
+            if (live(s) && row(s) >= j) {
+              Tp z[PK];
+              getz(s, z);
+#pragma unroll
+              for (int c = 0; c < NC; ++c) z[c] = z[c] - lo[s] * y[c];
+              putz(s, z);
+            }
+          }
+        }
+        if (q == 0 && j > 0) put_panel(J - 4);  // before lq takes this panel's
+        rp[q] = rj;
+#pragma unroll
+        for (int s = s0; s < S; ++s) {
+          if (live(s) && row(s) > j) lo[s] = lq[s][q] = aj[s] * rj;
+        }
+        // the panel's later columns; row j + 1's owner (slot s0) finishes
+        // its pivot
+        Tp piv = Tp(1);
+#pragma unroll
+        for (int e = 0; e < 3 - q; ++e) {
+          const int c = j + 1 + e;
+          const Tp lc = ac[e] * rj;
+#pragma unroll
+          for (int s = s0; s < S; ++s) {
+            const int m = row(s);
+            const Tp v = av[s][e] - lq[s][q] * lc;
+            if (live(s) && m >= c) A[tr[s] + c] = v;
+            if (e == 0 && s == s0 && m == c) piv = v;
+          }
+        }
+        if (q < 3 && j + 1 < nu) {  // every lane (1 where it owns no pivot), no branch
+          const Tp rn = Tp(1) / xsqrt(piv);
+          if (row(s0) == j + 1) A[tri(j + 1) + j + 1] = rn;
+        }
+        if (q == 3 && J + 4 < nu) {
+          // the panel's four terms off lane l's rows m >= J + 4, columns
+          // k = J + 4 .. m, two columns a batch; row J + 4's owner
+          // finishes its pivot
+          int top = J + 3;
+#pragma unroll
+          for (int s = s0; s < S; ++s)
+            if (live(s) && row(s) >= J + 4) top = row(s);
+          for (int k = J + 4; k <= top; k += 2) {
+            Tp lk[2][4], ak[S][2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int tk = tri(min(k + e, top));
+#pragma unroll
+              for (int p = 0; p < 4; ++p) lk[e][p] = A[tk + J + p];
+            }
+#pragma unroll
+            for (int s = s0; s < S; ++s) {
+              const int m = row(s), tm = tr[s];
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                ak[s][e] = live(s) && m >= k + e ? A[tm + k + e] : Tp(0);
+            }
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              Tp lr[4];
+#pragma unroll
+              for (int p = 0; p < 4; ++p) lr[p] = lk[e][p] * rp[p];
+#pragma unroll
+              for (int s = s0; s < S; ++s) {
+                const int m = row(s);
+                Tp v = ak[s][e];
+#pragma unroll
+                for (int p = 0; p < 4; ++p) v = v - lq[s][p] * lr[p];
+                if (live(s) && m >= k + e) A[tr[s] + k + e] = v;
+                if (m == J + 4 && k + e == m) piv = v;
+              }
+            }
+          }
+          const Tp rn = Tp(1) / xsqrt(piv);
+          if (top >= J + 4 && (row(s0) == J + 4 || row(s0 + 1) == J + 4))
+            A[tri(J + 4) + J + 4] = rn;
+        }
+        {
+          // row j's owner: y_j (every lane scales its slot's row, no branch)
+          Tp y[PK];
+          getz(s0, y);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) y[c] = y[c] * rj;
+#pragma unroll
+          for (int c = NC; c < PK; ++c) y[c] = Tp(0);
+          if (l == o) {
+            if constexpr (!kZs) putz(s0, y);
+            sts<Tp, PK>(KX + j * PK, y);
+            inv[s0] = rj;
+          }
+        }
+        __syncwarp();
+      }
+    }
+  }
+  put_panel((nu - 1) & ~3);
+  __syncwarp();
+  // the back substitution, row i a step: the rows m <= i take L_{i+1, m}
+  // K_{i+1} (K = -x), then row i's owner x_i and K's row i
+#pragma unroll
+  for (int s0 = S - 1; s0 >= 0; --s0) {
+    const int oe = min(kGroup, nu - kGroup * s0);
+    for (int o = oe - 1; o >= 0; --o) {
+      const int i = kGroup * s0 + o;
+      if (i < nu - 1) {
+        Tp kx[PK];
+        lds<Tp, PK>(kx, KX + (i + 1) * PK);
+        const Tp* Li = A + tri(i + 1);
+#pragma unroll
+        for (int s = 0; s <= s0; ++s) {
+          const int m = row(s);
+          if (m <= i) {
+            const Tp lm = Li[m];
+            Tp z[PK];
+            getz(s, z);
+#pragma unroll
+            for (int c = 0; c < NC; ++c) z[c] = z[c] + lm * kx[c];
+            putz(s, z);
+          }
+        }
+      }
+      {
+        Tp x[PK];
+        getz(s0, x);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) x[c] = -(x[c] * inv[s0]);
+#pragma unroll
+        for (int c = NC; c < PK; ++c) x[c] = Tp(0);
+        if (l == o) {
+          if constexpr (!kZs) putz(s0, x);
+          sts<Tp, PK>(KX + i * PK, x);
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
 // One Riccati step for lane l of a group holding NS rows of the nu-long
 // arrays: V_xx of stage t + 1 in the group's VS and, on the lanes of the
 // diagonal blocks, V_x[I] in Vx on entry, of stage t on exit.  Mx: the
@@ -196,8 +424,8 @@ __device__ __forceinline__ void sts(T* dst, const T* src) {
 //   B  lane l its rows a of Q_ux and Q_u (the right-hand sides) and of
 //      Q_uu (and its lower triangle into A);
 //   C  the factorization with the forward solve, a column a step; the back
-//      substitution, a row a step (K = -x); lane l its rows of K and k out,
-//      and its rows a of (K^T Q_uu)^T;
+//      substitution, a row a step (K = -x; large_factor_solve); lane l its
+//      rows of K and k out, and its rows a of (K^T Q_uu)^T;
 //   D  the block (I, J) of Q_xx = l_xx + F^T (V_xx F) and Q_x[I]; V_x[I]
 //      (diagonal lanes), the blocks (I, J) of S and M, stored once every
 //      lane has read F, V_xx F and l_xx;
@@ -316,14 +544,6 @@ __device__ __forceinline__ void riccati_large_step(int l, const LargeLayout& L,
       for (int c = 0; c < NC; ++c) z[c] = Z[s][c];
     }
   };
-  const auto putz = [&](int s, const Tp(&z)[PK]) {
-    if constexpr (kZs) {
-      sts<Tp, PK>(g.KX + row(s) * PK, z);
-    } else {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) Z[s][c] = z[c];
-    }
-  };
   {
     Tr vm[NX];
     lds<Tr, NX>(vm, g.Vm);
@@ -407,201 +627,7 @@ __device__ __forceinline__ void riccati_large_step(int l, const LargeLayout& L,
   __syncwarp();
 
   // ---- C ----
-  // The factorization and the forward solve, column j a step, in panels of
-  // four columns (right-looking: each entry's terms in riccati_stage's
-  // order).  At step j every lane reads the pivot's reciprocal r_j (which
-  // row j's owner stored on the diagonal when it finished the pivot),
-  // scales column j of its rows, L_mj (kept in lq until the panel is done),
-  // and takes L_mj L_cj off its rows' entries in the panel's later columns
-  // c (each lane scales the L_cj it needs itself); row j's owner writes
-  // y_j, and at the next step the rows m > j take L_mj y_j.  After a
-  // panel's last column every lane takes the panel's four terms off its
-  // rows' entries right of it, and the panel's L goes into A during the
-  // next one (its raw columns are read until then).
-  int tr[S];  // where lane l's rows start in A
-#pragma unroll
-  for (int s = 0; s < S; ++s) tr[s] = tri(row(s));
-  Tp inv[S], lo[S], lq[S][4], rp[4];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    inv[s] = lo[s] = Tp(0);
-#pragma unroll
-    for (int p = 0; p < 4; ++p) lq[s][p] = Tp(0);
-  }
-#pragma unroll
-  for (int p = 0; p < 4; ++p) rp[p] = Tp(0);
-  const auto put_panel = [&](int J) {  // lane l's L of columns J .. J + 3
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const int m = row(s);
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-        if (live(s) && m > J + p) g.A[tr[s] + J + p] = lq[s][p];
-    }
-  };
-#pragma unroll
-  for (int s0 = 0; s0 < S; ++s0) {
-    const int oe = min(kGroup, nu - kGroup * s0);
-    for (int o4 = 0; o4 < oe; o4 += 4) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (o4 + q >= oe) break;
-        const int o = o4 + q, j = kGroup * s0 + o, J = j - q;
-        // the step's loads: r_j, column j of lane l's rows and of the
-        // panel's rows c = j + 1 .. J + 3, y_{j-1}, the panel's entries
-        const Tp rj = g.A[tri(j) + j];
-        Tp aj[S], ac[3], av[S][3];
-#pragma unroll
-        for (int s = s0; s < S; ++s) {
-          const int m = row(s), tm = tr[s];
-          aj[s] = live(s) && m > j ? g.A[tm + j] : Tp(0);
-#pragma unroll
-          for (int e = 0; e < 3 - q; ++e)
-            av[s][e] = live(s) && m > j + e ? g.A[tm + j + 1 + e] : Tp(0);
-        }
-#pragma unroll
-        for (int e = 0; e < 3 - q; ++e) ac[e] = g.A[tri(min(j + 1 + e, nu - 1)) + j];
-        if (j > 0) {
-          Tp y[PK];
-          lds<Tp, PK>(y, g.KX + (j - 1) * PK);
-#pragma unroll
-          for (int s = s0; s < S; ++s) {
-            if (live(s) && row(s) >= j) {
-              Tp z[PK];
-              getz(s, z);
-#pragma unroll
-              for (int c = 0; c < NC; ++c) z[c] = z[c] - lo[s] * y[c];
-              putz(s, z);
-            }
-          }
-        }
-        if (q == 0 && j > 0) put_panel(J - 4);  // before lq takes this panel's
-        rp[q] = rj;
-#pragma unroll
-        for (int s = s0; s < S; ++s) {
-          if (live(s) && row(s) > j) lo[s] = lq[s][q] = aj[s] * rj;
-        }
-        // the panel's later columns; row j + 1's owner (slot s0) finishes
-        // its pivot
-        Tp piv = Tp(1);
-#pragma unroll
-        for (int e = 0; e < 3 - q; ++e) {
-          const int c = j + 1 + e;
-          const Tp lc = ac[e] * rj;
-#pragma unroll
-          for (int s = s0; s < S; ++s) {
-            const int m = row(s);
-            const Tp v = av[s][e] - lq[s][q] * lc;
-            if (live(s) && m >= c) g.A[tr[s] + c] = v;
-            if (e == 0 && s == s0 && m == c) piv = v;
-          }
-        }
-        if (q < 3 && j + 1 < nu) {  // every lane (1 where it owns no pivot), no branch
-          const Tp rn = Tp(1) / xsqrt(piv);
-          if (row(s0) == j + 1) g.A[tri(j + 1) + j + 1] = rn;
-        }
-        if (q == 3 && J + 4 < nu) {
-          // the panel's four terms off lane l's rows m >= J + 4, columns
-          // k = J + 4 .. m, two columns a batch; row J + 4's owner
-          // finishes its pivot
-          int top = J + 3;
-#pragma unroll
-          for (int s = s0; s < S; ++s)
-            if (live(s) && row(s) >= J + 4) top = row(s);
-          for (int k = J + 4; k <= top; k += 2) {
-            Tp lk[2][4], ak[S][2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int tk = tri(min(k + e, top));
-#pragma unroll
-              for (int p = 0; p < 4; ++p) lk[e][p] = g.A[tk + J + p];
-            }
-#pragma unroll
-            for (int s = s0; s < S; ++s) {
-              const int m = row(s), tm = tr[s];
-#pragma unroll
-              for (int e = 0; e < 2; ++e)
-                ak[s][e] = live(s) && m >= k + e ? g.A[tm + k + e] : Tp(0);
-            }
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              Tp lr[4];
-#pragma unroll
-              for (int p = 0; p < 4; ++p) lr[p] = lk[e][p] * rp[p];
-#pragma unroll
-              for (int s = s0; s < S; ++s) {
-                const int m = row(s);
-                Tp v = ak[s][e];
-#pragma unroll
-                for (int p = 0; p < 4; ++p) v = v - lq[s][p] * lr[p];
-                if (live(s) && m >= k + e) g.A[tr[s] + k + e] = v;
-                if (m == J + 4 && k + e == m) piv = v;
-              }
-            }
-          }
-          const Tp rn = Tp(1) / xsqrt(piv);
-          if (top >= J + 4 && (row(s0) == J + 4 || row(s0 + 1) == J + 4))
-            g.A[tri(J + 4) + J + 4] = rn;
-        }
-        {
-          // row j's owner: y_j (every lane scales its slot's row, no branch)
-          Tp y[PK];
-          getz(s0, y);
-#pragma unroll
-          for (int c = 0; c < NC; ++c) y[c] = y[c] * rj;
-#pragma unroll
-          for (int c = NC; c < PK; ++c) y[c] = Tp(0);
-          if (l == o) {
-            if constexpr (!kZs) putz(s0, y);
-            sts<Tp, PK>(g.KX + j * PK, y);
-            inv[s0] = rj;
-          }
-        }
-        __syncwarp();
-      }
-    }
-  }
-  put_panel((nu - 1) & ~3);
-  __syncwarp();
-  // the back substitution, row i a step: the rows m <= i take L_{i+1, m}
-  // K_{i+1} (K = -x), then row i's owner x_i and K's row i
-#pragma unroll
-  for (int s0 = S - 1; s0 >= 0; --s0) {
-    const int oe = min(kGroup, nu - kGroup * s0);
-    for (int o = oe - 1; o >= 0; --o) {
-      const int i = kGroup * s0 + o;
-      if (i < nu - 1) {
-        Tp kx[PK];
-        lds<Tp, PK>(kx, g.KX + (i + 1) * PK);
-        const Tp* Li = g.A + tri(i + 1);
-#pragma unroll
-        for (int s = 0; s <= s0; ++s) {
-          const int m = row(s);
-          if (m <= i) {
-            const Tp lm = Li[m];
-            Tp z[PK];
-            getz(s, z);
-#pragma unroll
-            for (int c = 0; c < NC; ++c) z[c] = z[c] + lm * kx[c];
-            putz(s, z);
-          }
-        }
-      }
-      {
-        Tp x[PK];
-        getz(s0, x);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) x[c] = -(x[c] * inv[s0]);
-#pragma unroll
-        for (int c = NC; c < PK; ++c) x[c] = Tp(0);
-        if (l == o) {
-          if constexpr (!kZs) putz(s0, x);
-          sts<Tp, PK>(g.KX + i * PK, x);
-        }
-      }
-      __syncwarp();
-    }
-  }
+  large_factor_solve<Tp, S>(l, nu, g.A, g.KX, Z);
   // lane l's rows of K and k out
 #pragma unroll
   for (int s = 0; s < S; ++s) {

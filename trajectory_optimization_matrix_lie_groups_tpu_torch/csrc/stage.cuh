@@ -77,8 +77,8 @@ struct Refs {
 // fq = normalize(q Exp(xi dt)); fxi = xi + dt Jinv (coad(xi) J xi
 // [+ m g R^T down] + Pu u)  (models/dynamics.py free body / rigid body),
 // the input wrench Pu u from pu_u(w), which writes it into the 6-vector w
-// where the sum needs it.
-template <typename T, typename PuU>
+// where the sum needs it; the exponential's trigonometry Trig (lie.cuh).
+template <typename Trig = LibTrig, typename T, typename PuU>
 __device__ __forceinline__ void stage_dynamics_eval_with(
     T* fqR, T* fqp, T* fxi, const T* R, const T* p, const T* xi, PuU&& pu_u,
     const Consts<T>& c) {
@@ -86,7 +86,7 @@ __device__ __forceinline__ void stage_dynamics_eval_with(
 #pragma unroll
   for (int i = 0; i < 6; ++i) tau[i] = xi[i] * c.dt;
   T Re[9], pe[3];
-  se3_exp(Re, pe, tau);
+  se3_exp<Trig>(Re, pe, tau);
   se3_compose(fqR, fqp, R, p, Re, pe);
   so3_normalize(fqR);
   T Jxi[6], c1[3], c2[3], c3[3], Puu[6], wrench[6], Jw[6];

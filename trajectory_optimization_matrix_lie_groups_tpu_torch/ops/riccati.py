@@ -154,11 +154,14 @@ def backward_lane_any(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu):
     shared memory laid out for the runtime shape, the block copying each
     stage's inputs into shared memory a stage ahead.  Past it the large-nu
     instance runs (counted in ``backward_lane_any.nuL``): the same group and
-    copies, but V_xx Fu, Q_ux, Q_uu, its factor and the solves' rows in the
-    group's shared memory, the lanes sharing out Q_uu's rows and its
-    Cholesky column by column, no register array sized by nu, and 8, 4 or 2
-    problems a block as nu and the scalar type let the most fit on an SM
-    (`_build.fast_large_problems`; `csrc/fast.cu`, `csrc/fast_large.cuh`)."""
+    copies on B2's large-nu Riccati step carried onto the dense step (the
+    nx-sized arrays padded to 12 with zeros; every 12 x 12 product a 3 x 3
+    block a lane; Q_uu, its factor and the nu-long arrays nu-major in the
+    group's shared memory, lane l owning rows l, l + 16, l + 32; the factor
+    right-looking in panels of four columns fused with the forward solve),
+    no register array sized by nu, and 8, 4 or 2 problems a block as nu and
+    the scalar type let the most fit on an SM (`_build.fast_large_problems`;
+    `csrc/fast.cu`, `csrc/fast_large.cuh`, `csrc/riccati_large.cuh`)."""
     if d.device.type == "cpu":
         return backward_plain(Fx, Fu, d, Lx, Lu, Lxx, Lux, Luu)
     nx, nu = d.shape[1], Lu.shape[1]

@@ -437,9 +437,12 @@ def rollout_lane(qR, qp, xi, us, k, K, lin, consts, *, dt, gravity=False):
     into the thread's shared-memory column and read where it is used, u, k
     and K zero past nu there, Pu padded in shared memory; past nu = 12 the
     large-nu instance, counted in ``rollout_lane.nuL``: the same column
-    without u, k and K, which each stage reads from device memory one row of
-    K at a time, the wrench Pu u summed one input at a time
-    (`csrc/nu_large.cuh`)."""
+    with u, k and K in a feedback slot of 14 nu values, refilled with the
+    next stage's as soon as a stage's feedback has read it, so the
+    feedback's loop over the inputs reads shared memory and nothing on the
+    carry's chain waits on device memory (`csrc/nu_large.cuh`); where the
+    slots cannot hold the whole batch at once, the same kernel reads them
+    from device memory (`rollout_large_instances` counts each)."""
     kw = dict(dt=dt, gravity=gravity)
     if us.device.type == "cpu":
         return rollout_plain(qR, qp, xi, us, k, K, lin, consts, **kw)
@@ -458,6 +461,16 @@ def rollout_lane(qR, qp, xi, us, k, K, lin, consts, *, dt, gravity=False):
 rollout_lane.launches = 0
 rollout_lane.nu = types.SimpleNamespace(launches=0)
 rollout_lane.nuL = types.SimpleNamespace(launches=0)
+
+
+def rollout_large_instances(dtype):
+    """{"slot": n, "device": n}: the large-nu rollout's launches in ``dtype``
+    (B3nuL's first phase and B4nuL alike) since its library was loaded, by
+    the instance its launcher took: the feedback from the shared-memory slot
+    while the whole batch is resident at once, else from device memory."""
+    fn = _build.function("pipeline_nu", "rollout_large_launches", _build.suffix(dtype),
+                         [_build.INT])
+    return {"slot": fn(1), "device": fn(0)}
 
 
 def rollout_linearize_lane(qR, qp, xi, us, k, K, lin, refs, consts, *, dt,
