@@ -227,15 +227,21 @@ Phases, each printed as one JSON line:
                 iterations on the first 4 or 6 thrusters of
                 `al_bench.rcs12_pu`), the blocks an SM holds of B2's and
                 the rollout's instances and their ptxas lines (the
-                large-nu rollout, f32 and fp64, neither spills nor keeps
-                a stack frame),
-                and the large-nu B3 and B4 rows' times before
-                the rollout's redesign (`NU_LARGE_PARENT_MS`); B3 and B4 at
+                large-nu rollout, f32 and fp64, and the runtime-nu B2 and
+                rollout, f32 and fp64, neither spill nor keep a stack
+                frame), and the large-nu B3 and B4 rows' times before
+                the rollout's redesign (`NU_LARGE_PARENT_MS`) and the
+                runtime-nu B2, B3 and B4 rows' times before theirs
+                (`NU_PARENT_MS`), each with its speedup; B3 and B4 at
                 the rcs paths' B = 16384 past one wave of the large-nu
                 rollout's feedback slot (`NU_PAST_SLOT`: f32 rcs24, fp64
-                rcs16 and rcs24, compared and timed at N = 40), each
-                large-nu rollout launch of (a) and (b) held to the instance
-                it should take (the feedback slot's while the batch is
+                rcs16 and rcs24, compared and timed at N = 40), and at
+                nu <= 12 past the batch that takes g_kernel's pass
+                (`NU_PAST_PASS`: torques3 and rcs12, f32 and fp64, at the
+                same B and N), each rollout launch of (a) and (b) held to
+                the instance it should take (up to nu = 12 with
+                g_kernel's pass while B <= the build's one-warp blocks an
+                SM x 32 x the SMs; the feedback slot's while the batch is
                 resident at once, device memory's past it); (b) the four
                 problems of `al_bench.NU_PROBLEMS` (screw200_torques3, nu =
                 3; screw200_rcs12, nu = 12; screw200_rcs16, nu = 16;
@@ -496,16 +502,63 @@ NU_LARGE_PARENT_MS = {"B3 nu=13 float32": 2.324620819091797,
                       "B4 nu=24 float64": 3.8054527282714843,
                       "B4 nu=34 float32": 4.520127868652343,
                       "B4 nu=34 float64": 4.990451049804688}
+# the runtime-nu rows' ms of B2, B3 and B4 (nu <= 12) before their redesign
+# (B2 on `riccati_group_step` / `riccati_f64_step` at a compile-time maximum
+# MU = 6 or 12, the rollout with u on its chain), measured by `python3
+# scripts/rates.py --nu` on that tree at the same shapes (B = NU_CHECK_BATCH,
+# N = 200; NVIDIA H100 80GB HBM3, 700.00 W; the first run of the redesign's
+# first timing call)
+NU_PARENT_MS = {"B2 nu=1 float32": 0.649619197845459,
+                "B2 nu=1 float64": 0.8479040145874024,
+                "B2 nu=3 float32": 0.6522624015808105,
+                "B2 nu=3 float64": 0.8671680450439453,
+                "B2 nu=5 float32": 0.6531199932098388,
+                "B2 nu=5 float64": 0.8654463768005372,
+                "B2 nu=8 float32": 1.2184512138366699,
+                "B2 nu=8 float64": 2.039155197143555,
+                "B2 nu=12 float32": 1.242784023284912,
+                "B2 nu=12 float64": 2.0599296569824217,
+                "B3 nu=1 float32": 1.096012783050537,
+                "B3 nu=1 float64": 1.528831958770752,
+                "B3 nu=3 float32": 1.147993564605713,
+                "B3 nu=3 float64": 1.571014404296875,
+                "B3 nu=5 float32": 1.2081791877746582,
+                "B3 nu=5 float64": 1.6272127151489257,
+                "B3 nu=8 float32": 1.4479104042053224,
+                "B3 nu=8 float64": 1.792153549194336,
+                "B3 nu=12 float32": 1.6184192657470704,
+                "B3 nu=12 float64": 1.9402944564819335,
+                "B4 nu=1 float32": 0.9470848083496094,
+                "B4 nu=1 float64": 1.1800191879272461,
+                "B4 nu=3 float32": 1.0182080268859863,
+                "B4 nu=3 float64": 1.2404224395751953,
+                "B4 nu=5 float32": 1.0773311614990235,
+                "B4 nu=5 float64": 1.2954303741455078,
+                "B4 nu=8 float32": 1.3130047798156739,
+                "B4 nu=8 float64": 1.4564800262451172,
+                "B4 nu=12 float32": 1.481222438812256,
+                "B4 nu=12 float64": 1.6165184020996093}
 # the large-nu rollout past one wave of its feedback slot's blocks, at the
 # paths' own shapes (B = NU_POLISH_BATCH, where the rcs24 f32 polish and the
 # fp64 refiner phase of both problems take its device-memory instance):
 # B3nuL and B4nuL against their plain versions at N = NU_PLAIN_N, timed there
 NU_PAST_SLOT = (("screw200_rcs24", torch.float32), ("screw200_rcs16", torch.float64),
                 ("screw200_rcs24", torch.float64))
-# the instances of the large-nu rollout (B3nuL's first phase, B4nuL: the
-# feedback from its shared-memory slot, or from device memory; f32 and
-# fp64), which may neither spill nor keep a stack frame
+# the rollout at nu <= 12 at the same B, past the batch that takes g_kernel's
+# pass (the polish's f32 phase and the refiner's fp64 phase of torques3 and
+# rcs12): B3nu and B4nu against their plain versions at N = NU_PLAIN_N,
+# timed there
+NU_PAST_PASS = tuple((name, dtype) for name in ("screw200_torques3", "screw200_rcs12")
+                     for dtype in (torch.float32, torch.float64))
+# the instances of the large-nu rollout (B3's and B4's first phase at every
+# nu: the feedback from its shared-memory slot, or from device memory; past
+# nu = 12 with G_t formed in the loop, up to 12 read from g_kernel's pass;
+# f32 and fp64: 8), which may neither spill nor keep a stack frame
 ROLLOUT_LARGE = "traopt::rollout_large_kernel<"
+# the runtime-nu instances of B2 (MU = 4, 6, 12; f32 and fp64: 6) and
+# g_kernel (f32, fp64), which may neither spill nor keep a stack frame
+NU_FRAMELESS = ("traopt::riccati_nu_kernel<float,", "traopt::riccati_f64_nu_kernel<",
+                "traopt::g_kernel<")
 # B5's runtime-nu instance against the tuned one, both at nu = 4 and 6 on
 # the same iterate: identical (max_rel, every output)
 NU_TWIN_GATE = 1e-12
@@ -1758,22 +1811,35 @@ def nu_phase(dev, card, counted, expect):
                               [_build.INT] * 3)
         return occ(1, nu, 0) * sms * 32 >= B
 
+    def g_pass(dtype, B):
+        """Whether the rollout at nu <= 12 takes g_kernel's pass for a batch
+        of B (`rollout_nu_g`: the build's one-warp blocks an SM)."""
+        return B <= P.rollout_nu_g_warps(dtype) * 32 * sms
+
     def instances():
-        return {t: P.rollout_large_instances(t) for t in (torch.float32, torch.float64)}
+        """{scalar: {instance: launches}} of the rollout at every nu but the
+        tuned ones: past 12 ("nuL slot", "nuL device"), up to it ("nu pass
+        slot", "nu pass device", "nu slot", "nu device")."""
+        return {t: {**{f"nuL {i}": v for i, v in P.rollout_large_instances(t).items()},
+                    **{f"nu {i}": v for i, v in P.rollout_nu_instances(t).items()}}
+                for t in (torch.float32, torch.float64)}
 
     def took(before, nu, B, dtype=None):
-        """{scalar: {instance: launches}} of the large-nu rollout since
-        ``before`` (`instances`), each launch held to the instance
-        `slot_fits` names at (nu, B); with ``dtype``, at least one launch in
+        """{scalar: {instance: launches}} of the rollout since ``before``
+        (`instances`), each launch held to the instance that `g_pass` and
+        `slot_fits` name at (nu, B); with ``dtype``, at least one launch in
         that scalar."""
         now = instances()
         d = {t: {i: now[t][i] - before[t][i] for i in now[t]} for t in now}
         for t, di in d.items():
-            want = "slot" if slot_fits(t, nu, B) else "device"
+            slot = "slot" if slot_fits(t, nu, B) else "device"
+            want = (None if nu in _build.TUNED_NU else f"nuL {slot}"
+                    if nu > _build.MU_MAX_NU else
+                    f"nu pass {slot}" if g_pass(t, B) else f"nu {slot}")
             check(all(v == 0 for i, v in di.items() if i != want)
                   and (t != dtype or di[want] > 0),
                   f"rollout nu={nu} B={B} {t}: launches {di}, expected the {want} instance")
-        return {str(t)[6:]: di for t, di in d.items()}
+        return {str(t)[6:]: {i: v for i, v in di.items() if v} for t, di in d.items()}
 
     def row(name, nu, kern, plain, s, outputs, gate, timing=None, parent=True):
         """One kernel against its plain version: errors per output, the
@@ -1801,7 +1867,8 @@ def nu_phase(dev, card, counted, expect):
             kout = kern()
         r.update(ms=event_ms(kern, 3), N_timed=s["us"].shape[0], **bound(name, s, kout))
         r["bound_share"] = r["bound_ms"] / r["ms"]
-        parent = parent and NU_LARGE_PARENT_MS.get(f"{name} nu={nu} {str(s['us'].dtype)[6:]}")
+        key = f"{name} nu={nu} {str(s['us'].dtype)[6:]}"
+        parent = parent and (NU_LARGE_PARENT_MS.get(key) or NU_PARENT_MS.get(key))
         if parent:
             r.update(parent_ms=parent, speedup_vs_parent=parent / r["ms"])
         failed.extend(f"{base[name]}{sfx(nu)} {name} nu={nu} {o}: {per[o]} > {gates[o]}"
@@ -1855,7 +1922,7 @@ def nu_phase(dev, card, counted, expect):
                 rows[f"{k} nu={nu} {tag}"] = r = row(
                     k, nu, kern, plain, s, kernel_check.OUTPUTS[k],
                     kernel_check.GATES[dtype][k], timing and (timing[k][0], sT))
-                if k in ("B3", "B4") and nu > _build.MU_MAX_NU:
+                if k in ("B3", "B4"):
                     r["instances"] = took(i0, nu, NU_CHECK_BATCH, dtype)
             del s, sT, timing
         n = depth(nu, "mixed")
@@ -1871,12 +1938,17 @@ def nu_phase(dev, card, counted, expect):
                     kernel_check.GATES["mixed"][k], timing and (timing[k][0], sT))
         del s, sT, timing
     # the large-nu rollout past one wave of its feedback slot's blocks: the
-    # device-memory instance at the paths' own shapes
-    for name, dtype in NU_PAST_SLOT:
+    # device-memory instance at the paths' own shapes; the rollout at nu <=
+    # 12 there, past the batch that takes g_kernel's pass
+    for name, dtype in (*NU_PAST_SLOT, *NU_PAST_PASS):
         pu = al_bench.NU_PROBLEMS[name]()
         nu, tag = pu.shape[1], str(dtype).replace("torch.", "")
-        check(not slot_fits(dtype, nu, NU_POLISH_BATCH),
-              f"{name} {tag}: B = {NU_POLISH_BATCH} fits the rollout's feedback slot")
+        if nu > _build.MU_MAX_NU:
+            check(not slot_fits(dtype, nu, NU_POLISH_BATCH),
+                  f"{name} {tag}: B = {NU_POLISH_BATCH} fits the rollout's feedback slot")
+        else:
+            check(not g_pass(dtype, NU_POLISH_BATCH),
+                  f"{name} {tag}: B = {NU_POLISH_BATCH} takes g_kernel's pass")
         s, solver = pipe_inputs(nu, dtype, NU_PLAIN_N, pu, NU_POLISH_BATCH)
         pairs = kernel_check.calls(s, dt=solver.dt, gravity=True, exact_grav=True)
         for k in ("B3", "B4"):
@@ -1935,13 +2007,14 @@ def nu_phase(dev, card, counted, expect):
                 n = occ(i, nu, 0)
                 # problems a block: fp64 B2 takes 4 past nu = 12
                 p = 32 if i else (4 if tag == "f64" and nu > _build.MU_MAX_NU else 8)
-                inst = f"MU={6 if nu <= 6 else 12}" if nu <= _build.MU_MAX_NU else "large"
+                inst = ("large" if i or nu > _build.MU_MAX_NU
+                        else f"MU={4 if nu <= 4 else 6 if nu <= 6 else 12}")
                 resident[f"{name} {tag} nu={nu} ({inst})"] = {
                     "blocks_per_sm": n, "problems_per_sm": n * p,
                     "waves_B16384": (math.ceil(math.ceil(16384 / p) / (n * sms))
                                      if n > 0 else None)}
     ptxas = {k: v for k, v in _build.ptxas_report().items()
-             if "_nu_kernel<" in k or "_large_kernel" in k}
+             if "_nu_kernel<" in k or "_large_kernel" in k or "g_kernel<" in k}
     parts_s["a"] = time.perf_counter()
 
     # (b) the full-width problems on the f32 path, the polish and the
@@ -1965,9 +2038,11 @@ def nu_phase(dev, card, counted, expect):
             st, sec, n = counted(lambda: solver.solve(*a))
             check(n == expect(**launches), f"{name} {what} launches {n}")
             inst = took(i0, nu, B)
-            check(sum(sum(d.values()) for d in inst.values()) == n["B3nuL"] + n["B4nuL"],
-                  f"{name} {what}: rollout instances {inst}, B3nuL + B4nuL launches "
-                  f"{n['B3nuL'] + n['B4nuL']}")
+            for s_ in ("nu", "nuL"):
+                m = sum(v for d in inst.values() for i, v in d.items() if i.split()[0] == s_)
+                check(m == n[f"B3{s_}"] + n[f"B4{s_}"],
+                      f"{name} {what}: rollout instances {inst}, B3{s_} + B4{s_} launches "
+                      f"{n[f'B3{s_}'] + n[f'B4{s_}']}")
             for k, v in n.items():
                 launches_b[k] += v
             us = us_of(st)
@@ -2050,9 +2125,13 @@ def nu_phase(dev, card, counted, expect):
           "parts_s": {k: parts_s[k] - parts_s[j] for j, k in zip("sab", "abc")}})
     require(not failed, f"kernels_nu checks failed: {failed}")
     roll = {k: v for k, v in ptxas.items() if ROLLOUT_LARGE in k}
-    require(len(roll) == 4 and all(v.get("stack_frame") == 0 and v.get("spill_stores") == 0
+    require(len(roll) == 8 and all(v.get("stack_frame") == 0 and v.get("spill_stores") == 0
                                    and v.get("spill_loads") == 0 for v in roll.values()),
-            f"B3nuL / B4nuL rollout keeps a stack frame or spills: {roll}")
+            f"the rollout keeps a stack frame or spills: {roll}")
+    nu_kern = {k: v for k, v in ptxas.items() if any(n in k for n in NU_FRAMELESS)}
+    require(len(nu_kern) == 8 and all(v.get("stack_frame") == 0 and v.get("spill_stores") == 0
+                                      and v.get("spill_loads") == 0 for v in nu_kern.values()),
+            f"B2nu / g_kernel keep a stack frame or spill: {nu_kern}")
     line = {}
     for nu, s_ in zip(LINE_NU, ("nu", "nuL")):
         for key in ("B1", "B2", "B3", "B4"):

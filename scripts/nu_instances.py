@@ -31,12 +31,25 @@ pad    screw200_torques3 (nu = 3) on the runtime-nu instances against the
 large12  at nu = 12 (`al_bench.rcs12_pu`), N = 200, B = 1024 and 16384, the
        large-nu instances of B2 (f32, fp64), B5, B4 (f32, fp64) and B6,
        launched through their direct C entries (`riccati_large`,
-       `rollout_large`), against the runtime-nu instances of maximum 12
-       that the wrappers launch there: ms by CUDA events (mean of 5 after a
+       `rollout_large`), against the runtime-nu instances that the
+       wrappers launch there (B2, B5, B6: the instances of maximum 12; B4:
+       the same large-nu rollout, after `g_kernel`'s pass at B = 1024): ms
+       by CUDA events (mean of 5 after a
        warm-up call), in turns nu, large, large, nu, on a real iterate (two
        f32 iterations; the polish's after 12 and one polish iteration),
        and the largest error of each output of the large-nu call against
        the runtime-nu one.  Routing at nu <= 12 does not depend on it.
+g_pass   (``--g-pass``: this measurement alone, ~1 minute) the rollout at
+       nu <= 12 with `g_kernel`'s pass before it and without (the direct
+       entries `rollout_nu_pass`, `rollout_nu_no_pass`), B3 and B4 on
+       screw200_torques3 (nu = 3) and screw200_rcs12 (nu = 12), f32 and
+       fp64, N = 200, at B = G_PASS_BATCHES (the paths' 8192 and 16384
+       among them): ms by CUDA events (mean of 5 after a warm-up call), in
+       turns pass, none, none, pass, on a real iterate (two f32
+       iterations), the largest error of the two calls' outputs against
+       each other, and the instance that the wrappers' entry takes there
+       (`pipeline.rollout_nu_instances`); the threshold of
+       `rollout_nu_g` is set where the two cross.
 """
 
 import argparse
@@ -52,6 +65,7 @@ import torch
 
 N, B_GVEC, B_F32, B_POLISH, ITERS, SEED = 200, 1024, 8192, 16384, 12, 0
 LARGE12_BATCHES, LARGE12_REPS = (1024, 16384), 5
+G_PASS_BATCHES = (2048, 4096, 8192, 12288, 16384)
 GVEC_ITERS = (2, 7)
 F32_REPS, POLISH_REPS = 5, 3
 
@@ -60,6 +74,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
     ap.add_argument("--large12", action="store_true", help="the large12 measurement alone")
+    ap.add_argument("--g-pass", action="store_true", help="the g_pass measurement alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("nu_instances: needs a CUDA device")
@@ -71,6 +86,10 @@ def main():
     out = {"card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), "build_s": _build.build()}
+    if args.g_pass:
+        out["g_pass"] = g_pass_rows(dev)
+        print(json.dumps(out), flush=True)
+        return
     if not args.large12:
         out["gvec"] = gvec_rows(dev)
         out["pad"] = pad_rates(dev)
@@ -201,6 +220,55 @@ def large12_rows(dev):
                 pair(f"B6 B={B}", {w: (lambda f=f: DM._rollout_mx_kernel(
                     f, stream, *rargs, dt=mx.dt, gravity=True)) for w, f in fns.items()})
                 del s, bargs, rargs
+    return rows
+
+
+def g_pass_rows(dev):
+    """{"B3/B4 problem tag B=...": {"ms_pass", "ms_none" (in turns),
+    "pass_vs_none", "auto"}} of the ``g_pass`` measurement."""
+    from trajectory_optimization_matrix_lie_groups_tpu_torch import _build
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.kernel_check import (
+        _flat,
+        kernel_inputs,
+        rel_err,
+    )
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
+    from trajectory_optimization_matrix_lie_groups_tpu_torch.tasks import al_bench
+
+    grav = dict(gravity=True, exact_gravity_jacobian=True)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = {}
+    for name in ("screw200_torques3", "screw200_rcs12"):
+        pu = al_bench.NU_PROBLEMS[name]()
+        for dtype in (torch.float32, torch.float64):
+            tag = _build.suffix(dtype)
+            fns = {w: _build.function("pipeline_nu", f"rollout_{e}", tag, P._ROLLOUT_ARGS)
+                   for w, e in (("pass", "nu_pass"), ("none", "nu_no_pass"), ("auto", "nu"))}
+            for B in G_PASS_BATCHES:
+                dyn, cost, q0, xi0 = al_bench.build_screw200_nu(pu, dtype, dev)
+                q0s, xi0s = al_bench.screw_batch(q0, xi0, B, SEED)
+                us0 = torch.zeros((B, N, pu.shape[1]), dtype=dtype, device=dev)
+                solver = P.PipelineSolver(N, 2, float(dyn.dt), **grav)
+                s = kernel_inputs(solver, dyn, cost, q0s, xi0s, us0, kernel_gains=True)
+                rargs = (s["qR"], s["qp"], s["xi"], s["us"], s["k"], s["K"], s["lin"])
+                for k, fused in (("B3", True), ("B4", False)):
+                    call = lambda f, fused=fused: P._rollout_kernel(
+                        f, stream, *rargs, s["refs"], s["consts"], dt=solver.dt,
+                        gravity=True, exact_grav=True, fused=fused)[:5 if fused else 4]
+                    ms = {"pass": [], "none": []}
+                    for which in ("pass", "none", "none", "pass"):
+                        ms[which].append(event_ms(lambda: call(fns[which]), LARGE12_REPS))
+                    a, b = _flat(call(fns["pass"])), _flat(call(fns["none"]))
+                    i0 = P.rollout_nu_instances(dtype)
+                    call(fns["auto"])
+                    i1 = P.rollout_nu_instances(dtype)
+                    rows[f"{k} {name} {tag} B={B}"] = {
+                        "ms_pass": ms["pass"], "ms_none": ms["none"],
+                        "pass_vs_none": max(rel_err(x.double(), y.double())
+                                            for x, y in zip(a, b, strict=True)),
+                        "auto": [i for i in i1 if i1[i] != i0[i]]}
+                    del a, b
+                del s, rargs
     return rows
 
 

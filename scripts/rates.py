@@ -70,6 +70,17 @@ median solves/s of 3 reps after a warm-up, a new batch each, and the
 warm-up's lane 0 against the golden with its gate (`chip_smoke.py`'s
 kernels_nu gates), ~4 minutes a tree with the build.
 
+    python3 scripts/rates.py [--root DIR] --nu
+
+measures B2-B4 at nu <= 12 (the runtime-nu Riccati step and rollout,
+`csrc/nu.cuh`) as ``--large-nu`` measures them past 12: B2, B3 and B4 in f32
+and fp64 through the wrappers (the instance each nu takes) at nu = 1, 3, 5,
+8 and 12, the tuned instances at nu = 6 on the same shapes (rows B2_..., no
+"nu"), and the large-nu instances of B2 and B4 launched through their direct
+entries at the same nu (rows B2L, B4L); B2 and B3 at the paths' shapes on
+screw200_torques3 and screw200_rcs12; both problems' f32 path, polish and
+refiner with their lane-0 gates, ~3 minutes a tree with the build.
+
     python3 scripts/rates.py [--root DIR] --refine
 
 measures the refiner's fp64 phase alone (the kernels `chip_smoke.py
@@ -113,6 +124,10 @@ LARGE_NUS, LARGE_BATCH = (12, 13, 16, 24, 34), 1024
 LARGE_F32_BATCH, LARGE_POLISH_BATCH, LARGE_REPS = 8192, 16384, 3
 LARGE_PROBLEMS = ("screw200_rcs16", "screw200_rcs24")
 LARGE_POLISH_GATE, LARGE_REFINE_GATE = 1e-4, 1e-6
+# the runtime-nu instances (--nu): the kernel rows' nu (and the tuned nu =
+# 6 on the same shapes), and the problems whose paths run them; the rest as
+# --large-nu
+NU_NUS, NU_RATE_PROBLEMS = (1, 3, 5, 8, 12), ("screw200_torques3", "screw200_rcs12")
 
 
 def main():
@@ -124,6 +139,8 @@ def main():
                     help="measure the refiner's fp64 phase alone")
     ap.add_argument("--large-nu", action="store_true",
                     help="measure B2-B5 past nu = 12 and the rcs16/rcs24 paths alone")
+    ap.add_argument("--nu", action="store_true",
+                    help="measure B2-B4 at nu <= 12 and the torques3/rcs12 paths alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("rates: needs a CUDA device")
@@ -178,8 +195,8 @@ def main():
         out.update(refine_rates(dev, event_ms, timed))
         print(json.dumps(out), flush=True)
         return
-    if args.large_nu:
-        out.update(large_nu_rates(dev, event_ms, timed))
+    if args.large_nu or args.nu:
+        out.update(nu_rates(dev, event_ms, timed, args.large_nu))
         print(json.dumps(out), flush=True)
         return
 
@@ -399,10 +416,12 @@ def refine_rates(dev, event_ms, timed):
     return out
 
 
-def large_nu_rates(dev, event_ms, timed):
-    """``--large-nu`` (module docstring): {row: ms} of B2 (f32, fp64) and B5
-    past nu = 12 and at the rcs paths' shapes, and {path: solves/s, lane-0
-    error, gate} of the rcs16 and rcs24 f32 path, polish and refiner."""
+def nu_rates(dev, event_ms, timed, large):
+    """``--large-nu`` or ``--nu`` (module docstring): {row: ms} of B2-B4 (f32,
+    fp64) past nu = 12 and B5 (``large``), or at nu <= 12 with the tuned
+    nu = 6 rows and the large-nu entries beside them, and at the paths'
+    shapes; {path: solves/s, lane-0 error, gate} of each problem's f32 path,
+    polish and refiner."""
     from trajectory_optimization_matrix_lie_groups_tpu_torch import _build, kernel_check
     from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import df_mixed as DM
     from trajectory_optimization_matrix_lie_groups_tpu_torch.solvers import pipeline as P
@@ -415,15 +434,19 @@ def large_nu_rates(dev, event_ms, timed):
     grav = dict(gravity=True, exact_gravity_jacobian=True)
     stream = torch.cuda.current_stream(dev).cuda_stream
     f64, out = torch.float64, {}
+    nus, problems = (LARGE_NUS, LARGE_PROBLEMS) if large else ((*NU_NUS, 6), NU_RATE_PROBLEMS)
 
     def inputs(pu, dtype, B, seed=0):
         dyn, cost, q0, xi0 = al_bench.build_screw200_nu(pu, dtype, dev, horizon=N)
         q0s, xi0s = al_bench.screw_batch(q0, xi0, B, seed)
         return dyn, cost, q0s, xi0s, torch.zeros((B, N, pu.shape[1]), dtype=dtype, device=dev)
 
-    def b234_ms(pu, dtype, B, kernels=("B2", "B3", "B4")):
-        """{kernel: ms} of B2, B3 and B4 through their direct large-nu entries
-        on one real iterate."""
+    def b234_ms(pu, dtype, B, kernels=("B2", "B3", "B4"), entry=large):
+        """{kernel: ms} of B2, B3 and B4 on one real iterate: through their
+        direct large-nu entries (``entry``), or through the wrappers (the
+        instance each nu takes) and, with all three at a nu the tuned
+        instances do not take, the large-nu entries of B2 and B4 (keys B2L,
+        B4L)."""
         args = inputs(pu, dtype, B)
         solver = P.PipelineSolver(N, 2, float(args[0].dt), **grav)
         s = kernel_check.kernel_inputs(solver, *args, kernel_gains=True)
@@ -434,11 +457,17 @@ def large_nu_rates(dev, event_ms, timed):
         rargs = (s["qR"], s["qp"], s["xi"], s["us"], s["k"], s["K"], s["lin"], s["refs"],
                  s["consts"])
         rkw = dict(dt=solver.dt, gravity=True, exact_grav=True)
-        run = {"B2": lambda: P._backward_kernel(fn, stream, *bargs, glow=True, luu_al=None,
-                                                hand=True),
-               "B3": lambda: P._rollout_kernel(rfn, stream, *rargs, fused=True, **rkw),
-               "B4": lambda: P._rollout_kernel(rfn, stream, *rargs, fused=False, **rkw)}
-        return {k: event_ms(run[k]) for k in kernels}
+        direct = {"B2": lambda: P._backward_kernel(fn, stream, *bargs, glow=True, luu_al=None,
+                                                   hand=True),
+                  "B3": lambda: P._rollout_kernel(rfn, stream, *rargs, fused=True, **rkw),
+                  "B4": lambda: P._rollout_kernel(rfn, stream, *rargs, fused=False, **rkw)}
+        if entry:
+            return {k: event_ms(direct[k]) for k in kernels}
+        wrap = kernel_check.calls(s, dt=solver.dt, gravity=True, exact_grav=True)
+        res = {k: event_ms(wrap[k][0]) for k in kernels}
+        if len(kernels) == 3 and pu.shape[1] not in _build.TUNED_NU:
+            res.update({f"{k}L": event_ms(direct[k]) for k in ("B2", "B4")})
+        return res
 
     def b5_ms(pu, B):
         args = inputs(pu, f64, B)
@@ -449,13 +478,21 @@ def large_nu_rates(dev, event_ms, timed):
         return event_ms(lambda: DM._backward_mx_kernel(fn, stream, *bargs, glow=True,
                                                        luu_al=None))
 
-    for nu in LARGE_NUS:
+    def name_of(k, nu):
+        """A kernel row's key: B2nuL (--large-nu), B2nu, B2 (the tuned nu =
+        6) or B2L (the large-nu entry at nu <= 12)."""
+        if large:
+            return f"{k}nuL"
+        return k if k.endswith("L") or nu in _build.TUNED_NU else f"{k}nu"
+
+    for nu in nus:
         pu = al_bench.nu_pu(nu)
         for dtype, tag in ((torch.float32, "f32"), (f64, "f64")):
             for k, ms in b234_ms(pu, dtype, LARGE_BATCH).items():
-                out[f"{k}nuL_{tag}_nu{nu}_B{LARGE_BATCH}_ms"] = ms
-        out[f"B5nuL_nu{nu}_B{LARGE_BATCH}_ms"] = b5_ms(pu, LARGE_BATCH)
-    pus = {name: al_bench.NU_PROBLEMS[name]() for name in LARGE_PROBLEMS}
+                out[f"{name_of(k, nu)}_{tag}_nu{nu}_B{LARGE_BATCH}_ms"] = ms
+        if large:
+            out[f"B5nuL_nu{nu}_B{LARGE_BATCH}_ms"] = b5_ms(pu, LARGE_BATCH)
+    pus = {name: al_bench.NU_PROBLEMS[name]() for name in problems}
     for name, pu in pus.items():
         # the f32 path's batch; the polish's f32 phase, B5 and the refiner's
         # fp64 phase at theirs
@@ -463,8 +500,9 @@ def large_nu_rates(dev, event_ms, timed):
                               (torch.float32, "f32", LARGE_POLISH_BATCH),
                               (f64, "f64", LARGE_POLISH_BATCH)):
             for k, ms in b234_ms(pu, dtype, B, ("B2", "B3")).items():
-                out[f"{k}nuL_{tag}_{name}_B{B}_ms"] = ms
-        out[f"B5nuL_{name}_B{LARGE_POLISH_BATCH}_ms"] = b5_ms(pu, LARGE_POLISH_BATCH)
+                out[f"{name_of(k, pu.shape[1])}_{tag}_{name}_B{B}_ms"] = ms
+        if large:
+            out[f"B5nuL_{name}_B{LARGE_POLISH_BATCH}_ms"] = b5_ms(pu, LARGE_POLISH_BATCH)
     for name, pu in pus.items():
         us_gold, meta = al_bench.load_nu_golden(name)
         pol, ref = meta["polish_schedule"], meta["refine_schedule"]

@@ -7,8 +7,8 @@ line per nu.
 
 It copies the package under ``--root`` (default: the one this script lies
 in) to ``build/phases/`` there, adds `clock64()` reads at the step's phase
-comments (A, B, C's factorization with the forward solve, C's back
-substitution, K^T Q_uu, D, E) and around the stage loop's copies, stores
+comments (A, B, C's factorization with the forward solve and the back
+substitution (`large_factor_solve`), K^T Q_uu, D, E) and around the stage loop's copies, stores
 and barrier, builds the copy's f32 `pipeline_nu` library alone, and runs
 its B2 through the direct entry `riccati_large` on `kernel_check`'s real
 iterate (two f32 iterations on the rigid body driven through
@@ -26,12 +26,13 @@ import shutil
 import sys
 
 PKG = "trajectory_optimization_matrix_lie_groups_tpu_torch"
-PHASES = ("A", "B", "C_factor_forward", "C_back", "KTQuu", "D", "E", "unused", "stage_loop")
+PHASES = ("A", "B", "unused", "C_factor_solve", "KTQuu", "D", "E", "unused", "stage_loop")
 # the step's phase comments, each a tick of the clock (the tick's index
-# closes the phase before it)
+# closes the phase before it); the factorization and both solves are one
+# phase (large_factor_solve, a function of its own, has no clock)
 MARKS = (("  // ---- A ----\n", 0), ("  // ---- B ----\n", 1), ("  // ---- C ----\n", 2),
-         ("  // the back substitution, row i a step", 3), ("  // rows a of (K^T Q_uu)^T", 4),
-         ("  // ---- D ----\n", 5), ("  // ---- E ----\n", 6))
+         ("  // rows a of (K^T Q_uu)^T", 4), ("  // ---- D ----\n", 5),
+         ("  // ---- E ----\n", 6))
 
 
 def patch(s):
@@ -91,9 +92,11 @@ def main():
         f.write(text)
     with open(os.path.join(csrc, "nu_large.cuh")) as f:
         text = f.read()
-    b2 = "a.glow != 0, a.K, a.k, a.gvec);\n}\n\n// B2 at a large nu"
-    assert b2 in text
-    text = text.replace(b2, b2.replace("a.gvec);", "a.gvec, (float*)a.lN + 8);"), 1)
+    # B2's kernel (both of its sweeps' calls)
+    i, j = text.index("    riccati_large_kernel(RiccatiLargeArgs<T> x) {"), text.index("// B2 at a large nu")
+    assert text.count("a.K, a.k, a.gvec);", i, j) >= 1
+    text = text[:i] + text[i:j].replace("a.K, a.k, a.gvec);",
+                                        "a.K, a.k, a.gvec, (float*)a.lN + 8);") + text[j:]
     b5 = "a.luual, a.glow != 0, a.K, a.k, a.gvec);\n}"
     assert b5 in text
     text = text.replace(b5, b5.replace("a.gvec);", "a.gvec, (float*)a.gvec);"), 1)
@@ -127,7 +130,7 @@ def main():
         out = P._backward_kernel(fn, stream, *bargs, glow=True, luu_al=None, hand=True)
         torch.cuda.synchronize()
         cyc = dict(zip(PHASES, out[3][8:17].tolist()))
-        del cyc["unused"]
+        cyc = {k: v for k, v in cyc.items() if k != "unused"}
         total = sum(cyc.values())
         print(json.dumps({"nu": nu, "card": torch.cuda.get_device_name(0),
                           "cycles_per_stage": cyc, "total": total,

@@ -1012,6 +1012,39 @@ def test_large_rollout_device_memory_feedback_matches_plain(cuda, dtype):
             assert rel_err(a, b) <= GATES[dtype][name], (name, out, rel_err(a, b))
 
 
+# The rollout at nu <= 12 (B3nu's first phase, B4nu): g_kernel's pass forms
+# G_t of every stage before it while the batch fills at most the build's
+# one-warp blocks an SM (`pipeline.rollout_nu_g_warps`); past that it forms
+# G_t in its loop, as past nu = 12.
+@pytest.mark.parametrize("nu", [3, 12], ids=lambda nu: f"nu{nu}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_nu_rollout_past_the_g_pass_matches_plain(cuda, dtype, nu):
+    """One problem past the batch that takes g_kernel's pass, B3nu and B4nu
+    at N = 40 each take the instance without it (the feedback slot's while
+    the batch is resident at once, device memory's past it) and are within
+    their gates of the plain versions."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    occ = _build.function("pipeline_nu", "occupancy_nu", _build.suffix(dtype),
+                          [_build.INT] * 3)(1, nu, torch.cuda.current_device())
+    B_, H_ = P.rollout_nu_g_warps(dtype) * 32 * sms + 1, 40
+    want = "slot" if occ * sms * 32 >= B_ else "device"
+    dyn, cost, q0s, xi0s, us0 = _nu_problem(dtype, cuda, nu, B_, H_)
+    solver = P.PipelineSolver(H_, 2, float(dyn.dt), gravity=True, exact_gravity_jacobian=True)
+    s = kernel_inputs(solver, dyn, cost, q0s, xi0s, us0, kernel_gains=True)
+    pairs = calls(s, dt=solver.dt, gravity=True, exact_grav=True)
+    for name in ("B3", "B4"):
+        before, inst = _counts(), P.rollout_nu_instances(dtype)
+        kern = pairs[name][0]()
+        torch.cuda.synchronize()
+        now = _counts()
+        assert {k for k in now if now[k] != before[k]} == {name + "nu"}
+        inst[want] += 1
+        assert P.rollout_nu_instances(dtype) == inst, (name, want)
+        plain = pairs[name][1]()
+        for out, a, b in zip(OUTPUTS[name], _flat(kern), _flat(plain), strict=True):
+            assert rel_err(a, b) <= GATES[dtype][name], (name, out, rel_err(a, b))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_b13_large_nu_matches_plain_over_n200(cuda, dtype):
     """B13's large-nu instance at (12, 16), B = 33, N = 200 against the

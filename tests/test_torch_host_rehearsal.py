@@ -409,11 +409,14 @@ def test_fast_and_rollout_launchers_refuse_what_they_do_not_take(libs):
 
 
 # The runtime-nu instances of B1-B6 (csrc/nu.cuh: pipeline_nu.cu, polish_nu.cu)
-# at nu = 1, 3, 5, 8 and 12 (the instance of maximum 6, and of 12), on the
-# rigid body driven through `al_bench.nu_pu(nu)` (g = 0, the rigid-body
-# family); N = 3; the group kernels at B = 9 (a ragged second block of 8),
-# the rollouts at B = 33 (a ragged second block of 32).
+# at nu = 1, 3, 5, 8 and 12, on the rigid body driven through
+# `al_bench.nu_pu(nu)` (g = 0, the rigid-body family); N = 3; the group
+# kernels at B = 9 (a ragged second block of 8), the rollouts at B = 33 (a
+# ragged second block of 32).  B2 and the rollouts also at nu = 7 and 11
+# (just past B2's instance of maximum 6, and just under 12; the rollout's
+# loops stop at the runtime nu).
 NUS = [pytest.param(nu, id=f"nu{nu}") for nu in (1, 3, 5, 8, 12)]
+NUS_STEP = NUS + [pytest.param(nu, id=f"nu{nu}") for nu in (7, 11)]
 
 
 def _nu_problem(dtype, nu, B, N):
@@ -430,12 +433,23 @@ def _nu_inputs(dtype, nu, B, N):
     return kernel_inputs(solver, *args, luu_al=True), solver
 
 
-@pytest.mark.parametrize("nu", NUS)
+@pytest.mark.parametrize("nu", NUS_STEP)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_b2_nu_host_rehearsal_matches_plain(libs, dtype, nu):
     """B2's runtime-nu instance, with and without the AL diagonal on Q_uu,
     within its card gate of the plain version (f32); f64 to 1e-12."""
-    s, _ = _nu_inputs(dtype, nu, 9, 3)
+    _check_b2_nu(libs, dtype, nu, 9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b2_nu_ragged_batch_with_al_matches_plain(libs, dtype):
+    """B2's runtime-nu instance at nu = 11 on B = 13 problems (a ragged
+    second block of 5 of its 8), with and without the AL diagonal."""
+    _check_b2_nu(libs, dtype, 11, 13)
+
+
+def _check_b2_nu(libs, dtype, nu, B):
+    s, _ = _nu_inputs(dtype, nu, B, 3)
     tag = "f32" if dtype == torch.float32 else "f64"
     fn = HR.function(libs[f"nu_{tag}"], f"riccati_nu_{tag}", P._RICCATI_NU_ARGS)
     bargs = (s["lin"], s["lu"], s["qR"], s["qp"], s["xi"], s["refs"], s["consts"])
@@ -523,14 +537,45 @@ def test_b5_nu_instance_is_its_tuned_twin_on_a_rough_iterate(libs, nu):
             assert torch.equal(x, y), (name, al is not None, rel_err(x, y))
 
 
-@pytest.mark.parametrize("nu", NUS)
+@pytest.mark.parametrize("nu", NUS_STEP)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_b1_b3_b4_nu_host_rehearsal_match_plain(libs, dtype, nu):
     """B1's, B3's and B4's runtime-nu instances within their card gates of
-    the plain versions (f32); f64 to 1e-12; no launch of the large-nu
-    rollout."""
-    s, solver = _nu_inputs(dtype, nu, 33, 3)
+    the plain versions (f32); f64 to 1e-12; each rollout launch counted as
+    the instance it should take (g_kernel's pass and the feedback slot),
+    none as the large-nu rollout's (its counters count the launches past
+    nu = 12)."""
+    _check_b1_b3_b4_nu(libs, dtype, nu, 33)
+
+
+@pytest.mark.parametrize("nu", [pytest.param(nu, id=f"nu{nu}") for nu in (3, 12)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b1_b3_b4_nu_without_the_g_pass_match_plain(libs, dtype, nu):
+    """The rollout at nu <= 12 one problem past the batch that takes
+    g_kernel's pass (the build's one-warp blocks an SM on the host's two
+    SMs), where it forms G_t itself and reads its feedback from device
+    memory: within the gates as at B = 33."""
     tag = "f32" if dtype == torch.float32 else "f64"
+    warps = HR.function(libs[f"nu_{tag}"], f"rollout_nu_g_warps_{tag}", [])()
+    _check_b1_b3_b4_nu(libs, dtype, nu, warps * 32 * HOST_SMS + 1)
+
+
+@pytest.mark.parametrize("nu", [pytest.param(nu, id=f"nu{nu}") for nu in (3, 12)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_b1_b3_b4_nu_pass_with_device_feedback_match_plain(libs, dtype, nu):
+    """The rollout at nu <= 12 after g_kernel's pass, one problem past the
+    host's 64 resident problems of its feedback slot, where it reads its
+    feedback from device memory: within the gates as at B = 33."""
+    _check_b1_b3_b4_nu(libs, dtype, nu, HOST_RESIDENT + 1)
+
+
+def _check_b1_b3_b4_nu(libs, dtype, nu, B):
+    s, solver = _nu_inputs(dtype, nu, B, 3)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    warps = HR.function(libs[f"nu_{tag}"], f"rollout_nu_g_warps_{tag}", [])()
+    # [2 g + slot]: rollout_nu_launches's index of the instance to take
+    want = 2 * (B <= warps * 32 * HOST_SMS) + (B <= HOST_RESIDENT)
+    took = HR.function(libs[f"nu_{tag}"], f"rollout_nu_launches_{tag}", [ctypes.c_int])
     gate = lambda name: GATES[dtype][name] if dtype == torch.float32 else 1e-12
     traj = (s["qR"], s["qp"], s["xi"], s["us"])
     lkw = dict(dt=solver.dt, gravity=True, exact_grav=True)
@@ -544,10 +589,12 @@ def test_b1_b3_b4_nu_host_rehearsal_match_plain(libs, dtype, nu):
     rargs = (*traj, s["k"], s["K"], s["lin"])
     kw = dict(dt=solver.dt, gravity=True)
     for name, fused in (("B3", True), ("B4", False)):
-        before = count(0), count(1)
+        before, inst = (count(0), count(1)), [took(i) for i in range(4)]
         kern = P._rollout_kernel(fn, None, *rargs, s["refs"], s["consts"], fused=fused,
                                  exact_grav=True, **kw)
         assert (count(0), count(1)) == before  # no large-nu rollout launched
+        inst[want] += 1
+        assert [took(i) for i in range(4)] == inst, (name, want)
         if fused:
             plain = P.rollout_linearize_plain(*rargs, s["refs"], s["consts"],
                                               exact_grav=True, **kw)
@@ -572,7 +619,7 @@ B_LARGE = [pytest.param(3, id="B3"), pytest.param(33, id="B33")]
 # problems (tests/cuda_host: two SMs), where the rollout reads its feedback
 # from device memory instead of its shared-memory slot
 B_LARGE_ROLLOUT = [pytest.param(1, id="B1")] + B_LARGE + [pytest.param(65, id="B65")]
-HOST_RESIDENT = 64
+HOST_RESIDENT, HOST_SMS = 64, 2
 
 
 @pytest.mark.parametrize("B", B_LARGE)

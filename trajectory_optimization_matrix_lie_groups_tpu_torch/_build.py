@@ -43,9 +43,9 @@ LIBS = (("linearize", "f32", "float"), ("linearize", "f64", "double"),
         ("polish_nu", "mx", None))
 # The input dimensions of B1-B6: their tuned instances (linearize, pipeline,
 # polish) take TUNED_NU; their runtime-nu instances (pipeline_nu: B1-B4,
-# polish_nu: B5 and B6) every nu from 1 to MU_MAX_NU (csrc/nu.cuh), and
-# their large-nu instances every nu from MU_MAX_NU + 1 to MAX_NU
-# (csrc/nu_large.cuh).
+# polish_nu: B5 and B6) every nu from 1 to MU_MAX_NU (csrc/nu.cuh; B3's and
+# B4's rollout is the large-nu one), and their large-nu instances every nu
+# from MU_MAX_NU + 1 to MAX_NU (csrc/nu_large.cuh).
 TUNED_NU, MU_MAX_NU = (6, 4), 12
 # An H100's shared memory for one block (csrc/group.cuh kSmemPerBlock).
 SMEM_PER_BLOCK = 232448

@@ -162,7 +162,7 @@ TRAOPT_HD T coeff_c1(T th_sq) {
 }
 
 // (th^2 + 2 cos th - 2) / (2 th^4)
-template <typename T>
+template <typename Trig = LibTrig, typename T>
 TRAOPT_HD T coeff_c2(T th_sq) {
   if (series_range(th_sq)) {
     const double c[11] = {
@@ -173,11 +173,11 @@ TRAOPT_HD T coeff_c2(T th_sq) {
     return poly11(th_sq, c);
   }
   const T th = xsqrt(th_sq);
-  return (th_sq + T(2) * xcos(th) - T(2)) / (T(2) * th_sq * th_sq);
+  return (th_sq + T(2) * Trig::cos(th) - T(2)) / (T(2) * th_sq * th_sq);
 }
 
 // (2 th - 3 sin th + th cos th) / (2 th^5)
-template <typename T>
+template <typename Trig = LibTrig, typename T>
 TRAOPT_HD T coeff_c3(T th_sq) {
   if (series_range(th_sq)) {
     const double c[11] = {
@@ -188,7 +188,7 @@ TRAOPT_HD T coeff_c3(T th_sq) {
     return poly11(th_sq, c);
   }
   const T th = xsqrt(th_sq);
-  return (T(2) * th - T(3) * xsin(th) + th * xcos(th)) / (T(2) * th_sq * th_sq * th);
+  return (T(2) * th - T(3) * Trig::sin(th) + th * Trig::cos(th)) / (T(2) * th_sq * th_sq * th);
 }
 
 // 1/th^2 - cos(th/2) / (2 th sin(th/2))
@@ -405,10 +405,10 @@ TRAOPT_HD void se3_inverse(T* Ri, T* pi, const T* R, const T* p) {
 }
 
 // Barfoot Q(w, v), "State Estimation for Robotics" eq. (7.86)
-template <typename T>
+template <typename Trig = LibTrig, typename T>
 TRAOPT_HD void q_matrix(T* Q, const T* w, const T* v) {
   const T th_sq = theta_sq(w);
-  const T c1 = coeff_c1(th_sq), c2 = coeff_c2(th_sq), c3 = coeff_c3(th_sq);
+  const T c1 = coeff_c1<Trig>(th_sq), c2 = coeff_c2<Trig>(th_sq), c3 = coeff_c3<Trig>(th_sq);
   T W[9], V[9], WV[9], VW[9], WVW[9], A[9], Bm[9];
   so3_hat(W, w);
   so3_hat(V, v);
@@ -458,12 +458,12 @@ TRAOPT_HD void se3_right_jacobian(T* J, const T* xi, T scale) {
 }
 
 // Jr^-1(xi) = Jl^-1(-xi) = [[Jwi, 0], [-(Jwi Q) Jwi, Jwi]]
-template <typename T>
+template <typename Trig = LibTrig, typename T>
 TRAOPT_HD void se3_right_jacobian_inv(T* J, const T* xi) {
   T w[3] = {-xi[0], -xi[1], -xi[2]}, v[3] = {-xi[3], -xi[4], -xi[5]};
   T Jwi[9], Q[9], JQ[9], JQJ[9];
-  so3_left_jacobian_inv(Jwi, w);
-  q_matrix(Q, w, v);
+  so3_left_jacobian_inv<Trig>(Jwi, w);
+  q_matrix<Trig>(Q, w, v);
   mat_mul<3, 3, 3>(JQ, Jwi, Q);
   mat_mul<3, 3, 3>(JQJ, JQ, Jwi);
   set_block(J, 0, 0, Jwi);

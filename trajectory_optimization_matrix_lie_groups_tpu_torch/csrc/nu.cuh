@@ -1,13 +1,16 @@
-// The instances of B1-B6 at any input dimension nu = 1 ... kMaxNu
-// (pipeline_nu.cu: B1, B2, B3 and B4 in f32 and fp64; polish_nu.cu: B5 and
-// B6).  The tuned instances (pipeline.cu, linearize.cu, polish.cu) take nu
-// = 6 or 4 as a template argument; these take nu at run time, each kernel
-// in two instances by its compile-time maximum MU: 6 (nu <= 6) and 12 (nu =
-// 7 ... 12).  Each is its tuned twin's design: the same stage functions
-// (stage.cuh, riccati_group.cuh, riccati_f64.cuh) at NU = MU, the same
-// threads, groups and copy-ahead; only the loads and stores of the
-// batch-last (N, nu, ...) arrays and the copies of their stages take nu at
-// run time.
+// The instances of B1, B2, B5 and B6 at any input dimension nu = 1 ...
+// kMaxNu (pipeline_nu.cu: B1 and B2 in f32 and fp64; polish_nu.cu: B5 and
+// B6; B3's and B4's rollout is nu_large.cuh's at every nu).  The tuned
+// instances (pipeline.cu, linearize.cu, polish.cu) take nu = 6 or 4 as a
+// template argument; these take nu at run time, each kernel in instances
+// by a compile-time maximum MU (by_mu: 6 for nu <= 6, else 12; B2's
+// by_mu_b2: 4 for nu <= 4, 6 for nu <= 6, else 12).  Each is its tuned
+// twin's design: the same stage functions (stage.cuh, riccati_group.cuh,
+// riccati_f64.cuh) at NU = MU, the same threads, groups and copy-ahead;
+// only the loads and stores of the batch-last (N, nu, ...) arrays and the
+// copies of their stages take nu at run time.  At MU = 12 B2 takes the
+// steps' lean variants (kLean: Q_uu, and in fp64 fu2 and the factor, read
+// from shared memory where used; the MU = 12 step spilled otherwise).
 //
 // The input dimensions nu .. MU - 1 are padding, set so that every product
 // they enter is exactly zero: Pu and fu2 zero past column nu (copied padded
@@ -18,15 +21,14 @@
 // vanish past row nu, and each entry of rows 0 .. nu - 1 is the nu-dimensional
 // step's sum plus exact zeros: the kernels agree with their plain versions
 // at nu as the tuned instances do at theirs.  The price is MU's arithmetic
-// at every nu up to MU.
+// at every nu up to MU; the loops stay compile-time and branch-free (the
+// step's loops stopped at the runtime nu ran slower: PERF.md, §6).
 //
 // What changes with MU = 12 beyond the arrays' sizes: the fp64 Riccati
-// step's K^T and K^T Q_uu (24 NUP values a problem) no longer fit in the
-// problem's spent l_xx row of the stage buffer (146 values), so they take a
-// region of their own after the groups' scratch (Layout64Nu); and the
-// rollout of both scalars is the fp64 rollout's design (each stage input
-// copied once, the column read where an entry is used: K alone is 144
-// values a stage at MU = 12, which a thread could not hold in registers).
+// step's K^T and K^T Q_uu (24 NUP values a problem) and its factor no
+// longer fit in the problem's spent l_xx row of the stage buffer (146
+// values), so they take a region of their own after the groups' scratch
+// (Layout64Nu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,6 +54,14 @@ constexpr int kMaxNu = 12;
 template <typename F>
 int by_mu(int nu, F&& f) {
   if (nu < 1 || nu > kMaxNu) return (int)cudaErrorInvalidValue;
+  return nu <= 6 ? f(std::integral_constant<int, 6>{}) : f(std::integral_constant<int, 12>{});
+}
+
+// B2's instance of a runtime nu: MU = 4 for nu <= 4, 6 for nu <= 6, else 12.
+template <typename F>
+int by_mu_b2(int nu, F&& f) {
+  if (nu < 1 || nu > kMaxNu) return (int)cudaErrorInvalidValue;
+  if (nu <= 4) return f(std::integral_constant<int, 4>{});
   return nu <= 6 ? f(std::integral_constant<int, 6>{}) : f(std::integral_constant<int, 12>{});
 }
 
@@ -229,8 +239,8 @@ __device__ __forceinline__ void riccati_store_nu(Tp* K, Tp* k, Tr* gvec, const u
 
 // riccati_group_sweep at a runtime nu: the rows of l_u and of the AL
 // diagonal past nu are zeroed once in both stage buffers (the copies write
-// entries 0 .. nu - 1 only).
-template <typename Tp, typename Tr, int MU>
+// entries 0 .. nu - 1 only); kLean: riccati_group_step's.
+template <typename Tp, typename Tr, int MU, bool kLean = false>
 __device__ __forceinline__ void riccati_group_sweep_nu(
     unsigned char* smem, int N, int B, int nu, Tp (&V)[12], Tr& Vx, const Tr* Fx, const Tr* d,
     const Tr* lx, const Tr* lu, const Tp* lxx, const Tp* luual, bool glow, Tp* K, Tp* k,
@@ -257,7 +267,7 @@ __device__ __forceinline__ void riccati_group_sweep_nu(
     if (t < N - 1)
       riccati_store_nu<Tp, Tr, MU>(K, k, gvec, outb + ((t + 1) & 1) * L::out, nu, t + 1, b0, B,
                                    tid);
-    riccati_group_step<Tp, Tr, MU>(
+    riccati_group_step<Tp, Tr, MU, kLean>(
         r, V, Vx, stage_in<Tp, Tr, MU>(stage + cur * L::stage, g, luual != nullptr),
         reinterpret_cast<const Tp*>(smem + L::ofu2), reinterpret_cast<const Tr*>(smem + L::ofu2r),
         reinterpret_cast<const Tp*>(smem + L::oLuu), glow, gs,
@@ -285,9 +295,9 @@ __global__ void __launch_bounds__(kGroupThreads) riccati_nu_kernel(NuArgs<Riccat
     load<9>(R, lane<9>(a.qR, N, B, bc));
     load<3>(p, lane<3>(a.qp, N, B, bc));
     load<6>(xi, lane<6>(a.xi, N, B, bc));
-    const T l = stage_cost_quad<T>(&gs.Vm[0], &gs.VS[0], R, p, xi, a.refs.RbiR + N * 9,
-                                   a.refs.Rbip + N * 3, a.refs.Adb + N * 36,
-                                   a.refs.xib + N * 6, a.c.W1N, a.c.W2N);
+    const T l = stage_cost_quad<T, FramelessTrig>(
+        &gs.Vm[0], &gs.VS[0], R, p, xi, a.refs.RbiR + N * 9, a.refs.Rbip + N * 3,
+        a.refs.Adb + N * 36, a.refs.xib + N * 6, a.c.W1N, a.c.W2N);
     if (b < B) a.lN[b] = l;
   }
   __syncwarp();
@@ -298,8 +308,8 @@ __global__ void __launch_bounds__(kGroupThreads) riccati_nu_kernel(NuArgs<Riccat
     lds<T, 12>(V, gs.VS + r * 12);
     Vx = gs.Vm[r];
   }
-  riccati_group_sweep_nu<T, T, MU>(smem, N, B, x.nu, V, Vx, a.Fx, a.d, a.lx, a.lu, a.lxx,
-                                   a.luual, a.glow != 0, a.K, a.k, a.gvec);
+  riccati_group_sweep_nu<T, T, MU, (MU > 6)>(smem, N, B, x.nu, V, Vx, a.Fx, a.d, a.lx, a.lu,
+                                             a.lxx, a.luual, a.glow != 0, a.K, a.k, a.gvec);
 }
 
 // B5 at a runtime nu (polish.cu riccati_mx_kernel).
@@ -327,13 +337,15 @@ __global__ void __launch_bounds__(kGroupThreads) riccati_mx_nu_kernel(NuArgs<Ric
 // ---- B2 in fp64 -------------------------------------------------------------
 
 // Layout64 at MU, with K^T and K^T Q_uu in a region of their own after the
-// groups' scratch where they outgrow the l_xx row (MU = 12).
+// groups' scratch where they outgrow the l_xx row (MU = 12), and there
+// after them the factor of Q_uu (MU x NUP, riccati_f64_step's Ls: the lean
+// step's, MU = 12).
 template <int MU>
 struct Layout64Nu : Layout64<MU> {
   using Base = Layout64<MU>;
   static constexpr bool kAside = 24 * Base::NUP > Base::pF;
   static constexpr size_t oaside = Base::bytes,
-                          astride = group_stride(24 * Base::NUP * sizeof(double)),
+                          astride = group_stride((24 + MU) * Base::NUP * sizeof(double)),
                           bytes = Base::bytes + (kAside ? Base::P * astride : 0);
 };
 
@@ -391,10 +403,11 @@ __device__ __forceinline__ void riccati_f64_sweep_nu(unsigned char* smem, int N,
     double* KT = L::kAside ? reinterpret_cast<double*>(sm + L::oaside + g * L::astride) : lxxT;
     const StageIn<double, double> in{F, dr, row(L::olx, L::pd), row(L::olu, L::pu), lxxT,
                                      luual ? row(L::oal, L::pu) : nullptr};
-    riccati_f64_step<MU>(l, Vx, in, F, KT, dr, reinterpret_cast<const double*>(sm + L::ofu2),
-                         reinterpret_cast<const double*>(sm + L::oLuu), glow,
-                         *reinterpret_cast<Scratch64<MU>*>(sm + L::ogroup + g * L::gstride),
-                         stage_out<double, double, MU>(sm + L::oout + (t & 1) * L::out, g));
+    riccati_f64_step<MU, L::kAside>(
+        l, Vx, in, F, KT, dr, reinterpret_cast<const double*>(sm + L::ofu2),
+        reinterpret_cast<const double*>(sm + L::oLuu), glow,
+        *reinterpret_cast<Scratch64<MU>*>(sm + L::ogroup + g * L::gstride),
+        stage_out<double, double, MU>(sm + L::oout + (t & 1) * L::out, g), KT + 24 * L::NUP);
   }
   __syncthreads();
   riccati_store_nu<double, double, MU>(K, k, gvec, smem + L::oout, nu, 0, b0, B, tid);
@@ -474,165 +487,6 @@ int launch_riccati_mx_nu(const RiccatiMxArgs& a, int nu, cudaStream_t s) {
   if (int e = set_smem(riccati_mx_nu_kernel<MU>, bytes, false)) return e;
   riccati_mx_nu_kernel<MU><<<group_grid(a.B), kGroupThreads, bytes, s>>>(
       NuArgs<RiccatiMxArgs>{a, nu});
-  return (int)cudaGetLastError();
-}
-
-// ---- B3 and B4: the rollout ------------------------------------------------
-// pipeline.cu rollout_f64_kernel's design in either scalar, at a runtime nu:
-// the column RolloutF64Column<MU> (u, k and K zero past nu), then Pu padded
-// to 6 x MU after the block's columns.
-template <typename T, int MU>
-constexpr size_t rollout_nu_bytes() {
-  return RolloutF64Column<MU>::n * kAheadThreads * sizeof(T) + align16(6 * MU * sizeof(T));
-}
-
-template <typename T, int MU>
-__device__ __forceinline__ void rollout_nu_copy_stage(T* slot, const RolloutArgs<T>& a, int nu,
-                                                      int t, int b) {
-  using C = RolloutF64Column<MU>;
-  constexpr int P = kAheadThreads;
-  const int B = a.B;
-  copy_column_n(slot + C::u * P, a.u, nu, t, B, b);
-  copy_column_n(slot + C::k * P, a.k, nu, t, B, b);
-  copy_column<12>(slot + C::d * P, a.d, t, B, b);
-  copy_column<9>(slot + C::fqR * P, a.fqR, t, B, b);
-  copy_column<3>(slot + C::fqp * P, a.fqp, t, B, b);
-  copy_column<6>(slot + C::fxi * P, a.fxi, t, B, b);
-}
-
-template <typename T, int MU>
-__device__ __forceinline__ void rollout_nu_copy_x(T* slot, const RolloutArgs<T>& a, int t, int b) {
-  using C = RolloutF64Column<MU>;
-  constexpr int P = kAheadThreads;
-  copy_column<9>(slot + C::R * P, a.qR, t, a.B, b);
-  copy_column<3>(slot + C::p * P, a.qp, t, a.B, b);
-  copy_column<6>(slot + C::xi * P, a.xi, t, a.B, b);
-}
-
-template <typename T, int MU>
-__global__ void __launch_bounds__(kAheadThreads) rollout_nu_kernel(NuArgs<RolloutArgs<T>> x) {
-  using C = RolloutF64Column<MU>;
-  constexpr int P = kAheadThreads;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const RolloutArgs<T>& a = x.a;
-  const int nu = x.nu;
-  const int B = a.B, N = a.N, b = blockIdx.x * P + threadIdx.x, bc = min(b, B - 1);
-  const bool live = b < B;
-  T* const col0 = reinterpret_cast<T*>(smem) + threadIdx.x;
-  // this thread's column past nu: u and k of both stage slots, K's rows
-  for (int e = nu; e < MU; ++e)
-    for (int s = 0; s < 2; ++s) {
-      col0[(C::S + s * C::ns + C::u + e) * P] = T(0);
-      col0[(C::S + s * C::ns + C::k + e) * P] = T(0);
-    }
-  for (int e = 12 * nu; e < 12 * MU; ++e) col0[(C::K + e) * P] = T(0);
-  T* const Pu = reinterpret_cast<T*>(smem + C::n * P * sizeof(T));
-  pad_pu<MU>(Pu, a.c.Pu, nu);
-  Consts<T> c = a.c;
-  c.Pu = Pu;
-  T* col = col0;
-  const auto slot = [&](int t) { return col + (C::S + (t & 1) * C::ns) * P; };
-  const auto xslot = [&](int t) { return col + (C::X + (t % 3) * C::nx) * P; };
-  const auto in = [&](const T* base, int e) { return column(base + e * P); };
-  T R[9], p[3], xi[6];
-  load<9>(R, lane<9>(a.qR, 0, B, bc));
-  load<3>(p, lane<3>(a.qp, 0, B, bc));
-  load<6>(xi, lane<6>(a.xi, 0, B, bc));
-  if (live) {
-    store<9>(lane<9>(a.oR, 0, B, b), R);
-    store<3>(lane<3>(a.op, 0, B, b), p);
-    store<6>(lane<6>(a.oxi, 0, B, b), xi);
-  }
-  rollout_nu_copy_x<T, MU>(xslot(0), a, 0, bc);
-  rollout_nu_copy_x<T, MU>(xslot(1), a, 1, bc);
-  rollout_nu_copy_stage<T, MU>(slot(0), a, nu, 0, bc);
-  copy_column_n(col + C::K * P, a.K, 12 * nu, 0, B, bc);
-  cp_async_commit();
-  for (int t = 0; t < N; ++t) {
-    // every address derived anew each stage (opaque_zero)
-    const int z = opaque_zero(), bz = bc + z;
-    col = col0 + z;
-    T* const Kc = col + C::K * P;
-    cp_async_wait_all();
-    if (t + 1 < N) rollout_nu_copy_stage<T, MU>(slot(t + 1), a, nu, t + 1, bz);
-    if (t + 2 <= N) rollout_nu_copy_x<T, MU>(xslot(t + 2), a, t + 2, bz);
-    cp_async_commit();
-    const T* st = slot(t);
-    const T* xt = xslot(t);
-    const T* xn = xslot(t + 1);
-    // off the carry's chain: x_t^-1 and G_t = (x_{t+1} Exp(d_q)) f(xbar_t)^-1
-    T Ri[9], pi[3], GR[9], Gp[3];
-    {
-      T Rt[9], pt[3], Rn[9], pn[3], dq[6], Ed[9], ed[3], Fq[9], fq[3], Fi[9], fi[3];
-      T Ra[9], pa[3];
-      load<9>(Rt, in(xt, C::R));
-      load<3>(pt, in(xt, C::p));
-      load<9>(Rn, in(xn, C::R));
-      load<3>(pn, in(xn, C::p));
-      load<6>(dq, in(st, C::d));
-      load<9>(Fq, in(st, C::fqR));
-      load<3>(fq, in(st, C::fqp));
-      se3_inverse(Ri, pi, Rt, pt);
-      se3_exp(Ed, ed, dq);
-      se3_inverse(Fi, fi, Fq, fq);
-      se3_compose(Ra, pa, Rn, pn, Ed, ed);
-      se3_compose(GR, Gp, Ra, pa, Fi, fi);
-    }
-    // the chain: the deviation, the feedback, the dynamics, G_t f(x, u)
-    T xs_err[12];
-    {
-      T Re[9], pe[3];
-      se3_compose(Re, pe, Ri, pi, R, p);
-      se3_log(xs_err, Re, pe);
-      const Lane<const T> xit = in(xt, C::xi);
-#pragma unroll
-      for (int i = 0; i < 6; ++i) xs_err[6 + i] = xi[i] - xit[i];
-    }
-    T u[MU];
-    {
-      const Lane<const T> ut = in(st, C::u), kt = in(st, C::k),
-                          Kt = column(static_cast<const T*>(Kc));
-#pragma unroll
-      for (int r = 0; r < MU; ++r) {
-        T s = Kt[r * 12] * xs_err[0];
-#pragma unroll
-        for (int j = 1; j < 12; ++j) s += Kt[r * 12 + j] * xs_err[j];
-        u[r] = (ut[r] + kt[r]) + s;
-      }
-    }
-    if (t + 1 < N) {
-      copy_column_n(Kc, a.K, 12 * nu, t + 1, B, bz);  // K_t has been read
-      cp_async_commit();
-    }
-    T fqR[9], fqp[3], fxi[6];
-    stage_dynamics_eval<T, MU>(fqR, fqp, fxi, R, p, xi, u, c);
-    se3_compose(R, p, GR, Gp, fqR, fqp);
-    so3_normalize(R);
-    {
-      const Lane<const T> xin = in(xn, C::xi), fxt = in(st, C::fxi), dd = in(st, C::d);
-#pragma unroll
-      for (int i = 0; i < 6; ++i) xi[i] = ((xin[i] + fxi[i]) - fxt[i]) + dd[6 + i];
-    }
-    if (live) {
-      store<9>(lane<9>(a.oR, t + 1, B, b), R);
-      store<3>(lane<3>(a.op, t + 1, B, b), p);
-      store<6>(lane<6>(a.oxi, t + 1, B, b), xi);
-      store_nu<MU>(a.ou, u, t, nu, B, b);
-    }
-  }
-}
-
-// B4 at a runtime nu; B3 (lin not null): the rollout, then B1's kernel at
-// the same nu on the new trajectory, both on stream s.
-template <typename T, int MU>
-int launch_rollout_nu(const RolloutArgs<T>& a, const LinearizeArgs<T>* lin, int nu,
-                      cudaStream_t s) {
-  constexpr size_t bytes = rollout_nu_bytes<T, MU>();
-  if (int e = set_smem(rollout_nu_kernel<T, MU>, bytes, true)) return e;
-  rollout_nu_kernel<T, MU><<<ahead_grid(a.B), kAheadThreads, bytes, s>>>(
-      NuArgs<RolloutArgs<T>>{a, nu});
-  if (cudaError_t e = cudaGetLastError()) return (int)e;
-  if (lin) return launch_linearize_nu<T, MU>(*lin, nu, s);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 // The instances of B1-B6 at a large input dimension nu = 13 ... kMaxNuLarge
 // (pipeline_nu.cu: B1, B2, B3 and B4 in f32 and fp64; polish_nu.cu: B5 and
-// B6), which the C entry points launch past nu.cuh's kMaxNu = 12.  nu is a
-// runtime argument, and no register array grows with it:
+// B6), which the C entry points launch past nu.cuh's kMaxNu = 12 (the
+// rollout of B3 and B4 at every nu).  nu is a runtime argument, and no
+// register array grows with it:
 //   - B2 and B5: riccati_large.cuh's step (Q_uu, its factor and the nu-long
 //     arrays in the group's shared memory, sized from nu at launch; the
 //     factor and the 13 solves spread over the group's 16 lanes, the 12 x 12
@@ -11,13 +12,16 @@
 //     (48, B) hand-off array (terminal_kernel<double>, as at nu <= 12);
 //   - B1 forms the wrench Pu u by a loop over the inputs, Pu in the block's
 //     shared memory;
-//   - B3 and B4 take rollout_nu_kernel's design (each stage input copied
+//   - B3 and B4 take the fp64 rollout's design (each stage input copied
 //     ahead once into the thread's shared-memory column and read where it
 //     is used), u_t, k_t and K_t in a feedback slot of 14 nu values that
 //     the thread refills for stage t + 1 as soon as stage t's feedback has
 //     read it: the feedback and the wrench Pu u run over the inputs from
 //     shared memory, and nothing on the carry's chain waits on device
-//     memory; B3's second phase is B1's kernel on the new trajectory;
+//     memory; B3's second phase is B1's kernel on the new trajectory.  At
+//     nu <= 12 (launch_rollout_nu) the same rollout reads G_t = (x_{t+1}
+//     Exp(d_q)) f(xbar_t)^-1 from a stage-parallel pass before it
+//     (g_kernel), and B3's second phase is B1's runtime-nu instance;
 //   - B6 takes rollout_mx_nu_kernel's design (a thread a problem, the fp64
 //     carry in registers) with a feedback loop over the inputs
 //     (feedback_pu): each stage reads row a of K, u_a and k_a from device
@@ -303,14 +307,36 @@ constexpr size_t rollout_large_bytes(int nu) {
 template <typename T>
 constexpr int kRolloutLargeBlocks = std::is_same<T, float>::value ? 12 : 1;
 
-// rollout_nu_kernel's design at a large nu: each stage input copied ahead
-// once into the thread's column; the feedback u_a = (u_t[a] + k_t[a]) +
-// K_t[a] xs_err and the wrench Pu u run over the inputs in feedback_pu's
-// order, reading u_t, k_t and K_t from the feedback slot (kSlot: nothing on
+// G_t = (x_{t+1} Exp(d_q)) f(xbar_t)^-1 of one stage and problem, from the
+// lanes of x_{t+1} (Rn, pn), d_t (its first six entries, d_q) and f(xbar_t)
+// (Fq, fq): the rollout's composition off its carry's chain, in the
+// rollout's loop past nu = 12 and in g_kernel's pass up to it.
+template <typename T, typename Src>
+__device__ __forceinline__ void stage_g(T* GR, T* Gp, const Src& Rn_, const Src& pn_,
+                                        const Src& d_, const Src& Fq_, const Src& fq_) {
+  T Rn[9], pn[3], dq[6], Ed[9], ed[3], Fq[9], fq[3], Fi[9], fi[3], Ra[9], pa[3];
+  load<9>(Rn, Rn_);
+  load<3>(pn, pn_);
+  load<6>(dq, d_);
+  load<9>(Fq, Fq_);
+  load<3>(fq, fq_);
+  se3_exp<FramelessTrig>(Ed, ed, dq);
+  se3_inverse(Fi, fi, Fq, fq);
+  se3_compose(Ra, pa, Rn, pn, Ed, ed);
+  se3_compose(GR, Gp, Ra, pa, Fi, fi);
+}
+
+// The fp64 rollout's design (pipeline.cu rollout_f64_kernel) at a runtime
+// nu: each stage input copied ahead once into the thread's column; the
+// feedback u_a = (u_t[a] + k_t[a]) + K_t[a] xs_err and the wrench Pu u run
+// over the inputs in feedback_pu's order, reading u_t, k_t and K_t from the feedback slot (kSlot: nothing on
 // the carry's chain waits on device memory) or, where the slot's shared
 // memory would leave too few problems resident (launch_rollout_large), from
 // device memory.
-template <typename T, bool kSlot>
+// kG (the rollout at nu <= kMaxNu): G_t comes from the output array, where
+// g_kernel left it (in oR, op at stage t + 1, which the rollout overwrites
+// with x_{t+1} once it has read G_t), in the stage slot's place of f(xbar_t).
+template <typename T, bool kSlot, bool kG = false>
 __global__ void __launch_bounds__(kAheadThreads, kRolloutLargeBlocks<T>)
     rollout_large_kernel(NuArgs<RolloutArgs<T>> x) {
   using C = LargeRolloutColumn;
@@ -329,8 +355,13 @@ __global__ void __launch_bounds__(kAheadThreads, kRolloutLargeBlocks<T>)
   const auto in = [&](const T* base, int e) { return column(base + e * P); };
   const auto copy_stage = [&](T* sl, int t, int bb) {
     copy_column<12>(sl + C::d * P, a.d, t, B, bb);
-    copy_column<9>(sl + C::fqR * P, a.fqR, t, B, bb);
-    copy_column<3>(sl + C::fqp * P, a.fqp, t, B, bb);
+    if constexpr (kG) {
+      copy_column<9>(sl + C::fqR * P, a.oR, t + 1, B, bb);
+      copy_column<3>(sl + C::fqp * P, a.op, t + 1, B, bb);
+    } else {
+      copy_column<9>(sl + C::fqR * P, a.fqR, t, B, bb);
+      copy_column<3>(sl + C::fqp * P, a.fqp, t, B, bb);
+    }
     copy_column<6>(sl + C::fxi * P, a.fxi, t, B, bb);
   };
   const auto copy_x = [&](T* sl, int t, int bb) {
@@ -424,18 +455,15 @@ __global__ void __launch_bounds__(kAheadThreads, kRolloutLargeBlocks<T>)
           for (int i = 0; i < 6; ++i) w[i] = Puu[i];
         },
         a.c);
-    {
-      T Rn[9], pn[3], dq[6], Ed[9], ed[3], Fq[9], fq[3], Fi[9], fi[3], Ra[9], pa[3];
+    if constexpr (kG) {
       T GR[9], Gp[3];
-      load<9>(Rn, in(xn, C::R));
-      load<3>(pn, in(xn, C::p));
-      load<6>(dq, in(st, C::d));
-      load<9>(Fq, in(st, C::fqR));
-      load<3>(fq, in(st, C::fqp));
-      se3_exp<FramelessTrig>(Ed, ed, dq);
-      se3_inverse(Fi, fi, Fq, fq);
-      se3_compose(Ra, pa, Rn, pn, Ed, ed);
-      se3_compose(GR, Gp, Ra, pa, Fi, fi);
+      load<9>(GR, in(st, C::fqR));
+      load<3>(Gp, in(st, C::fqp));
+      se3_compose(R, p, GR, Gp, fqR, fqp);
+    } else {
+      T GR[9], Gp[3];
+      stage_g(GR, Gp, in(xn, C::R), in(xn, C::p), in(st, C::d), in(st, C::fqR),
+              in(st, C::fqp));
       se3_compose(R, p, GR, Gp, fqR, fqp);
     }
     so3_normalize(R);
@@ -476,24 +504,87 @@ int rollout_large_slot(int nu, int B, bool* slot) {
 
 // B4 at a large nu; B3 (lin not null): the rollout, then B1's kernel at the
 // same nu on the new trajectory, both on stream s.  *slot: whether the
-// rollout took its feedback-slot instance.
-template <typename T>
+// rollout took its feedback-slot instance; kG: rollout_large_kernel's.
+template <typename T, bool kG = false>
 int launch_rollout_large(const RolloutArgs<T>& a, const LinearizeArgs<T>* lin, int nu,
                          cudaStream_t s, bool* slot) {
   const NuArgs<RolloutArgs<T>> x{a, nu};
   if (int e = rollout_large_slot<T>(nu, a.B, slot)) return e;
   if (*slot) {
     const size_t bytes = rollout_large_bytes<T, true>(nu);
-    if (int e = set_smem(rollout_large_kernel<T, true>, bytes, true)) return e;
-    rollout_large_kernel<T, true><<<ahead_grid(a.B), kAheadThreads, bytes, s>>>(x);
+    if (int e = set_smem(rollout_large_kernel<T, true, kG>, bytes, true)) return e;
+    rollout_large_kernel<T, true, kG><<<ahead_grid(a.B), kAheadThreads, bytes, s>>>(x);
   } else {
     const size_t bytes = rollout_large_bytes<T, false>(nu);
-    if (int e = set_smem(rollout_large_kernel<T, false>, bytes, true)) return e;
-    rollout_large_kernel<T, false><<<ahead_grid(a.B), kAheadThreads, bytes, s>>>(x);
+    if (int e = set_smem(rollout_large_kernel<T, false, kG>, bytes, true)) return e;
+    rollout_large_kernel<T, false, kG><<<ahead_grid(a.B), kAheadThreads, bytes, s>>>(x);
   }
   if (cudaError_t e = cudaGetLastError()) return (int)e;
   if (lin) return launch_linearize_large<T>(*lin, nu, s);
   return (int)cudaGetLastError();
+}
+
+// G_t = (x_{t+1} Exp(d_q,t)) f(xbar_t)^-1 of every stage t and problem (a
+// thread each, the rollout's functions in its order) into oR, op at stage
+// t + 1.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) g_kernel(RolloutArgs<T> a) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x, t = blockIdx.y;
+  if (b >= a.B) return;
+  const int B = a.B;
+  T GR[9], Gp[3];
+  stage_g(GR, Gp, lane<9>(a.qR, t + 1, B, b), lane<3>(a.qp, t + 1, B, b),
+          lane<12>(a.d, t, B, b), lane<9>(a.fqR, t, B, b), lane<3>(a.fqp, t, B, b));
+  store<9>(lane<9>(a.oR, t + 1, B, b), GR);
+  store<3>(lane<3>(a.op, t + 1, B, b), Gp);
+}
+
+// The one-warp blocks an SM up to which the rollout at nu <= kMaxNu takes
+// G_t from g_kernel's pass (rollout_nu_g): 3 in f32, 2 in fp64, where the
+// pass's gain crossed zero on an H100 (scripts/nu_instances.py --g-pass, nu
+// = 3 and 12: f32 gained at B = 12288 and lost at 16384 at nu = 12; fp64
+// gained at 8192 at nu = 3, lost there at nu = 12 and lost at 12288).
+template <typename T>
+constexpr int kRolloutNuGWarps = std::is_same<T, float>::value ? 3 : 2;
+
+// Whether the rollout at nu <= kMaxNu takes G_t from g_kernel's pass for a
+// batch of B (*g): while B fills at most kRolloutNuGWarps<T> of its one-warp
+// blocks an SM.  There a stage's chain holds the warp, and the pass takes
+// G_t's compositions off it; with more warps an SM they hide in the chain's
+// stalls, and the pass's traffic (42 values a stage and problem) costs more
+// than it saves (PERF.md, §6).
+template <typename T>
+int rollout_nu_g(int B, bool* g) {
+  int dev = 0, sms = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  if (cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+    return (int)e;
+  *g = B <= (long long)kRolloutNuGWarps<T> * kAheadThreads * sms;
+  return 0;
+}
+
+// B4 at nu <= kMaxNu: the large-nu rollout, reading G_t from g_kernel's pass
+// before it where rollout_nu_g says so (pass < 0), or as pass says (0: without,
+// 1: with it); B3 (lin not null): then B1's runtime-nu instance on the new
+// trajectory, all on stream s.  *g: whether the pass ran; *slot: as
+// launch_rollout_large's.
+template <typename T>
+int launch_rollout_nu(const RolloutArgs<T>& a, const LinearizeArgs<T>* lin, int nu, int pass,
+                      cudaStream_t s, bool* g, bool* slot) {
+  *g = pass > 0;
+  if (pass < 0)
+    if (int e = rollout_nu_g<T>(a.B, g)) return e;
+  if (*g) {
+    g_kernel<T><<<batch_grid(a.B, a.N), kThreads, 0, s>>>(a);
+    if (cudaError_t e = cudaGetLastError()) return (int)e;
+  }
+  if (int e = *g ? launch_rollout_large<T, true>(a, nullptr, nu, s, slot)
+                 : launch_rollout_large<T>(a, nullptr, nu, s, slot))
+    return e;
+  if (lin) return by_mu(nu, [&](auto mu) {
+    return launch_linearize_nu<T, decltype(mu)::value>(*lin, nu, s);
+  });
+  return 0;
 }
 
 // ---- B6 ---------------------------------------------------------------------

@@ -1,5 +1,6 @@
 // The C entry points of B1-B4 at any input dimension nu = 1 ... kMaxNuLarge
-// (nu.cuh up to 12, nu_large.cuh past it), built once per scalar type as
+// (nu.cuh's B1 and B2 up to 12, nu_large.cuh's past it; B3's and B4's
+// rollout nu_large.cuh's at every nu), built once per scalar type as
 // pipeline.cu is; the wrappers send them every nu that the tuned instances
 // (nu = 6 and 4) do not take.  Each entry takes the arguments of its
 // pipeline.cu / linearize.cu twin (B2 also a (48, B) hand-off array for its
@@ -25,10 +26,8 @@ int occupancy_large(int kernel, int nu) {
 }
 
 template <typename T, int MU>
-int occupancy_nu(int kernel) {
-  if (kernel == 1)
-    return blocks_per_sm(rollout_nu_kernel<T, MU>, kAheadThreads, rollout_nu_bytes<T, MU>(),
-                         true);
+int occupancy_nu(int kernel, int nu) {
+  if (kernel == 1) return occupancy_large<T>(kernel, nu);
   if constexpr (std::is_same<T, double>::value)
     return blocks_per_sm(riccati_f64_nu_kernel<MU>, kGroupThreads, Layout64Nu<MU>::bytes, true);
   else
@@ -43,8 +42,8 @@ using traopt::Scalar;
 extern "C" int TRAOPT_FN(occupancy_nu)(int kernel, int nu, int device) {
   if (cudaSetDevice(device) || nu < 1 || nu > traopt::kMaxNuLarge) return -1;
   if (nu > traopt::kMaxNu) return traopt::occupancy_large<Scalar>(kernel, nu);
-  return traopt::by_mu(nu, [&](auto mu) {
-    return traopt::occupancy_nu<Scalar, decltype(mu)::value>(kernel);
+  return traopt::by_mu_b2(nu, [&](auto mu) {
+    return traopt::occupancy_nu<Scalar, decltype(mu)::value>(kernel, nu);
   });
 }
 
@@ -110,7 +109,7 @@ static int riccati_entry(RICCATI_PARAMS) {
   if ((kLarge || nu > traopt::kMaxNu) && nu >= 1 && nu <= traopt::kMaxNuLarge)
     return traopt::launch_riccati_large<T>(a, nu, (T*)hand, s);
   if (kLarge) return (int)cudaErrorInvalidValue;
-  return traopt::by_mu(nu, [&](auto mu) {
+  return traopt::by_mu_b2(nu, [&](auto mu) {
     return traopt::launch_riccati_nu<T, decltype(mu)::value>(a, nu, (T*)hand, s);
   });
 }
@@ -134,18 +133,39 @@ extern "C" int TRAOPT_FN(riccati_large)(RICCATI_PARAMS) {
       dt, gravity, exact_grav, oR, op, oxi, ou, nfqR, nfqp, nfxi, nd, nFx, nlx, nlxx,   \
       nl, N, nu, B, device, stream
 
-// The large-nu rollout's launches since the library was loaded, by the
-// instance taken: [0] the feedback read from device memory, [1] from the
-// feedback slot (rollout_large_slot).
+// The large-nu rollout's launches past nu = 12 and through the direct entry
+// (rollout_large) since the library was loaded, by the instance taken: [0]
+// the feedback read from device memory, [1] from the feedback slot
+// (rollout_large_slot).
 static int rollout_large_launches[2];
 
 extern "C" int TRAOPT_FN(rollout_large_launches)(int slot) {
   return slot == 0 || slot == 1 ? rollout_large_launches[slot] : -1;
 }
 
-// B4 when the new-linearization pointers are null, else B3: the large-nu
-// instances past 12, or with kLarge at any nu up to kMaxNuLarge.
-template <bool kLarge>
+// The rollout's launches at nu <= 12 since the library was loaded, by the
+// instance taken: [2 g + slot], g: G_t read from g_kernel's pass
+// (rollout_nu_g), slot: as rollout_large_launches'.
+static int rollout_nu_launches[4];
+
+extern "C" int TRAOPT_FN(rollout_nu_launches)(int i) {
+  return i >= 0 && i < 4 ? rollout_nu_launches[i] : -1;
+}
+
+// kRolloutNuGWarps: the rollout at nu <= 12 takes g_kernel's pass while the
+// batch fills at most this many of its one-warp blocks an SM.
+extern "C" int TRAOPT_FN(rollout_nu_g_warps)() { return traopt::kRolloutNuGWarps<Scalar>; }
+
+// The rollout's entries: B4 when the new-linearization pointers are null,
+// else B3.
+enum RolloutEntry {
+  kByNu,      // the large-nu instances past 12, the runtime-nu ones up to it
+  kLarge,     // the large-nu instances at any nu up to kMaxNuLarge
+  kPass,      // up to 12, with g_kernel's pass at any batch
+  kNoPass,    // up to 12, without it at any batch
+};
+
+template <RolloutEntry kEntry>
 static int rollout_entry(ROLLOUT_PARAMS) {
   using T = Scalar;
   traopt::RolloutArgs<T> a;
@@ -168,19 +188,28 @@ static int rollout_entry(ROLLOUT_PARAMS) {
   if (N <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   if (cudaError_t e = cudaSetDevice(device)) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
-  if ((kLarge || nu > traopt::kMaxNu) && nu >= 1 && nu <= traopt::kMaxNuLarge) {
+  const bool large = kEntry == kLarge || (kEntry == kByNu && nu > traopt::kMaxNu);
+  if (large && nu >= 1 && nu <= traopt::kMaxNuLarge) {
     bool slot = false;
     const int e = traopt::launch_rollout_large<T>(a, lin, nu, s, &slot);
     if (!e) ++rollout_large_launches[slot];
     return e;
   }
-  if (kLarge) return (int)cudaErrorInvalidValue;
-  return traopt::by_mu(nu, [&](auto mu) {
-    return traopt::launch_rollout_nu<T, decltype(mu)::value>(a, lin, nu, s);
-  });
+  if (large || nu < 1 || nu > traopt::kMaxNu) return (int)cudaErrorInvalidValue;
+  bool g = false, slot = false;
+  const int e = traopt::launch_rollout_nu<T>(
+      a, lin, nu, kEntry == kPass ? 1 : kEntry == kNoPass ? 0 : -1, s, &g, &slot);
+  if (!e) ++rollout_nu_launches[2 * g + slot];
+  return e;
 }
 
-extern "C" int TRAOPT_FN(rollout_nu)(ROLLOUT_PARAMS) { return rollout_entry<false>(ROLLOUT_NAMES); }
+extern "C" int TRAOPT_FN(rollout_nu)(ROLLOUT_PARAMS) { return rollout_entry<kByNu>(ROLLOUT_NAMES); }
 extern "C" int TRAOPT_FN(rollout_large)(ROLLOUT_PARAMS) {
-  return rollout_entry<true>(ROLLOUT_NAMES);
+  return rollout_entry<kLarge>(ROLLOUT_NAMES);
+}
+extern "C" int TRAOPT_FN(rollout_nu_pass)(ROLLOUT_PARAMS) {
+  return rollout_entry<kPass>(ROLLOUT_NAMES);
+}
+extern "C" int TRAOPT_FN(rollout_nu_no_pass)(ROLLOUT_PARAMS) {
+  return rollout_entry<kNoPass>(ROLLOUT_NAMES);
 }

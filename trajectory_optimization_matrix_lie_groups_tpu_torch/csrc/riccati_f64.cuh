@@ -29,6 +29,11 @@
 // Every entry is riccati_stage's sum in riccati_group_step's order (the
 // k-loop outermost where an entry sums over k, the Cholesky's diagonal as
 // 1 / sqrt(pivot)), so the kernel agrees with the plain version to rounding.
+// kLean (B2's runtime-nu instances in fp64): fu2 is read from the block's
+// constants where it is used, the factor of Q_uu goes to the group's Ls
+// once computed and the solves read it there, and the blocks of S and M
+// take their rows of K^T Q_uu, K^T and Q_ux^T a term at a time, instead of
+// holding them in registers (at NU = 12 they spilled).
 #pragma once
 
 #include "group.cuh"
@@ -116,12 +121,13 @@ __device__ __forceinline__ void riccati_f64_copy(unsigned char* buf, const doubl
 //   E  the block (I, J) of V_xx = (S + S^T) / 2 + M + M^T, stored once
 //      every lane has read S and M.
 // Every lane of the warp calls it (it synchronises the warp).
-template <int NU>
+template <int NU, bool kLean = false>
 __device__ __forceinline__ void riccati_f64_step(int l, double& Vx,
                                                  const StageIn<double, double>& in, double* Mx,
                                                  double* KT, double* kv, const double* fu2s,
                                                  const double* Luu, bool glow, Scratch64<NU>& g,
-                                                 const StageOut<double, double>& out) {
+                                                 const StageOut<double, double>& out,
+                                                 double* Ls = nullptr) {
   using T = double;
   constexpr int NX = 12, H = 6, NUP = Scratch64<NU>::NUP;
   const bool own = l < NX;
@@ -130,14 +136,17 @@ __device__ __forceinline__ void riccati_f64_step(int l, double& Vx,
   T* KQ = KT + NX * NUP;
   const T* F = in.F;
 
-  T fu2[H * NU];  // fu2 (6 x nu), for phases A and B
+  T fu2[kLean ? 1 : H * NU];  // fu2 (6 x nu), for phases A and B
+  if constexpr (!kLean) {
 #pragma unroll
-  for (int k = 0; k < H; ++k) {
-    T row[NUP];
-    lds<T, NUP>(row, fu2s + k * NUP);
+    for (int k = 0; k < H; ++k) {
+      T row[NUP];
+      lds<T, NUP>(row, fu2s + k * NUP);
 #pragma unroll
-    for (int a = 0; a < NU; ++a) fu2[k * NU + a] = row[a];
+      for (int a = 0; a < NU; ++a) fu2[k * NU + a] = row[a];
+    }
   }
+  const auto f2 = [&](int k, int a) -> T { return kLean ? fu2s[k * NUP + a] : fu2[k * NU + a]; };
 
   // ---- A ----
   {
@@ -150,9 +159,9 @@ __device__ __forceinline__ void riccati_f64_step(int l, double& Vx,
     if (own) g.Vm[l] = Vx + s;
 #pragma unroll
     for (int a = 0; a < NU; ++a) {
-      T t = v[H] * fu2[a];
+      T t = v[H] * f2(0, a);
 #pragma unroll
-      for (int k = 1; k < H; ++k) t += v[H + k] * fu2[k * NU + a];
+      for (int k = 1; k < H; ++k) t += v[H + k] * f2(k, a);
       if (own && l >= H) g.Tm[(l - H) * NUP + a] = t;
     }
   }
@@ -187,9 +196,9 @@ __device__ __forceinline__ void riccati_f64_step(int l, double& Vx,
   T qux[NU], qx;  // column r of Q_ux, Q_x[r]
 #pragma unroll
   for (int a = 0; a < NU; ++a) {
-    T s = fu2[a] * g.VS[H * NX + r];
+    T s = f2(0, a) * g.VS[H * NX + r];
 #pragma unroll
-    for (int k = 1; k < H; ++k) s += fu2[k * NU + a] * g.VS[(H + k) * NX + r];
+    for (int k = 1; k < H; ++k) s += f2(k, a) * g.VS[(H + k) * NX + r];
     qux[a] = s;
   }
   {
@@ -205,9 +214,9 @@ __device__ __forceinline__ void riccati_f64_step(int l, double& Vx,
     qx = in.lx[r] + s;
 #pragma unroll
     for (int a = 0; a < NU; ++a) {
-      T q = fu2[a] * vm[H];
+      T q = f2(0, a) * vm[H];
 #pragma unroll
-      for (int k = 1; k < H; ++k) q += fu2[k * NU + a] * vm[H + k];
+      for (int k = 1; k < H; ++k) q += f2(k, a) * vm[H + k];
       q = in.lu[a] + q;
       if (l == NX) g.Qu[a] = q;
     }
@@ -254,20 +263,30 @@ __device__ __forceinline__ void riccati_f64_step(int l, double& Vx,
         L[i2 * NU + j] = s2 * inv;
       }
     }
+    if constexpr (kLean) {
+      if (l == 0) {
+#pragma unroll
+        for (int j = 0; j < NU; ++j)
+#pragma unroll
+          for (int i2 = j; i2 < NU; ++i2) Ls[i2 * NUP + j] = L[i2 * NU + j];
+      }
+      __syncwarp();
+    }
+    const auto lf = [&](int i, int j) -> T { return kLean ? Ls[i * NUP + j] : L[i * NU + j]; };
     T Y[NU], X[NU];
 #pragma unroll
     for (int i2 = 0; i2 < NU; ++i2) {
       T sv = l == NX ? g.Qu[i2] : qux[i2];
 #pragma unroll
-      for (int kk = 0; kk < i2; ++kk) sv = sv - L[i2 * NU + kk] * Y[kk];
-      Y[i2] = sv * L[i2 * NU + i2];
+      for (int kk = 0; kk < i2; ++kk) sv = sv - lf(i2, kk) * Y[kk];
+      Y[i2] = sv * lf(i2, i2);
     }
 #pragma unroll
     for (int i2 = NU - 1; i2 >= 0; --i2) {
       T sv = Y[i2];
 #pragma unroll
-      for (int kk = i2 + 1; kk < NU; ++kk) sv = sv - L[kk * NU + i2] * X[kk];
-      X[i2] = sv * L[i2 * NU + i2];
+      for (int kk = i2 + 1; kk < NU; ++kk) sv = sv - lf(kk, i2) * X[kk];
+      X[i2] = sv * lf(i2, i2);
     }
 #pragma unroll
     for (int a = 0; a < NU; ++a) kc[a] = -X[a];
@@ -338,7 +357,28 @@ __device__ __forceinline__ void riccati_f64_step(int l, double& Vx,
     Vx = ((qx + s1) + s2) + s3;
   }
   T sb[9], mb[9];  // the blocks (I, J) of S and of M
-  {
+  if constexpr (kLean) {
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+      T kqi[3], kti[3], ktj[3], qxj[3];
+#pragma unroll
+      for (int ii = 0; ii < 3; ++ii) {
+        kqi[ii] = KQ[(bi + ii) * NUP + a];
+        kti[ii] = KT[(bi + ii) * NUP + a];
+        ktj[ii] = KT[(bj + ii) * NUP + a];
+        qxj[ii] = g.QxT[(bj + ii) * NUP + a];
+      }
+#pragma unroll
+      for (int ii = 0; ii < 3; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 3; ++jj) {
+          sb[ii * 3 + jj] = a == 0 ? kqi[ii] * ktj[jj] : sb[ii * 3 + jj] + kqi[ii] * ktj[jj];
+          mb[ii * 3 + jj] = a == 0 ? kti[ii] * qxj[jj] : mb[ii * 3 + jj] + kti[ii] * qxj[jj];
+        }
+    }
+#pragma unroll
+    for (int e = 0; e < 9; ++e) sb[e] = qxx[e] + sb[e];
+  } else {
     T kqi[3][NUP], kti[3][NUP], ktj[3][NUP], qxj[3][NUP];
 #pragma unroll
     for (int ii = 0; ii < 3; ++ii) {

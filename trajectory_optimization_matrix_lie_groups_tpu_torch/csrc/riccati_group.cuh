@@ -21,6 +21,9 @@
 // the same order of every sum, B5's three V_x corrections summed in Tp and
 // added once.  Only where an entry sums over k does the loop run over k in
 // the outer place (one row of F at a time, shared by every entry).
+// kLean (B2's runtime-nu instances in f32): phase C reads Q_uu from the
+// group's scratch where it uses it instead of holding it whole in
+// registers beside the factor (which spilled at NU = 12).
 #pragma once
 
 #include <type_traits>
@@ -160,7 +163,7 @@ __device__ __forceinline__ void f_row(Tp* f, const Tp* Fp, int k, bool tail) {
 // fu2, fu2r and Luu are the block's constants (riccati_consts); out gets K,
 // k and gvec = Q_u.  Every lane of the warp calls it (it synchronises the
 // warp).
-template <typename Tp, typename Tr, int NU>
+template <typename Tp, typename Tr, int NU, bool kLean = false>
 __device__ __forceinline__ void riccati_group_step(
     int r, Tp (&V)[12], Tr& Vx, const StageIn<Tp, Tr>& in, const Tp* fu2, const Tr* fu2r,
     const Tp* Luu, bool glow, GroupScratch<Tp, Tr, NU>& g, const StageOut<Tp, Tr>& out) {
@@ -292,24 +295,28 @@ __device__ __forceinline__ void riccati_group_step(
   __syncwarp();
 
   // ---- C ----
-  Tp Q[NU * NU], L[NU * NU];
+  Tp Q[kLean ? 1 : NU * NU], L[NU * NU];
+  if constexpr (!kLean) {
 #pragma unroll
-  for (int a = 0; a < NU; ++a) {
-    Tp row[NUP];
-    lds<Tp, NUP>(row, g.Quu + a * NUP);
+    for (int a = 0; a < NU; ++a) {
+      Tp row[NUP];
+      lds<Tp, NUP>(row, g.Quu + a * NUP);
 #pragma unroll
-    for (int b2 = 0; b2 < NU; ++b2) Q[a * NU + b2] = row[b2];
+      for (int b2 = 0; b2 < NU; ++b2) Q[a * NU + b2] = row[b2];
+    }
   }
+  // Q_uu[i, j]
+  const auto quu = [&](int i, int j) -> Tp { return kLean ? g.Quu[i * NUP + j] : Q[i * NU + j]; };
 #pragma unroll
   for (int j = 0; j < NU; ++j) {
-    Tp sv = Q[j * NU + j];
+    Tp sv = quu(j, j);
 #pragma unroll
     for (int kk = 0; kk < j; ++kk) sv = sv - L[j * NU + kk] * L[j * NU + kk];
     const Tp inv = Tp(1) / xsqrt(sv);
     L[j * NU + j] = inv;
 #pragma unroll
     for (int i2 = j + 1; i2 < NU; ++i2) {
-      Tp s2 = Q[i2 * NU + j];
+      Tp s2 = quu(i2, j);
 #pragma unroll
       for (int kk = 0; kk < j; ++kk) s2 = s2 - L[i2 * NU + kk] * L[j * NU + kk];
       L[i2 * NU + j] = s2 * inv;
@@ -341,9 +348,9 @@ __device__ __forceinline__ void riccati_group_step(
     for (int a = 0; a < NU; ++a) {
       g.KT[r * NUP + a] = kc[a];
       out.K[(a * NX + r) * kOutStride] = kc[a];
-      Tp s = kc[0] * Q[a];
+      Tp s = kc[0] * quu(0, a);
 #pragma unroll
-      for (int b2 = 1; b2 < NU; ++b2) s += kc[b2] * Q[b2 * NU + a];
+      for (int b2 = 1; b2 < NU; ++b2) s += kc[b2] * quu(b2, a);
       kq[a] = s;
       g.KQ[r * NUP + a] = s;
     }

@@ -219,19 +219,20 @@ __device__ __forceinline__ void stage_jacobian(const Out& Fx, const T* R,
 // The gradient lx is computed in T; the Gauss-Newton Hessian lxx and the
 // value l in Tp from the Tp roundings of J_e_x, e, W1 e, ev, W2 ev and the
 // weights.  The f32 pipeline runs <T, T>; the mixed polish <double, float>
-// (solvers/df_mixed.py stage_cost_quad_mx: lxx only preconditions).
-template <typename Tp, typename T, typename OutV, typename OutM>
+// (solvers/df_mixed.py stage_cost_quad_mx: lxx only preconditions).  The
+// trigonometry Trig (lie.cuh).
+template <typename Tp, typename Trig = LibTrig, typename T, typename OutV, typename OutM>
 __device__ __forceinline__ Tp stage_cost_quad(
     const OutV& lx, const OutM& lxx, const T* R, const T* p, const T* xi,
     const T* RbiR, const T* Rbip, const T* Adb, const T* xib, const T* W1,
     const T* W2) {
   T Reb[9], peb[3], e[6], ev[6];
   se3_compose(Reb, peb, R, p, RbiR, Rbip);
-  se3_log(e, Reb, peb);
+  se3_log<Trig>(e, Reb, peb);
 #pragma unroll
   for (int i = 0; i < 6; ++i) ev[i] = xi[i] - xib[i];
   T Jri[36], Jex[36];
-  se3_right_jacobian_inv(Jri, e);
+  se3_right_jacobian_inv<Trig>(Jri, e);
   mat_mul<6, 6, 6>(Jex, Jri, Adb);
   T W1e[6], W2ev[6];
   mat_vec<6, 6>(W1e, W1, e);

@@ -431,18 +431,22 @@ def rollout_lane(qR, qp, xi, us, k, K, lin, consts, *, dt, gravity=False):
     fp64 each input once: the nominal states in a ring of three, K in the
     slot the feedback has just read).
 
-    At nu other than 6 and 4 it launches the runtime-nu instance, counted in
-    ``rollout_lane.nu``: in f32 and fp64 alike the fp64 rollout's design
-    with nu a runtime argument (`csrc/nu.cuh`): each stage input copied once
-    into the thread's shared-memory column and read where it is used, u, k
-    and K zero past nu there, Pu padded in shared memory; past nu = 12 the
-    large-nu instance, counted in ``rollout_lane.nuL``: the same column
-    with u, k and K in a feedback slot of 14 nu values, refilled with the
-    next stage's as soon as a stage's feedback has read it, so the
-    feedback's loop over the inputs reads shared memory and nothing on the
-    carry's chain waits on device memory (`csrc/nu_large.cuh`); where the
-    slots cannot hold the whole batch at once, the same kernel reads them
-    from device memory (`rollout_large_instances` counts each)."""
+    At nu other than 6 and 4 it launches the large-nu rollout
+    (`csrc/nu_large.cuh`), in f32 and fp64 alike the fp64 rollout's design
+    with nu a runtime argument: each stage input copied once into the
+    thread's shared-memory column and read where it is used, u, k and K in a
+    feedback slot of 14 nu values, refilled with the next stage's as soon as
+    a stage's feedback has read it, so the feedback's loop over the inputs
+    reads shared memory and nothing on the carry's chain waits on device
+    memory; where the slots cannot hold the whole batch at once, the same
+    kernel reads them from device memory.  Up to nu = 12 (counted in
+    ``rollout_lane.nu``) a stage-parallel pass (`g_kernel`) first forms
+    G_t = (x_{t+1} Exp(d_q)) f(xbar_t)^-1 of every stage while the batch
+    fills at most `rollout_nu_g_warps` one-warp blocks an SM, and the
+    rollout reads it; past that the rollout forms G_t in its loop, as it
+    does past nu = 12 (counted in ``rollout_lane.nuL``).
+    `rollout_nu_instances` and `rollout_large_instances` count the
+    launches by the instance taken."""
     kw = dict(dt=dt, gravity=gravity)
     if us.device.type == "cpu":
         return rollout_plain(qR, qp, xi, us, k, K, lin, consts, **kw)
@@ -465,12 +469,31 @@ rollout_lane.nuL = types.SimpleNamespace(launches=0)
 
 def rollout_large_instances(dtype):
     """{"slot": n, "device": n}: the large-nu rollout's launches in ``dtype``
-    (B3nuL's first phase and B4nuL alike) since its library was loaded, by
-    the instance its launcher took: the feedback from the shared-memory slot
-    while the whole batch is resident at once, else from device memory."""
+    past nu = 12 (B3nuL's first phase and B4nuL alike) since its library was
+    loaded, by the instance its launcher took: the feedback from the
+    shared-memory slot while the whole batch is resident at once, else from
+    device memory."""
     fn = _build.function("pipeline_nu", "rollout_large_launches", _build.suffix(dtype),
                          [_build.INT])
     return {"slot": fn(1), "device": fn(0)}
+
+
+def rollout_nu_instances(dtype):
+    """{"pass slot", "pass device", "slot", "device": n}: the rollout's
+    launches in ``dtype`` at nu <= 12 other than 6 and 4 (B3nu's first phase
+    and B4nu alike) since its library was loaded, by the instance taken:
+    with g_kernel's pass before it or not, the feedback from its slot or
+    from device memory (as `rollout_large_instances`)."""
+    fn = _build.function("pipeline_nu", "rollout_nu_launches", _build.suffix(dtype),
+                         [_build.INT])
+    return {"pass slot": fn(3), "pass device": fn(2), "slot": fn(1), "device": fn(0)}
+
+
+def rollout_nu_g_warps(dtype):
+    """The one-warp blocks an SM up to which the rollout at nu <= 12 in
+    ``dtype`` takes g_kernel's pass: it runs the pass for B <= this x 32 x
+    the card's SMs (`csrc/nu_large.cuh` kRolloutNuGWarps)."""
+    return _build.function("pipeline_nu", "rollout_nu_g_warps", _build.suffix(dtype), [])()
 
 
 def rollout_linearize_lane(qR, qp, xi, us, k, K, lin, refs, consts, *, dt,
@@ -487,10 +510,11 @@ def rollout_linearize_lane(qR, qp, xi, us, k, K, lin, refs, consts, *, dt,
     per problem and stage), so the linearization's stores (Fx and lxx, 288
     values per stage) do not wait behind the rollout's serial chain.  The
     values are the fused loop's: the same stage functions on the same
-    inputs.  At nu other than 6 and 4: the runtime-nu instances of both
-    phases (`rollout_lane`'s and `linearize_lane`'s), counted in
-    ``rollout_linearize_lane.nu``; past nu = 12 their large-nu instances,
-    counted in ``rollout_linearize_lane.nuL``."""
+    inputs.  At nu other than 6 and 4: `rollout_lane`'s rollout (up to 12
+    after g_kernel's pass at the batches that take it) and
+    `linearize_lane`'s runtime-nu instance, counted in
+    ``rollout_linearize_lane.nu``; past nu = 12 the rollout and B1's
+    large-nu instance, counted in ``rollout_linearize_lane.nuL``."""
     kw = dict(dt=dt, gravity=gravity, exact_grav=exact_grav)
     if us.device.type == "cpu":
         return rollout_linearize_plain(qR, qp, xi, us, k, K, lin, refs, consts,
